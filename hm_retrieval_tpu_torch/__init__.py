@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of the two-tower retrieval framework, for one NVIDIA H100.
+
+The JAX package ``hm_retrieval_tpu`` beside this one is the reference; this
+package imports none of it (nor JAX) and mirrors its module names so each
+counterpart is easy to find. The slice ported so far is the serving path:
+
+    host-side string encode -> query tower -> exact top-k over the catalog
+    (streaming bin-max rounds, hand-written CUDA kernels) -> string decode
+
+Every entry point takes ``device=None``, which means ``"cuda"``, and raises
+when CUDA is absent unless the caller asks for ``device="cpu"``. On the CPU
+each kernel wrapper runs its plain PyTorch version; there is no automatic
+fallback from the card to the CPU anywhere.
+"""
+
+from hm_retrieval_tpu_torch.device import resolve_device
+
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device"]

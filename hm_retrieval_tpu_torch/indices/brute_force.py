@@ -1,0 +1,177 @@
+"""Exact brute-force retrieval index.
+
+Counterpart of ``hm_retrieval_tpu/indices/brute_force.py``: an int32 id
+vector plus an (N, E) fp32 embedding matrix on the device, padded with zero
+rows to a multiple of ``PAD_MULTIPLE`` and a -inf score bias on the pad
+rows. The artifact (``index.npz`` + ``meta.json``) is the JAX package's, so
+an index saved by either package loads in the other.
+
+``method``:
+
+- ``"pallas"``: the streaming bin-max rounds (``ops/bin_topk.py``, CUDA
+  kernels on the card). The name is the JAX package's, kept so artifacts
+  stay interchangeable.
+- ``"full"``: one fp32 product plus the bias, then a stable top-k.
+- ``"auto"``: ``"pallas"`` when the padded catalog exceeds 16384 rows, else
+  ``"full"``, decided by size alone on every device.
+- ``"partial_reduce"`` and ``"approx"`` rest on a TPU-only operation
+  (``lax.approx_max_k``); they load and run as the exact ``"full"`` path.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+
+import numpy as np
+import torch
+
+from hm_retrieval_tpu_torch.device import DeviceLike, resolve_device
+from hm_retrieval_tpu_torch.indices.artifact import clear_stale, load_index_arrays
+from hm_retrieval_tpu_torch.ops.bin_topk import (
+    BIN_CHOICES,
+    exact_topk,
+    plain_scores,
+)
+from hm_retrieval_tpu_torch.ops.topk import topk_pair
+
+logger = logging.getLogger(__name__)
+
+METHODS = ("auto", "full", "partial_reduce", "pallas", "approx")
+# id of a slot the rounds never filled (jnp.take's fill value for int32)
+MISSING_ID = -(2**31)
+
+
+class BruteForceIndex:
+    PAD_MULTIPLE = 1024
+    PALLAS_MIN_ROWS = 16384  # "auto" takes the kernels above this n_pad
+
+    def __init__(
+        self,
+        k: int,
+        identifiers,
+        embeddings,
+        method: str = "auto",
+        recall_target: float = 0.95,
+        device: DeviceLike = None,
+    ):
+        if method not in METHODS:
+            raise ValueError(f"unknown method {method!r}")
+        if not 0.0 < recall_target <= 1.0:
+            raise ValueError("recall_target must be in (0, 1]")
+        self.device = resolve_device(device)
+        self.recall_target = float(recall_target)
+        identifiers = np.asarray(identifiers)
+        if not isinstance(embeddings, torch.Tensor):
+            embeddings = torch.as_tensor(np.asarray(embeddings, np.float32))
+        if identifiers.ndim != 1 or embeddings.dim() != 2:
+            raise ValueError("identifiers must be (N,), embeddings (N, E)")
+        if len(identifiers) != len(embeddings):
+            raise ValueError("identifiers and embeddings length mismatch")
+        if k <= 0:
+            raise ValueError("k must be positive")
+        if identifiers.size and (
+            identifiers.min() < -(2**31) or identifiers.max() >= 2**31
+        ):
+            raise ValueError("identifiers must fit in int32")
+        self.k = int(k)
+        self.num_candidates = n = len(identifiers)
+        if n < k:
+            raise ValueError(f"k={k} exceeds number of candidates {n}")
+        n_pad = -(-n // self.PAD_MULTIPLE) * self.PAD_MULTIPLE
+        self.identifiers = torch.zeros(
+            n_pad, dtype=torch.int32, device=self.device
+        )
+        self.identifiers[:n] = torch.as_tensor(identifiers.astype(np.int32))
+        self.embeddings = torch.zeros(
+            (n_pad, embeddings.shape[1]), dtype=torch.float32, device=self.device
+        )
+        self.embeddings[:n] = embeddings.to(self.device, torch.float32)
+        self._score_bias = torch.zeros(
+            n_pad, dtype=torch.float32, device=self.device
+        )
+        self._score_bias[n:] = float("-inf")
+        if method == "auto":
+            method = "pallas" if n_pad > self.PALLAS_MIN_ROWS else "full"
+        self.method = method
+        self._engine = method
+        if method in ("partial_reduce", "approx"):
+            logger.warning(
+                "method=%r rests on a TPU-only operation; running the exact "
+                "'full' path instead",
+                method,
+            )
+            self._engine = "full"
+        elif method == "pallas" and self.k > BIN_CHOICES[-1]:
+            logger.warning(
+                "k=%d exceeds the largest bin count %d; running the exact "
+                "'full' path instead of the kernels",
+                self.k,
+                BIN_CHOICES[-1],
+            )
+            self._engine = "full"
+
+    def _ids_of(self, rows: torch.Tensor) -> torch.Tensor:
+        """Catalog rows -> identifiers. Rows outside the real catalog (a
+        never-filled slot holds BIG_IDX) map to MISSING_ID rather than
+        raising in the gather."""
+        n = self.num_candidates
+        valid = (rows >= 0) & (rows < n)
+        ids = self.identifiers[rows.clamp(0, n - 1).long()]
+        return torch.where(valid, ids, torch.full_like(ids, MISSING_ID))
+
+    def topk_from_embeddings(self, query_embeddings: torch.Tensor):
+        """(B, E) query embeddings -> ((B, k) fp32 scores, (B, k) int32
+        ids), best first."""
+        q = query_embeddings.to(self.device, torch.float32)
+        if self._engine == "pallas":
+            scores, rows, _ = exact_topk(
+                q, self.embeddings[: self.num_candidates], self.k
+            )
+            return scores, self._ids_of(rows)
+        scores = plain_scores(q, self.embeddings) + self._score_bias
+        rows = torch.arange(
+            scores.shape[1], dtype=torch.int32, device=self.device
+        ).expand_as(scores)
+        top_scores, top_rows = topk_pair(scores, rows, self.k)
+        return top_scores, self._ids_of(top_rows)
+
+    # ------------------------------------------------------------------
+    # Persistence: index.npz + meta.json, as the JAX package writes them
+    # ------------------------------------------------------------------
+    def save(self, dirpath: str) -> None:
+        os.makedirs(dirpath, exist_ok=True)
+        clear_stale(dirpath)
+        n = self.num_candidates
+        np.savez(
+            os.path.join(dirpath, "index.npz"),
+            identifiers=self.identifiers[:n].cpu().numpy(),
+            embeddings=self.embeddings[:n].cpu().numpy(),
+        )
+        with open(os.path.join(dirpath, "meta.json"), "w") as f:
+            json.dump(
+                {
+                    "k": self.k,
+                    "type": "brute_force",
+                    "method": self.method,
+                    "recall_target": self.recall_target,
+                },
+                f,
+            )
+        logger.info("Saved brute-force index to %s", dirpath)
+
+    @classmethod
+    def load(cls, dirpath: str, device: DeviceLike = None) -> "BruteForceIndex":
+        """Honors the saved method, so a reload keeps its result order."""
+        with open(os.path.join(dirpath, "meta.json")) as f:
+            meta = json.load(f)
+        z = load_index_arrays(dirpath)
+        return cls(
+            meta["k"],
+            z["identifiers"],
+            z["embeddings"],
+            method=meta.get("method", "auto"),
+            recall_target=meta.get("recall_target", 0.95),
+            device=device,
+        )

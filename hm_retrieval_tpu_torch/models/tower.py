@@ -1,0 +1,95 @@
+"""Tower MLP: embedding front-end -> hidden Dense+ReLU stack -> joint layer.
+
+Counterpart of ``hm_retrieval_tpu/models/tower.py``. Every layer, the last
+included, is Dense + ReLU, and there is no L2 norm: scores are raw dot
+products. Init: glorot-uniform weights and zero biases, uniform(+-0.05)
+tables, zero attention queries, all drawn from an explicit
+``torch.Generator`` (the numbers differ from ``jax.random``'s; parity tests
+move weights across with ``models/bridge.py``).
+
+Dense layers are ``nn.Linear``, whose weight is (d_out, d_in): the transpose
+of the JAX package's (d_in, d_out) ``w``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from hm_retrieval_tpu_torch.device import DeviceLike, resolve_device
+from hm_retrieval_tpu_torch.models.embedding import (
+    apply_embeddings,
+    embedding_output_dim,
+)
+from hm_retrieval_tpu_torch.schema.features import Feature, FeatureKind
+
+
+class Tower(nn.Module):
+    def __init__(
+        self,
+        features: List[Feature],
+        joint_embedding_size: int,
+        hidden_units: Optional[List[int]] = None,
+        device: DeviceLike = None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.features = list(features)
+        self.embeddings = nn.ParameterDict(
+            {
+                f.name: nn.Parameter(
+                    torch.empty(
+                        f.num_embeddings, f.embedding_size, device=dev
+                    ),
+                    requires_grad=False,
+                )
+                for f in self.features
+                if f.kind != FeatureKind.NUMERIC
+            }
+        )
+        dims = (
+            [embedding_output_dim(self.features)]
+            + list(hidden_units or [])
+            + [joint_embedding_size]
+        )
+        self.dense = nn.ModuleList(
+            nn.utils.skip_init(nn.Linear, d_in, d_out, device=dev)
+            for d_in, d_out in zip(dims[:-1], dims[1:])
+        )
+        for p in self.dense.parameters():
+            p.requires_grad_(False)
+        self.attention = nn.ParameterDict(
+            {
+                f.name: nn.Parameter(
+                    torch.zeros(f.embedding_size, device=dev),
+                    requires_grad=False,
+                )
+                for f in self.features
+                if f.kind == FeatureKind.SEQUENCE and f.pooling == "attention"
+            }
+        )
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Tables uniform(+-0.05) in feature order, then each dense layer's
+        glorot-uniform weight; zero biases and attention queries."""
+        for table in self.embeddings.values():
+            table.uniform_(-0.05, 0.05, generator=generator)
+        for layer in self.dense:
+            d_out, d_in = layer.weight.shape
+            limit = (6.0 / (d_in + d_out)) ** 0.5
+            layer.weight.uniform_(-limit, limit, generator=generator)
+            layer.bias.zero_()
+        for query in self.attention.values():
+            query.zero_()
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Feature dict of (B,) / (B, max_len) tensors -> (B, joint)."""
+        x = apply_embeddings(
+            dict(self.embeddings), self.features, batch, dict(self.attention)
+        )
+        for layer in self.dense:
+            x = torch.relu(layer(x))
+        return x

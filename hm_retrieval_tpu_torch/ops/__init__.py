@@ -1,0 +1,20 @@
+from hm_retrieval_tpu_torch.ops.bin_topk import (
+    LAUNCHES,
+    bin_max2_first_round,
+    bin_max2_round,
+    default_bins,
+    exact_topk,
+    reset_launches,
+)
+from hm_retrieval_tpu_torch.ops.topk import topk_dot, topk_pair
+
+__all__ = [
+    "LAUNCHES",
+    "bin_max2_first_round",
+    "bin_max2_round",
+    "default_bins",
+    "exact_topk",
+    "reset_launches",
+    "topk_dot",
+    "topk_pair",
+]

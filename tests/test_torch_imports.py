@@ -1,0 +1,155 @@
+"""The port stands alone: no JAX and nothing of the JAX package in
+hm_retrieval_tpu_torch or chip_smoke.py, nothing the card's machine lacks
+(pandas) on its import path, and no silent CPU fallback when the card is
+absent."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import hm_retrieval_tpu_torch
+from hm_retrieval_tpu_torch.device import resolve_device
+from hm_retrieval_tpu_torch.indices import load_index
+from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
+from hm_retrieval_tpu_torch.ops import _build
+from hm_retrieval_tpu_torch.ops import bin_topk as bt
+from hm_retrieval_tpu_torch.serving import RetrievalService
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "hm_retrieval_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "hm_retrieval_tpu", "pandas")
+
+
+def _port_files():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_no_forbidden_import(path):
+    assert path.exists()
+    bad = [
+        m
+        for m in _imported_modules(path)
+        if m.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in PKG.rglob("*.py")
+    )
+    code = (
+        "import sys\n"
+        + "".join(
+            f"import {m.removesuffix('.__init__')}\n" for m in mods
+        )
+        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        + repr(FORBIDDEN)
+        + ")\nprint(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True, text=True, cwd=str(ROOT), env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_the_card(no_card):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+
+
+def _tiny_index_dir(tmp_path):
+    rng = np.random.default_rng(0)
+    idx = BruteForceIndex(
+        3, np.arange(1, 51), rng.normal(size=(50, 4)), device="cpu"
+    )
+    idx.save(str(tmp_path / "index"))
+    return str(tmp_path / "index")
+
+
+def test_entry_points_raise_without_a_card(no_card, tmp_path):
+    index_dir = _tiny_index_dir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RetrievalService.load("schema", "model", index_dir)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_index(index_dir)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BruteForceIndex(3, np.arange(5), np.zeros((5, 4)))
+    assert load_index(index_dir, device="cpu").k == 3
+
+
+def test_cuda_tensors_never_take_the_plain_path():
+    """A tensor that is not on the CPU goes to the kernel or raises; here
+    the 'meta' device stands in for a device the wrappers cannot run."""
+    q = torch.zeros(4, 16, device="meta")
+    c = torch.zeros(1024, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        bt.exact_topk(q, c, 10, L=256)
+
+
+def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("bin_max2")
+    assert not (tmp_path / "build").exists()
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no card here' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="build failed"):
+        _build.build_all()
+    assert list((tmp_path / "build").glob("*.so")) == []
+
+
+def test_sources_and_launch_counters():
+    assert _build.sources() == ["bin_max2"]
+    assert set(bt.LAUNCHES) == {"bin_max2_first_round", "bin_max2_round"}
+    bt.LAUNCHES["bin_max2_round"] += 3
+    bt.reset_launches()
+    assert set(bt.LAUNCHES.values()) == {0}
+    # the plain CPU path does not count as a kernel launch
+    bt.exact_topk(torch.randn(3, 16), torch.randn(700, 16), 5, L=256)
+    assert set(bt.LAUNCHES.values()) == {0}
+    assert hm_retrieval_tpu_torch.__version__
