@@ -24,6 +24,24 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    B = 1, 16, 128, 1024 customers (a few OOV) are answered. Answers must
    hold 1000 distinct articles and agree with the plain reference; both
    kernel launch counters must grow during this phase.
+4. The int8 single-pass kernels against their plain versions on the card,
+   on the same catalog as int8 codes padded to 131,072 rows, E=128, at the
+   served (fold F, bins L, batch B) of each plan: (1, 2048, 1024),
+   (2, 2048, 128), (8, 2048, 16) and (16, 512, 16); the raw (global-scale)
+   pass over the full chunks of real rows. Integer-valued queries must give
+   bit-identical outputs, normal ones values within TOL. Then
+   quantized_topk as a whole against a matmul + topk yardstick.
+5. Quantized serving at full H&M width, on phase 3's embedded catalog and
+   model: QuantizedIndex(method="auto") must resolve to the kernels with
+   2000 survivors, and its build on the card must equal the host
+   quantization bit for bit; per-row and global-scale indices are saved and loaded
+   back through RetrievalService.load(device="cuda") and answer the same
+   requests (B = 1, 16, 128, 1024). The fold pass must launch at B <= 128,
+   the no-fold pass at B = 1024, the raw pass at B = 16 and 128. Answers
+   hold 1000 distinct articles, and equal the same driver run with the
+   plain passes (fp32 rescore included) wherever the two passes' survivors
+   agree; where they differ, only between scores within TOL. Recall
+   against the exact fp32 top-1000 is printed, not held to a limit.
 
 Output: per-phase JSON lines, then the card's name and power limit, the
 {"kernels": [...]} line, and as the last line
@@ -32,6 +50,7 @@ Exits non-zero, printing no result, when CUDA is not available.
 """
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -53,6 +72,11 @@ Q_BLOCK = 128
 SERVE_K = 1000
 SERVE_BATCHES = (1, 16, 128, 1024)
 TOL = 1e-4  # relative to max(1, |score|): fp32 summation order
+N_PAD_Q = 131_072  # the H&M catalog padded to the quantized index's chunk
+# (fold F, bins L, batch B) of the single-pass plans at the served shapes:
+# k_over = 2000 at B = 1024, 128, <= 16, and k <= 100 at any B
+QUANT_PLANS = ((1, 2048, 1024), (2, 2048, 128), (8, 2048, 16), (16, 512, 16))
+SURVIVORS = 2000  # k_over of the served quantized index
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, published
 
@@ -88,7 +112,12 @@ def pass_bound_ms(B, n_pad, L, thresholds):
     nbytes = B * E * 2 + n_pad * E * 2 + 4 * B * L * 4
     if thresholds:
         nbytes += 2 * B * L * 4
-    ops = 2 * B * n_pad * E
+    return roofline_ms(nbytes, 2 * B * n_pad * E)
+
+
+def roofline_ms(nbytes, ops):
+    """(ms, what bounds it): the larger of bytes over HBM bandwidth and
+    bf16 operations over the tensor-core peak."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -353,26 +382,369 @@ def phase_serving(seed, repeats, dev, workdir):
                    max_abs_err_vs_plain=err, id_mismatches=mism,
                    **serve_breakdown(svc, requests[B], repeats))
         emit({"serve": row})
-    return launches
+    shared = {"ids": ids, "emb": emb, "requests": requests,
+              "schema_dir": workdir / "schema", "model_dir": workdir / "model",
+              "article_vocab": article_vocab, "art_row": art_row}
+    return launches, shared
 
 
 def serve_breakdown(svc, raw, repeats):
-    """Median host-clock ms of the stages of ``svc.retrieve(raw)``: host
-    encode, device (query tower + exact top-k, synchronized), and host
-    decode (copy back, id -> string, per-row lists)."""
-    stages = {"host_encode_ms": [], "device_ms": [], "host_decode_ms": []}
+    """Medians over ``repeats`` calls that do what ``svc.retrieve(raw)``
+    does, stage by stage: host encode (host clock); device, the query tower
+    and the top-k (CUDA events from before the tower to after the top-k's
+    last operation, host syncs inside it included); host decode (host clock
+    from there: copy back, id -> string, per-row lists); and each call's
+    total (host clock). Stages and totals come from the same calls."""
+    stages = {"host_encode_ms": [], "device_ms": [], "host_decode_ms": [],
+              "stages_total_ms": []}
     for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         batch = svc.encode_query(raw)
         t1 = time.perf_counter()
+        start.record()
         _, ids = svc.index.topk_from_embeddings(svc.embed(batch))
-        torch.cuda.synchronize()
+        end.record()
+        end.synchronize()
         t2 = time.perf_counter()
         svc.schema.candidate_id_feature.decode(ids.cpu().numpy()).tolist()
         t3 = time.perf_counter()
-        for name, t in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
-            stages[name].append(t * 1e3)
+        for name, ms in zip(stages, ((t1 - t0) * 1e3, start.elapsed_time(end),
+                                     (t3 - t2) * 1e3, (t3 - t0) * 1e3)):
+            stages[name].append(ms)
     return {name: statistics.median(ts) for name, ts in stages.items()}
+
+
+SINGLE_PASS_KERNELS = (
+    "bin_max2_scaled_single_pass",
+    "bin_max2_scaled_fold_pass",
+    "bin_max2_raw_fold_pass",
+)
+
+
+def single_pass_bound_ms(B, n_rows, L, scaled):
+    """Least time of one single-pass launch: the int8 codes (and, scaled,
+    the fp32 scales and bias), the bf16 query block and the four (B, L)
+    outputs over HBM bandwidth, or the product's operations (bf16 tensor
+    cores; the codes convert to bf16 exactly) over the bf16 peak."""
+    nbytes = n_rows * E + B * E * 2 + 4 * B * L * 4
+    if scaled:
+        nbytes += 2 * n_rows * 4
+    return roofline_ms(nbytes, 2 * B * n_rows * E)
+
+
+def pass_args(name, args):
+    """(L, F, scales, bias) of a single-pass wrapper's arguments after
+    (q, codes)."""
+    if name == "bin_max2_raw_fold_pass":
+        return (*args, None, None)
+    if name == "bin_max2_scaled_fold_pass":
+        scales, bias, L, F = args
+        return L, F, scales, bias
+    scales, bias, L = args
+    return L, 1, scales, bias
+
+
+def run_pass(name, q, codes, args, plain=False):
+    """One single-pass kernel through its wrapper, or its plain version."""
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    if plain:
+        return qt.single_pass_plain(q, codes, *pass_args(name, args))
+    return getattr(qt, name)(q, codes, *args)
+
+
+def pass_scores(q, codes, scales, bias):
+    """(B, rows) fp32 scores a single pass ranks, for id comparisons."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+
+    scores = bt.plain_scores(q, codes)
+    return scores if scales is None else scores * scales + bias
+
+
+def int8_catalog(gen, dev):
+    """Random int8 codes of the H&M catalog padded with zero rows to
+    N_PAD_Q, per-row scales (0 on pad rows) and a 0 / -inf bias."""
+    codes = torch.zeros((N_PAD_Q, E), dtype=torch.int8, device=dev)
+    codes[:N_ARTICLES] = torch.randint(-127, 128, (N_ARTICLES, E), generator=gen,
+                                       device=dev, dtype=torch.int8)
+    scales = torch.zeros(N_PAD_Q, device=dev)
+    scales[:N_ARTICLES] = (
+        torch.rand(N_ARTICLES, generator=gen, device=dev) * 0.05 + 1e-3
+    )
+    bias = torch.zeros(N_PAD_Q, device=dev)
+    bias[N_ARTICLES:] = float("-inf")
+    return codes, scales, bias
+
+
+def phase_quantized_kernels(gen, dev):
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    codes, scales, bias = int8_catalog(gen, dev)
+    stats = {n: {"max_abs_err": 0.0, "id_mismatches": 0, "shapes": []}
+             for n in SINGLE_PASS_KERNELS}
+    # the served (F, L, B) whose numbers head each kernel's entry
+    headline = {
+        "bin_max2_scaled_single_pass": (1, 2048, 1024),
+        "bin_max2_scaled_fold_pass": (2, 2048, 128),
+        "bin_max2_raw_fold_pass": (2, 2048, 128),
+    }
+    for F, L, B in QUANT_PLANS:
+        n_full = N_ARTICLES // (F * L) * (F * L)
+        if F == 1:
+            cases = {SINGLE_PASS_KERNELS[0]: (codes, (scales, bias, L))}
+        else:
+            cases = {SINGLE_PASS_KERNELS[1]: (codes, (scales, bias, L, F))}
+        cases[SINGLE_PASS_KERNELS[2]] = (codes[:n_full], (L, F))
+        for kind in ("integer", "normal"):
+            if kind == "integer":
+                q = torch.randint(-4, 5, (B, E), generator=gen, device=dev)
+            else:
+                q = torch.randn(B, E, generator=gen, device=dev)
+            q = q.to(torch.bfloat16)
+            for name, (c, args) in cases.items():
+                got = run_pass(name, q, c, args)
+                want = run_pass(name, q, c, args, plain=True)
+                torch.cuda.synchronize()
+                if kind == "integer":
+                    for g, w in zip(got, want):
+                        require(torch.equal(g, w), f"{name} F={F} L={L} B={B}: "
+                                "integer inputs not bit-identical to the plain "
+                                "version")
+                    continue
+                _, _, sc, bi = pass_args(name, args)
+                scores = pass_scores(q, c, sc, bi)
+                st = stats[name]
+                for vi, ii in ((0, 1), (2, 3)):
+                    err, mism = compare_ranked(
+                        got[vi], got[ii], want[vi], want[ii], scores
+                    )
+                    st["max_abs_err"] = max(st["max_abs_err"], err)
+                    st["id_mismatches"] += mism
+                del scores
+                bound, by = single_pass_bound_ms(B, c.shape[0], L, sc is not None)
+                row = {
+                    "F": F, "L": L, "B": B, "rows": c.shape[0],
+                    "ms": cuda_ms(lambda: run_pass(name, q, c, args), 50),
+                    "plain_ms": cuda_ms(lambda: run_pass(
+                        name, q, c, args, plain=True), 3),
+                    "bound_ms": bound, "bound_by": by,
+                }
+                st["shapes"].append(row)
+                if headline[name] == (F, L, B):
+                    st.update({k: row[k] for k in
+                               ("ms", "plain_ms", "bound_ms", "bound_by")})
+            emit({"quantized_kernel_check": {"F": F, "L": L, "B": B,
+                                             "inputs": kind, "ok": True}})
+
+    # quantized_topk as a whole (pass + merge) against a yardstick the port
+    # never calls: a bf16 product with the dequantized catalog + torch.topk
+    deq = (codes[:N_ARTICLES].float() * scales[:N_ARTICLES, None]).to(
+        torch.bfloat16)
+    rows = []
+    for B in (16, 128, 1024):
+        q = torch.randn(B, E, generator=gen, device=dev)
+        rows.append({
+            "B": B, "k": SURVIVORS, "N": N_ARTICLES, "E": E,
+            "plan": qt.single_pass_plan(B, E, SURVIVORS, N_PAD_Q),
+            "ms": cuda_ms(lambda: qt.quantized_topk(
+                q, codes, scales, SURVIVORS, n_valid=N_ARTICLES), 20),
+            "yardstick_ms": cuda_ms(lambda: torch.topk(torch.matmul(
+                q.to(torch.bfloat16), deq.T).float(), SURVIVORS), 20),
+            "yardstick": "torch.matmul (bf16, dequantized catalog) + "
+                         "torch.topk over (B, N)",
+        })
+    emit({"quantized_topk": rows})
+    return stats
+
+
+@contextlib.contextmanager
+def recorded_passes(plain):
+    """Inside the block the single-pass drivers reach the kernel wrappers
+    (or, with ``plain``, the plain versions) through recording stand-ins.
+    Yields the list of (q, codes, scales, bias, outputs) of each pass."""
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    saved = {n: getattr(qt, n) for n in SINGLE_PASS_KERNELS}
+    record = []
+
+    def stand_in(name):
+        def run(q, codes, *args):
+            L, F, sc, bi = pass_args(name, args)
+            out = (qt.single_pass_plain(q, codes, L, F, sc, bi) if plain
+                   else saved[name](q, codes, *args))
+            record.append((q, codes, sc, bi, out))
+            return out
+        return run
+
+    for name in SINGLE_PASS_KERNELS:
+        setattr(qt, name, stand_in(name))
+    try:
+        yield record
+    finally:
+        for name, fn in saved.items():
+            setattr(qt, name, fn)
+
+
+def check_device_build(index, emb_host, mode):
+    """The index quantized on the card must equal the host quantization of
+    the same catalog bit for bit: codes, scales (one global scale, or one
+    per row), zero codes and scales on pad rows, bias 0 / -inf."""
+    from hm_retrieval_tpu_torch.indices.quantized import (
+        quantize_rows, quantize_rows_global,
+    )
+
+    n = N_ARTICLES
+    if mode == "global":
+        codes, g = quantize_rows_global(emb_host)
+        scales = np.full(n, g, np.float32)
+        require(index.global_scale == float(g),
+                f"global: device scale {index.global_scale} != host {float(g)}")
+    else:
+        codes, scales = quantize_rows(emb_host)
+    require(np.array_equal(index.codes[:n].cpu().numpy(), codes)
+            and np.array_equal(index.scales[:n].cpu().numpy(), scales),
+            f"{mode}: the device build's codes or scales differ from the "
+            "host build's")
+    bias = index._score_bias
+    require(not bool(index.codes[n:].any()) and not bool(index.scales[n:].any())
+            and not bool(bias[:n].any()) and bool(torch.isneginf(bias[n:]).all()),
+            f"{mode}: the device build's padding is wrong")
+
+
+def phase_quantized_serving(shared, repeats, dev, workdir):
+    from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.serving import RetrievalService
+
+    requests = shared["requests"]
+    emb_host = shared["emb"].cpu().numpy()
+    services = {}
+    for mode in ("per_row", "global"):
+        t0 = time.perf_counter()
+        index = QuantizedIndex(SERVE_K, shared["ids"], shared["emb"],
+                               method="auto", scale_mode=mode, device=dev)
+        require(index.method == "pallas" and index.k_over == SURVIVORS,
+                f"{mode}: auto resolved to {index.method!r} with "
+                f"{index.k_over} survivors")
+        check_device_build(index, emb_host, mode)
+        path = workdir / f"quantized_{mode}"
+        index.save(str(path))
+        svc = RetrievalService.load(str(shared["schema_dir"]),
+                                    str(shared["model_dir"]), str(path),
+                                    device=dev)
+        loaded = svc.index
+        require(isinstance(loaded, QuantizedIndex) and loaded.method == "pallas"
+                and loaded.k_over == SURVIVORS and loaded.scale_mode == mode,
+                f"{mode}: the loaded index does not run the kernels")
+        require(loaded.codes.shape[0] == N_PAD_Q, "codes are not padded to "
+                f"{N_PAD_Q} rows")
+        require(torch.equal(loaded.codes, index.codes)
+                and torch.equal(loaded.scales, index.scales)
+                and loaded.global_scale == index.global_scale,
+                f"{mode}: the loaded index's codes or scales differ from the "
+                "device build's")
+        services[mode] = svc
+        emit({"quantized_setup": {"scale_mode": mode,
+                                  "seconds": time.perf_counter() - t0,
+                                  "k_over": loaded.k_over,
+                                  "codes": list(loaded.codes.shape)}})
+
+    # --- the main path: counts from 0, served requests only -------------
+    bt.reset_launches()
+    qt.reset_launches()
+    rows, answers = [], {}
+    for mode, svc in services.items():
+        for B in SERVE_BATCHES:
+            before = dict(qt.LAUNCHES)
+            svc.retrieve(requests[B])  # warm-up
+            times = []
+            for _ in range(repeats):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                answers[mode, B] = svc.retrieve(requests[B])
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            per_batch = {n: (qt.LAUNCHES[n] - before[n]) / (repeats + 1)
+                         for n in qt.LAUNCHES}
+            rows.append({"scale_mode": mode, "B": B,
+                         "median_ms": statistics.median(times),
+                         "min_ms": min(times), "max_ms": max(times),
+                         "launches_per_batch": per_batch})
+    launches = dict(qt.LAUNCHES)
+    exact_launches = dict(bt.LAUNCHES)
+    # ---------------------------------------------------------------------
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel was not launched while serving: {launches}")
+    require(not any(exact_launches.values()),
+            f"the quantized path launched the exact kernels: {exact_launches}")
+
+    emb_real = shared["emb"]
+    for row in rows:
+        mode, B = row["scale_mode"], row["B"]
+        svc = services[mode]
+        index = svc.index
+        if mode == "global":
+            expected = "bin_max2_raw_fold_pass"
+            plan = qt.single_pass_plan(B, E, SURVIVORS, N_ARTICLES)
+        else:
+            expected = SINGLE_PASS_KERNELS[1 if B <= 128 else 0]
+            plan = qt.single_pass_plan(B, E, SURVIVORS, N_PAD_Q)
+        require(row["launches_per_batch"][expected] == 1,
+                f"{mode} B={B}: {expected} did not run once per batch: "
+                f"{row['launches_per_batch']}")
+        got = answers[mode, B]
+        require(len(got) == B, f"{mode} B={B}: {len(got)} answers")
+        for ans in got:
+            require(len(ans) == SERVE_K and len(set(ans)) == SERVE_K,
+                    f"{mode} B={B}: an answer is not {SERVE_K} distinct "
+                    "articles")
+            require(set(ans) <= shared["article_vocab"],
+                    f"{mode} B={B}: unknown article")
+        with torch.no_grad():
+            q = svc.embed(svc.encode_query(requests[B]))
+        with recorded_passes(plain=False) as rec_k:
+            kv, kid = index.topk_from_embeddings(q)
+        with recorded_passes(plain=True) as rec_p:
+            pv, pid = index.topk_from_embeddings(q)
+        decoded = svc.schema.candidate_id_feature.decode(kid.cpu().numpy())
+        require(decoded.tolist() == got,
+                f"{mode} B={B}: served answers differ from a rerun")
+        # the pass against its plain version on the served queries
+        qp, c, sc, bi, kout = rec_k[0]
+        pout = rec_p[0][4]
+        scores = pass_scores(qp, c, sc, bi)
+        err, mism = 0.0, 0
+        for vi, ii in ((0, 1), (2, 3)):
+            e, m = compare_ranked(kout[vi], kout[ii], pout[vi], pout[ii],
+                                  scores)
+            err, mism = max(err, e), mism + m
+        del scores
+        # where both passes keep the same survivors, the answers are equal
+        survivors_differ = ((kout[1] != pout[1]) | (kout[3] != pout[3])).any(1)
+        answers_differ = ((kid != pid) | (kv != pv)).any(1)
+        require(not bool((answers_differ & ~survivors_differ).any()),
+                f"{mode} B={B}: answers differ from the plain composition "
+                "where the survivors agree")
+        # recall against the exact fp32 top-1000 (a reading, not a gate)
+        exact = bt.plain_scores(q, emb_real)
+        top = torch.sort(exact, dim=1, descending=True, stable=True)[1][:, :SERVE_K]
+        del exact
+        hit = torch.zeros((B, N_ARTICLES), dtype=torch.bool, device=dev)
+        hit.scatter_(1, top, True)
+        recall = float(torch.gather(hit, 1, kid.long() - 1).float().mean())
+        row.update(plan=plan, pass_max_abs_err_vs_plain=err,
+                   pass_id_mismatches=mism,
+                   rows_with_other_survivors=int(survivors_differ.sum()),
+                   rows_answered_otherwise=int(answers_differ.sum()),
+                   recall_vs_exact=recall,
+                   **serve_breakdown(svc, requests[B], repeats))
+        emit({"quantized_serve": row})
+    return launches
 
 
 def main(argv=None):
@@ -401,26 +773,27 @@ def main(argv=None):
     build_root = ROOT / "build"
     build_root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke-") as d:
-        launches = phase_serving(args.seed, args.repeats, dev, Path(d))
+        launches, shared = phase_serving(args.seed, args.repeats, dev, Path(d))
+        stats.update(phase_quantized_kernels(gen, dev))
+        launches.update(phase_quantized_serving(shared, args.repeats, dev,
+                                                Path(d)))
 
-    replaces = {
-        "bin_max2_first_round":
-            "hm_retrieval_tpu/ops/pallas_retrieval.py:276",
-        "bin_max2_round": "hm_retrieval_tpu/ops/pallas_retrieval.py:207",
+    pallas = "hm_retrieval_tpu/ops/pallas_retrieval.py"
+    kernel_files = {
+        "bin_max2_first_round": ("bin_max2.cu", 276),
+        "bin_max2_round": ("bin_max2.cu", 207),
+        "bin_max2_scaled_single_pass": ("bin_max2_single_pass.cu", 352),
+        "bin_max2_scaled_fold_pass": ("bin_max2_single_pass.cu", 464),
+        "bin_max2_raw_fold_pass": ("bin_max2_single_pass.cu", 593),
     }
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": "hm_retrieval_tpu_torch/csrc/bin_max2.cu",
-            "replaces": replaces[name],
+            "source": f"hm_retrieval_tpu_torch/csrc/{kernel_files[name][0]}",
+            "replaces": f"{pallas}:{kernel_files[name][1]}",
             "launches": launches[name],
-            "max_abs_err": st["max_abs_err"],
-            "id_mismatches": st["id_mismatches"],
-            "ms": st["ms"],
-            "plain_ms": st["plain_ms"],
-            "bound_ms": st["bound_ms"],
-            "bound_by": st["bound_by"],
+            **st,  # max_abs_err, id_mismatches, ms, plain_ms, bound_ms, ...
             "library_ms": None,
         }
         for name, st in stats.items()

@@ -1,18 +1,19 @@
-"""Retrieval indices. The exact ``BruteForceIndex`` is ported; the other
-families of the JAX package raise ``NotImplementedError`` until their slice
-of the port lands (ROADMAP.md, "Slices still to port")."""
+"""Retrieval indices. The exact ``BruteForceIndex`` and the int8
+``QuantizedIndex`` are ported; ``_NOT_PORTED`` names the family of the JAX
+package that still waits for its slice of the port (the static popularity
+index, ROADMAP.md Queue 1) and raises ``NotImplementedError``."""
 
 import json
 import os
 
 from hm_retrieval_tpu_torch.device import DeviceLike
 from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
+from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
 
-INDEX_TYPES = {"brute_force": BruteForceIndex}
+INDEX_TYPES = {"brute_force": BruteForceIndex, "quantized": QuantizedIndex}
 # index types of the JAX package that wait for a later slice
 _NOT_PORTED = {
-    "quantized": "slice 1 (quantized serving)",
-    "static": "slice 4 (the static popularity index)",
+    "static": "Queue 1 (the static popularity index)",
 }
 
 
@@ -35,4 +36,4 @@ def load_index(dirpath: str, device: DeviceLike = None):
     return INDEX_TYPES[kind].load(dirpath, device=device)
 
 
-__all__ = ["BruteForceIndex", "INDEX_TYPES", "load_index"]
+__all__ = ["BruteForceIndex", "INDEX_TYPES", "QuantizedIndex", "load_index"]

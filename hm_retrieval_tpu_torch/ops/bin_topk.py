@@ -24,6 +24,7 @@ port and the reference take the same rounds at the same ``L``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, Optional, Tuple
 
@@ -68,19 +69,25 @@ def default_bins(k: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def plain_scores(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """(B, N) fp32 scores of the operands upcast to fp32. A product of two
-    bf16 values is exact in fp32, so only the summation order differs from
-    the kernel's. TF32 is switched off for the product on the card."""
-    qf, cf = q.to(torch.float32), c.to(torch.float32)
-    if not q.is_cuda:
-        return qf @ cf.T
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 matrix products on the card in full fp32 (TF32 off) inside the
+    block, whatever the caller's setting; the setting is restored after."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return qf @ cf.T
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def plain_scores(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(B, N) fp32 scores of the operands upcast to fp32. A product of two
+    bf16 values (or of bf16 and an int8 code) is exact in fp32, so only the
+    summation order differs from the kernel's. TF32 is switched off for the
+    product on the card."""
+    with full_fp32():
+        return q.to(torch.float32) @ c.to(torch.float32).T
 
 
 def bin_max2_plain(

@@ -1,0 +1,445 @@
+"""Single-pass top-k survivor selection over an int8 catalog.
+
+Counterpart of the single-pass parts of
+``hm_retrieval_tpu/ops/pallas_retrieval.py``: the three passes
+``bin_max2_scaled_single_pass`` (no fold), ``bin_max2_scaled_fold_pass``
+(fold tournament) and ``bin_max2_raw_fold_pass`` (one global scale, raw dot
+products), the single-pass branch of ``pallas_quantized_topk``
+(``quantized_topk``) and ``pallas_quantized_topk_global``
+(``quantized_topk_global``).
+
+One pass streams the catalog once. Sub-tile ``u`` is catalog rows
+``u*L .. u*L + L - 1`` (bin ``b`` is row ``u*L + b``); ``F`` consecutive
+sub-tiles make a chunk. Per (query row, bin) cell, the F scores of a chunk
+are max-reduced in increasing slot order, and the winner enters the cell's
+lexicographic top-2 under (score desc, index asc). A merge of the 2L cells
+per query row gives the survivors. The scores are
+``(q . codes) * scale + bias`` (bias 0 or -inf, which also masks invalid and
+padded rows), or the raw ``q . codes`` for a catalog with one global scale.
+
+The three passes are one hand-written CUDA kernel template
+(``csrc/bin_max2_single_pass.cu``). Beside them is their plain PyTorch
+version. A wrapper runs the plain version only for CPU tensors; for CUDA
+tensors it launches the kernel or raises, and adds one to
+``LAUNCHES[<kernel>]`` per launch.
+
+The plan. Fold F and bin count L decide which rows survive, so the port
+picks what the JAX package picks: ``single_pass_plan`` is the arithmetic of
+the JAX package's ``_single_pass_policy``, ``pick_bins(first_pass=True)``
+and ``vmem_estimate_first``, with its off-TPU budget of 15,000,000 bytes.
+That budget is the JAX package's choice, kept so that both packages select
+the same survivors; it is not a rule about Hopper's memory. The port
+launches one kernel for the whole batch, not one per ``q_block``: in a
+single pass every query row's cells are independent of the other rows', so
+``q_block`` changes the result only through L, which the plan fixes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from hm_retrieval_tpu_torch.ops import _build
+from hm_retrieval_tpu_torch.ops.bin_topk import (
+    BIG_IDX,
+    BIN_CHOICES,
+    KERNEL_BIN_TILE,
+    NEG_INF,
+    plain_scores,
+)
+from hm_retrieval_tpu_torch.ops.topk import topk_pair
+
+# The JAX package's off-TPU VMEM budget (pallas_retrieval.VMEM_BUDGET).
+PLAN_BUDGET = 15_000_000
+# (q_block, fold) candidates of _single_pass_policy, in its order.
+_POLICY = ((256, 16), (512, 8), (1024, 2), (1024, 1), (512, 1), (256, 1),
+           (128, 1))
+_DEFAULT_Q_BLOCK = 128
+
+# Launches of each CUDA kernel since the last reset_launches().
+LAUNCHES: Dict[str, int] = {
+    "bin_max2_scaled_single_pass": 0,
+    "bin_max2_scaled_fold_pass": 0,
+    "bin_max2_raw_fold_pass": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# The plan: the JAX package's choice of (q_block, fold, L)
+# ---------------------------------------------------------------------------
+
+
+def _first_pass_bytes(B: int, E: int, L: int, fold: int) -> int:
+    """``vmem_estimate_first`` of the JAX package."""
+    return 4 * B * L * (fold + 4) + 4 * B * E + 2 * 2 * fold * L * E
+
+
+def first_pass_bins(
+    B: int, E: int, k: int, target: Optional[int] = None, fold: int = 1
+) -> Optional[int]:
+    """``pick_bins(B, E, k, 2, target, first_pass=True, fold=fold)`` of the
+    JAX package at its off-TPU budget: the smallest bin count >= ``target``
+    (default 8k) among those >= k that fit, else the largest that fits, or
+    None when none does."""
+    feasible = [
+        L for L in BIN_CHOICES
+        if L >= k and _first_pass_bytes(B, E, L, fold) <= PLAN_BUDGET
+    ]
+    if not feasible:
+        return None
+    target = 8 * k if target is None else target
+    for L in feasible:
+        if L >= target:
+            return L
+    return feasible[-1]
+
+
+def pallas_feasible(k_eff: int, dim: int) -> bool:
+    """``_pallas_feasible`` of the JAX package: a single-pass bin layout
+    exists for ``k_eff`` survivors at a 256-row query block."""
+    return first_pass_bins(256, dim, k_eff) is not None
+
+
+def single_pass_plan(
+    B: int, E: int, k: int, N: int, fold: Optional[int] = None
+) -> Tuple[int, int, Optional[int]]:
+    """(q_block, fold, L) that the JAX package's single-pass drivers take
+    for a batch of B rows, width E, k survivors over N catalog rows, where
+    ``fold`` may be fixed by the caller. L is None when no bin count
+    fits."""
+    chosen = (_DEFAULT_Q_BLOCK, 1)
+    for qb_c, f_c in _POLICY:
+        if fold is not None and fold != f_c:
+            continue
+        if f_c > 1 and f_c * max(k, 512) * 2 > N:
+            continue  # the fold chunk would be mostly padding
+        if first_pass_bins(min(B, qb_c), E, k, max(k, 512), f_c) is not None:
+            chosen = (qb_c, f_c)
+            break
+    q_block = chosen[0]
+    fold = chosen[1] if fold is None else fold
+    L = first_pass_bins(min(B, q_block), E, k, max(k, 512), fold)
+    return q_block, fold, L
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+
+def single_pass_plain(
+    q: torch.Tensor,
+    codes: torch.Tensor,
+    L: int,
+    F: int,
+    scales: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+):
+    """Plain version of all three passes (``scales`` given: scaled). One
+    fp32 product of the operands upcast, then ``*scale + bias``, then the
+    chunks in increasing order with the fold tournament and the top-2
+    cascade written out element-wise. Returns (m1, a1, m2, a2), each (B, L),
+    with catalog rows as ids."""
+    B = q.shape[0]
+    n_rows = codes.shape[0]
+    dev = q.device
+    scores = plain_scores(q, codes)
+    if scales is not None:
+        scores = scores * scales + bias
+    scores = scores.view(B, n_rows // L, L)
+    m1 = torch.full((B, L), NEG_INF, dtype=torch.float32, device=dev)
+    m2 = m1.clone()
+    a1 = torch.full((B, L), BIG_IDX, dtype=torch.int32, device=dev)
+    a2 = a1.clone()
+    bins = torch.arange(L, dtype=torch.int32, device=dev)
+    for c in range(n_rows // (F * L)):
+        u0 = c * F
+        s = scores[:, u0]
+        sid = (bins + u0 * L).expand(B, L)
+        for t in range(1, F):
+            st = scores[:, u0 + t]
+            take = st > s
+            s = torch.where(take, st, s)
+            sid = torch.where(take, bins + (u0 + t) * L, sid)
+        gt1 = s > m1
+        gt2 = s > m2
+        m2 = torch.where(gt1, m1, torch.where(gt2, s, m2))
+        a2 = torch.where(gt1, a1, torch.where(gt2, sid, a2))
+        m1 = torch.where(gt1, s, m1)
+        a1 = torch.where(gt1, sid, a1)
+    return m1, a1, m2, a2
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "bin_max2_scaled_single_pass": [_P] * 8 + [_I] * 4 + [_P],
+    "bin_max2_scaled_fold_pass": [_P] * 8 + [_I] * 5 + [_P],
+    "bin_max2_raw_fold_pass": [_P] * 6 + [_I] * 5 + [_P],
+}
+
+
+def _kernel(name: str):
+    fn = getattr(_build.load("bin_max2_single_pass"), name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, codes, L, F, scales, bias):
+    if q.dim() != 2 or codes.dim() != 2:
+        raise ValueError("q must be (B, E) and codes (N, E)")
+    B, E = q.shape
+    n_rows, E_c = codes.shape
+    if E != E_c:
+        raise ValueError(f"embedding widths differ: q {E}, codes {E_c}")
+    if codes.dtype != torch.int8:
+        raise TypeError(f"codes must be int8, got {codes.dtype}")
+    if L <= 0 or F <= 0 or n_rows <= 0 or n_rows % (F * L):
+        raise ValueError(
+            f"catalog rows {n_rows} must be a positive multiple of "
+            f"F*L = {F}*{L}"
+        )
+    tensors = [q, codes]
+    if scales is not None:
+        for name, t in (("scales", scales), ("bias", bias)):
+            if t.shape != (n_rows,) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 of shape ({n_rows},)")
+        tensors += [scales, bias]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all inputs must be on one device")
+    if q.is_cuda:
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA kernels take bf16 q, got {q.dtype}")
+        if E % 16:
+            raise ValueError(f"the CUDA kernels need E % 16 == 0, got E={E}")
+        if L % KERNEL_BIN_TILE:
+            raise ValueError(
+                f"the CUDA kernels need L % {KERNEL_BIN_TILE} == 0, got {L}"
+            )
+        for t in tensors:
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError("CUDA inputs must be contiguous, 16B-aligned")
+    elif q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def _launch(name, q, codes, L, F, scales=None, bias=None):
+    B, E = q.shape
+    n_rows = codes.shape[0]
+    with torch.cuda.device(q.device):
+        m1 = torch.empty((B, L), dtype=torch.float32, device=q.device)
+        a1 = torch.empty((B, L), dtype=torch.int32, device=q.device)
+        m2 = torch.empty_like(m1)
+        a2 = torch.empty_like(a1)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        scaled = () if scales is None else (scales.data_ptr(), bias.data_ptr())
+        fold = () if name == "bin_max2_scaled_single_pass" else (F,)
+        err = _kernel(name)(
+            q.data_ptr(),
+            codes.data_ptr(),
+            *scaled,
+            m1.data_ptr(),
+            a1.data_ptr(),
+            m2.data_ptr(),
+            a2.data_ptr(),
+            B,
+            E,
+            n_rows,
+            L,
+            *fold,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
+    LAUNCHES[name] += 1
+    return m1, a1, m2, a2
+
+
+def bin_max2_scaled_single_pass(
+    q: torch.Tensor,
+    codes_padded: torch.Tensor,
+    scales: torch.Tensor,
+    bias: torch.Tensor,
+    L: int,
+):
+    """One pass, no fold: top-2 per (row, bin) of (q . codes)*scale + bias
+    over the whole padded catalog (bias -inf on every invalid row). Returns
+    (m1, a1, m2, a2), each (B, L): fp32 scores, int32 catalog rows."""
+    _check(q, codes_padded, L, 1, scales, bias)
+    if not q.is_cuda:
+        return single_pass_plain(q, codes_padded, L, 1, scales, bias)
+    return _launch(
+        "bin_max2_scaled_single_pass", q, codes_padded, L, 1, scales, bias
+    )
+
+
+def bin_max2_scaled_fold_pass(
+    q: torch.Tensor,
+    codes_padded: torch.Tensor,
+    scales: torch.Tensor,
+    bias: torch.Tensor,
+    L: int,
+    F: int,
+):
+    """As ``bin_max2_scaled_single_pass``, after an F -> 1 max tournament
+    per bin within each chunk of F*L rows."""
+    _check(q, codes_padded, L, F, scales, bias)
+    if not q.is_cuda:
+        return single_pass_plain(q, codes_padded, L, F, scales, bias)
+    return _launch(
+        "bin_max2_scaled_fold_pass", q, codes_padded, L, F, scales, bias
+    )
+
+
+def bin_max2_raw_fold_pass(q: torch.Tensor, codes: torch.Tensor, L: int, F: int):
+    """As the fold pass on the raw dot products q . codes: no scale, no
+    bias, no mask. ``codes`` holds full chunks of real rows only."""
+    _check(q, codes, L, F, None, None)
+    if not q.is_cuda:
+        return single_pass_plain(q, codes, L, F)
+    return _launch("bin_max2_raw_fold_pass", q, codes, L, F)
+
+
+# ---------------------------------------------------------------------------
+# Drivers
+# ---------------------------------------------------------------------------
+
+
+def _resolve_bins(B, E, k, N, L, fold):
+    _, fold, planned = single_pass_plan(B, E, k, N, fold)
+    if L is None:
+        L = planned
+        if L is None:
+            raise ValueError(
+                f"no feasible bin count for B={B}, E={E}, k={k}; use the "
+                "scan engine instead"
+            )
+    if k > L:
+        raise ValueError(f"k={k} must be <= L={L}")
+    return fold, L
+
+
+def _pad_rows(t: torch.Tensor, n: int, value=0) -> torch.Tensor:
+    if t.shape[0] == n:
+        return t.contiguous()
+    out = torch.full((n, *t.shape[1:]), value, dtype=t.dtype, device=t.device)
+    out[: t.shape[0]] = t
+    return out
+
+
+def quantized_topk(
+    queries: torch.Tensor,
+    codes: torch.Tensor,
+    scales: torch.Tensor,
+    k: int,
+    n_valid: Optional[int] = None,
+    bias: Optional[torch.Tensor] = None,
+    L: Optional[int] = None,
+    max_rounds: int = 1,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    fold: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Top-k survivors of Q @ (codes * scales)^T in one pass over the int8
+    catalog: the single-pass branch (``max_rounds=1``) of the JAX package's
+    ``pallas_quantized_topk``. Rows >= ``n_valid`` and rows with a -inf
+    ``bias`` are never selected; with fewer than k such rows the tail slots
+    hold -inf / ``BIG_IDX``.
+
+    Operands are cast to ``compute_dtype`` (bf16, fp32 sums); the CUDA
+    kernels take bf16 only, and ``torch.float32`` is a CPU-only choice.
+    Returns (values (B, k) fp32, catalog rows (B, k) int32, rounds = 1)."""
+    B, E = queries.shape
+    N = codes.shape[0]
+    if max_rounds != 1:
+        raise NotImplementedError(
+            f"max_rounds={max_rounds}: the int8 refinement rounds are not "
+            "ported yet (ROADMAP.md Queue 1, slice 2: pallas_rounds > 1)"
+        )
+    n_valid = N if n_valid is None else n_valid
+    if n_valid > N:
+        raise ValueError(f"n_valid={n_valid} > catalog rows {N}")
+    if k > n_valid:
+        raise ValueError(f"k={k} > n_valid={n_valid}")
+    fold, L = _resolve_bins(B, E, k, N, L, fold)
+    chunk = fold * L
+    n_pad = -(-N // chunk) * chunk
+    dev = queries.device
+    codes_p = _pad_rows(codes, n_pad)
+    scales_p = _pad_rows(scales.to(torch.float32), n_pad)
+    bias_p = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    if bias is not None:
+        bias_p[:N] = bias.to(torch.float32)
+    # validity and padding ride the bias as -inf: the kernel has no mask
+    bias_p[n_valid:] = NEG_INF
+    q = queries.to(compute_dtype).contiguous()
+    if fold > 1:
+        m1, a1, m2, a2 = bin_max2_scaled_fold_pass(
+            q, codes_p, scales_p, bias_p, L, fold
+        )
+    else:
+        m1, a1, m2, a2 = bin_max2_scaled_single_pass(
+            q, codes_p, scales_p, bias_p, L
+        )
+    v, i = topk_pair(torch.cat([m1, m2], dim=1), torch.cat([a1, a2], dim=1), k)
+    return v, i, 1
+
+
+def quantized_topk_global(
+    queries: torch.Tensor,
+    codes: torch.Tensor,
+    global_scale: float,
+    k: int,
+    n_valid: Optional[int] = None,
+    L: Optional[int] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    fold: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Top-k of Q @ (codes * global_scale)^T over a catalog with one scale:
+    the JAX package's ``pallas_quantized_topk_global``. The full chunks of
+    real rows (``n_full``, a multiple of F*L) stream through the raw pass;
+    the tail of fewer than F*L rows is scored by one plain fp32 product and
+    pre-reduced to its top-k; the k winners are scaled once at the end.
+    Nothing is launched when ``n_valid < F*L``.
+    Returns (values (B, k) fp32, catalog rows (B, k) int32, rounds = 1)."""
+    B, E = queries.shape
+    N = codes.shape[0]
+    n_valid = N if n_valid is None else n_valid
+    if n_valid > N:
+        raise ValueError(f"n_valid={n_valid} > catalog rows {N}")
+    if k > n_valid:
+        raise ValueError(f"k={k} > n_valid={n_valid}")
+    # the JAX driver plans with N = n_valid
+    fold, L = _resolve_bins(B, E, k, n_valid, L, fold)
+    chunk = fold * L
+    n_full = (n_valid // chunk) * chunk
+    q = queries.to(compute_dtype).contiguous()
+    vals, ids = [], []
+    if n_full:
+        m1, a1, m2, a2 = bin_max2_raw_fold_pass(q, codes[:n_full], L, fold)
+        vals += [m1, m2]
+        ids += [a1, a2]
+    T = n_valid - n_full
+    if T:
+        ts = plain_scores(q, codes[n_full:n_valid].to(compute_dtype))
+        ti = torch.arange(
+            n_full, n_valid, dtype=torch.int32, device=q.device
+        ).expand(B, T)
+        if T > k:  # keeps the final merge O(2L + k) wide
+            ts, ti = topk_pair(ts, ti, k)
+        vals.append(ts)
+        ids.append(ti)
+    v, i = topk_pair(torch.cat(vals, dim=1), torch.cat(ids, dim=1), k)
+    g = torch.tensor(global_scale, dtype=torch.float32, device=q.device)
+    return v * g, i, 1

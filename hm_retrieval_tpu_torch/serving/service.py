@@ -2,8 +2,9 @@
 
 Counterpart of ``hm_retrieval_tpu/serving/service.py``. Strings never reach
 the device: the service encodes raw string features to int ids on the host
-with the schema vocabs, runs the query tower and the exact top-k on the
-device, and decodes int ids back to strings at the edge.
+with the schema vocabs, runs the query tower and the index's top-k on the
+device (the exact ``BruteForceIndex`` or the int8 ``QuantizedIndex``), and
+decodes int ids back to strings at the edge.
 
 Artifacts consumed (written by either package):
     <schema_dir>/                 schema.json + vocabs.npz (+ logq.npy)
@@ -22,6 +23,7 @@ import torch
 from hm_retrieval_tpu_torch.device import DeviceLike, resolve_device
 from hm_retrieval_tpu_torch.indices import load_index
 from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
+from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
 from hm_retrieval_tpu_torch.models.bridge import tower_from_numpy
 from hm_retrieval_tpu_torch.models.tower import Tower
 from hm_retrieval_tpu_torch.schema.features import FeatureKind
@@ -38,7 +40,7 @@ class RetrievalService:
         self,
         schema: Schema,
         query_tower: Tower,
-        index: BruteForceIndex,
+        index: Union[BruteForceIndex, QuantizedIndex],
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -108,7 +110,7 @@ class RetrievalService:
         return self.query_tower(dev_batch)
 
     def retrieve(self, raw: RawQuery, k: int = None) -> List[List[str]]:
-        """Full serving path: encode -> embed -> exact top-k -> decode.
+        """Full serving path: encode -> embed -> index top-k -> decode.
         Returns per-row lists of candidate id strings, best first."""
         if k is not None and k > self.index.k:
             raise ValueError(f"k={k} exceeds index k={self.index.k}")

@@ -19,6 +19,7 @@ from hm_retrieval_tpu_torch.indices import load_index
 from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
 from hm_retrieval_tpu_torch.ops import _build
 from hm_retrieval_tpu_torch.ops import bin_topk as bt
+from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 from hm_retrieval_tpu_torch.serving import RetrievalService
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -144,12 +145,24 @@ def test_failed_build_raises(monkeypatch, tmp_path):
 
 
 def test_sources_and_launch_counters():
-    assert _build.sources() == ["bin_max2"]
+    assert _build.sources() == ["bin_max2", "bin_max2_single_pass"]
     assert set(bt.LAUNCHES) == {"bin_max2_first_round", "bin_max2_round"}
+    assert set(qt.LAUNCHES) == {
+        "bin_max2_scaled_single_pass",
+        "bin_max2_scaled_fold_pass",
+        "bin_max2_raw_fold_pass",
+    }
     bt.LAUNCHES["bin_max2_round"] += 3
+    qt.LAUNCHES["bin_max2_raw_fold_pass"] += 2
     bt.reset_launches()
+    qt.reset_launches()
     assert set(bt.LAUNCHES.values()) == {0}
+    assert set(qt.LAUNCHES.values()) == {0}
     # the plain CPU path does not count as a kernel launch
     bt.exact_topk(torch.randn(3, 16), torch.randn(700, 16), 5, L=256)
+    codes = torch.randint(-127, 128, (1024, 16), dtype=torch.int8)
+    qt.quantized_topk(torch.randn(3, 16), codes, torch.rand(1024), 5, L=256)
+    qt.quantized_topk_global(torch.randn(3, 16), codes, 0.1, 5, L=256)
     assert set(bt.LAUNCHES.values()) == {0}
+    assert set(qt.LAUNCHES.values()) == {0}
     assert hm_retrieval_tpu_torch.__version__

@@ -60,12 +60,9 @@ def _raw_queries(rng, B=7):
     return {"customer_id": customers, "age": ages, "purchase_history": hist}
 
 
-@pytest.fixture(scope="module")
-def artifacts(tmp_path_factory):
-    """Schema, towers and a method="pallas" index written by the JAX
-    package (n_pad = 20,480 > 16384 rows)."""
-    rng = np.random.default_rng(0)
-    root = tmp_path_factory.mktemp("jax_artifacts")
+def write_jax_serving_artifacts(root, rng):
+    """Schema and towers written by the JAX package under ``root``; returns
+    the catalog's (ids, embeddings) from its candidate tower."""
     articles = np.array([f"a{i:05d}" for i in range(N_ARTICLES)])
     customers = np.array([f"c{i:04d}" for i in range(N_CUSTOMERS)])
     features = [
@@ -99,6 +96,16 @@ def artifacts(tmp_path_factory):
     emb = np.asarray(
         model.candidate_forward(params, {"article_id": jnp.asarray(ids)})
     )
+    return ids, emb
+
+
+@pytest.fixture(scope="module")
+def artifacts(tmp_path_factory):
+    """Schema, towers and a method="pallas" index written by the JAX
+    package (n_pad = 20,480 > 16384 rows)."""
+    rng = np.random.default_rng(0)
+    root = tmp_path_factory.mktemp("jax_artifacts")
+    ids, emb = write_jax_serving_artifacts(root, rng)
     JaxBruteForceIndex(K, ids, emb, method="pallas").save(str(root / "index"))
     return {
         "root": root,
