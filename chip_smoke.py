@@ -42,6 +42,33 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    plain passes (fp32 rescore included) wherever the two passes' survivors
    agree; where they differ, only between scores within TOL. Recall
    against the exact fp32 top-1000 is printed, not held to a limit.
+6. The rounds kernels against their plain versions on the card, at the
+   served shapes: the int8 first and refinement rounds on phase 4's codes
+   cut to the 106,496 rows of the chunks that hold a valid row, as
+   quantized_topk streams them (105,542 valid, a -inf bias on 1% of them),
+   B=128, L=2048,
+   the refinement round on the thresholds the first revealed; the
+   single-keep pass on the bf16 catalog at L=2048 and L=512, at +inf
+   thresholds and at those of a previous round. Integer-valued queries
+   must give bit-identical outputs, normal ones values within TOL. Then
+   the drivers: quantized_topk with 8 rounds at B = 128 and 1024 (2000
+   survivors) must answer as its 128-row blocks answer alone, and each
+   block whose stop rule held within 8 rounds the exact top-2000 of the
+   dequantized scores; exact_topk(keep_per_bin=1) at k = 100 and 1000 must
+   equal the same driver on the plain pass, and the exact top-k where its
+   rounds < 8; exact_topk(lockstep=True) at B=1024, k=1000 must return the
+   per-block driver's ids. Timings beside a matmul + topk yardstick.
+7. Quantized serving with the rounds (pallas_rounds=8) at full H&M width,
+   on phase 3's catalog and model: per-row (B = 1, 16, 128, 1024) and
+   global-scale (B = 128) indices, saved and loaded back through
+   RetrievalService.load(device="cuda"). The int8 rounds kernels must
+   launch, the single-pass kernels must not. On every row the survivors
+   equal the plain passes' survivors: values within TOL, ids differing only
+   between dequantized scores within 2*TOL. Answers hold 1000 distinct
+   articles and equal the same driver run with the plain passes (fp32
+   rescore included) wherever the survivors agree. Rounds per batch and
+   recall against the exact fp32 top-1000, beside phase 5's single-pass
+   recall, are printed, not held to a limit.
 
 Output: per-phase JSON lines, then the card's name and power limit, the
 {"kernels": [...]} line, and as the last line
@@ -77,6 +104,7 @@ N_PAD_Q = 131_072  # the H&M catalog padded to the quantized index's chunk
 # k_over = 2000 at B = 1024, 128, <= 16, and k <= 100 at any B
 QUANT_PLANS = ((1, 2048, 1024), (2, 2048, 128), (8, 2048, 16), (16, 512, 16))
 SURVIVORS = 2000  # k_over of the served quantized index
+MAX_ROUNDS = 8  # the drivers' cap on passes per query block
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, published
 
@@ -105,11 +133,11 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def pass_bound_ms(B, n_pad, L, thresholds):
+def pass_bound_ms(B, n_pad, L, thresholds, outputs=4):
     """Least time of one streaming pass: bytes (query block, catalog, the
-    four (B, L) outputs, plus two threshold inputs) over HBM bandwidth, or
-    the product's operations over the bf16 peak, whichever is larger."""
-    nbytes = B * E * 2 + n_pad * E * 2 + 4 * B * L * 4
+    (B, L) outputs, plus two threshold inputs) over HBM bandwidth, or the
+    product's operations over the bf16 peak, whichever is larger."""
+    nbytes = B * E * 2 + n_pad * E * 2 + outputs * B * L * 4
     if thresholds:
         nbytes += 2 * B * L * 4
     return roofline_ms(nbytes, 2 * B * n_pad * E)
@@ -158,7 +186,7 @@ def phase_device():
         line.strip()
         for log in _build.build_logs.values()
         for line in log.splitlines()
-        if "registers" in line or "spill" in line
+        if "entry function" in line or "registers" in line or "spill" in line
     ]
     emit({"build": {"seconds": seconds, "sources": _build.sources(),
                     "ptxas": ptxas}})
@@ -353,8 +381,10 @@ def phase_serving(seed, repeats, dev, workdir):
                      "launches_per_batch": per_batch})
     launches = dict(bt.LAUNCHES)
     # ---------------------------------------------------------------------
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel was not launched while serving: {launches}")
+    require(launches["bin_max2_first_round"] > 0
+            and launches["bin_max2_round"] > 0
+            and launches["bin_max_round"] == 0,
+            f"the exact path launched {launches}")
 
     article_vocab = set(schema.feature("article_id").vocab.tolist())
     emb_real = svc.index.embeddings[: svc.index.num_candidates]
@@ -423,14 +453,17 @@ SINGLE_PASS_KERNELS = (
 )
 
 
-def single_pass_bound_ms(B, n_rows, L, scaled):
-    """Least time of one single-pass launch: the int8 codes (and, scaled,
-    the fp32 scales and bias), the bf16 query block and the four (B, L)
-    outputs over HBM bandwidth, or the product's operations (bf16 tensor
-    cores; the codes convert to bf16 exactly) over the bf16 peak."""
+def single_pass_bound_ms(B, n_rows, L, scaled, thresholds=False):
+    """Least time of one int8 pass: the int8 codes (and, scaled, the fp32
+    scales and bias; in a refinement round the two (B, L) thresholds), the
+    bf16 query block and the four (B, L) outputs over HBM bandwidth, or the
+    product's operations (bf16 tensor cores; the codes convert to bf16
+    exactly) over the bf16 peak."""
     nbytes = n_rows * E + B * E * 2 + 4 * B * L * 4
     if scaled:
         nbytes += 2 * n_rows * 4
+    if thresholds:
+        nbytes += 2 * B * L * 4
     return roofline_ms(nbytes, 2 * B * n_rows * E)
 
 
@@ -549,7 +582,8 @@ def phase_quantized_kernels(gen, dev):
             "B": B, "k": SURVIVORS, "N": N_ARTICLES, "E": E,
             "plan": qt.single_pass_plan(B, E, SURVIVORS, N_PAD_Q),
             "ms": cuda_ms(lambda: qt.quantized_topk(
-                q, codes, scales, SURVIVORS, n_valid=N_ARTICLES), 20),
+                q, codes, scales, SURVIVORS, n_valid=N_ARTICLES,
+                max_rounds=1), 20),
             "yardstick_ms": cuda_ms(lambda: torch.topk(torch.matmul(
                 q.to(torch.bfloat16), deq.T).float(), SURVIVORS), 20),
             "yardstick": "torch.matmul (bf16, dequantized catalog) + "
@@ -559,6 +593,390 @@ def phase_quantized_kernels(gen, dev):
     return stats
 
 
+def plain_rounds():
+    """Inside the block the int8 rounds driver runs the plain passes."""
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    return swapped(
+        qt,
+        bin_max2_scaled_first_round=lambda q, c, sc, bi, L, n: (
+            qt.scaled_round_plain(q, c, sc, bi, L, n)),
+        bin_max2_scaled_round=lambda q, c, sc, bi, ts, ti, L, n: (
+            qt.scaled_round_plain(q, c, sc, bi, L, n, ts, ti)),
+    )
+
+
+def hold_cells(st, name, kind, got, want, scores_fn):
+    """A pass's cells against its plain version's: bit-identical for
+    integer inputs, else values within TOL and ids wherever the competing
+    scores differ by more (``scores_fn()`` gives them)."""
+    if kind == "integer":
+        for g, w in zip(got, want):
+            require(torch.equal(g, w), f"{name}: integer inputs not "
+                    "bit-identical to the plain version")
+        return
+    scores = scores_fn()
+    for vi in range(0, len(got), 2):
+        err, mism = compare_ranked(got[vi], got[vi + 1], want[vi],
+                                   want[vi + 1], scores)
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["id_mismatches"] += mism
+
+
+def random_rows(gen, dev, kind, n):
+    """(n, E) bf16 rows: integers in [-4, 4], or normal."""
+    if kind == "integer":
+        x = torch.randint(-4, 5, (n, E), generator=gen, device=dev)
+    else:
+        x = torch.randn(n, E, generator=gen, device=dev)
+    return x.to(torch.bfloat16)
+
+
+def phase_rounds_kernels(gen, dev):
+    """Kernels 6-8 against their plain versions at the served shapes."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    stats = {n: {"max_abs_err": 0.0, "id_mismatches": 0}
+             for n in ("bin_max2_scaled_first_round", "bin_max2_scaled_round",
+                       "bin_max_round")}
+    L = 2048
+    # quantized_topk streams the chunks that hold a valid row (106,496 of
+    # the 131,072 rows); the rounds mask rows >= n_valid themselves, so pad
+    # rows keep bias 0
+    n_rows = -(-N_ARTICLES // L) * L
+    codes, scales, _ = int8_catalog(gen, dev)
+    codes, scales = codes[:n_rows], scales[:n_rows]
+    bias = torch.zeros(n_rows, device=dev)
+    bias[:N_ARTICLES][torch.rand(N_ARTICLES, generator=gen, device=dev)
+                      < 0.01] = float("-inf")
+    for kind in ("integer", "normal"):
+        q = random_rows(gen, dev, kind, Q_BLOCK)
+        k6 = qt.bin_max2_scaled_first_round(q, codes, scales, bias, L,
+                                            N_ARTICLES)
+        p6 = qt.scaled_round_plain(q, codes, scales, bias, L, N_ARTICLES)
+        # each chain refines on the thresholds its own round 1 revealed
+        k7 = qt.bin_max2_scaled_round(q, codes, scales, bias, k6[2], k6[3], L,
+                                      N_ARTICLES)
+        p7 = qt.scaled_round_plain(q, codes, scales, bias, L, N_ARTICLES,
+                                   p6[2], p6[3])
+        torch.cuda.synchronize()
+        for name, got, want in (("bin_max2_scaled_first_round", k6, p6),
+                                ("bin_max2_scaled_round", k7, p7)):
+            hold_cells(stats[name], name, kind, got, want,
+                       lambda: pass_scores(q, codes, scales, bias))
+        emit({"rounds_kernel_check": {"kernels": "int8 rounds", "L": L,
+                                      "B": Q_BLOCK, "inputs": kind,
+                                      "ok": True}})
+        if kind != "normal":
+            continue
+        for name, thr, plain in (
+            ("bin_max2_scaled_first_round", (), ()),
+            ("bin_max2_scaled_round", (k6[2], k6[3]), (p6[2], p6[3])),
+        ):
+            bound, by = single_pass_bound_ms(Q_BLOCK, n_rows, L, True,
+                                             bool(thr))
+            stats[name].update(
+                L=L, B=Q_BLOCK, rows=n_rows,
+                ms=cuda_ms(lambda: getattr(qt, name)(
+                    q, codes, scales, bias, *thr, L, N_ARTICLES), 50),
+                plain_ms=cuda_ms(lambda: qt.scaled_round_plain(
+                    q, codes, scales, bias, L, N_ARTICLES, *plain), 3),
+                bound_ms=bound, bound_by=by,
+            )
+    del codes, scales, bias
+
+    st = stats["bin_max_round"]
+    st["shapes"] = []
+    for L in (2048, 512):  # default_bins(k, 1) at k = 1000 and 100
+        n_pad = -(-N_ARTICLES // L) * L
+        inf_s = torch.full((Q_BLOCK, L), float("inf"), device=dev)
+        inf_i = torch.full((Q_BLOCK, L), -1, dtype=torch.int32, device=dev)
+        for kind in ("integer", "normal"):
+            q = random_rows(gen, dev, kind, Q_BLOCK)
+            c_pad = torch.zeros(n_pad, E, dtype=torch.bfloat16, device=dev)
+            c_pad[:N_ARTICLES] = random_rows(gen, dev, kind, N_ARTICLES)
+            k1 = bt.bin_max_round(q, c_pad, inf_s, inf_i, L, N_ARTICLES)
+            p1 = bt.bin_max_plain(q, c_pad, inf_s, inf_i, L, N_ARTICLES)
+            k2 = bt.bin_max_round(q, c_pad, *k1, L, N_ARTICLES)
+            p2 = bt.bin_max_plain(q, c_pad, *p1, L, N_ARTICLES)
+            torch.cuda.synchronize()
+            for got, want in ((k1, p1), (k2, p2)):
+                hold_cells(st, "bin_max_round", kind, got, want,
+                           lambda: bt.plain_scores(q, c_pad))
+            emit({"rounds_kernel_check": {"kernels": "single keep", "L": L,
+                                          "B": Q_BLOCK, "inputs": kind,
+                                          "ok": True}})
+            if kind != "normal":
+                continue
+            bound, by = pass_bound_ms(Q_BLOCK, n_pad, L, True, outputs=2)
+            row = {
+                "L": L, "B": Q_BLOCK, "rows": n_pad,
+                "ms": cuda_ms(lambda: bt.bin_max_round(
+                    q, c_pad, *k1, L, N_ARTICLES), 50),
+                "plain_ms": cuda_ms(lambda: bt.bin_max_plain(
+                    q, c_pad, *p1, L, N_ARTICLES), 3),
+                "bound_ms": bound, "bound_by": by,
+            }
+            st["shapes"].append(row)
+            if L == 2048:
+                st.update({k: row[k] for k in
+                           ("ms", "plain_ms", "bound_ms", "bound_by")})
+    return stats
+
+
+def phase_rounds_drivers(gen, dev):
+    """The drivers of kernels 6-8 and the lockstep driver. Returns the
+    launches of the single-keep path (exact_topk(keep_per_bin=1))."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    codes, scales, _ = int8_catalog(gen, dev)
+    deq = (codes[:N_ARTICLES].float() * scales[:N_ARTICLES, None]).to(
+        torch.bfloat16)
+    rows = []
+    for B in (128, 1024):
+        q = torch.randn(B, E, generator=gen, device=dev)
+        v, i, rounds = qt.quantized_topk(q, codes, scales, SURVIVORS,
+                                         n_valid=N_ARTICLES)
+        blocks = [qt.quantized_topk(q[s:s + Q_BLOCK], codes, scales, SURVIVORS,
+                                    n_valid=N_ARTICLES)
+                  for s in range(0, B, Q_BLOCK)]
+        require(torch.equal(v, torch.cat([b[0] for b in blocks]))
+                and torch.equal(i, torch.cat([b[1] for b in blocks]))
+                and rounds == max(b[2] for b in blocks),
+                f"B={B}: the rounds do not answer as their blocks alone")
+        per_block = [b[2] for b in blocks]
+        done = torch.tensor([r < MAX_ROUNDS for r in per_block],
+                            device=dev).repeat_interleave(Q_BLOCK)
+        err, mism = 0.0, 0
+        if bool(done.any()):  # the dequantized scores of the bf16 queries
+            scores = (bt.plain_scores(q[done].to(torch.bfloat16),
+                                      codes[:N_ARTICLES]) * scales[:N_ARTICLES])
+            sv, si = torch.sort(scores, dim=1, descending=True, stable=True)
+            err, mism = compare_ranked(v[done], i[done], sv[:, :SURVIVORS],
+                                       si[:, :SURVIVORS], scores)
+            del scores, sv, si
+        rows.append({
+            "driver": "quantized_topk", "B": B, "k": SURVIVORS, "L": 2048,
+            "rounds_per_block": per_block, "exact_rows": int(done.sum()),
+            "max_abs_err_vs_exact": err, "id_mismatches": mism,
+            "ms": cuda_ms(lambda: qt.quantized_topk(
+                q, codes, scales, SURVIVORS, n_valid=N_ARTICLES), 10),
+            "yardstick_ms": cuda_ms(lambda: torch.topk(torch.matmul(
+                q.to(torch.bfloat16), deq.T).float(), SURVIVORS), 10),
+            "yardstick": "torch.matmul (bf16, dequantized catalog) + "
+                         "torch.topk over (B, N)",
+        })
+    del codes, scales, deq
+
+    c = torch.randn(N_ARTICLES, E, generator=gen, device=dev)
+    cb = c.to(torch.bfloat16)
+    q = torch.randn(Q_BLOCK, E, generator=gen, device=dev)
+    # --- the single-keep path: counts from 0 -----------------------------
+    bt.reset_launches()
+    keep1 = {k: bt.exact_topk(q, c, k, keep_per_bin=1) for k in (100, 1000)}
+    launches = dict(bt.LAUNCHES)
+    # ---------------------------------------------------------------------
+    require(launches["bin_max_round"] > 0 and launches["bin_max2_round"] == 0
+            and launches["bin_max2_first_round"] == 0,
+            f"exact_topk(keep_per_bin=1) launched {launches}")
+    scores = bt.plain_scores(q.to(torch.bfloat16), cb)
+    sv, si = torch.sort(scores, dim=1, descending=True, stable=True)
+    for k, (v, i, rounds) in keep1.items():
+        with swapped(bt, bin_max_round=bt.bin_max_plain):
+            pv, pi, prounds = bt.exact_topk(q, c, k, keep_per_bin=1)
+        require(rounds == prounds, f"keep 1, k={k}: {rounds} rounds, the "
+                f"plain pass {prounds}")
+        err, mism = compare_ranked(v, i, pv, pi, scores)
+        row = {"driver": "exact_topk(keep_per_bin=1)", "B": Q_BLOCK, "k": k,
+               "L": bt.default_bins(k, 1), "rounds": rounds,
+               "max_abs_err_vs_plain_driver": err,
+               "id_mismatches_vs_plain_driver": mism}
+        if rounds < MAX_ROUNDS:
+            row["max_abs_err_vs_exact"], row["id_mismatches_vs_exact"] = (
+                compare_ranked(v, i, sv[:, :k], si[:, :k], scores))
+        row.update(
+            ms=cuda_ms(lambda: bt.exact_topk(q, c, k, keep_per_bin=1), 10),
+            keep2_ms=cuda_ms(lambda: bt.exact_topk(q, c, k), 10),
+            keep2_rounds=bt.exact_topk(q, c, k)[2],
+            yardstick_ms=cuda_ms(lambda: torch.topk(torch.matmul(
+                q.to(torch.bfloat16), cb.T).float(), k), 10),
+        )
+        rows.append(row)
+    del scores, sv, si
+
+    q = torch.randn(1024, E, generator=gen, device=dev)
+    bt.reset_launches()
+    v1, i1, r1 = bt.exact_topk(q, c, SERVE_K, lockstep=True)
+    lock_launches = dict(bt.LAUNCHES)
+    v0, i0, r0 = bt.exact_topk(q, c, SERVE_K)
+    require(torch.equal(i1, i0) and torch.equal(v1, v0),
+            "lockstep ids differ from the per-block driver's")
+    require(lock_launches["bin_max2_first_round"] == 1
+            and lock_launches["bin_max2_round"] == r1 - 1,
+            f"lockstep did not launch once per round: {lock_launches}")
+    rows.append({
+        "driver": "exact_topk(lockstep=True)", "B": 1024, "k": SERVE_K,
+        "L": 2048, "rounds": r1, "per_block_rounds": r0,
+        "launches": lock_launches,
+        "ms": cuda_ms(lambda: bt.exact_topk(q, c, SERVE_K, lockstep=True), 5),
+        "per_block_ms": cuda_ms(lambda: bt.exact_topk(q, c, SERVE_K), 5),
+    })
+    for row in rows:
+        emit({"rounds_driver": row})
+    return launches
+
+
+def phase_rounds_serving(shared, single_pass_recall, repeats, dev, workdir):
+    """Quantized serving with the int8 rounds (pallas_rounds = 8)."""
+    from hm_retrieval_tpu_torch.indices import quantized as pq
+    from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.serving import RetrievalService
+
+    requests = shared["requests"]
+    batches = {"per_row": SERVE_BATCHES, "global": (Q_BLOCK,)}
+    services = {}
+    for mode in batches:
+        t0 = time.perf_counter()
+        index = QuantizedIndex(SERVE_K, shared["ids"], shared["emb"],
+                               method="auto", scale_mode=mode,
+                               pallas_rounds=MAX_ROUNDS, device=dev)
+        require(index.method == "pallas" and index.k_over == SURVIVORS,
+                f"rounds {mode}: auto resolved to {index.method!r} with "
+                f"{index.k_over} survivors")
+        path = workdir / f"rounds_{mode}"
+        index.save(str(path))
+        svc = RetrievalService.load(str(shared["schema_dir"]),
+                                    str(shared["model_dir"]), str(path),
+                                    device=dev)
+        loaded = svc.index
+        require(isinstance(loaded, QuantizedIndex) and loaded.method == "pallas"
+                and loaded.pallas_rounds == MAX_ROUNDS
+                and loaded.k_over == SURVIVORS and loaded.scale_mode == mode
+                and loaded.codes.shape[0] == N_PAD_Q,
+                f"rounds {mode}: the loaded index does not run the rounds")
+        services[mode] = svc
+        emit({"rounds_setup": {"scale_mode": mode,
+                               "seconds": time.perf_counter() - t0,
+                               "pallas_rounds": loaded.pallas_rounds,
+                               "k_over": loaded.k_over}})
+
+    # --- the main path: counts from 0, served requests only -------------
+    bt.reset_launches()
+    qt.reset_launches()
+    rows, answers = [], {}
+    for mode, svc in services.items():
+        for B in batches[mode]:
+            before = dict(qt.LAUNCHES)
+            svc.retrieve(requests[B])  # warm-up
+            times = []
+            for _ in range(repeats):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                answers[mode, B] = svc.retrieve(requests[B])
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            per_batch = {n: (qt.LAUNCHES[n] - before[n]) / (repeats + 1)
+                         for n in qt.LAUNCHES}
+            rows.append({"scale_mode": mode, "B": B,
+                         "median_ms": statistics.median(times),
+                         "min_ms": min(times), "max_ms": max(times),
+                         "launches_per_batch": per_batch})
+    launches = dict(qt.LAUNCHES)
+    exact_launches = dict(bt.LAUNCHES)
+    # ---------------------------------------------------------------------
+    rounds_kernels = ("bin_max2_scaled_first_round", "bin_max2_scaled_round")
+    require(all(launches[n] > 0 for n in rounds_kernels)
+            and not any(launches[n] for n in SINGLE_PASS_KERNELS)
+            and not any(exact_launches.values()),
+            f"the rounds path launched {launches}, {exact_launches}")
+
+    emb_real = shared["emb"]
+    for row in rows:
+        mode, B = row["scale_mode"], row["B"]
+        svc = services[mode]
+        index = svc.index
+        got = answers[mode, B]
+        require(len(got) == B, f"rounds {mode} B={B}: {len(got)} answers")
+        for ans in got:
+            require(len(ans) == SERVE_K and len(set(ans)) == SERVE_K,
+                    f"rounds {mode} B={B}: an answer is not {SERVE_K} "
+                    "distinct articles")
+            require(set(ans) <= shared["article_vocab"],
+                    f"rounds {mode} B={B}: unknown article")
+        with torch.no_grad():
+            q = svc.embed(svc.encode_query(requests[B]))
+        survivors = []
+
+        def recording(queries, codes, scales, *args, **kwargs):
+            out = qt.quantized_topk(queries, codes, scales, *args, **kwargs)
+            survivors.append((queries, codes, scales, out))
+            return out
+
+        with swapped(pq, quantized_topk=recording):
+            kv, kid = index.topk_from_embeddings(q)
+            with plain_rounds():
+                pv, pid = index.topk_from_embeddings(q)
+        decoded = svc.schema.candidate_id_feature.decode(kid.cpu().numpy())
+        require(decoded.tolist() == got,
+                f"rounds {mode} B={B}: served answers differ from a rerun")
+        (qs, codes, scales, (ksv, ks, k_rounds)), (_, _, _, (psv, ps, p_rounds)) = (
+            survivors)
+        # every row's survivors against the plain passes', over the
+        # dequantized scores (bf16 queries, fp32 sums, * scale)
+        n = index.num_candidates
+        deq = bt.plain_scores(qs.to(torch.bfloat16), codes[:n]) * scales[:n]
+        surv_err, surv_mism = compare_ranked(ksv, ks, psv, ps, deq)
+        diff = ks != ps
+        swapped_at = diff.nonzero()  # (row, rank) of each swapped survivor
+        swap_gap = (deq[swapped_at[:, 0], ks[diff].long()]
+                    - deq[swapped_at[:, 0], ps[diff].long()]).abs()
+        del deq
+        survivors_differ = diff.any(1)
+        answers_differ = ((kid != pid) | (kv != pv)).any(1)
+        require(not bool((answers_differ & ~survivors_differ).any()),
+                f"rounds {mode} B={B}: answers differ from the plain "
+                "composition where the survivors agree")
+        exact = bt.plain_scores(q, emb_real)
+        top = torch.sort(exact, dim=1, descending=True, stable=True)[1][:, :SERVE_K]
+        del exact
+        hit = torch.zeros((B, N_ARTICLES), dtype=torch.bool, device=dev)
+        hit.scatter_(1, top, True)
+        recall = float(torch.gather(hit, 1, kid.long() - 1).float().mean())
+        row.update(rounds=k_rounds, plain_rounds=p_rounds,
+                   survivors_max_abs_err_vs_plain=surv_err,
+                   survivor_id_mismatches=surv_mism,
+                   survivor_swap_max_score_gap=(
+                       float(swap_gap.max()) if surv_mism else 0.0),
+                   survivor_first_swapped_rank=(
+                       int(swapped_at[:, 1].min()) if surv_mism else None),
+                   rows_with_other_survivors=int(survivors_differ.sum()),
+                   rows_answered_otherwise=int(answers_differ.sum()),
+                   recall_vs_exact=recall,
+                   single_pass_recall_vs_exact=single_pass_recall[mode, B],
+                   **serve_breakdown(svc, requests[B], repeats))
+        emit({"rounds_serve": row})
+    return launches
+
+
+@contextlib.contextmanager
+def swapped(module, **fns):
+    """Inside the block, ``module.<name>`` is ``fns[name]``."""
+    saved = {name: getattr(module, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
 @contextlib.contextmanager
 def recorded_passes(plain):
     """Inside the block the single-pass drivers reach the kernel wrappers
@@ -566,25 +984,21 @@ def recorded_passes(plain):
     Yields the list of (q, codes, scales, bias, outputs) of each pass."""
     from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 
-    saved = {n: getattr(qt, n) for n in SINGLE_PASS_KERNELS}
     record = []
 
     def stand_in(name):
+        wrapper = getattr(qt, name)
+
         def run(q, codes, *args):
             L, F, sc, bi = pass_args(name, args)
             out = (qt.single_pass_plain(q, codes, L, F, sc, bi) if plain
-                   else saved[name](q, codes, *args))
+                   else wrapper(q, codes, *args))
             record.append((q, codes, sc, bi, out))
             return out
         return run
 
-    for name in SINGLE_PASS_KERNELS:
-        setattr(qt, name, stand_in(name))
-    try:
+    with swapped(qt, **{n: stand_in(n) for n in SINGLE_PASS_KERNELS}):
         yield record
-    finally:
-        for name, fn in saved.items():
-            setattr(qt, name, fn)
 
 
 def check_device_build(index, emb_host, mode):
@@ -678,8 +1092,10 @@ def phase_quantized_serving(shared, repeats, dev, workdir):
     launches = dict(qt.LAUNCHES)
     exact_launches = dict(bt.LAUNCHES)
     # ---------------------------------------------------------------------
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel was not launched while serving: {launches}")
+    require(all(launches[n] > 0 for n in SINGLE_PASS_KERNELS)
+            and not any(launches[n] for n in launches
+                        if n not in SINGLE_PASS_KERNELS),
+            f"the single-pass path launched {launches}")
     require(not any(exact_launches.values()),
             f"the quantized path launched the exact kernels: {exact_launches}")
 
@@ -744,7 +1160,9 @@ def phase_quantized_serving(shared, repeats, dev, workdir):
                    recall_vs_exact=recall,
                    **serve_breakdown(svc, requests[B], repeats))
         emit({"quantized_serve": row})
-    return launches
+    recalls = {(row["scale_mode"], row["B"]): row["recall_vs_exact"]
+               for row in rows}
+    return launches, recalls
 
 
 def main(argv=None):
@@ -775,16 +1193,27 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke-") as d:
         launches, shared = phase_serving(args.seed, args.repeats, dev, Path(d))
         stats.update(phase_quantized_kernels(gen, dev))
-        launches.update(phase_quantized_serving(shared, args.repeats, dev,
-                                                Path(d)))
+        quantized, recalls = phase_quantized_serving(shared, args.repeats, dev,
+                                                     Path(d))
+        launches.update(quantized)
+        stats.update(phase_rounds_kernels(gen, dev))
+        launches["bin_max_round"] = phase_rounds_drivers(gen, dev)[
+            "bin_max_round"]
+        rounds = phase_rounds_serving(shared, recalls, args.repeats, dev,
+                                      Path(d))
+        for name in ("bin_max2_scaled_first_round", "bin_max2_scaled_round"):
+            launches[name] = rounds[name]
 
     pallas = "hm_retrieval_tpu/ops/pallas_retrieval.py"
     kernel_files = {
         "bin_max2_first_round": ("bin_max2.cu", 276),
         "bin_max2_round": ("bin_max2.cu", 207),
-        "bin_max2_scaled_single_pass": ("bin_max2_single_pass.cu", 352),
-        "bin_max2_scaled_fold_pass": ("bin_max2_single_pass.cu", 464),
-        "bin_max2_raw_fold_pass": ("bin_max2_single_pass.cu", 593),
+        "bin_max2_scaled_single_pass": ("bin_max2_int8.cu", 352),
+        "bin_max2_scaled_fold_pass": ("bin_max2_int8.cu", 464),
+        "bin_max2_raw_fold_pass": ("bin_max2_int8.cu", 593),
+        "bin_max2_scaled_first_round": ("bin_max2_int8.cu", 311),
+        "bin_max2_scaled_round": ("bin_max2_int8.cu", 701),
+        "bin_max_round": ("bin_max2.cu", 158),
     }
     kernels = [
         {

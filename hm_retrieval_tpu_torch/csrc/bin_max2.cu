@@ -1,38 +1,46 @@
-// Streaming top-2-per-bin passes of the exact top-k retrieval, for Hopper
+// Streaming top-k-per-bin passes of the exact top-k retrieval, for Hopper
 // (sm_90a), bound with ctypes through a plain C interface.
 //
-// Replaces hm_retrieval_tpu/ops/pallas_retrieval.py::_bin_max2_first_kernel
-// (round 1, no thresholds) and ::_bin_max2_kernel (thresholded refinement
-// rounds). Both launchers instantiate ONE template, so every pass computes
-// the score of a (query row, catalog row) pair with the same code and the
-// same tile configuration: the refinement rounds are exact only because
-// every pass reproduces identical fp32 scores.
+// Replaces three kernels of hm_retrieval_tpu/ops/pallas_retrieval.py:
+//   ::_bin_max2_first_kernel  (launcher bin_max2_first_round: top-2, round 1,
+//                              no thresholds)
+//   ::_bin_max2_kernel        (launcher bin_max2_round: top-2 below the
+//                              thresholds, refinement rounds)
+//   ::_bin_max_kernel         (launcher bin_max_round: top-1 below the
+//                              thresholds; round 1 is a launch with +inf / -1
+//                              thresholds, as in the JAX driver)
+// All three launchers instantiate ONE template, bin_max_kernel<kThreshold,
+// kKeep>, so every pass computes the score of a (query row, catalog row) pair
+// with the same code and the same tile configuration: the refinement rounds
+// are exact only because every pass reproduces identical fp32 scores.
 //
 // What it computes. The catalog C (n_pad x E, bf16, n_pad % L == 0) is read
 // in chunks of L rows; bin b of chunk c is catalog row c*L + b. For each
-// (query row, bin) cell the kernel keeps the lexicographic top-2 (m1, a1,
-// m2, a2) under the order (score desc, index asc) of the fp32 scores
-// Q @ C^T, over rows < n_valid and, with kThreshold, only over elements
-// strictly below the cell's threshold (thr_s, thr_i). Unfilled slots hold
-// -inf / BIG_IDX.
+// (query row, bin) cell the kernel keeps the lexicographic top-kKeep (m1, a1
+// and, for kKeep = 2, m2, a2) under the order (score desc, index asc) of the
+// fp32 scores Q @ C^T, over rows < n_valid and, with kThreshold, only over
+// elements strictly below the cell's threshold (thr_s, thr_i). Unfilled slots
+// hold -inf / BIG_IDX.
 //
 // Design. A block owns a tile of BM query rows x BN bins for the whole run
 // and walks every chunk c = 0 .. n_pad/L - 1 in increasing order, keeping
-// its cells' state in registers. The strict '>' of the top-2 update gives
+// its cells' state in registers. The strict '>' of the top-k update gives
 // the index-ascending tie order only because each cell sees its chunks in
 // increasing order, so no cell is split across blocks and no chunk is
 // reordered. Per chunk, the block's BN catalog rows are staged in shared
 // memory through a STAGES-deep cp.async ring while the query tile stays
 // resident; four warps compute their 16 x BN scores with mma.sync
 // m16n8k16 (bf16 operands, fp32 accumulation), then run the eligibility
-// test, the n_valid mask and the top-2 cascade per cell.
+// test, the n_valid mask and the top-2 (or top-1) cascade per cell. The
+// keep-1 pass shares everything but the cascade and writes two outputs.
 //
 // What bounds it on the H100. One pass reads the catalog once (27 MB at
-// the H&M catalog, E=128, against 4-6 MB of (B, L) state), and its product
-// is 2*B*n_pad*E operations: at B = 128 rows the pass is bound by memory
-// bytes, not by the tensor cores. This first version reads each catalog
-// row once per 64-row query tile (the re-reads hit the 50 MB L2) and makes
-// no attempt at TMA or wgmma; its time against that bound is in PERF.md.
+// the H&M catalog, E=128, against 4-6 MB of (B, L) state, 4 MB for keep 1),
+// and its product is 2*B*n_pad*E operations: at B = 128 rows the pass is
+// bound by memory bytes, not by the tensor cores. This first version reads
+// each catalog row once per 64-row query tile (the re-reads hit the 50 MB L2)
+// and makes no attempt at TMA or wgmma; its time against that bound is in
+// PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,9 +89,9 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
 
 // Grid: (L / BN, ceil(B / BM)). Dynamic shared memory:
 // (BM + STAGES * BN) * (E + PAD) bf16.
-template <bool kThreshold>
+template <bool kThreshold, int kKeep>
 __global__ void __launch_bounds__(THREADS)
-    bin_max2_kernel(const __nv_bfloat16* __restrict__ q,   // (B, E)
+    bin_max_kernel(const __nv_bfloat16* __restrict__ q,   // (B, E)
                     const __nv_bfloat16* __restrict__ c,   // (n_pad, E)
                     const float* __restrict__ thr_s,       // (B, L)
                     const int* __restrict__ thr_i,         // (B, L)
@@ -196,9 +204,11 @@ __global__ void __launch_bounds__(THREADS)
           ok = ok && (s < ts[j][e] || (s == ts[j][e] && flat > ti[j][e]));
         s = ok ? s : -CUDART_INF_F;
         const bool gt1 = s > m1[j][e];
-        const bool gt2 = s > m2[j][e];
-        m2[j][e] = gt1 ? m1[j][e] : (gt2 ? s : m2[j][e]);
-        a2[j][e] = gt1 ? a1[j][e] : (gt2 ? flat : a2[j][e]);
+        if (kKeep == 2) {
+          const bool gt2 = s > m2[j][e];
+          m2[j][e] = gt1 ? m1[j][e] : (gt2 ? s : m2[j][e]);
+          a2[j][e] = gt1 ? a1[j][e] : (gt2 ? flat : a2[j][e]);
+        }
         m1[j][e] = gt1 ? s : m1[j][e];
         a1[j][e] = gt1 ? flat : a1[j][e];
       }
@@ -215,14 +225,16 @@ __global__ void __launch_bounds__(THREADS)
         const size_t o = (size_t)row * L + bin0 + j * 8 + 2 * t + (e & 1);
         m1_out[o] = m1[j][e];
         a1_out[o] = a1[j][e];
-        m2_out[o] = m2[j][e];
-        a2_out[o] = a2[j][e];
+        if (kKeep == 2) {
+          m2_out[o] = m2[j][e];
+          a2_out[o] = a2[j][e];
+        }
       }
     }
   }
 }
 
-template <bool kThreshold>
+template <bool kThreshold, int kKeep>
 int launch(const void* q, const void* c, const void* thr_s, const void* thr_i,
            void* m1, void* a1, void* m2, void* a2, int B, int E, int n_pad,
            int L, int n_valid, void* stream) {
@@ -232,11 +244,11 @@ int launch(const void* q, const void* c, const void* thr_s, const void* thr_i,
   const size_t smem =
       (size_t)(BM + STAGES * BN) * (E + PAD) * sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
-      bin_max2_kernel<kThreshold>,
+      bin_max_kernel<kThreshold, kKeep>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(L / BN, (B + BM - 1) / BM);
-  bin_max2_kernel<kThreshold>
+  bin_max_kernel<kThreshold, kKeep>
       <<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(c),
@@ -254,14 +266,21 @@ extern "C" int bin_max2_first_round(const void* q, const void* c, void* m1,
                                     void* a1, void* m2, void* a2, int B,
                                     int E, int n_pad, int L, int n_valid,
                                     void* stream) {
-  return launch<false>(q, c, nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L,
-                       n_valid, stream);
+  return launch<false, 2>(q, c, nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad,
+                          L, n_valid, stream);
 }
 
 extern "C" int bin_max2_round(const void* q, const void* c, const void* thr_s,
                               const void* thr_i, void* m1, void* a1, void* m2,
                               void* a2, int B, int E, int n_pad, int L,
                               int n_valid, void* stream) {
-  return launch<true>(q, c, thr_s, thr_i, m1, a1, m2, a2, B, E, n_pad, L,
-                      n_valid, stream);
+  return launch<true, 2>(q, c, thr_s, thr_i, m1, a1, m2, a2, B, E, n_pad, L,
+                         n_valid, stream);
+}
+
+extern "C" int bin_max_round(const void* q, const void* c, const void* thr_s,
+                             const void* thr_i, void* m, void* a, int B, int E,
+                             int n_pad, int L, int n_valid, void* stream) {
+  return launch<true, 1>(q, c, thr_s, thr_i, m, a, nullptr, nullptr, B, E,
+                         n_pad, L, n_valid, stream);
 }

@@ -11,7 +11,10 @@ Survivor engines (``method``):
 
 - ``"pallas"``: one streaming pass over the int8 catalog
   (``ops/quantized_topk.py``, CUDA kernels on the card), bf16 queries. With
-  ``scale_mode="global"`` the raw pass without scale or bias. The name is
+  ``scale_mode="global"`` the raw pass without scale or bias. With
+  ``pallas_rounds > 1`` the exact rounds over the dequantized scores
+  instead, with at most that many passes per block of 128 query rows (a
+  global scale takes them with every row's scale equal to it). The name is
   the JAX package's, kept so artifacts stay interchangeable.
 - ``"scan"``: per chunk of ``chunk`` rows, int8 queries times int8 codes,
   times the row scale plus the bias, and a running top-``k_over``. The
@@ -164,8 +167,9 @@ class QuantizedIndex:
     ``rescore`` (keep the fp32 table and re-score the survivors); ``chunk``
     (catalog rows per scan step); ``recall_target`` (kept in the artifact;
     the port's per-chunk top-k is exact); ``method`` ("auto", "scan",
-    "pallas"); ``pallas_rounds`` (1: one pass; more raises at query time
-    until the int8 rounds are ported); ``pallas_fold`` (None: the plan's);
+    "pallas"); ``pallas_rounds`` (1: one pass; more: the exact int8 rounds,
+    at most that many passes per query block); ``pallas_fold`` (None: the
+    plan's);
     ``scale_mode`` ("per_row" or "global"). ``device``: where the index
     lives (None: the card).
     """

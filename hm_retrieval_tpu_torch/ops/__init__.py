@@ -2,6 +2,7 @@ from hm_retrieval_tpu_torch.ops.bin_topk import (
     LAUNCHES,
     bin_max2_first_round,
     bin_max2_round,
+    bin_max_round,
     default_bins,
     exact_topk,
     reset_launches,
@@ -12,6 +13,7 @@ __all__ = [
     "LAUNCHES",
     "bin_max2_first_round",
     "bin_max2_round",
+    "bin_max_round",
     "default_bins",
     "exact_topk",
     "reset_launches",

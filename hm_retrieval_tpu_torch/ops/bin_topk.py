@@ -1,32 +1,38 @@
-"""Exact top-k of Q @ C^T by streaming top-2-per-bin rounds.
+"""Exact top-k of Q @ C^T by streaming top-k-per-bin rounds.
 
 Counterpart of the exact path of ``hm_retrieval_tpu/ops/pallas_retrieval.py``
-(``bin_max2_first_round``, ``bin_max2_round``, ``_topk_rounds``,
-``pallas_exact_topk``). Each round streams the catalog once; bin ``b`` of
-chunk ``c`` is catalog row ``c*L + b``, and each (query row, bin) cell keeps
-its lexicographic top-2 under (score desc, index asc). Round 1 takes every
-valid row; round r > 1 takes only rows strictly below the threshold the
-previous round revealed (that round's second element per cell). A merge
+(``bin_max2_first_round``, ``bin_max2_round``, ``bin_max_round``,
+``_topk_rounds``, ``_topk_rounds_lockstep``, ``pallas_exact_topk``). Each
+round streams the catalog once; bin ``b`` of chunk ``c`` is catalog row
+``c*L + b``, and each (query row, bin) cell keeps its lexicographic top-2
+(``keep_per_bin=2``) or top-1 under (score desc, index asc). Round 1 takes
+every valid row; round r > 1 takes only rows strictly below the threshold
+the previous round revealed (that round's weakest element per cell). A merge
 keeps a (B, k) leaderboard, and the rounds stop once every hidden element is
 provably below the k-th value, which gives the exact top-k values in
-1 + (collision depth / 2) rounds.
+1 + (collision depth / keep) rounds, unless ``MAX_ROUNDS`` passes come
+first: a query block then returns its leaderboard as it stands, as the JAX
+package does.
 
-The two passes are hand-written CUDA kernels (``csrc/bin_max2.cu``). Beside
-each is its plain PyTorch version. A wrapper runs the plain version only
+The three passes are hand-written CUDA kernels (``csrc/bin_max2.cu``). Beside
+them is their plain PyTorch version. A wrapper runs the plain version only
 for CPU tensors; for CUDA tensors it launches the kernel or raises, and adds
-one to ``LAUNCHES[<kernel>]`` per launch.
+one to ``LAUNCHES[<kernel>]`` per launch. ``_topk_rounds`` takes its two
+passes as closures, so it also drives the int8 rounds of
+``ops/quantized_topk.py``.
 
 The bin count ``L`` is an explicit argument. Its default, ``default_bins``,
 is the value the JAX package's ``pick_bins`` gives for query blocks of at
-most 128 rows and E <= 256 (8 * k rounded up to a lane-aligned size), so the
-port and the reference take the same rounds at the same ``L``.
+most 128 rows and E <= 256 (4 * keep_per_bin * k rounded up to a
+lane-aligned size), so the port and the reference take the same rounds at
+the same ``L``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -44,7 +50,11 @@ KERNEL_BIN_TILE = 32
 KERNEL_MAX_E = 512
 
 # Launches of each CUDA kernel since the last reset_launches().
-LAUNCHES: Dict[str, int] = {"bin_max2_first_round": 0, "bin_max2_round": 0}
+LAUNCHES: Dict[str, int] = {
+    "bin_max2_first_round": 0,
+    "bin_max2_round": 0,
+    "bin_max_round": 0,
+}
 
 
 def reset_launches() -> None:
@@ -52,14 +62,15 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def default_bins(k: int) -> int:
-    """Smallest lane-aligned L >= 8k, else the largest (2048); L >= k."""
+def default_bins(k: int, keep_per_bin: int = 2) -> int:
+    """Smallest lane-aligned L >= 4 * keep_per_bin * k, else the largest
+    (2048); L >= k."""
     if k > BIN_CHOICES[-1]:
         raise ValueError(
             f"k={k} exceeds the largest bin count {BIN_CHOICES[-1]}"
         )
     for L in BIN_CHOICES:
-        if L >= 8 * k:
+        if L >= 4 * keep_per_bin * k:
             return L
     return BIN_CHOICES[-1]
 
@@ -90,21 +101,22 @@ def plain_scores(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         return q.to(torch.float32) @ c.to(torch.float32).T
 
 
-def bin_max2_plain(
-    q: torch.Tensor,
-    c_padded: torch.Tensor,
+def bin_cells_plain(
+    scores: torch.Tensor,
     L: int,
     n_valid: int,
     thr_s: Optional[torch.Tensor] = None,
     thr_i: Optional[torch.Tensor] = None,
+    keep: int = 2,
 ):
-    """Plain version of both passes (thresholds given: refinement round).
-    One product at fixed shape, then the chunks in increasing order, the
-    same element-wise steps as the kernels."""
-    B = q.shape[0]
-    n_pad = c_padded.shape[0]
-    dev = q.device
-    scores = plain_scores(q, c_padded).view(B, n_pad // L, L)
+    """The cells of one pass over (B, n_pad) fp32 ``scores``, walked chunk
+    by chunk in increasing order with the kernels' element-wise steps: rows
+    >= n_valid and, with thresholds, rows not strictly below the cell's
+    (thr_s, thr_i) score -inf, then the top-2 (or top-1) cascade. Returns
+    (m1, a1, m2, a2), or (m1, a1) for ``keep=1``, each (B, L)."""
+    B, n_pad = scores.shape
+    dev = scores.device
+    scores = scores.view(B, n_pad // L, L)
     m1 = torch.full((B, L), NEG_INF, dtype=torch.float32, device=dev)
     m2 = m1.clone()
     a1 = torch.full((B, L), BIG_IDX, dtype=torch.int32, device=dev)
@@ -118,12 +130,40 @@ def bin_max2_plain(
             ok = ok & ((s < thr_s) | ((s == thr_s) & (flat > thr_i)))
         s = torch.where(ok, s, NEG_INF)
         gt1 = s > m1
-        gt2 = s > m2
-        m2 = torch.where(gt1, m1, torch.where(gt2, s, m2))
-        a2 = torch.where(gt1, a1, torch.where(gt2, flat, a2))
+        if keep == 2:
+            gt2 = s > m2
+            m2 = torch.where(gt1, m1, torch.where(gt2, s, m2))
+            a2 = torch.where(gt1, a1, torch.where(gt2, flat, a2))
         m1 = torch.where(gt1, s, m1)
         a1 = torch.where(gt1, flat, a1)
-    return m1, a1, m2, a2
+    return (m1, a1, m2, a2) if keep == 2 else (m1, a1)
+
+
+def bin_max2_plain(
+    q: torch.Tensor,
+    c_padded: torch.Tensor,
+    L: int,
+    n_valid: int,
+    thr_s: Optional[torch.Tensor] = None,
+    thr_i: Optional[torch.Tensor] = None,
+):
+    """Plain version of the top-2 passes (thresholds given: refinement
+    round): one product at fixed shape, then ``bin_cells_plain``."""
+    return bin_cells_plain(plain_scores(q, c_padded), L, n_valid, thr_s, thr_i)
+
+
+def bin_max_plain(
+    q: torch.Tensor,
+    c_padded: torch.Tensor,
+    thr_s: torch.Tensor,
+    thr_i: torch.Tensor,
+    L: int,
+    n_valid: int,
+):
+    """Plain version of the top-1 pass: (m, a), each (B, L)."""
+    return bin_cells_plain(
+        plain_scores(q, c_padded), L, n_valid, thr_s, thr_i, keep=1
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +174,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "bin_max2_first_round": [_P] * 6 + [_I] * 5 + [_P],
     "bin_max2_round": [_P] * 8 + [_I] * 5 + [_P],
+    "bin_max_round": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 
@@ -185,23 +226,20 @@ def _check(q, c_padded, L, thr_s, thr_i):
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _launch(name, q, c_padded, L, n_valid, thr=()):
+def _launch(name, q, c_padded, L, n_valid, thr=(), keep=2):
     B, E = q.shape
     n_pad = c_padded.shape[0]
     with torch.cuda.device(q.device):
-        m1 = torch.empty((B, L), dtype=torch.float32, device=q.device)
-        a1 = torch.empty((B, L), dtype=torch.int32, device=q.device)
-        m2 = torch.empty_like(m1)
-        a2 = torch.empty_like(a1)
+        outs = []
+        for _ in range(keep):
+            outs.append(torch.empty((B, L), dtype=torch.float32, device=q.device))
+            outs.append(torch.empty((B, L), dtype=torch.int32, device=q.device))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel(name)(
             q.data_ptr(),
             c_padded.data_ptr(),
             *(t.data_ptr() for t in thr),
-            m1.data_ptr(),
-            a1.data_ptr(),
-            m2.data_ptr(),
-            a2.data_ptr(),
+            *(t.data_ptr() for t in outs),
             B,
             E,
             n_pad,
@@ -212,7 +250,7 @@ def _launch(name, q, c_padded, L, n_valid, thr=()):
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     LAUNCHES[name] += 1
-    return m1, a1, m2, a2
+    return tuple(outs)
 
 
 def bin_max2_first_round(
@@ -244,6 +282,24 @@ def bin_max2_round(
     )
 
 
+def bin_max_round(
+    q: torch.Tensor,
+    c_padded: torch.Tensor,
+    thr_s: torch.Tensor,
+    thr_i: torch.Tensor,
+    L: int,
+    n_valid: int,
+):
+    """Single-keep pass: the top-1 per cell among elements strictly below
+    (thr_s, thr_i); round 1 passes +inf / -1. Returns (m, a), each (B, L)."""
+    _check(q, c_padded, L, thr_s, thr_i)
+    if not q.is_cuda:
+        return bin_max_plain(q, c_padded, thr_s, thr_i, L, n_valid)
+    return _launch(
+        "bin_max_round", q, c_padded, L, n_valid, (thr_s, thr_i), keep=1
+    )
+
+
 # ---------------------------------------------------------------------------
 # Drivers
 # ---------------------------------------------------------------------------
@@ -256,44 +312,79 @@ def _dominated(nthr_s: torch.Tensor, lead_v: torch.Tensor, k: int):
     return (nthr_s.amax(dim=1) < lead_v[:, k - 1]).all()
 
 
+def _revealed(cells):
+    """(values, rows, next thr_s, next thr_i) of a pass's cells: both
+    slots and the second as the threshold for keep 2, the one slot for
+    keep 1."""
+    if len(cells) == 2:
+        m, a = cells
+        return m, a, m, a
+    m1, a1, m2, a2 = cells
+    return torch.cat([m1, m2], dim=1), torch.cat([a1, a2], dim=1), m2, a2
+
+
 def _topk_rounds(
-    q: torch.Tensor,
-    c_padded: torch.Tensor,
+    first: Callable[[], tuple],
+    refine: Callable[[torch.Tensor, torch.Tensor], tuple],
     k: int,
-    L: int,
-    n_valid: int,
+    max_rounds: int = MAX_ROUNDS,
+    skip_unimproved: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Refinement loop for ONE query block. The host reads one pair of
-    flags per refinement round (improved, done if the leaderboard is
-    kept), and the done flag once more after a merge."""
-    m1, a1, m2, a2 = bin_max2_first_round(q, c_padded, L, n_valid)
-    lead_v, lead_i = topk_pair(
-        torch.cat([m1, m2], dim=1), torch.cat([a1, a2], dim=1), k
-    )
-    thr_s, thr_i = m2, a2
+    """Refinement loop of one query block: ``first()`` is round 1 and
+    ``refine(thr_s, thr_i)`` a round below the given thresholds, each
+    returning the pass's cells, (m1, a1, m2, a2) or (m, a). With
+    ``skip_unimproved`` a round that reveals nothing above the k-th value
+    skips its merge; the host then reads one pair of flags per refinement
+    round (improved, done if the leaderboard is kept), and the done flag
+    once more after a merge. The stop test holds for every row the passes
+    cover."""
+    vals, idxs, thr_s, thr_i = _revealed(first())
+    lead_v, lead_i = topk_pair(vals, idxs, k)
     done = bool(_dominated(thr_s, lead_v, k))
     rounds = 1
-    while not done and rounds < MAX_ROUNDS:
-        m1, a1, m2, a2 = bin_max2_round(q, c_padded, thr_s, thr_i, L, n_valid)
-        vals = torch.cat([m1, m2], dim=1)
-        idxs = torch.cat([a1, a2], dim=1)
-        # A revealed element <= the k-th value cannot change the top-k
-        # values, so a round that reveals none above it skips the merge.
-        improved = (vals > lead_v[:, k - 1 : k]).any()
-        improved, done = torch.stack(
-            [improved, _dominated(m2, lead_v, k)]
-        ).tolist()
+    while not done and rounds < max_rounds:
+        vals, idxs, thr_s, thr_i = _revealed(refine(thr_s, thr_i))
+        improved = True
+        if skip_unimproved:
+            # A revealed element <= the k-th value cannot change the top-k
+            # values, so a round that reveals none above it skips the merge.
+            improved, done = torch.stack(
+                [(vals > lead_v[:, k - 1 : k]).any(),
+                 _dominated(thr_s, lead_v, k)]
+            ).tolist()
         if improved:
-            # one width-(k + 2L) sort merges leaderboard and revealed
+            # one width-(k + revealed) sort merges leaderboard and revealed
             lead_v, lead_i = topk_pair(
                 torch.cat([lead_v, vals], dim=1),
                 torch.cat([lead_i, idxs], dim=1),
                 k,
             )
-            done = bool(_dominated(m2, lead_v, k))
-        thr_s, thr_i = m2, a2
+            done = bool(_dominated(thr_s, lead_v, k))
         rounds += 1
     return lead_v, lead_i, rounds
+
+
+def _exact_passes(q, c_padded, L, n_valid, keep_per_bin):
+    """(first, refine) of the bf16 passes over the query rows ``q``: the
+    top-2 kernels, or for ``keep_per_bin=1`` the top-1 kernel, whose round
+    1 is a launch at +inf / -1 thresholds."""
+    if keep_per_bin == 2:
+        return (
+            lambda: bin_max2_first_round(q, c_padded, L, n_valid),
+            lambda ts, ti: bin_max2_round(q, c_padded, ts, ti, L, n_valid),
+        )
+    B = q.shape[0]
+
+    def refine(ts, ti):
+        return bin_max_round(q, c_padded, ts, ti, L, n_valid)
+
+    def first():
+        return refine(
+            torch.full((B, L), float("inf"), device=q.device),
+            torch.full((B, L), -1, dtype=torch.int32, device=q.device),
+        )
+
+    return first, refine
 
 
 def exact_topk(
@@ -302,36 +393,60 @@ def exact_topk(
     k: int,
     L: Optional[int] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
+    keep_per_bin: int = 2,
+    lockstep: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Exact top-k of Q @ C^T via streaming bin-max rounds.
 
     Operands are cast to ``compute_dtype`` (bf16, with fp32 accumulation);
     the CUDA kernels take bf16 only, and ``torch.float32`` is a CPU-only
-    choice that runs the plain versions at full precision. Queries run in
-    blocks of ``Q_BLOCK`` rows, each with its own refinement loop of at
-    most ``MAX_ROUNDS`` passes.
+    choice that runs the plain versions at full precision. Each pass keeps
+    ``keep_per_bin`` (1 or 2) elements per cell. Queries run in blocks of
+    ``Q_BLOCK`` rows, each with its own refinement loop of at most
+    ``MAX_ROUNDS`` passes; with ``lockstep`` (keep 2, B a multiple of
+    ``Q_BLOCK`` when B > ``Q_BLOCK``) all blocks refine together and merge
+    at full batch width.
 
     Returns (values (B, k) fp32, catalog rows (B, k) int32, rounds = the
     maximum over query blocks)."""
     B, E = queries.shape
     N = candidates.shape[0]
+    if keep_per_bin not in (1, 2):
+        raise ValueError("keep_per_bin must be 1 or 2")
     if candidates.device != queries.device:
         raise ValueError("queries and candidates must be on one device")
     if L is None:
-        L = default_bins(k)
+        L = default_bins(k, keep_per_bin)
     if k > L:
         raise ValueError(f"k={k} must be <= L={L}")
     if k > N:
         raise ValueError(f"k={k} > N={N}")
+    lockstep = lockstep and B > Q_BLOCK  # one block: the per-block loop
+    if lockstep and (keep_per_bin != 2 or B % Q_BLOCK):
+        raise ValueError(
+            "lockstep needs keep_per_bin=2 and B divisible by "
+            f"{Q_BLOCK} (B={B}, keep_per_bin={keep_per_bin})"
+        )
     n_pad = -(-N // L) * L
     q = queries.to(compute_dtype).contiguous()
     c_padded = torch.zeros(
         (n_pad, E), dtype=compute_dtype, device=candidates.device
     )
     c_padded[:N] = candidates.to(compute_dtype)
+    if lockstep:
+        # Every block refines in lockstep: one launch per round covers all
+        # B rows (a cell's result does not depend on the other rows, so it
+        # equals the JAX package's per-block launches), every round merges
+        # at full batch width, and the batch is done when every row is.
+        return _topk_rounds(
+            *_exact_passes(q, c_padded, L, N, 2), k, skip_unimproved=False
+        )
     vs, idxs, rounds = [], [], 0
     for s in range(0, B, Q_BLOCK):
-        v, i, r = _topk_rounds(q[s : s + Q_BLOCK], c_padded, k, L, N)
+        v, i, r = _topk_rounds(
+            *_exact_passes(q[s : s + Q_BLOCK], c_padded, L, N, keep_per_bin),
+            k,
+        )
         vs.append(v)
         idxs.append(i)
         rounds = max(rounds, r)

@@ -1,12 +1,12 @@
-"""Single-pass top-k survivor selection over an int8 catalog.
+"""Top-k survivor selection over an int8 catalog: one pass, or exact rounds.
 
-Counterpart of the single-pass parts of
-``hm_retrieval_tpu/ops/pallas_retrieval.py``: the three passes
-``bin_max2_scaled_single_pass`` (no fold), ``bin_max2_scaled_fold_pass``
-(fold tournament) and ``bin_max2_raw_fold_pass`` (one global scale, raw dot
-products), the single-pass branch of ``pallas_quantized_topk``
-(``quantized_topk``) and ``pallas_quantized_topk_global``
-(``quantized_topk_global``).
+Counterpart of the int8 parts of ``hm_retrieval_tpu/ops/pallas_retrieval.py``:
+the three single passes ``bin_max2_scaled_single_pass`` (no fold),
+``bin_max2_scaled_fold_pass`` (fold tournament) and
+``bin_max2_raw_fold_pass`` (one global scale, raw dot products), the two
+rounds passes ``bin_max2_scaled_first_round`` and ``bin_max2_scaled_round``,
+``pallas_quantized_topk`` (``quantized_topk``) and
+``pallas_quantized_topk_global`` (``quantized_topk_global``).
 
 One pass streams the catalog once. Sub-tile ``u`` is catalog rows
 ``u*L .. u*L + L - 1`` (bin ``b`` is row ``u*L + b``); ``F`` consecutive
@@ -17,21 +17,31 @@ per query row gives the survivors. The scores are
 ``(q . codes) * scale + bias`` (bias 0 or -inf, which also masks invalid and
 padded rows), or the raw ``q . codes`` for a catalog with one global scale.
 
-The three passes are one hand-written CUDA kernel template
-(``csrc/bin_max2_single_pass.cu``). Beside them is their plain PyTorch
-version. A wrapper runs the plain version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises, and adds one to
-``LAUNCHES[<kernel>]`` per launch.
+With ``max_rounds > 1`` the survivors are instead the exact top-k of the
+dequantized scores: ``bin_topk._topk_rounds`` refines each block of
+``Q_BLOCK`` query rows with the rounds passes (F = 1, rows >= n_valid
+masked and chunks wholly past them not streamed, round r > 1 below round
+r-1's thresholds) until nothing hidden can enter the top k, or
+``max_rounds`` passes have run.
 
-The plan. Fold F and bin count L decide which rows survive, so the port
-picks what the JAX package picks: ``single_pass_plan`` is the arithmetic of
-the JAX package's ``_single_pass_policy``, ``pick_bins(first_pass=True)``
-and ``vmem_estimate_first``, with its off-TPU budget of 15,000,000 bytes.
-That budget is the JAX package's choice, kept so that both packages select
-the same survivors; it is not a rule about Hopper's memory. The port
-launches one kernel for the whole batch, not one per ``q_block``: in a
-single pass every query row's cells are independent of the other rows', so
-``q_block`` changes the result only through L, which the plan fixes.
+The five passes are one hand-written CUDA kernel template
+(``csrc/bin_max2_int8.cu``). Beside them are their plain PyTorch versions. A
+wrapper runs the plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises, and adds one to ``LAUNCHES[<kernel>]`` per
+launch.
+
+The plan. Fold F and bin count L decide which rows survive a single pass,
+so the port picks what the JAX package picks: ``single_pass_plan`` is the
+arithmetic of the JAX package's ``_single_pass_policy``,
+``pick_bins(first_pass=True)`` and ``vmem_estimate_first``, with its off-TPU
+budget of 15,000,000 bytes. That budget is the JAX package's choice, kept so
+that both packages select the same survivors; it is not a rule about
+Hopper's memory. The port launches one single pass for the whole batch, not
+one per ``q_block``: in a single pass every query row's cells are
+independent of the other rows', so ``q_block`` changes the result only
+through L, which the plan fixes. The rounds cannot: their stop rule and
+their ``max_rounds`` cap hold per block, so they run one loop per block of
+``Q_BLOCK`` rows, at the JAX package's rounds L, ``default_bins(k)``.
 """
 
 from __future__ import annotations
@@ -46,7 +56,12 @@ from hm_retrieval_tpu_torch.ops.bin_topk import (
     BIG_IDX,
     BIN_CHOICES,
     KERNEL_BIN_TILE,
+    MAX_ROUNDS,
     NEG_INF,
+    Q_BLOCK,
+    _topk_rounds,
+    bin_cells_plain,
+    default_bins,
     plain_scores,
 )
 from hm_retrieval_tpu_torch.ops.topk import topk_pair
@@ -63,6 +78,8 @@ LAUNCHES: Dict[str, int] = {
     "bin_max2_scaled_single_pass": 0,
     "bin_max2_scaled_fold_pass": 0,
     "bin_max2_raw_fold_pass": 0,
+    "bin_max2_scaled_first_round": 0,
+    "bin_max2_scaled_round": 0,
 }
 
 
@@ -130,7 +147,7 @@ def single_pass_plan(
 
 
 # ---------------------------------------------------------------------------
-# Plain version
+# Plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -177,6 +194,23 @@ def single_pass_plain(
     return m1, a1, m2, a2
 
 
+def scaled_round_plain(
+    q: torch.Tensor,
+    codes: torch.Tensor,
+    scales: torch.Tensor,
+    bias: torch.Tensor,
+    L: int,
+    n_valid: int,
+    thr_s: Optional[torch.Tensor] = None,
+    thr_i: Optional[torch.Tensor] = None,
+):
+    """Plain version of both rounds passes (thresholds given: a refinement
+    round): the fp32 product of the operands upcast, ``*scale + bias``, then
+    the cells chunk by chunk (``bin_topk.bin_cells_plain``)."""
+    scores = plain_scores(q, codes) * scales + bias
+    return bin_cells_plain(scores, L, n_valid, thr_s, thr_i)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -186,18 +220,20 @@ _ARGTYPES = {
     "bin_max2_scaled_single_pass": [_P] * 8 + [_I] * 4 + [_P],
     "bin_max2_scaled_fold_pass": [_P] * 8 + [_I] * 5 + [_P],
     "bin_max2_raw_fold_pass": [_P] * 6 + [_I] * 5 + [_P],
+    "bin_max2_scaled_first_round": [_P] * 8 + [_I] * 5 + [_P],
+    "bin_max2_scaled_round": [_P] * 10 + [_I] * 5 + [_P],
 }
 
 
 def _kernel(name: str):
-    fn = getattr(_build.load("bin_max2_single_pass"), name)
+    fn = getattr(_build.load("bin_max2_int8"), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, codes, L, F, scales, bias):
+def _check(q, codes, L, F, scales, bias, thr_s=None, thr_i=None):
     if q.dim() != 2 or codes.dim() != 2:
         raise ValueError("q must be (B, E) and codes (N, E)")
     B, E = q.shape
@@ -217,6 +253,12 @@ def _check(q, codes, L, F, scales, bias):
             if t.shape != (n_rows,) or t.dtype != torch.float32:
                 raise ValueError(f"{name} must be float32 of shape ({n_rows},)")
         tensors += [scales, bias]
+    if thr_s is not None:
+        if thr_s.shape != (B, L) or thr_i.shape != (B, L):
+            raise ValueError(f"thresholds must be ({B}, {L})")
+        if thr_s.dtype != torch.float32 or thr_i.dtype != torch.int32:
+            raise TypeError("thr_s must be float32 and thr_i int32")
+        tensors += [thr_s, thr_i]
     if any(t.device != q.device for t in tensors):
         raise ValueError("all inputs must be on one device")
     if q.is_cuda:
@@ -235,30 +277,29 @@ def _check(q, codes, L, F, scales, bias):
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _launch(name, q, codes, L, F, scales=None, bias=None):
+def _launch(name, q, codes, L, tensors=(), ints=()):
+    """Launch ``name`` on (q, codes, *tensors) into four (B, L) outputs,
+    with the int arguments (B, E, catalog rows, L, *ints)."""
     B, E = q.shape
-    n_rows = codes.shape[0]
     with torch.cuda.device(q.device):
         m1 = torch.empty((B, L), dtype=torch.float32, device=q.device)
         a1 = torch.empty((B, L), dtype=torch.int32, device=q.device)
         m2 = torch.empty_like(m1)
         a2 = torch.empty_like(a1)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        scaled = () if scales is None else (scales.data_ptr(), bias.data_ptr())
-        fold = () if name == "bin_max2_scaled_single_pass" else (F,)
         err = _kernel(name)(
             q.data_ptr(),
             codes.data_ptr(),
-            *scaled,
+            *(t.data_ptr() for t in tensors),
             m1.data_ptr(),
             a1.data_ptr(),
             m2.data_ptr(),
             a2.data_ptr(),
             B,
             E,
-            n_rows,
+            codes.shape[0],
             L,
-            *fold,
+            *ints,
             stream,
         )
     if err != 0:
@@ -281,7 +322,7 @@ def bin_max2_scaled_single_pass(
     if not q.is_cuda:
         return single_pass_plain(q, codes_padded, L, 1, scales, bias)
     return _launch(
-        "bin_max2_scaled_single_pass", q, codes_padded, L, 1, scales, bias
+        "bin_max2_scaled_single_pass", q, codes_padded, L, (scales, bias)
     )
 
 
@@ -299,7 +340,7 @@ def bin_max2_scaled_fold_pass(
     if not q.is_cuda:
         return single_pass_plain(q, codes_padded, L, F, scales, bias)
     return _launch(
-        "bin_max2_scaled_fold_pass", q, codes_padded, L, F, scales, bias
+        "bin_max2_scaled_fold_pass", q, codes_padded, L, (scales, bias), (F,)
     )
 
 
@@ -309,7 +350,58 @@ def bin_max2_raw_fold_pass(q: torch.Tensor, codes: torch.Tensor, L: int, F: int)
     _check(q, codes, L, F, None, None)
     if not q.is_cuda:
         return single_pass_plain(q, codes, L, F)
-    return _launch("bin_max2_raw_fold_pass", q, codes, L, F)
+    return _launch("bin_max2_raw_fold_pass", q, codes, L, (), (F,))
+
+
+def _check_rounds(q, codes_padded, scales, bias, L, n_valid, thr_s, thr_i):
+    _check(q, codes_padded, L, 1, scales, bias, thr_s, thr_i)
+    if not 0 <= n_valid <= codes_padded.shape[0]:
+        raise ValueError(
+            f"n_valid={n_valid} outside [0, {codes_padded.shape[0]}]"
+        )
+
+
+def bin_max2_scaled_first_round(
+    q: torch.Tensor,
+    codes_padded: torch.Tensor,
+    scales: torch.Tensor,
+    bias: torch.Tensor,
+    L: int,
+    n_valid: int,
+):
+    """Round 1 of the int8 rounds: top-2 per (row, bin) of
+    (q . codes)*scale + bias over the rows < n_valid. Returns
+    (m1, a1, m2, a2), each (B, L): fp32 scores, int32 catalog rows."""
+    _check_rounds(q, codes_padded, scales, bias, L, n_valid, None, None)
+    if not q.is_cuda:
+        return scaled_round_plain(q, codes_padded, scales, bias, L, n_valid)
+    return _launch(
+        "bin_max2_scaled_first_round", q, codes_padded, L, (scales, bias),
+        (n_valid,),
+    )
+
+
+def bin_max2_scaled_round(
+    q: torch.Tensor,
+    codes_padded: torch.Tensor,
+    scales: torch.Tensor,
+    bias: torch.Tensor,
+    thr_s: torch.Tensor,
+    thr_i: torch.Tensor,
+    L: int,
+    n_valid: int,
+):
+    """A refinement round of the int8 rounds: as round 1, among elements
+    strictly below (thr_s, thr_i) under (score desc, index asc)."""
+    _check_rounds(q, codes_padded, scales, bias, L, n_valid, thr_s, thr_i)
+    if not q.is_cuda:
+        return scaled_round_plain(
+            q, codes_padded, scales, bias, L, n_valid, thr_s, thr_i
+        )
+    return _launch(
+        "bin_max2_scaled_round", q, codes_padded, L,
+        (scales, bias, thr_s, thr_i), (n_valid,),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -347,43 +439,74 @@ def quantized_topk(
     n_valid: Optional[int] = None,
     bias: Optional[torch.Tensor] = None,
     L: Optional[int] = None,
-    max_rounds: int = 1,
+    max_rounds: int = MAX_ROUNDS,
     compute_dtype: torch.dtype = torch.bfloat16,
     fold: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Top-k survivors of Q @ (codes * scales)^T in one pass over the int8
-    catalog: the single-pass branch (``max_rounds=1``) of the JAX package's
-    ``pallas_quantized_topk``. Rows >= ``n_valid`` and rows with a -inf
-    ``bias`` are never selected; with fewer than k such rows the tail slots
-    hold -inf / ``BIG_IDX``.
+    """Top-k survivors of Q @ (codes * scales)^T over the int8 catalog: the
+    JAX package's ``pallas_quantized_topk``. Rows >= ``n_valid`` and rows
+    with a -inf ``bias`` are never selected; with fewer than k such rows the
+    tail slots hold -inf / ``BIG_IDX``.
+
+    ``max_rounds=1``: one pass at ``single_pass_plan``'s fold and L.
+    Otherwise the rounds, exact over the dequantized scores for every
+    block of ``Q_BLOCK`` query rows whose stop rule holds within
+    ``max_rounds`` passes (L = ``default_bins(k)``; ``fold > 1`` raises).
 
     Operands are cast to ``compute_dtype`` (bf16, fp32 sums); the CUDA
     kernels take bf16 only, and ``torch.float32`` is a CPU-only choice.
-    Returns (values (B, k) fp32, catalog rows (B, k) int32, rounds = 1)."""
+    Returns (values (B, k) fp32, catalog rows (B, k) int32, rounds = the
+    maximum over query blocks, 1 for the single pass)."""
     B, E = queries.shape
     N = codes.shape[0]
-    if max_rounds != 1:
-        raise NotImplementedError(
-            f"max_rounds={max_rounds}: the int8 refinement rounds are not "
-            "ported yet (ROADMAP.md Queue 1, slice 2: pallas_rounds > 1)"
-        )
     n_valid = N if n_valid is None else n_valid
     if n_valid > N:
         raise ValueError(f"n_valid={n_valid} > catalog rows {N}")
     if k > n_valid:
         raise ValueError(f"k={k} > n_valid={n_valid}")
-    fold, L = _resolve_bins(B, E, k, N, L, fold)
+    rounds = max_rounds != 1
+    if rounds:
+        if fold is not None and fold > 1:
+            raise ValueError(
+                "fold > 1 applies to single-pass mode (max_rounds=1) only"
+            )
+        fold = 1
+        if L is None:
+            L = default_bins(k)
+        if k > L:
+            raise ValueError(f"k={k} must be <= L={L}")
+    else:
+        fold, L = _resolve_bins(B, E, k, N, L, fold)
     chunk = fold * L
-    n_pad = -(-N // chunk) * chunk
-    dev = queries.device
-    codes_p = _pad_rows(codes, n_pad)
-    scales_p = _pad_rows(scales.to(torch.float32), n_pad)
-    bias_p = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    # The rounds mask rows >= n_valid themselves, so they stream only the
+    # chunks that hold a valid row; the single pass streams every row.
+    n_pad = -(-(n_valid if rounds else N) // chunk) * chunk
+    codes_p = _pad_rows(codes[:n_pad], n_pad)
+    scales_p = _pad_rows(scales[:n_pad].to(torch.float32), n_pad)
+    bias_p = torch.zeros(n_pad, dtype=torch.float32, device=queries.device)
     if bias is not None:
-        bias_p[:N] = bias.to(torch.float32)
-    # validity and padding ride the bias as -inf: the kernel has no mask
-    bias_p[n_valid:] = NEG_INF
+        bias_p[: min(N, n_pad)] = bias[:n_pad].to(torch.float32)
     q = queries.to(compute_dtype).contiguous()
+    if rounds:
+        vs, idxs, most = [], [], 0
+        for s in range(0, B, Q_BLOCK):
+            qb = q[s : s + Q_BLOCK]
+            v, i, r = _topk_rounds(
+                lambda: bin_max2_scaled_first_round(
+                    qb, codes_p, scales_p, bias_p, L, n_valid
+                ),
+                lambda ts, ti: bin_max2_scaled_round(
+                    qb, codes_p, scales_p, bias_p, ts, ti, L, n_valid
+                ),
+                k,
+                max_rounds,
+            )
+            vs.append(v)
+            idxs.append(i)
+            most = max(most, r)
+        return torch.cat(vs), torch.cat(idxs), most
+    # validity and padding ride the bias as -inf: the single pass has no mask
+    bias_p[n_valid:] = NEG_INF
     if fold > 1:
         m1, a1, m2, a2 = bin_max2_scaled_fold_pass(
             q, codes_p, scales_p, bias_p, L, fold

@@ -145,12 +145,18 @@ def test_failed_build_raises(monkeypatch, tmp_path):
 
 
 def test_sources_and_launch_counters():
-    assert _build.sources() == ["bin_max2", "bin_max2_single_pass"]
-    assert set(bt.LAUNCHES) == {"bin_max2_first_round", "bin_max2_round"}
+    assert _build.sources() == ["bin_max2", "bin_max2_int8"]
+    assert set(bt.LAUNCHES) == {
+        "bin_max2_first_round",
+        "bin_max2_round",
+        "bin_max_round",
+    }
     assert set(qt.LAUNCHES) == {
         "bin_max2_scaled_single_pass",
         "bin_max2_scaled_fold_pass",
         "bin_max2_raw_fold_pass",
+        "bin_max2_scaled_first_round",
+        "bin_max2_scaled_round",
     }
     bt.LAUNCHES["bin_max2_round"] += 3
     qt.LAUNCHES["bin_max2_raw_fold_pass"] += 2
@@ -160,7 +166,13 @@ def test_sources_and_launch_counters():
     assert set(qt.LAUNCHES.values()) == {0}
     # the plain CPU path does not count as a kernel launch
     bt.exact_topk(torch.randn(3, 16), torch.randn(700, 16), 5, L=256)
+    bt.exact_topk(torch.randn(3, 16), torch.randn(700, 16), 5, L=256,
+                  keep_per_bin=1)
+    bt.exact_topk(torch.randn(256, 16), torch.randn(700, 16), 5, L=256,
+                  lockstep=True)
     codes = torch.randint(-127, 128, (1024, 16), dtype=torch.int8)
+    qt.quantized_topk(torch.randn(3, 16), codes, torch.rand(1024), 5, L=256,
+                      max_rounds=1)
     qt.quantized_topk(torch.randn(3, 16), codes, torch.rand(1024), 5, L=256)
     qt.quantized_topk_global(torch.randn(3, 16), codes, 0.1, 5, L=256)
     assert set(bt.LAUNCHES.values()) == {0}

@@ -191,13 +191,6 @@ class TestIndexParity:
         got = got.topk_from_embeddings(torch.tensor(q))
         _assert_same_topk(got, want, ids, None, exact=True)
 
-    def test_pallas_rounds_above_one_raise(self, rng):
-        ids, emb, q = _data(rng, "normal", n=300)
-        idx = QuantizedIndex(4, ids, emb, method="pallas", pallas_rounds=2,
-                             device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            idx.topk_from_embeddings(torch.tensor(q))
-
     def test_query_and_build_from_batches(self, rng):
         ids, emb, q = _data(rng, "normal", n=700)
         weights = torch.tensor(emb)

@@ -177,7 +177,7 @@ class TestDrivers:
         )
         v, i, rounds = qt.quantized_topk(
             torch.tensor(q), torch.tensor(codes), torch.tensor(scales), k,
-            n_valid=n_valid, bias=torch.tensor(bias), L=L,
+            n_valid=n_valid, bias=torch.tensor(bias), L=L, max_rounds=1,
             compute_dtype=tdt, fold=fold,
         )
         assert rounds == int(wr) == 1
@@ -201,7 +201,8 @@ class TestDrivers:
             max_rounds=1, interpret=True,
         )
         v, i, _ = qt.quantized_topk(
-            torch.tensor(q), torch.tensor(codes), torch.tensor(scales), k
+            torch.tensor(q), torch.tensor(codes), torch.tensor(scales), k,
+            max_rounds=1,
         )
         np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
         np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
@@ -251,13 +252,6 @@ class TestDrivers:
         )
         assert torch.equal(i, torch.arange(4, dtype=torch.int32).expand(2, 4))
         assert bool((v == 8.0).all())
-
-    def test_max_rounds_above_one_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            qt.quantized_topk(
-                torch.zeros(2, 16), torch.zeros(1024, 16, dtype=torch.int8),
-                torch.ones(1024), 5, max_rounds=2,
-            )
 
     def test_driver_validation(self):
         codes = torch.zeros(1024, 16, dtype=torch.int8)
