@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Time the exact passes' kernels (csrc/bin_max2.cu) on one card: two trees
+side by side, or ablated builds of this tree's kernel.
+
+    python3 bin_max_bench.py ab --tree OLD --tree NEW [--seed 0]
+    python3 bin_max_bench.py serve --tree OLD --tree NEW [--pairs 5]
+    python3 bin_max_bench.py ablate [--seed 0]
+
+``ab`` times kernels 1, 2 and 8 and ``exact_topk`` from each tree's own
+``hm_retrieval_tpu_torch`` (for example a ``git archive`` of an earlier
+commit unpacked under ``build/``), one process per tree in the order OLD,
+NEW, NEW, OLD, so that a drift of the card or host shows as a difference
+between the two readings of one tree. Every tree is timed by the same
+functions (``chip_smoke.graph_ms``, ``chip_smoke.cuda_ms``) over the same
+seeded inputs: the 105,542-row H&M-sized catalog, E=128, bf16, normal.
+
+- kernel 1 (``bin_max2_first_round``) and kernel 2 (``bin_max2_round``, on
+  the thresholds of its own round 1) at B = 1, 16, 128, L=2048; kernel 8
+  (``bin_max_round`` on the thresholds of its own +inf round) at B=128,
+  L = 2048 and 512. ``ms``: 50 launches replayed from one CUDA graph
+  (device time); ``events_ms``: 50 back-to-back launches by CUDA events
+  (the wrapper's host time where that is longer).
+- ``exact_topk`` at k=1000, B = 1, 16, 128, 1024: the median of 10 calls,
+  each timed by CUDA events (host syncs included, as served); then 5 calls
+  under ``torch.profiler``: device ms a call of the bin-max kernels and of
+  every other kernel, and the share of the profiled window in which the
+  card ran no kernel (the profiler's own host cost included).
+
+``serve`` runs ``chip_smoke.py``'s phase 3 (the exact index serving string
+requests at full H&M width, B = 1, 16, 128, 1024, with its stage breakdown)
+on each tree's package, one process each, in ``--pairs`` pairs that
+alternate which tree runs first.
+
+``ablate`` builds this tree's ``bin_max2.cu`` as it is and with parts of
+the kernel's walk replaced (the outputs of those builds are wrong; only
+their time is read) and with the cluster size forced, and times kernels 1-2
+at B = 1, 16, 128, L=2048 (kernel 1 also at L = 1024 and 512 for the
+cluster sizes). The forced cluster sizes must give the as-is outputs bit
+for bit. Variants:
+
+- ``as_is``: the kernel as it is;
+- ``no_cascade``: the top-2 cascade replaced by one max a cell;
+- ``no_mma``: each ``mma.sync`` removed, its operands still loaded;
+- ``neither``: both;
+- ``ring_only``: the ring's copies and barriers, nothing computed;
+- ``c1`` .. ``c8``: the cluster size forced to 1, 2, 4, 8.
+
+Each line printed is one JSON object; needs a card, exits 2 without one.
+"""
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+import chip_smoke as cs  # noqa: E402  (torch and numpy only at import)
+
+TIMED = (1, 16, 128)
+TOPK_BATCHES = (1, 16, 128, 1024)
+K = 1000
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def catalog(gen, dev, L):
+    n_pad = -(-cs.N_ARTICLES // L) * L
+    c_pad = torch.zeros(n_pad, cs.E, dtype=torch.bfloat16, device=dev)
+    c_pad[: cs.N_ARTICLES] = cs.random_rows(gen, dev, "normal", cs.N_ARTICLES)
+    return c_pad
+
+
+def time_launch(launch):
+    return {"ms": cs.graph_ms(launch, 50), "events_ms": cs.cuda_ms(launch, 50)}
+
+
+def kernel_rows(bt, gen, dev, batches=TIMED, bins=(2048,), kernels=(1, 2)):
+    """Timings of kernels 1-2 (and 8) at each (L, B), with their bounds."""
+    N = cs.N_ARTICLES
+    for L in bins:
+        c_pad = catalog(gen, dev, L)
+        q_all = cs.random_rows(gen, dev, "normal", cs.Q_BLOCK)
+        for B in batches:
+            q = q_all[:B]
+            first = bt.bin_max2_first_round(q, c_pad, L, N)
+            runs = {
+                1: (lambda: bt.bin_max2_first_round(q, c_pad, L, N), False, 4),
+                2: (lambda: bt.bin_max2_round(q, c_pad, first[2], first[3],
+                                              L, N), True, 4),
+            }
+            if 8 in kernels:
+                inf_s = torch.full((B, L), float("inf"), device=dev)
+                inf_i = torch.full((B, L), -1, dtype=torch.int32, device=dev)
+                top1 = bt.bin_max_round(q, c_pad, inf_s, inf_i, L, N)
+                runs[8] = (lambda: bt.bin_max_round(q, c_pad, *top1, L, N),
+                           True, 2)
+            for kernel in kernels:
+                launch, thr, outputs = runs[kernel]
+                bound, by = cs.pass_bound_ms(B, c_pad.shape[0], L, thr,
+                                             outputs=outputs)
+                yield {"kernel": kernel, "L": L, "B": B, **time_launch(launch),
+                       "bound_ms": bound, "bound_by": by}
+
+
+def import_tree(tree):
+    """``bin_topk`` of the hm_retrieval_tpu_torch under ``tree``."""
+    sys.path.insert(0, str(Path(tree).resolve()))
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+
+    where = Path(bt.__file__).resolve()
+    if Path(tree).resolve() not in where.parents:
+        raise RuntimeError(f"imported {where}, not the tree {tree}")
+    return bt
+
+
+def time_tree(tree, seed):
+    """Kernels and exact_topk of the hm_retrieval_tpu_torch under ``tree``."""
+    bt = import_tree(tree)
+    from hm_retrieval_tpu_torch.ops import _build
+
+    _build.build_all(["bin_max2"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for row in kernel_rows(bt, gen, dev, kernels=(1, 2)):
+        emit({"tree": tree, **row})
+    for row in kernel_rows(bt, gen, dev, batches=(cs.Q_BLOCK,),
+                           bins=(2048, 512), kernels=(8,)):
+        emit({"tree": tree, **row})
+    cand = cs.random_rows(gen, dev, "normal", cs.N_ARTICLES)
+    for B in TOPK_BATCHES:
+        q = cs.random_rows(gen, dev, "normal", B)
+        bt.exact_topk(q, cand, K)
+        times = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, _, rounds = bt.exact_topk(q, cand, K)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        emit({"tree": tree, "exact_topk": {"B": B, "k": K, "rounds": rounds,
+                                           "median_ms": statistics.median(times),
+                                           "ms": times}})
+        emit({"tree": tree, "profile": {"B": B, **profile_topk(bt, q, cand)}})
+
+
+def profile_topk(bt, q, cand, calls=5):
+    """Device time a call of exact_topk's kernels by torch.profiler: the
+    bin-max kernels' and the others', and the share of the profiled window
+    in which the card ran no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(calls):
+            bt.exact_topk(q, cand, K)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    spans = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = {"bin_max": 0.0, "other": 0.0}
+    for e in spans:
+        key = "bin_max" if "bin_max_kernel" in e.name else "other"
+        busy[key] += e.time_range.elapsed_us() / 1e3
+    return {
+        "calls": calls, "device_events": len(spans),
+        "wall_ms": wall_ms / calls,
+        "device_ms": {key: ms / calls for key, ms in busy.items()},
+        "idle_share": 1 - sum(busy.values()) / wall_ms if spans else None,
+    }
+
+
+def serve_tree(tree, seed):
+    """chip_smoke.py's phase 3 on the hm_retrieval_tpu_torch under ``tree``."""
+    import_tree(tree)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cs.phase_device()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="bench-") as d:
+        cs.phase_serving(seed, 5, torch.device("cuda", 0), Path(d))
+
+
+def alternate(mode, trees, seed, pairs):
+    """``mode`` on each tree in a process of its own, ``pairs`` pairs,
+    alternating which tree runs first: OLD, NEW, NEW, OLD, ..."""
+    for pair in range(pairs):
+        for tree in trees if pair % 2 == 0 else trees[::-1]:
+            emit({"run": mode, "tree": tree, "pair": pair})
+            proc = subprocess.run(
+                [sys.executable, __file__, mode, "--tree", tree, "--seed",
+                 str(seed)], capture_output=True, text=True, timeout=600,
+            )
+            sys.stdout.write(proc.stdout)
+            if proc.returncode != 0:
+                sys.stderr.write(proc.stderr)
+                raise SystemExit(f"{mode} of {tree} failed ({proc.returncode})")
+
+
+# ---------------------------------------------------------------------------
+# Ablation: this tree's kernel source with one part replaced
+# ---------------------------------------------------------------------------
+
+CASCADE = """      if (ch * L + bin0 + BN <= n_valid)
+        cascade(acc, ch, std::false_type());
+      else
+        cascade(acc, ch, std::true_type());
+"""
+ONE_MAX = """#pragma unroll
+      for (int mm = 0; mm < WM; ++mm)
+#pragma unroll
+        for (int jj = 0; jj < WN; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            m1[mm][jj][e] = fmaxf(m1[mm][jj][e], acc[mm][jj][e]);
+"""
+MMA = """  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+"""
+# no instruction: the operands stay loaded and the accumulators opaque
+NO_MMA = """  asm volatile(""
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                 "r"(b1));
+"""
+WALK = "    if (active) {\n      float acc[WM][WN][4];"
+NO_WALK = "    if (active && steps < 0) {\n      float acc[WM][WN][4];"
+PICK = "  err = pick_cluster(kernel, s, tiles_of(B, L), &cluster);\n"
+
+VARIANTS = {
+    "as_is": [],
+    "no_cascade": [(CASCADE, ONE_MAX)],
+    "no_mma": [(MMA, NO_MMA)],
+    "neither": [(CASCADE, ONE_MAX), (MMA, NO_MMA)],
+    "ring_only": [(WALK, NO_WALK)],
+    **{f"c{c}": [(PICK, f"  cluster = {c};\n")] for c in (1, 2, 4, 8)},
+}
+
+
+def build_variants(names):
+    """One nvcc per variant, all at once; returns {name: (lib, ptxas)}."""
+    from hm_retrieval_tpu_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "bin_max2.cu").read_text()
+    out_dir = _build.BUILD_DIR / "bench"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        text = src
+        for old, new in VARIANTS[name]:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: the patched text is not in the "
+                                   "source once")
+            text = text.replace(old, new)
+        cu = out_dir / f"bin_max2_{name}.cu"
+        cu.write_text(text)
+        lib = out_dir / f"libbin_max2_{name}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc failed\n{log}")
+        regs = [line.strip() for line in log.splitlines()
+                if "registers" in line or "spill" in line]
+        built[name] = (ctypes.CDLL(str(lib)), regs)
+    return built
+
+
+def use(bt, lib):
+    """Point the wrappers of ``bt`` at the kernels of ``lib``."""
+    def kernel(name):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = bt._ARGTYPES[name]
+            fn.restype = ctypes.c_int
+        return fn
+
+    bt._kernel = kernel
+
+
+def ablate(seed):
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+
+    built = build_variants(list(VARIANTS))
+    for name, (_, regs) in built.items():
+        emit({"variant": name, "ptxas": regs})
+    dev = torch.device("cuda")
+    # the forced cluster sizes must answer as the as-is build does
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = cs.random_rows(gen, dev, "normal", cs.Q_BLOCK)
+    for L in (2048, 1024, 512):
+        c_pad = catalog(gen, dev, L)
+        want = {}
+        for name in ("as_is", "c1", "c2", "c4", "c8"):
+            use(bt, built[name][0])
+            for B in (1, 37, 128):
+                k1 = bt.bin_max2_first_round(q[:B], c_pad, L, cs.N_ARTICLES)
+                k2 = bt.bin_max2_round(q[:B], c_pad, k1[2], k1[3], L,
+                                       cs.N_ARTICLES)
+                got = [x.clone() for x in k1 + k2]
+                if name == "as_is":
+                    want[B] = got
+                elif not all(torch.equal(g, w) for g, w in zip(got, want[B])):
+                    raise RuntimeError(f"{name} L={L} B={B}: outputs differ "
+                                       "from the as-is build")
+        emit({"cluster_check": {"L": L, "ok": True}})
+    for name in VARIANTS:
+        use(bt, built[name][0])
+        cluster = name.startswith("c")
+        rows = kernel_rows(
+            bt, torch.Generator(device=dev).manual_seed(seed), dev,
+            batches=(1, 128) if cluster else TIMED,
+            bins=(2048, 1024, 512) if cluster else (2048,),
+            kernels=(1,) if cluster else (1, 2))
+        for row in rows:
+            emit({"variant": name, **row})
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("mode", choices=("ab", "serve", "ablate", "time",
+                                     "serve-one"))
+    ap.add_argument("--tree", action="append", default=[])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pairs", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bin_max_bench: CUDA is not available", file=sys.stderr)
+        return 2
+    if args.mode in ("ab", "serve"):
+        if len(args.tree) != 2:
+            ap.error(f"{args.mode} takes two --tree")
+        if args.mode == "ab":
+            alternate("time", args.tree, args.seed, 2)
+        else:
+            alternate("serve-one", args.tree, args.seed, args.pairs)
+    elif args.mode == "time":
+        time_tree(args.tree[0], args.seed)
+    elif args.mode == "serve-one":
+        serve_tree(args.tree[0], args.seed)
+    else:
+        ablate(args.seed)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,15 +7,29 @@ Phases, each of which must pass (a failure raises and exits non-zero):
 
 1. Device: print the card's name and power limit (nvidia-smi), build the
    CUDA kernels from csrc/ with nvcc, print the build time.
-2. Kernels against their plain PyTorch versions on the card, at the served
-   shapes (a 128-row query block, the 105,542-row H&M catalog padded to L,
-   E=128, bf16) for L=2048 (k=1000) and L=1024 (k=100):
+2. The exact passes' kernels 1, 2 and 8 against their plain PyTorch
+   versions on the card, over the 105,542-row H&M catalog padded to L,
+   E=128, bf16, at B = 1, 16, 37, 128 query rows and L=2048 (k=1000) and
+   L=1024 (k=100), kernel 2 on the thresholds of its own round 1, kernel 8
+   at +inf / -1 and then on its own first round's; n_valid = 105,542 ends
+   inside a segment of the split chunk walk:
    (a) integer-valued inputs in [-4, 4]: exact in bf16 and in fp32 sums,
        with heavy ties; outputs must be bit-identical;
    (b) random normal inputs: values within TOL*max(1,|v|), ids equal
        wherever the competing scores differ by more.
-   Then exact_topk against a plain full-score reference (fp32 product of
-   the same bf16 operands, stable sort), with timings.
+   Each (L, B) prints the kernels' launch shape (cluster size, warps and
+   warp groups per block, ring stages, shared bytes, registers, spilled
+   bytes, the launch's clusters and the clusters of 1, 2, 4 and 8 blocks
+   resident at once), and the cluster size must be the largest whose whole
+   grid is resident at once. Kernels 1-2 are timed at B = 1, 16,
+   128, L=2048, beside their bound: device time of 50 launches replayed
+   from one CUDA graph ("ms"), and of 50 back-to-back launches by CUDA
+   events ("events_ms", which includes the wrappers' host time where that
+   is longer). Then exact_topk at B=128 against a
+   plain full-score reference (fp32 product of the same bf16 operands,
+   stable sort), with timings. Last, kernels 1, 2 and 8 at E = 64 and 256
+   (the instantiation that reads the query's fragments from shared memory)
+   on integer inputs, bit-identical.
 3. Serving at full H&M width: 1,371,980 customers and 105,542 articles,
    E=128, towers [256], k=1000, random weights from --seed. The catalog is
    embedded with collect_catalog, indexed with BruteForceIndex("auto"),
@@ -98,6 +112,8 @@ E = 128
 Q_BLOCK = 128
 SERVE_K = 1000
 SERVE_BATCHES = (1, 16, 128, 1024)
+KERNEL_BATCHES = (1, 16, 37, 128)  # B of phase 2's kernel checks
+TIMED_BATCHES = (1, 16, 128)  # B at which phase 2 times kernels 1-2
 TOL = 1e-4  # relative to max(1, |score|): fp32 summation order
 N_PAD_Q = 131_072  # the H&M catalog padded to the quantized index's chunk
 # (fold F, bins L, batch B) of the single-pass plans at the served shapes:
@@ -131,6 +147,34 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device milliseconds of ``fn`` over ``reps`` calls captured in one
+    CUDA graph and replayed 5 times, after a warm-up on a side stream: the
+    kernels' own time, without the host's cost of launching them (which
+    back-to-back timing by ``cuda_ms`` includes once it exceeds the
+    kernel's)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
 
 
 def pass_bound_ms(B, n_pad, L, thresholds, outputs=4):
@@ -194,73 +238,89 @@ def phase_device():
 
 
 def phase_kernels(gen, dev):
+    """Kernels 1, 2 and 8 against their plain versions at every (B, L) of
+    KERNEL_BATCHES x (2048, 1024); kernels 1-2 timed at TIMED_BATCHES."""
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
 
-    stats = {
-        "bin_max2_first_round": {"max_abs_err": 0.0, "id_mismatches": 0},
-        "bin_max2_round": {"max_abs_err": 0.0, "id_mismatches": 0},
-    }
+    names = ("bin_max2_first_round", "bin_max2_round", "bin_max_round")
+    stats = {n: {"max_abs_err": 0.0, "id_mismatches": 0} for n in names}
+    for n in names[:2]:
+        stats[n]["shapes"] = []
     topk_rows = []
     for k, L in ((SERVE_K, 2048), (100, 1024)):
         require(bt.default_bins(k) == L, f"default_bins({k}) != {L}")
         n_pad = -(-N_ARTICLES // L) * L
+        for B in KERNEL_BATCHES:
+            infos = {n: bt.launch_info(B, E, L, keep=1 if n == names[2] else 2,
+                                       threshold=n != names[0], device=dev)
+                     for n in names}
+            for n, info in infos.items():
+                # the launcher's rule: the largest cluster size whose whole
+                # grid the card holds at once
+                fits = [c for c in (2, 4, 8)
+                        if info["resident"][c] >= info["clusters"]]
+                require(info["cluster"] == max(fits, default=1),
+                        f"{n} L={L} B={B}: cluster {info['cluster']}, "
+                        f"resident {info['resident']}")
+            emit({"kernel_launch": {"L": L, "B": B, **infos}})
+        inf_s = torch.full((Q_BLOCK, L), float("inf"), device=dev)
+        inf_i = torch.full((Q_BLOCK, L), -1, dtype=torch.int32, device=dev)
         for kind in ("integer", "normal"):
-            if kind == "integer":
-                q = torch.randint(-4, 5, (Q_BLOCK, E), generator=gen, device=dev)
-                c = torch.randint(-4, 5, (N_ARTICLES, E), generator=gen, device=dev)
-            else:
-                q = torch.randn(Q_BLOCK, E, generator=gen, device=dev)
-                c = torch.randn(N_ARTICLES, E, generator=gen, device=dev)
-            q = q.to(torch.bfloat16)
+            q_all = random_rows(gen, dev, kind, Q_BLOCK)
             c_pad = torch.zeros(n_pad, E, dtype=torch.bfloat16, device=dev)
-            c_pad[:N_ARTICLES] = c.to(torch.bfloat16)
-            k1 = bt.bin_max2_first_round(q, c_pad, L, N_ARTICLES)
-            p1 = bt.bin_max2_plain(q, c_pad, L, N_ARTICLES)
-            # each chain refines with thresholds from its own real round 1
-            k2 = bt.bin_max2_round(q, c_pad, k1[2], k1[3], L, N_ARTICLES)
-            p2 = bt.bin_max2_plain(q, c_pad, L, N_ARTICLES, p1[2], p1[3])
-            torch.cuda.synchronize()
-            for name, got, want in (
-                ("bin_max2_first_round", k1, p1),
-                ("bin_max2_round", k2, p2),
-            ):
-                if kind == "integer":
-                    for g, w in zip(got, want):
-                        require(torch.equal(g, w), f"{name} L={L}: integer "
-                                "inputs not bit-identical to the plain version")
+            c_pad[:N_ARTICLES] = random_rows(gen, dev, kind, N_ARTICLES)
+            for B in KERNEL_BATCHES:
+                q = q_all[:B]
+                k1 = bt.bin_max2_first_round(q, c_pad, L, N_ARTICLES)
+                p1 = bt.bin_max2_plain(q, c_pad, L, N_ARTICLES)
+                # each chain refines with thresholds from its own round 1
+                k2 = bt.bin_max2_round(q, c_pad, k1[2], k1[3], L, N_ARTICLES)
+                p2 = bt.bin_max2_plain(q, c_pad, L, N_ARTICLES, p1[2], p1[3])
+                k8 = bt.bin_max_round(q, c_pad, inf_s[:B], inf_i[:B], L,
+                                      N_ARTICLES)
+                p8 = bt.bin_max_plain(q, c_pad, inf_s[:B], inf_i[:B], L,
+                                      N_ARTICLES)
+                k8r = bt.bin_max_round(q, c_pad, *k8, L, N_ARTICLES)
+                p8r = bt.bin_max_plain(q, c_pad, *p8, L, N_ARTICLES)
+                torch.cuda.synchronize()
+                for name, got, want in ((names[0], k1, p1), (names[1], k2, p2),
+                                        (names[2], k8, p8),
+                                        (names[2], k8r, p8r)):
+                    hold_cells(stats[name], f"{name} L={L} B={B}", kind, got,
+                               want, lambda: bt.plain_scores(q, c_pad))
+                emit({"kernel_check": {"L": L, "B": B, "inputs": kind,
+                                       "ok": True}})
+                if kind != "normal" or L != 2048 or B not in TIMED_BATCHES:
                     continue
-                scores = bt.plain_scores(q, c_pad)
-                for vi, ii in ((0, 1), (2, 3)):
-                    err, mism = compare_ranked(
-                        got[vi], got[ii], want[vi], want[ii], scores
-                    )
-                    st = stats[name]
-                    st["max_abs_err"] = max(st["max_abs_err"], err)
-                    st["id_mismatches"] += mism
-            emit({"kernel_check": {"L": L, "inputs": kind, "ok": True}})
+                # the served configuration (k=1000): times beside the bound
+                for name, thr, plain in ((names[0], (), ()),
+                                         (names[1], k1[2:], p1[2:])):
+                    bound, by = pass_bound_ms(B, n_pad, L, bool(thr))
+
+                    def launch():
+                        return getattr(bt, name)(q, c_pad, *thr, L,
+                                                 N_ARTICLES)
+
+                    row = {
+                        "L": L, "B": B, "rows": n_pad,
+                        "ms": graph_ms(launch, 50),
+                        "events_ms": cuda_ms(launch, 50),
+                        "plain_ms": cuda_ms(lambda: bt.bin_max2_plain(
+                            q, c_pad, L, N_ARTICLES, *plain), 5),
+                        "bound_ms": bound, "bound_by": by,
+                    }
+                    stats[name]["shapes"].append(row)
+                    if B == Q_BLOCK:
+                        stats[name].update({key: row[key] for key in (
+                            "ms", "events_ms", "plain_ms", "bound_ms",
+                            "bound_by")})
             if kind != "normal":
                 continue
-            if L == 2048:  # the served configuration (k=1000)
-                b1, by1 = pass_bound_ms(Q_BLOCK, n_pad, L, False)
-                b2, by2 = pass_bound_ms(Q_BLOCK, n_pad, L, True)
-                stats["bin_max2_first_round"].update(
-                    ms=cuda_ms(lambda: bt.bin_max2_first_round(
-                        q, c_pad, L, N_ARTICLES), 50),
-                    plain_ms=cuda_ms(lambda: bt.bin_max2_plain(
-                        q, c_pad, L, N_ARTICLES), 5),
-                    bound_ms=b1, bound_by=by1,
-                )
-                stats["bin_max2_round"].update(
-                    ms=cuda_ms(lambda: bt.bin_max2_round(
-                        q, c_pad, k1[2], k1[3], L, N_ARTICLES), 50),
-                    plain_ms=cuda_ms(lambda: bt.bin_max2_plain(
-                        q, c_pad, L, N_ARTICLES, p1[2], p1[3]), 5),
-                    bound_ms=b2, bound_by=by2,
-                )
             # exact_topk as a whole against the plain full-score reference
-            cand = c.to(torch.float32)
+            q = q_all
+            cand = c_pad[:N_ARTICLES].float()
             v, i, rounds = bt.exact_topk(q.float(), cand, k, L=L)
-            cb = cand.to(torch.bfloat16)
+            cb = c_pad[:N_ARTICLES]
 
             def reference():
                 s = bt.plain_scores(q, cb)
@@ -280,6 +340,31 @@ def phase_kernels(gen, dev):
                 "yardstick": "torch.matmul (bf16) + torch.topk over (B, N)",
             })
     emit({"exact_topk": topk_rows})
+    # the other instantiation (A fragments read from shared memory), at
+    # widths other than E = 128, on integer inputs
+    for width in (64, 256):
+        L, n_pad, n_valid, B = 1024, 16384, 16000, 37
+        q = torch.randint(-4, 5, (B, width), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        c_pad = torch.randint(-4, 5, (n_pad, width), generator=gen,
+                              device=dev).to(torch.bfloat16)
+        inf_s = torch.full((B, L), float("inf"), device=dev)
+        inf_i = torch.full((B, L), -1, dtype=torch.int32, device=dev)
+        k1 = bt.bin_max2_first_round(q, c_pad, L, n_valid)
+        p1 = bt.bin_max2_plain(q, c_pad, L, n_valid)
+        k8 = bt.bin_max_round(q, c_pad, inf_s, inf_i, L, n_valid)
+        p8 = bt.bin_max_plain(q, c_pad, inf_s, inf_i, L, n_valid)
+        checks = ((names[0], k1, p1),
+                  (names[1], bt.bin_max2_round(q, c_pad, k1[2], k1[3], L,
+                                               n_valid),
+                   bt.bin_max2_plain(q, c_pad, L, n_valid, p1[2], p1[3])),
+                  (names[2], k8, p8))
+        torch.cuda.synchronize()
+        for name, got, want in checks:
+            hold_cells(stats[name], f"{name} E={width}", "integer", got, want,
+                       None)
+        emit({"kernel_check": {"E": width, "L": L, "B": B,
+                               "inputs": "integer", "ok": True}})
     return stats
 
 
@@ -710,18 +795,21 @@ def phase_rounds_kernels(gen, dev):
             if kind != "normal":
                 continue
             bound, by = pass_bound_ms(Q_BLOCK, n_pad, L, True, outputs=2)
+            def launch():
+                return bt.bin_max_round(q, c_pad, *k1, L, N_ARTICLES)
+
             row = {
                 "L": L, "B": Q_BLOCK, "rows": n_pad,
-                "ms": cuda_ms(lambda: bt.bin_max_round(
-                    q, c_pad, *k1, L, N_ARTICLES), 50),
+                "ms": graph_ms(launch, 50),
+                "events_ms": cuda_ms(launch, 50),
                 "plain_ms": cuda_ms(lambda: bt.bin_max_plain(
                     q, c_pad, *p1, L, N_ARTICLES), 3),
                 "bound_ms": bound, "bound_by": by,
             }
             st["shapes"].append(row)
             if L == 2048:
-                st.update({k: row[k] for k in
-                           ("ms", "plain_ms", "bound_ms", "bound_by")})
+                st.update({k: row[k] for k in ("ms", "events_ms", "plain_ms",
+                                               "bound_ms", "bound_by")})
     return stats
 
 
@@ -1196,7 +1284,12 @@ def main(argv=None):
         quantized, recalls = phase_quantized_serving(shared, args.repeats, dev,
                                                      Path(d))
         launches.update(quantized)
-        stats.update(phase_rounds_kernels(gen, dev))
+        rounds_stats = phase_rounds_kernels(gen, dev)
+        # kernel 8's errors over phase 2's shapes and phase 6's
+        k8, k8_phase2 = rounds_stats["bin_max_round"], stats["bin_max_round"]
+        k8["max_abs_err"] = max(k8["max_abs_err"], k8_phase2["max_abs_err"])
+        k8["id_mismatches"] += k8_phase2["id_mismatches"]
+        stats.update(rounds_stats)
         launches["bin_max_round"] = phase_rounds_drivers(gen, dev)[
             "bin_max_round"]
         rounds = phase_rounds_serving(shared, recalls, args.repeats, dev,

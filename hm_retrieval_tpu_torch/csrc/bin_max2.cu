@@ -10,9 +10,9 @@
 //                              thresholds; round 1 is a launch with +inf / -1
 //                              thresholds, as in the JAX driver)
 // All three launchers instantiate ONE template, bin_max_kernel<kThreshold,
-// kKeep>, so every pass computes the score of a (query row, catalog row) pair
-// with the same code and the same tile configuration: the refinement rounds
-// are exact only because every pass reproduces identical fp32 scores.
+// kKeep, kSteps>, so every pass computes the score of a (query row, catalog
+// row) pair with the same code: the refinement rounds are exact only
+// because every pass reproduces identical fp32 scores.
 //
 // What it computes. The catalog C (n_pad x E, bf16, n_pad % L == 0) is read
 // in chunks of L rows; bin b of chunk c is catalog row c*L + b. For each
@@ -22,45 +22,127 @@
 // elements strictly below the cell's threshold (thr_s, thr_i). Unfilled slots
 // hold -inf / BIG_IDX.
 //
-// Design. A block owns a tile of BM query rows x BN bins for the whole run
-// and walks every chunk c = 0 .. n_pad/L - 1 in increasing order, keeping
-// its cells' state in registers. The strict '>' of the top-k update gives
-// the index-ascending tie order only because each cell sees its chunks in
-// increasing order, so no cell is split across blocks and no chunk is
-// reordered. Per chunk, the block's BN catalog rows are staged in shared
-// memory through a STAGES-deep cp.async ring while the query tile stays
-// resident; four warps compute their 16 x BN scores with mma.sync
-// m16n8k16 (bf16 operands, fp32 accumulation), then run the eligibility
-// test, the n_valid mask and the top-2 (or top-1) cascade per cell. The
-// keep-1 pass shares everything but the cascade and writes two outputs.
+// Design. Grid (c, L / BN, ceil(B / BM)) in clusters of c blocks along x.
+// The c blocks of a cluster share one tile of up to BM = 128 query rows x
+// BN = 32 bins, so every row of a launch of up to 128 rows sits in one
+// block and each catalog tile is staged once per launch (once per 128-row
+// group beyond). A warp computes 32 rows x 16 bins: two 16-row m-tiles that
+// share each B fragment, the second skipped when it holds no real row. The
+// warps of a block form `groups` groups of wpg = 2 * ceil(rows / 32) warps
+// (all of the block's rows and bins), and groups = 8 / wpg, so that at
+// small B the warps that would have computed all-zero row tiles walk chunks
+// of their own instead: 8 warps a block at every B, one block an SM.
+// Each cell's chunk walk 0 .. n_chunks - 1 is cut into S = c * groups
+// contiguous segments: segment s = rank * groups + group walks chunks
+// [s * n / S, (s + 1) * n / S) in increasing order (a segment may be empty).
+// A group stages its segment's BN x E catalog tiles through its own
+// cp.async ring of `stages` slots (a named barrier of the group's threads a
+// step); its warps read their B fragments with ldmatrix and compute their
+// scores with mma.sync m16n8k16 (bf16 operands, fp32 accumulation, k in
+// increasing 16-wide steps; at E = 128 the query's A fragments stay in
+// registers and E is known to the compiler), then run the eligibility
+// test, the n_valid mask (only on a chunk that crosses n_valid) and the
+// top-2 (or top-1) cascade of the single walk per cell, in registers; the
+// cells hold chunk numbers, and the threshold's row index becomes a chunk
+// number once, so the per-element work is compares and selects only. At
+// the end every group writes its partial cells to shared memory, the
+// groups of a block merge into one partial, and after cluster.sync() each
+// block merges its share of the cells over the c blocks' partials, read
+// through distributed shared memory (map_shared_rank), and writes them out.
+// No atomics, no second launch; a last cluster.sync() keeps every block's
+// shared memory alive until the others have read it.
 //
-// What bounds it on the H100. One pass reads the catalog once (27 MB at
-// the H&M catalog, E=128, against 4-6 MB of (B, L) state, 4 MB for keep 1),
-// and its product is 2*B*n_pad*E operations: at B = 128 rows the pass is
-// bound by memory bytes, not by the tensor cores. This first version reads
-// each catalog row once per 64-row query tile (the re-reads hit the 50 MB L2)
-// and makes no attempt at TMA or wgmma; its time against that bound is in
-// PERF.md.
+// Why the split is exact. Within a segment the strict '>' cascade over
+// increasing catalog rows yields the lexicographic top-kKeep of that
+// segment's admitted elements: a later element ties an earlier one only
+// with a larger index, and strict '>' keeps the earlier. The top-kKeep of a
+// set under a strict total order does not depend on the order of the walk,
+// and the top-kKeep of a union of disjoint sets is the top-kKeep of the
+// union of their top-kKeeps. The n_valid mask and the threshold test are
+// per element, so every segment admits exactly the elements the single walk
+// admits. The merge compares explicitly, x beats y iff x.s > y.s ||
+// (x.s == y.s && x.i < y.i), so it restores the index order between
+// segments, and an unfilled (-inf, BIG_IDX) slot loses to every admitted
+// element (scores that never pass '>' against -inf, such as -inf or NaN,
+// are never admitted, in the single walk as in a segment). Identical
+// scores: every (query row, catalog row) score comes from the same
+// mma.sync sequence, at the same position of the mma tile (row % 16,
+// bin % 8) and in the same k-order, in every segment, block shape, pass
+// and kernel of the template.
+//
+// What bounds it on the H100. One pass reads the catalog once (27 MB at the
+// H&M catalog, E = 128) and writes 2-4 (B, L) outputs; its product is 2 * B
+// * n_pad * E operations, so by the roofline the pass is bound by memory
+// bytes at B <= 128. The launcher picks the cluster size (pick_cluster):
+// the largest whose whole grid the card holds at once, by its occupancy
+// query; every group keeps up to `stages - 1` tiles in flight. At B = 128
+// the per-chunk compute, not the bytes, sets the pace: by the ablation of
+// bin_max_bench.py the ring alone takes about half of kernel 1's time, and
+// the mma.sync steps and the cascade add to it one after the other, since
+// each of the SM's 8 warps runs both and no other warp hides them (PERF.md).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int BM = 64;             // query rows per block
-constexpr int BN = 32;             // bins per block
-constexpr int WARPS = BM / 16;     // one warp per 16 query rows
-constexpr int THREADS = WARPS * 32;
-constexpr int NT = BN / 8;         // n-tiles of 8 bins per warp
-constexpr int STAGES = 4;          // catalog tiles in flight
-constexpr int PAD = 8;             // bf16 of row padding in shared memory
+constexpr int BM = 128;           // query rows per block, at most
+constexpr int BN = 32;            // bins per block
+constexpr int WM = 2;             // 16-row m-tiles per warp (32 rows)
+constexpr int WN = 2;             // 8-bin n-tiles per warp (16 bins)
+constexpr int MAX_WARPS = 8;      // warps per block
+constexpr int MAX_STAGES = 12;    // ring depth of a warp group, at most
+constexpr int MAX_CLUSTER = 8;    // portable cluster size
+constexpr int PAD = 8;            // bf16 of row padding in shared memory
+constexpr int PS = BN + 8;        // row stride of the partial cells
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory of one block
+constexpr int A_STEPS = 8;        // E = 128: A fragments kept in registers
 constexpr int BIG_IDX = 0x7fffffff;
 
+// Block shape of a launch over B query rows of width E. It depends on B and
+// E only, never on the pass, and it never changes what a score is.
+struct Shape {
+  int wpg;     // warps per group: 2 per 32-row pair of m-tiles
+  int groups;  // warp groups, each walking its own segment
+  int stages;  // ring depth of each group
+  int smem;    // dynamic shared memory, bytes
+};
+
+Shape shape_for(int B, int E) {
+  Shape s;
+  const int rows = B < BM ? B : BM;
+  const int tile_rows = (rows + 31) / 32 * 32;
+  s.wpg = tile_rows / 32 * (BN / (8 * WN));
+  const int ld = E + PAD;
+  const int stage = BN * ld * 2;
+  const int qbytes = tile_rows * ld * 2;
+  const int part = 2 * tile_rows * PS * 8;  // keep-2 partial cells a group
+  for (s.groups = MAX_WARPS / s.wpg;; --s.groups) {
+    s.stages = (SMEM_MAX - qbytes) / (s.groups * stage);
+    if (s.stages > MAX_STAGES) s.stages = MAX_STAGES;
+    const int ring = s.groups * s.stages * stage;
+    const int parts = s.groups * part;
+    s.smem = qbytes + (ring > parts ? ring : parts);
+    if ((s.stages >= 2 && s.smem <= SMEM_MAX) || s.groups == 1) break;
+  }
+  return s;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(smem)),
                "l"(gmem));
 }
 
@@ -70,217 +152,610 @@ __device__ __forceinline__ void cp_async_commit() {
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most n groups are pending (n < MAX_STAGES); waiting for
+// more than needed is always safe.
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 11: cp_async_wait<11>(); break;
+    case 10: cp_async_wait<10>(); break;
+    case 9: cp_async_wait<9>(); break;
+    case 8: cp_async_wait<8>(); break;
+    case 7: cp_async_wait<7>(); break;
+    case 6: cp_async_wait<6>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 1: cp_async_wait<1>(); break;
+    default: cp_async_wait<0>(); break;
+  }
+}
+
+// Barrier of one warp group (named barrier id, its thread count).
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
                                                const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
+                                               uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// One 16-wide k step of m-tile mm's 16 x 16 scores: A fragment a, B
+// fragments b of the warp's two n-tiles.
+__device__ __forceinline__ void mma_step(float (&acc)[WN][4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[4]) {
+  mma_bf16_16816(acc[0], a, b[0], b[1]);
+  mma_bf16_16816(acc[1], a, b[2], b[3]);
 }
 
-// Grid: (L / BN, ceil(B / BM)). Dynamic shared memory:
-// (BM + STAGES * BN) * (E + PAD) bf16.
-template <bool kThreshold, int kKeep>
-__global__ void __launch_bounds__(THREADS)
+// acc[mm][jj][e] += the score of query row mm * 16 + g + (e >> 1) * 8 of the
+// warp's 32 and bin jj * 8 + 2t + (e & 1) of its 16 in a staged tile, summed
+// in 16-wide mma steps of increasing k: the one k-order of every pass,
+// whether the A fragments come from registers (kSteps = E / 16 > 0) or from
+// shared memory (kSteps = 0). The second m-tile is skipped unless `two`.
+// ldmatrix.x4: lane l gives the address of row l & 7 of matrix l >> 3;
+// pa[mm] points at m-tile mm's A matrices (rows 0-7 | 8-15) x (k 0-7 |
+// 8-15) -> a0..a3, pb at the B matrices (bins 0-7, k 0-7), (0-7, 8-15),
+// (8-15, 0-7), (8-15, 8-15) -> b0, b1 of the two n-tiles.
+template <int kSteps>
+__device__ __forceinline__ void tile_scores(
+    const __nv_bfloat16* const (&pa)[WM], const __nv_bfloat16* pb, int E,
+    bool two, const uint32_t (&areg)[WM][kSteps > 0 ? kSteps : 1][4],
+    float (&acc)[WM][WN][4]) {
+  if (kSteps > 0) {
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k) {
+      uint32_t b[4];
+      ldmatrix_x4(b, pb + k * 16);
+      mma_step(acc[0], areg[0][k], b);
+      if (two) mma_step(acc[1], areg[1][k], b);
+    }
+  } else {
+    for (int k0 = 0; k0 < E; k0 += 16) {
+      uint32_t a[4], b[4];
+      ldmatrix_x4(b, pb + k0);
+      ldmatrix_x4(a, pa[0] + k0);
+      mma_step(acc[0], a, b);
+      if (two) {
+        ldmatrix_x4(a, pa[1] + k0);
+        mma_step(acc[1], a, b);
+      }
+    }
+  }
+}
+
+// Running lexicographic top-kKeep of one cell in the merge.
+template <int kKeep>
+struct Top {
+  float s1, s2;
+  int i1, i2;
+
+  // Empty: both slots (neg_inf = -inf, BIG_IDX).
+  __device__ __forceinline__ explicit Top(float neg_inf)
+      : s1(neg_inf), s2(neg_inf), i1(BIG_IDX), i2(BIG_IDX) {}
+
+  static __device__ __forceinline__ bool beats(float xs, int xi, float ys,
+                                               int yi) {
+    return xs > ys || (xs == ys && xi < yi);
+  }
+
+  __device__ __forceinline__ void take(float s, int i) {
+    if (beats(s, i, s1, i1)) {
+      if (kKeep == 2) {
+        s2 = s1;
+        i2 = i1;
+      }
+      s1 = s;
+      i1 = i;
+    } else if (kKeep == 2 && beats(s, i, s2, i2)) {
+      s2 = s;
+      i2 = i;
+    }
+  }
+};
+
+// Cell offset `o` merged over n <= kMax partials (slot k of partial p at
+// ps[p][k * stride + o], pi[p][...]), in increasing partial order. All
+// loads come before the first comparison.
+template <int kKeep, int kMax>
+__device__ __forceinline__ Top<kKeep> merged(const float* const (&ps)[kMax],
+                                             const int* const (&pi)[kMax],
+                                             int n, int o, int stride) {
+  float s[kMax][kKeep];
+  int ix[kMax][kKeep];
+#pragma unroll
+  for (int p = 0; p < kMax; ++p)
+#pragma unroll
+    for (int k = 0; k < kKeep; ++k)
+      if (p < n) {
+        s[p][k] = ps[p][k * stride + o];
+        ix[p][k] = pi[p][k * stride + o];
+      }
+  Top<kKeep> top(-CUDART_INF_F);
+#pragma unroll
+  for (int p = 0; p < kMax; ++p)
+#pragma unroll
+    for (int k = 0; k < kKeep; ++k)
+      if (p < n) top.take(s[p][k], ix[p][k]);
+  return top;
+}
+
+// Block (32 * wpg, groups) threads, grid (c, L / BN, ceil(B / BM)) in
+// clusters of (c, 1, 1). Dynamic shared memory (shape_for(B, E).smem): the
+// query tile, then the groups' rings, which the partial cells reuse after
+// the walk.
+template <bool kThreshold, int kKeep, int kSteps>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     bin_max_kernel(const __nv_bfloat16* __restrict__ q,   // (B, E)
-                    const __nv_bfloat16* __restrict__ c,   // (n_pad, E)
-                    const float* __restrict__ thr_s,       // (B, L)
-                    const int* __restrict__ thr_i,         // (B, L)
-                    float* __restrict__ m1_out, int* __restrict__ a1_out,
-                    float* __restrict__ m2_out, int* __restrict__ a2_out,
-                    int B, int E, int L, int n_chunks, int n_valid) {
+                   const __nv_bfloat16* __restrict__ c,   // (n_pad, E)
+                   const float* __restrict__ thr_s,       // (B, L)
+                   const int* __restrict__ thr_i,         // (B, L)
+                   float* __restrict__ m1_out, int* __restrict__ a1_out,
+                   float* __restrict__ m2_out, int* __restrict__ a2_out,
+                   int B, int E, int L, int n_chunks, int n_valid,
+                   int stages) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = E + PAD;  // shared row stride, in bf16
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sc = sq + BM * ld;  // STAGES x (BN x ld)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
 
-  const int bin0 = blockIdx.x * BN;
-  const int row0 = blockIdx.y * BM;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int gthreads = blockDim.x;  // threads of a warp group
+  const int tile_rows = gthreads / 2;  // 32 rows a warp, 2 warps a pair
+  const int groups = blockDim.y;
+  const int grp = threadIdx.y;
+  const int gtid = threadIdx.x;  // thread in its group
+  const int tid = grp * gthreads + gtid;
+  const int nthreads = gthreads * groups;
+  const int warp = gtid >> 5;
+  const int wrow = (warp >> 1) * 32;  // the warp's 32 rows of the tile
+  const int wbin = (warp & 1) * 16;   // its 16 bins of the block's BN
+  const int lane = gtid & 31;
   const int g = lane >> 2;  // mma group id: fragment row / column
   const int t = lane & 3;   // thread in group
-  const int vecs = E / 8;   // 16-byte vectors per row
+  const int bin0 = blockIdx.y * BN;
+  const int row0 = blockIdx.z * BM;
+  const int rows = min(B - row0, tile_rows);  // real rows of the block
+  const bool active = wrow < rows;            // m-tile 0 holds a real row
+  const bool two = wrow + 16 < rows;          // so does m-tile 1
+  const int Ek = kSteps > 0 ? 16 * kSteps : E;  // E, known to the compiler
+  const int ld = Ek + PAD;  // shared row stride, in bf16
+  const int vecs = Ek / 8;  // 16-byte vectors per row
 
-  // Query tile, resident for the whole run; rows past B are zeros.
-  for (int v = tid; v < BM * vecs; v += THREADS) {
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ring = sq + tile_rows * ld;
+  __nv_bfloat16* sc = ring + grp * stages * BN * ld;
+
+  // Query tile, resident for the whole run, in one cp.async group of its
+  // own; rows past B are zeros.
+  for (int v = tid; v < tile_rows * vecs; v += nthreads) {
     const int r = v / vecs, cv = v % vecs;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < B)
-      val = *reinterpret_cast<const uint4*>(q + (size_t)(row0 + r) * E +
-                                            cv * 8);
-    *reinterpret_cast<uint4*>(sq + r * ld + cv * 8) = val;
+    if (r < rows)
+      cp_async16(sq + r * ld + cv * 8, q + (size_t)(row0 + r) * Ek + cv * 8);
+    else
+      *reinterpret_cast<uint4*>(sq + r * ld + cv * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
   }
+  cp_async_commit();
 
-  auto load_chunk = [&](int chunk) {
-    if (chunk < n_chunks) {
-      const __nv_bfloat16* src = c + ((size_t)chunk * L + bin0) * E;
-      __nv_bfloat16* dst = sc + (chunk % STAGES) * BN * ld;
-      for (int v = tid; v < BN * vecs; v += THREADS) {
+  // This group's segment of the chunk walk.
+  const int nseg = csize * groups;
+  const int seg = rank * groups + grp;
+  const int ch0 = static_cast<int>((long long)seg * n_chunks / nseg);
+  const int steps =
+      static_cast<int>((long long)(seg + 1) * n_chunks / nseg) - ch0;
+
+  // Stage step i of the segment into ring slot `slot` (one cp.async group,
+  // empty past the end so that the count of groups stays fixed).
+  auto load = [&](int i, int slot) {
+    if (i < steps) {
+      const __nv_bfloat16* src = c + ((size_t)(ch0 + i) * L + bin0) * Ek;
+      __nv_bfloat16* dst = sc + slot * BN * ld;
+      for (int v = gtid; v < BN * vecs; v += gthreads) {
         const int r = v / vecs, cv = v % vecs;
-        cp_async16(dst + r * ld + cv * 8, src + (size_t)r * E + cv * 8);
+        cp_async16(dst + r * ld + cv * 8, src + (size_t)r * Ek + cv * 8);
       }
     }
-    cp_async_commit();  // an empty group past the end keeps the count
+    cp_async_commit();
   };
 
-  // Cell (j, e) of this thread: row g (e < 2) or g + 8 (e >= 2) of the
-  // warp's 16, bin j*8 + 2t + (e & 1) of the block's BN: the mma
-  // accumulator layout.
-  float m1[NT][4], m2[NT][4], ts[NT][4];
-  int a1[NT][4], a2[NT][4], ti[NT][4];
+  // Cell (mm, jj, e) of this thread: row wrow + mm * 16 + g + (e >> 1) * 8
+  // of the block's tile, bin wbin + jj * 8 + 2t + (e & 1) of its BN (the mma
+  // accumulator layout), catalog row chunk * L + bin0 + that bin. During
+  // the walk a1 and a2 hold chunk numbers (BIG_IDX: unfilled), and the
+  // threshold's index ti is held as tc = floor((ti - bin0 - bin) / L), so
+  // that the row test flat > ti is the chunk test chunk > tc.
+  float m1[WM][WN][4], m2[WM][WN][4], ts[WM][WN][4];
+  int a1[WM][WN][4], a2[WM][WN][4], tc[WM][WN][4];
+  const int bin_t = bin0 + wbin + 2 * t;  // the bin of cell (0, 0, 0)
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+  for (int mm = 0; mm < WM; ++mm) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      m1[j][e] = -CUDART_INF_F;
-      m2[j][e] = -CUDART_INF_F;
-      a1[j][e] = BIG_IDX;
-      a2[j][e] = BIG_IDX;
-      ts[j][e] = CUDART_INF_F;
-      ti[j][e] = -1;
-      if (kThreshold) {
-        const int row = row0 + warp * 16 + g + (e >> 1) * 8;
-        if (row < B) {
-          const size_t o = (size_t)row * L + bin0 + j * 8 + 2 * t + (e & 1);
-          ts[j][e] = thr_s[o];
-          ti[j][e] = thr_i[o];
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) load_chunk(s);
-
-  const __nv_bfloat16* qa = sq + (warp * 16) * ld;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    cp_async_wait<STAGES - 2>();  // chunk ch has landed
-    __syncthreads();              // ... for every thread; slot ch-1 is free
-    load_chunk(ch + STAGES - 1);
-    const __nv_bfloat16* cs = sc + (ch % STAGES) * BN * ld;
-
-    float acc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-    for (int k0 = 0; k0 < E; k0 += 16) {
-      uint32_t a[4];
-      a[0] = ld_u32(qa + g * ld + k0 + 2 * t);
-      a[1] = ld_u32(qa + (g + 8) * ld + k0 + 2 * t);
-      a[2] = ld_u32(qa + g * ld + k0 + 8 + 2 * t);
-      a[3] = ld_u32(qa + (g + 8) * ld + k0 + 8 + 2 * t);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* cb = cs + (j * 8 + g) * ld + k0;
-        uint32_t b[2];
-        b[0] = ld_u32(cb + 2 * t);
-        b[1] = ld_u32(cb + 8 + 2 * t);
-        mma_bf16_16816(acc[j], a, b);
-      }
-    }
-
-    const int base = ch * L + bin0;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int jj = 0; jj < WN; ++jj) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int flat = base + j * 8 + 2 * t + (e & 1);
-        float s = acc[j][e];
-        bool ok = flat < n_valid;
-        if (kThreshold)
-          ok = ok && (s < ts[j][e] || (s == ts[j][e] && flat > ti[j][e]));
-        s = ok ? s : -CUDART_INF_F;
-        const bool gt1 = s > m1[j][e];
-        if (kKeep == 2) {
-          const bool gt2 = s > m2[j][e];
-          m2[j][e] = gt1 ? m1[j][e] : (gt2 ? s : m2[j][e]);
-          a2[j][e] = gt1 ? a1[j][e] : (gt2 ? flat : a2[j][e]);
+        m1[mm][jj][e] = -CUDART_INF_F;
+        m2[mm][jj][e] = -CUDART_INF_F;
+        a1[mm][jj][e] = BIG_IDX;
+        a2[mm][jj][e] = BIG_IDX;
+        ts[mm][jj][e] = CUDART_INF_F;
+        tc[mm][jj][e] = -1;
+        if (kThreshold) {
+          const int row = row0 + wrow + mm * 16 + g + (e >> 1) * 8;
+          const int bin = bin_t + jj * 8 + (e & 1);
+          if (row < B) {
+            const size_t o = (size_t)row * L + bin;
+            ts[mm][jj][e] = thr_s[o];
+            // floor((ti - bin) / L), or -1 below 0: the same test for
+            // every chunk >= 0
+            const int ti = thr_i[o];
+            tc[mm][jj][e] = ti < bin ? -1 : (ti - bin) / L;
+          }
         }
-        m1[j][e] = gt1 ? s : m1[j][e];
-        a1[j][e] = gt1 ? flat : a1[j][e];
       }
     }
+  }
+
+  for (int i = 0; i < stages - 1; ++i) load(i, i);
+  cp_async_wait_dyn(stages - 1);  // the query tile has landed ...
+  __syncthreads();                // ... for every thread
+
+  const int r8 = lane & 7, mi = lane >> 3;
+  const __nv_bfloat16* pa[WM];
+#pragma unroll
+  for (int mm = 0; mm < WM; ++mm)
+    pa[mm] = sq + (wrow + mm * 16 + r8 + (mi & 1) * 8) * ld + (mi >> 1) * 8;
+  const __nv_bfloat16* pb =
+      sc + (wbin + r8 + (mi >> 1) * 8) * ld + (mi & 1) * 8;
+  uint32_t areg[WM][kSteps > 0 ? kSteps : 1][4];
+  if (kSteps > 0) {
+#pragma unroll
+    for (int mm = 0; mm < WM; ++mm)
+#pragma unroll
+      for (int k = 0; k < kSteps; ++k)
+        ldmatrix_x4(areg[mm][k], pa[mm] + k * 16);
+  }
+
+  // The cascade of one chunk's scores into the cells; `masked` (a
+  // compile-time flag) applies the n_valid mask, which a chunk whose bins
+  // all lie below n_valid does not need.
+  auto cascade = [&](const float (&acc)[WM][WN][4], int ch, auto masked) {
+#pragma unroll
+    for (int mm = 0; mm < WM; ++mm) {
+      if (mm == 1 && !two) break;
+#pragma unroll
+      for (int jj = 0; jj < WN; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // An element that is not admitted counts as -inf, which never
+          // passes '>': it is folded into both tests.
+          const float s = acc[mm][jj][e];
+          bool ok = true;
+          if (decltype(masked)::value)
+            ok = ch * L + bin_t + jj * 8 + (e & 1) < n_valid;
+          if (kThreshold)
+            ok = ok & ((s < ts[mm][jj][e]) |
+                       ((s == ts[mm][jj][e]) & (ch > tc[mm][jj][e])));
+          const bool gt1 = ok & (s > m1[mm][jj][e]);
+          if (kKeep == 2) {
+            const bool gt2 = ok & (s > m2[mm][jj][e]);
+            m2[mm][jj][e] = gt1 ? m1[mm][jj][e] : (gt2 ? s : m2[mm][jj][e]);
+            a2[mm][jj][e] = gt1 ? a1[mm][jj][e] : (gt2 ? ch : a2[mm][jj][e]);
+          }
+          m1[mm][jj][e] = gt1 ? s : m1[mm][jj][e];
+          a1[mm][jj][e] = gt1 ? ch : a1[mm][jj][e];
+        }
+      }
+    }
+  };
+
+  int slot = 0;  // ring slot of step i
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait_dyn(stages - 2);  // step i has landed ...
+    group_sync(1 + grp, gthreads);  // ... for the group; slot i-1 is free
+    load(i + stages - 1, slot == 0 ? stages - 1 : slot - 1);
+    if (active) {
+      float acc[WM][WN][4];
+#pragma unroll
+      for (int mm = 0; mm < WM; ++mm)
+#pragma unroll
+        for (int jj = 0; jj < WN; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mm][jj][e] = 0.f;
+      tile_scores<kSteps>(pa, pb + slot * BN * ld, Ek, two, areg, acc);
+      const int ch = ch0 + i;
+      if (ch * L + bin0 + BN <= n_valid)
+        cascade(acc, ch, std::false_type());
+      else
+        cascade(acc, ch, std::true_type());
+    }
+    slot = slot + 1 == stages ? 0 : slot + 1;
   }
   cp_async_wait<0>();
+  __syncthreads();  // every group is past its walk: the ring is free
 
+  // Partial cells over the ring: slot k of group y, cell (row r of the
+  // tile, bin b) at k * stride + y * cells + r * PS + b. The padded row
+  // stride PS keeps the paired stores free of bank conflicts.
+  const int part = tile_rows * PS;  // cells of one group's partial
+  const int stride = groups * part;  // from one slot to the next
+  float* ps = reinterpret_cast<float*>(ring);
+  int* pi = reinterpret_cast<int*>(ps + kKeep * stride);
+  // The catalog row of chunk number a at bin bin_t + off.
+  auto row_of = [&](int a, int off) {
+    return a == BIG_IDX ? BIG_IDX : a * L + bin_t + off;
+  };
+  if (active) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+    for (int mm = 0; mm < WM; ++mm) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + warp * 16 + g + (e >> 1) * 8;
-      if (row < B) {
-        const size_t o = (size_t)row * L + bin0 + j * 8 + 2 * t + (e & 1);
-        m1_out[o] = m1[j][e];
-        a1_out[o] = a1[j][e];
-        if (kKeep == 2) {
-          m2_out[o] = m2[j][e];
-          a2_out[o] = a2[j][e];
+      for (int jj = 0; jj < WN; ++jj) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows g and g + 8: e = 2h, 2h + 1
+          const int o = grp * part + (wrow + mm * 16 + g + h * 8) * PS +
+                        wbin + jj * 8 + 2 * t;
+          const int e = 2 * h;
+          *reinterpret_cast<float2*>(ps + o) =
+              make_float2(m1[mm][jj][e], m1[mm][jj][e + 1]);
+          *reinterpret_cast<int2*>(pi + o) =
+              make_int2(row_of(a1[mm][jj][e], jj * 8),
+                        row_of(a1[mm][jj][e + 1], jj * 8 + 1));
+          if (kKeep == 2) {
+            *reinterpret_cast<float2*>(ps + stride + o) =
+                make_float2(m2[mm][jj][e], m2[mm][jj][e + 1]);
+            *reinterpret_cast<int2*>(pi + stride + o) =
+                make_int2(row_of(a2[mm][jj][e], jj * 8),
+                          row_of(a2[mm][jj][e + 1], jj * 8 + 1));
+          }
         }
       }
     }
   }
+  __syncthreads();
+
+  // The block's groups merge into group 0's partial.
+  const int ncell = rows * BN;
+  if (groups > 1) {
+    const float* gps[MAX_WARPS];
+    const int* gpi[MAX_WARPS];
+#pragma unroll
+    for (int y = 0; y < MAX_WARPS; ++y) {
+      gps[y] = ps + y * part;
+      gpi[y] = pi + y * part;
+    }
+#pragma unroll 2
+    for (int cell = tid; cell < ncell; cell += nthreads) {
+      const int o = cell / BN * PS + cell % BN;
+      const Top<kKeep> top =
+          merged<kKeep, MAX_WARPS>(gps, gpi, groups, o, stride);
+      ps[o] = top.s1;
+      pi[o] = top.i1;
+      if (kKeep == 2) {
+        ps[stride + o] = top.s2;
+        pi[stride + o] = top.i2;
+      }
+    }
+  }
+  cluster.sync();  // every block's partial is complete
+
+  // This block's share of the cells, merged over the cluster's blocks.
+  const float* rps[MAX_CLUSTER];
+  const int* rpi[MAX_CLUSTER];
+#pragma unroll
+  for (int r = 0; r < MAX_CLUSTER; ++r) {
+    rps[r] = cluster.map_shared_rank(ps, r < csize ? r : 0);
+    rpi[r] = cluster.map_shared_rank(pi, r < csize ? r : 0);
+  }
+  const int lo = static_cast<int>((long long)rank * ncell / csize);
+  const int hi = static_cast<int>((long long)(rank + 1) * ncell / csize);
+#pragma unroll 4
+  for (int cell = lo + tid; cell < hi; cell += nthreads) {
+    const Top<kKeep> top = merged<kKeep, MAX_CLUSTER>(
+        rps, rpi, csize, cell / BN * PS + cell % BN, stride);
+    const size_t o = (size_t)(row0 + cell / BN) * L + bin0 + cell % BN;
+    m1_out[o] = top.s1;
+    a1_out[o] = top.i1;
+    if (kKeep == 2) {
+      m2_out[o] = top.s2;
+      a2_out[o] = top.i2;
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its partial
 }
 
+using KernelFn = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
+                          const float*, const int*, float*, int*, float*,
+                          int*, int, int, int, int, int, int);
+
+// The instantiation a pass runs at width E: A fragments in registers at
+// E = 16 * A_STEPS, from shared memory otherwise. Both sum in one k-order.
 template <bool kThreshold, int kKeep>
-int launch(const void* q, const void* c, const void* thr_s, const void* thr_i,
-           void* m1, void* a1, void* m2, void* a2, int B, int E, int n_pad,
-           int L, int n_valid, void* stream) {
-  if (B <= 0 || E <= 0 || E % 16 != 0 || L <= 0 || L % BN != 0 ||
-      n_pad <= 0 || n_pad % L != 0)
+KernelFn kernel_for(int E) {
+  return E == 16 * A_STEPS ? bin_max_kernel<kThreshold, kKeep, A_STEPS>
+                           : bin_max_kernel<kThreshold, kKeep, 0>;
+}
+
+cudaError_t prepare(KernelFn kernel, int B, int E, Shape* s) {
+  if (B <= 0 || E <= 0 || E % 16 != 0) return cudaErrorInvalidValue;
+  *s = shape_for(B, E);
+  if (s->stages < 2 || s->smem > SMEM_MAX) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s->smem);
+}
+
+// Grid (cluster, L / BN, ceil(B / BM)) in clusters of (cluster, 1, 1).
+cudaLaunchConfig_t config(const Shape& s, int B, int L, int cluster,
+                          cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, L / BN, (B + BM - 1) / BM);
+  cfg.blockDim = dim3(32 * s.wpg, s.groups, 1);
+  cfg.dynamicSmemBytes = s.smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of `cluster` blocks of `kernel` at shape s that the current
+// device holds at once (cudaOccupancyMaxActiveClusters), cached by kernel,
+// device, block shape and cluster size: the query costs more than a launch.
+cudaError_t resident_clusters(KernelFn kernel, const Shape& s, int cluster,
+                              int* out) {
+  struct Entry {
+    KernelFn kernel;
+    int device, wpg, groups, smem, cluster, clusters;
+  };
+  static std::mutex mu;
+  static Entry cache[256];
+  static int cached = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < cached; ++i) {
+      const Entry& e = cache[i];
+      if (e.kernel == kernel && e.device == device && e.wpg == s.wpg &&
+          e.groups == s.groups && e.smem == s.smem && e.cluster == cluster) {
+        *out = e.clusters;
+        return cudaSuccess;
+      }
+    }
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(s, 1, BN, cluster, nullptr, &attr);
+  err = cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (cached < 256)
+    cache[cached++] = {kernel, device, s.wpg, s.groups, s.smem, cluster, *out};
+  return cudaSuccess;
+}
+
+// The cluster size of a launch of `tiles` bin tiles x row groups: the
+// largest power of two c <= MAX_CLUSTER for which the card holds all `tiles`
+// clusters of c blocks at once, so the grid runs in one wave; 1 when no c
+// > 1 does. A grid that needs a second wave lost to a smaller cluster in one
+// wave on the H100 (PERF.md).
+cudaError_t pick_cluster(KernelFn kernel, const Shape& s, int tiles,
+                         int* cluster) {
+  for (int c = MAX_CLUSTER; c > 1; c /= 2) {
+    int resident = 0;
+    const cudaError_t err = resident_clusters(kernel, s, c, &resident);
+    if (err != cudaSuccess) return err;
+    if (resident >= tiles) {
+      *cluster = c;
+      return cudaSuccess;
+    }
+  }
+  *cluster = 1;
+  return cudaSuccess;
+}
+
+int tiles_of(int B, int L) { return L / BN * ((B + BM - 1) / BM); }
+
+int launch(KernelFn kernel, const void* q, const void* c, const void* thr_s,
+           const void* thr_i, void* m1, void* a1, void* m2, void* a2, int B,
+           int E, int n_pad, int L, int n_valid, void* stream) {
+  if (L <= 0 || L % BN != 0 || n_pad <= 0 || n_pad % L != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      (size_t)(BM + STAGES * BN) * (E + PAD) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      bin_max_kernel<kThreshold, kKeep>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  Shape s;
+  cudaError_t err = prepare(kernel, B, E, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(L / BN, (B + BM - 1) / BM);
-  bin_max_kernel<kThreshold, kKeep>
-      <<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(c),
-          static_cast<const float*>(thr_s), static_cast<const int*>(thr_i),
-          static_cast<float*>(m1), static_cast<int*>(a1),
-          static_cast<float*>(m2), static_cast<int*>(a2), B, E, L, n_pad / L,
-          n_valid);
+  int cluster = 1;
+  err = pick_cluster(kernel, s, tiles_of(B, L), &cluster);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      config(s, B, L, cluster, static_cast<cudaStream_t>(stream), &attr);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(c), static_cast<const float*>(thr_s),
+      static_cast<const int*>(thr_i), static_cast<float*>(m1),
+      static_cast<int*>(a1), static_cast<float*>(m2), static_cast<int*>(a2),
+      B, E, L, n_pad / L, n_valid, s.stages);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Each launcher returns cudaGetLastError() after the launch (0 = success).
+// Each launcher returns cudaGetLastError() after the launch (0 = success);
+// a refused launch (e.g. cudaErrorClusterOutOfResources) returns its error.
 extern "C" int bin_max2_first_round(const void* q, const void* c, void* m1,
                                     void* a1, void* m2, void* a2, int B,
                                     int E, int n_pad, int L, int n_valid,
                                     void* stream) {
-  return launch<false, 2>(q, c, nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad,
-                          L, n_valid, stream);
+  return launch(kernel_for<false, 2>(E), q, c, nullptr, nullptr, m1, a1, m2,
+                a2, B, E, n_pad, L, n_valid, stream);
 }
 
 extern "C" int bin_max2_round(const void* q, const void* c, const void* thr_s,
                               const void* thr_i, void* m1, void* a1, void* m2,
                               void* a2, int B, int E, int n_pad, int L,
                               int n_valid, void* stream) {
-  return launch<true, 2>(q, c, thr_s, thr_i, m1, a1, m2, a2, B, E, n_pad, L,
-                         n_valid, stream);
+  return launch(kernel_for<true, 2>(E), q, c, thr_s, thr_i, m1, a1, m2, a2, B,
+                E, n_pad, L, n_valid, stream);
 }
 
 extern "C" int bin_max_round(const void* q, const void* c, const void* thr_s,
                              const void* thr_i, void* m, void* a, int B, int E,
                              int n_pad, int L, int n_valid, void* stream) {
-  return launch<true, 1>(q, c, thr_s, thr_i, m, a, nullptr, nullptr, B, E,
-                         n_pad, L, n_valid, stream);
+  return launch(kernel_for<true, 1>(E), q, c, thr_s, thr_i, m, a, nullptr,
+                nullptr, B, E, n_pad, L, n_valid, stream);
+}
+
+// Launch shape of a pass (keep 1 or 2; threshold 0 or 1) over B rows of
+// width E and L bins, as launch() takes it: out[0..11] = cluster size, warps
+// per block, warp groups, ring stages, shared bytes, registers a thread,
+// local (spilled) bytes a thread, clusters of the launch (bin tiles x row
+// groups), and clusters of 1, 2, 4 and 8 blocks resident at once. Returns a
+// CUDA error code (0 = success).
+extern "C" int bin_max_launch_info(int keep, int threshold, int B, int E,
+                                   int L, int* out) {
+  const KernelFn kernel = keep == 1   ? kernel_for<true, 1>(E)
+                          : threshold ? kernel_for<true, 2>(E)
+                                      : kernel_for<false, 2>(E);
+  if (L <= 0 || L % BN != 0) return static_cast<int>(cudaErrorInvalidValue);
+  Shape s;
+  cudaError_t err = prepare(kernel, B, E, &s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = pick_cluster(kernel, s, tiles_of(B, L), &out[0]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = s.wpg * s.groups;
+  out[2] = s.groups;
+  out[3] = s.stages;
+  out[4] = s.smem;
+  out[5] = fa.numRegs;
+  out[6] = static_cast<int>(fa.localSizeBytes);
+  out[7] = tiles_of(B, L);
+  for (int i = 0, c = 1; c <= MAX_CLUSTER; ++i, c *= 2) {
+    err = resident_clusters(kernel, s, c, &out[8 + i]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -16,10 +16,14 @@ package does.
 
 The three passes are hand-written CUDA kernels (``csrc/bin_max2.cu``). Beside
 them is their plain PyTorch version. A wrapper runs the plain version only
-for CPU tensors; for CUDA tensors it launches the kernel or raises, and adds
-one to ``LAUNCHES[<kernel>]`` per launch. ``_topk_rounds`` takes its two
-passes as closures, so it also drives the int8 rounds of
-``ops/quantized_topk.py``.
+for CPU tensors; for CUDA tensors it launches the kernel or raises (a
+refused cluster launch included), and adds one to ``LAUNCHES[<kernel>]`` per
+launch. The kernels split each cell's chunk walk over the blocks of a
+cluster, whose size the launcher picks from the card's occupancy, and over
+warps, and merge the parts under the explicit (score desc, index asc)
+order, which gives what one walk in increasing chunk order gives:
+``bin_cells_plain``. ``_topk_rounds`` takes its two passes as closures, so
+it also drives the int8 rounds of ``ops/quantized_topk.py``.
 
 The bin count ``L`` is an explicit argument. Its default, ``default_bins``,
 is the value the JAX package's ``pick_bins`` gives for query blocks of at
@@ -175,6 +179,7 @@ _ARGTYPES = {
     "bin_max2_first_round": [_P] * 6 + [_I] * 5 + [_P],
     "bin_max2_round": [_P] * 8 + [_I] * 5 + [_P],
     "bin_max_round": [_P] * 6 + [_I] * 5 + [_P],
+    "bin_max_launch_info": [_I] * 5 + [_P],
 }
 
 
@@ -224,6 +229,31 @@ def _check(q, c_padded, L, thr_s, thr_i):
                 raise ValueError("CUDA inputs must be contiguous, 16B-aligned")
     elif q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
+
+
+def launch_info(
+    B: int, E: int, L: int, keep: int = 2, threshold: bool = True,
+    device=None,
+) -> Dict[str, object]:
+    """The launch shape the kernel of a pass (keep 1 or 2, with or without
+    thresholds) takes over B query rows, as its launcher computes it: the
+    cluster size it picks, warps, ring and shared bytes, the compiler's
+    registers and local (spilled) bytes a thread, the launch's clusters
+    (bin tiles x row groups), and ``resident``: the clusters of 1, 2, 4 and
+    8 blocks the card holds at once. Builds the kernels; needs a card."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 12)()
+    with torch.cuda.device(device):
+        err = _kernel("bin_max_launch_info")(
+            keep, int(threshold), B, E, L, ctypes.addressof(out)
+        )
+    if err != 0:
+        raise RuntimeError(f"bin_max_launch_info: CUDA error {err}")
+    keys = ("cluster", "warps_per_block", "warp_groups", "ring_stages",
+            "smem_bytes", "registers", "local_bytes", "clusters")
+    info = dict(zip(keys, out))
+    info["resident"] = {1 << i: out[8 + i] for i in range(4)}
+    return info
 
 
 def _launch(name, q, c_padded, L, n_valid, thr=(), keep=2):

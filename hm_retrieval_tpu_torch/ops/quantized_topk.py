@@ -55,7 +55,6 @@ from hm_retrieval_tpu_torch.ops import _build
 from hm_retrieval_tpu_torch.ops.bin_topk import (
     BIG_IDX,
     BIN_CHOICES,
-    KERNEL_BIN_TILE,
     MAX_ROUNDS,
     NEG_INF,
     Q_BLOCK,
@@ -66,6 +65,9 @@ from hm_retrieval_tpu_torch.ops.bin_topk import (
 )
 from hm_retrieval_tpu_torch.ops.topk import topk_pair
 
+# Bins per block of the int8 kernels (csrc/bin_max2_int8.cu: BN), which the
+# wrappers check L against.
+INT8_KERNEL_BIN_TILE = 32
 # The JAX package's off-TPU VMEM budget (pallas_retrieval.VMEM_BUDGET).
 PLAN_BUDGET = 15_000_000
 # (q_block, fold) candidates of _single_pass_policy, in its order.
@@ -266,9 +268,10 @@ def _check(q, codes, L, F, scales, bias, thr_s=None, thr_i=None):
             raise TypeError(f"the CUDA kernels take bf16 q, got {q.dtype}")
         if E % 16:
             raise ValueError(f"the CUDA kernels need E % 16 == 0, got E={E}")
-        if L % KERNEL_BIN_TILE:
+        if L % INT8_KERNEL_BIN_TILE:
             raise ValueError(
-                f"the CUDA kernels need L % {KERNEL_BIN_TILE} == 0, got {L}"
+                "the CUDA kernels need L % "
+                f"{INT8_KERNEL_BIN_TILE} == 0, got {L}"
             )
         for t in tensors:
             if not t.is_contiguous() or t.data_ptr() % 16:

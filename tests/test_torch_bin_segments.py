@@ -1,0 +1,271 @@
+"""The split-and-merge rule of the exact passes' kernels (csrc/bin_max2.cu).
+
+The kernels cut each (query row, bin) cell's chunk walk into contiguous
+segments, over the blocks of a cluster and over warp groups inside a block,
+walk each segment in increasing chunk order with the strict '>' cascade, and
+merge the partial top-2s (or top-1s) under the explicit comparison x beats y
+iff x.s > y.s or (x.s == y.s and x.i < y.i): groups into their block's
+partial first, then the cluster's blocks. The model below does the same in
+numpy. It must equal the single walk (``bin_cells_plain``) bit for bit for
+any segment count, uneven and empty segments included, on integer scores
+heavy with ties, with n_valid ending inside a segment, and with thresholds
+from a real first round; and the JAX package's passes in interpret mode.
+The CUDA kernels themselves are held against ``bin_cells_plain`` on the card
+by chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hm_retrieval_tpu.ops import pallas_retrieval as pr
+from hm_retrieval_tpu_torch.ops import bin_topk as bt
+from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+B, L, N_CHUNKS = 5, 32, 10
+N_VALID = 250  # inside chunk 7: bin 26 of rows 224 .. 255
+
+
+def _cascade(scores, L, n_valid, chunks, thr, keep):
+    """One segment: the strict '>' cascade over ``chunks`` of L rows in
+    increasing order. Returns (m, a), each (keep, B, L)."""
+    rows = scores.shape[0]
+    m = np.full((keep, rows, L), -np.inf, np.float32)
+    a = np.full((keep, rows, L), bt.BIG_IDX, np.int64)
+    bins = np.arange(L)
+    for ch in chunks:
+        s = scores[:, ch * L : (ch + 1) * L]
+        flat = bins + ch * L
+        ok = np.broadcast_to(flat < n_valid, s.shape)
+        if thr is not None:
+            ts, ti = thr
+            ok = ok & ((s < ts) | ((s == ts) & (flat > ti)))
+        s = np.where(ok, s, -np.inf).astype(np.float32)
+        gt1 = s > m[0]
+        if keep == 2:
+            gt2 = s > m[1]
+            m[1] = np.where(gt1, m[0], np.where(gt2, s, m[1]))
+            a[1] = np.where(gt1, a[0], np.where(gt2, flat, a[1]))
+        m[0] = np.where(gt1, s, m[0])
+        a[0] = np.where(gt1, flat, a[0])
+    return m, a
+
+
+def _merge(parts, keep):
+    """Partial cells merged in the given order by the kernel's ``Top::take``:
+    each slot of each part enters under the explicit lexicographic test."""
+    shape = parts[0][0].shape
+    ts = np.full(shape, -np.inf, np.float32)
+    ti = np.full(shape, bt.BIG_IDX, np.int64)
+    for m, a in parts:
+        for k in range(keep):
+            s, i = m[k], a[k]
+            b1 = (s > ts[0]) | ((s == ts[0]) & (i < ti[0]))
+            if keep == 2:
+                b2 = ~b1 & ((s > ts[1]) | ((s == ts[1]) & (i < ti[1])))
+                ts[1] = np.where(b1, ts[0], np.where(b2, s, ts[1]))
+                ti[1] = np.where(b1, ti[0], np.where(b2, i, ti[1]))
+            ts[0] = np.where(b1, s, ts[0])
+            ti[0] = np.where(b1, i, ti[0])
+    return ts, ti
+
+
+def _kernel_bounds(n_chunks, cluster, groups):
+    """Chunk ranges of the kernel's segments, by block rank then group:
+    segment s = rank * groups + group walks [s*n/S, (s+1)*n/S)."""
+    S = cluster * groups
+    return [
+        [(s * n_chunks // S, (s + 1) * n_chunks // S)
+         for s in range(r * groups, (r + 1) * groups)]
+        for r in range(cluster)
+    ]
+
+
+def _segmented(scores, n_valid, blocks, thr=None, keep=2, L=L):
+    """The kernels' cells: each block's segments walked and merged into the
+    block's partial, then the blocks' partials merged. ``blocks`` lists each
+    block's (first chunk, end chunk) segments. Returns (m, a) as the plain
+    version orders its outputs."""
+    partials = [
+        _merge([_cascade(scores, L, n_valid, range(c0, c1), thr, keep)
+                for c0, c1 in segs], keep)
+        for segs in blocks
+    ]
+    m, a = _merge(partials, keep)
+    out = []
+    for k in range(keep):
+        out += [m[k], a[k].astype(np.int32)]
+    return out
+
+
+def _tied_scores(rng):
+    """Integer scores in [-3, 3]: each cell sees many ties."""
+    return rng.integers(-3, 4, size=(B, N_CHUNKS * L)).astype(np.float32)
+
+
+def _plain(scores, thr=None, keep=2, n_valid=N_VALID):
+    ts = ti = None
+    if thr is not None:
+        ts, ti = (torch.tensor(x) for x in thr)
+    return [
+        x.numpy()
+        for x in bt.bin_cells_plain(
+            torch.tensor(scores), L, n_valid, ts, ti, keep=keep
+        )
+    ]
+
+
+def _first_round_thresholds(scores, keep):
+    """The thresholds a real first round reveals: the weakest slot."""
+    cells = _plain(scores, keep=keep)
+    return cells[-2], cells[-1]
+
+
+def _assert_bitwise(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+        assert g.dtype == w.dtype
+
+
+class TestSegmentedWalk:
+    @pytest.mark.parametrize("thresholds", [False, True])
+    @pytest.mark.parametrize("keep", [1, 2])
+    @pytest.mark.parametrize("segments", range(1, 9))
+    def test_any_segment_count_equals_one_walk(
+        self, rng, segments, keep, thresholds
+    ):
+        scores = _tied_scores(rng)
+        thr = _first_round_thresholds(scores, keep) if thresholds else None
+        blocks = _kernel_bounds(N_CHUNKS, 1, segments)
+        got = _segmented(scores, N_VALID, blocks, thr, keep)
+        _assert_bitwise(got, _plain(scores, thr, keep))
+
+    @pytest.mark.parametrize(
+        "blocks",
+        [
+            [[(0, 0), (0, 7)], [(7, 7), (7, 10)]],  # empty segments
+            [[(0, 1)], [(1, 9)], [(9, 10)]],  # uneven
+            [[(0, 3), (3, 3), (3, 4)], [(4, 10)], [(10, 10)]],  # both
+            [[(c, c + 1)] for c in range(N_CHUNKS)],  # a chunk each
+        ],
+        ids=["empty", "uneven", "uneven_and_empty", "one_chunk_each"],
+    )
+    @pytest.mark.parametrize("keep", [1, 2])
+    def test_uneven_and_empty_segments(self, rng, blocks, keep):
+        scores = _tied_scores(rng)
+        for thr in (None, _first_round_thresholds(scores, keep)):
+            got = _segmented(scores, N_VALID, blocks, thr, keep)
+            _assert_bitwise(got, _plain(scores, thr, keep))
+
+    @pytest.mark.parametrize(
+        "cluster,groups",
+        [(1, 1), (4, 8), (4, 1), (8, 8), (8, 2), (2, 3), (8, 1), (4, 2)],
+    )
+    @pytest.mark.parametrize("keep", [1, 2])
+    def test_kernel_segments_over_cluster_and_warps(
+        self, rng, cluster, groups, keep
+    ):
+        """The kernel's two-level split: cluster blocks x warp groups,
+        more segments than chunks included (8 x 8 > 10)."""
+        scores = _tied_scores(rng)
+        thr = _first_round_thresholds(scores, keep)
+        blocks = _kernel_bounds(N_CHUNKS, cluster, groups)
+        for t in (None, thr):
+            got = _segmented(scores, N_VALID, blocks, t, keep)
+            _assert_bitwise(got, _plain(scores, t, keep))
+
+    @pytest.mark.parametrize("n_valid", [1, 31, 33, 319, 320])
+    def test_n_valid_anywhere(self, rng, n_valid):
+        scores = _tied_scores(rng)
+        blocks = _kernel_bounds(N_CHUNKS, 4, 2)
+        got = _segmented(scores, n_valid, blocks)
+        _assert_bitwise(got, _plain(scores, n_valid=n_valid))
+
+    def test_merge_order_does_not_matter(self, rng):
+        scores = _tied_scores(rng)
+        parts = [_cascade(scores, L, N_VALID, range(c0, c1), None, 2)
+                 for c0, c1 in ((0, 3), (3, 6), (6, 10))]
+        want = _merge(parts, 2)
+        for order in ((2, 1, 0), (1, 0, 2), (0, 2, 1)):
+            got = _merge([parts[i] for i in order], 2)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+
+    def test_a_naive_merge_would_break_the_tie_order(self):
+        """Why the merge compares indices: merged in reverse segment order,
+        a strict '>' on scores alone keeps the later segment's tied entry
+        first; the explicit comparison keeps the earlier one."""
+        scores = np.zeros((1, 2 * L), np.float32)  # every score ties
+        parts = [_cascade(scores, L, 2 * L, [ch], None, 2) for ch in (0, 1)]
+        naive_i = np.full((2, 1, L), bt.BIG_IDX)
+        naive_s = np.full((2, 1, L), -np.inf)
+        for pm, pa in parts[::-1]:  # strict '>' on the scores alone
+            for k in range(2):
+                gt1, gt2 = pm[k] > naive_s[0], pm[k] > naive_s[1]
+                naive_s[1] = np.where(gt1, naive_s[0],
+                                      np.where(gt2, pm[k], naive_s[1]))
+                naive_i[1] = np.where(gt1, naive_i[0],
+                                      np.where(gt2, pa[k], naive_i[1]))
+                naive_s[0] = np.where(gt1, pm[k], naive_s[0])
+                naive_i[0] = np.where(gt1, pa[k], naive_i[0])
+        assert (naive_i[0] == np.arange(L) + L).all()  # the later row first
+        m, a = _merge(parts[::-1], 2)
+        assert (a[0] == np.arange(L)).all() and (a[1] == np.arange(L) + L).all()
+        _assert_bitwise(
+            _segmented(scores, 2 * L, [[(1, 2)], [(0, 1)]]),
+            _plain(scores, n_valid=2 * L),
+        )
+
+
+class TestAgainstJax:
+    """On one small shape the segmented model equals the JAX package's
+    passes run in interpret mode, bit for bit on integer inputs."""
+
+    E, LJ, NPAD, NV = 16, 128, 1024, 1000
+
+    def _inputs(self, rng):
+        q = rng.integers(-4, 5, size=(4, self.E)).astype(np.float32)
+        c = rng.integers(-4, 5, size=(self.NPAD, self.E)).astype(np.float32)
+        return q, c
+
+    def _model(self, q, c, thr, keep):
+        scores = q @ c.T  # exact in fp32 for these integers
+        blocks = _kernel_bounds(self.NPAD // self.LJ, 4, 3)
+        return _segmented(scores, self.NV, blocks, thr, keep, L=self.LJ)
+
+    def test_top2_rounds_equal_jax(self, rng):
+        q, c = self._inputs(rng)
+        jq, jc = jnp.asarray(q), jnp.asarray(c)
+        j1 = pr.bin_max2_first_round(jq, jc, L=self.LJ, n_valid=self.NV,
+                                     interpret=True)
+        _assert_bitwise(self._model(q, c, None, 2),
+                        [np.asarray(x) for x in j1])
+        j2 = pr.bin_max2_round(jq, jc, j1[2], j1[3], L=self.LJ,
+                               n_valid=self.NV, interpret=True)
+        thr = (np.asarray(j1[2]), np.asarray(j1[3]))
+        _assert_bitwise(self._model(q, c, thr, 2),
+                        [np.asarray(x) for x in j2])
+
+    def test_top1_rounds_equal_jax(self, rng):
+        q, c = self._inputs(rng)
+        jq, jc = jnp.asarray(q), jnp.asarray(c)
+        inf_s = np.full((4, self.LJ), np.inf, np.float32)
+        inf_i = np.full((4, self.LJ), -1, np.int32)
+        j1 = pr.bin_max_round(jq, jc, jnp.asarray(inf_s), jnp.asarray(inf_i),
+                              L=self.LJ, n_valid=self.NV, interpret=True)
+        _assert_bitwise(self._model(q, c, (inf_s, inf_i), 1),
+                        [np.asarray(x) for x in j1])
+        j2 = pr.bin_max_round(jq, jc, j1[0], j1[1], L=self.LJ,
+                              n_valid=self.NV, interpret=True)
+        thr = (np.asarray(j1[0]), np.asarray(j1[1]))
+        _assert_bitwise(self._model(q, c, thr, 1),
+                        [np.asarray(x) for x in j2])
+
+
+def test_int8_kernels_keep_their_own_bin_tile():
+    """The int8 wrappers check L against their kernel's BN, not the bf16
+    kernel's."""
+    assert qt.INT8_KERNEL_BIN_TILE == 32
+    assert not hasattr(qt, "KERNEL_BIN_TILE")

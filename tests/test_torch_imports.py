@@ -1,5 +1,5 @@
 """The port stands alone: no JAX and nothing of the JAX package in
-hm_retrieval_tpu_torch or chip_smoke.py, nothing the card's machine lacks
+hm_retrieval_tpu_torch, chip_smoke.py or bin_max_bench.py, nothing the card's machine lacks
 (pandas) on its import path, and no silent CPU fallback when the card is
 absent."""
 
@@ -28,7 +28,9 @@ FORBIDDEN = ("jax", "jaxlib", "hm_retrieval_tpu", "pandas")
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "bin_max_bench.py"
+    ]
 
 
 def _imported_modules(path):
