@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Time the exact passes' kernels (csrc/bin_max2.cu) on one card: two trees
-side by side, or ablated builds of this tree's kernel.
+"""Time the kernels of csrc/bin_max2.cu (the exact passes, kernels 1, 2, 8,
+and the int8 rounds, kernels 6-7) on one card: two trees side by side, or
+ablated builds of this tree's kernel.
 
     python3 bin_max_bench.py ab --tree OLD --tree NEW [--seed 0]
     python3 bin_max_bench.py serve --tree OLD --tree NEW [--pairs 5]
     python3 bin_max_bench.py ablate [--seed 0]
 
-``ab`` times kernels 1, 2 and 8 and ``exact_topk`` from each tree's own
+``ab`` times kernels 1, 2, 6, 7 and 8, ``exact_topk`` and
+``quantized_topk(max_rounds=8)`` from each tree's own
 ``hm_retrieval_tpu_torch`` (for example a ``git archive`` of an earlier
 commit unpacked under ``build/``), one process per tree in the order OLD,
 NEW, NEW, OLD, so that a drift of the card or host shows as a difference
 between the two readings of one tree. Every tree is timed by the same
 functions (``chip_smoke.graph_ms``, ``chip_smoke.cuda_ms``) over the same
-seeded inputs: the 105,542-row H&M-sized catalog, E=128, bf16, normal.
+seeded inputs: the 105,542-row H&M-sized catalog, E=128, bf16, normal, and
+as int8 codes with per-row scales. Each process saves every output it
+timed, and ``ab`` then prints whether each is bit-identical across the two
+trees (``bitwise``).
 
 - kernel 1 (``bin_max2_first_round``) and kernel 2 (``bin_max2_round``, on
   the thresholds of its own round 1) at B = 1, 16, 128, L=2048; kernel 8
@@ -20,11 +25,17 @@ seeded inputs: the 105,542-row H&M-sized catalog, E=128, bf16, normal.
   L = 2048 and 512. ``ms``: 50 launches replayed from one CUDA graph
   (device time); ``events_ms``: 50 back-to-back launches by CUDA events
   (the wrapper's host time where that is longer).
-- ``exact_topk`` at k=1000, B = 1, 16, 128, 1024: the median of 10 calls,
-  each timed by CUDA events (host syncs included, as served); then 5 calls
-  under ``torch.profiler``: device ms a call of the bin-max kernels and of
-  every other kernel, and the share of the profiled window in which the
-  card ran no kernel (the profiler's own host cost included).
+- kernel 6 (``bin_max2_scaled_first_round``) and kernel 7
+  (``bin_max2_scaled_round``, on the thresholds of its own round 1) at
+  B = 1, 16, 128, L=2048, over the 106,496 rows the rounds stream (a -inf
+  bias on 1% of the valid rows), timed alike.
+- ``exact_topk`` at k=1000 and ``quantized_topk(max_rounds=8)`` at k=2000
+  (phase 6's per-row int8 catalog, 131,072 rows), B = 1, 16, 128, 1024: the
+  median of 10 calls, each timed by CUDA events (host syncs included, as
+  served); then 5 calls under ``torch.profiler``: device ms a call of the
+  bin-max kernels and of every other kernel, and the share of the profiled
+  window in which the card ran no kernel (the profiler's own host cost
+  included).
 
 ``serve`` runs ``chip_smoke.py``'s phase 3 (the exact index serving string
 requests at full H&M width, B = 1, 16, 128, 1024, with its stage breakdown)
@@ -34,15 +45,19 @@ alternate which tree runs first.
 ``ablate`` builds this tree's ``bin_max2.cu`` as it is and with parts of
 the kernel's walk replaced (the outputs of those builds are wrong; only
 their time is read) and with the cluster size forced, and times kernels 1-2
-at B = 1, 16, 128, L=2048 (kernel 1 also at L = 1024 and 512 for the
-cluster sizes). The forced cluster sizes must give the as-is outputs bit
-for bit. Variants:
+and the int8 instances, kernels 6-7, at B = 1, 16, 128, L=2048 (kernel 1
+also at L = 1024 and 512 for the cluster sizes). The forced cluster sizes
+must give the as-is outputs bit for bit, kernels 6-7's included. Variants:
 
 - ``as_is``: the kernel as it is;
 - ``no_cascade``: the top-2 cascade replaced by one max a cell;
 - ``no_mma``: each ``mma.sync`` removed, its operands still loaded;
 - ``neither``: both;
-- ``ring_only``: the ring's copies and barriers, nothing computed;
+- ``ring_only``: the ring's copies and barriers (and the int8 instances'
+  conversion to bf16), nothing computed;
+- ``no_convert``: the int8 instances' conversion of each landed tile to
+  bf16 and its barrier removed (the mma reads a stale tile);
+- ``no_epilogue``: the int8 instances' ``sum * scale + bias`` removed;
 - ``c1`` .. ``c8``: the cluster size forced to 1, 2, 4, 8.
 
 Each line printed is one JSON object; needs a card, exits 2 without one.
@@ -67,6 +82,7 @@ import chip_smoke as cs  # noqa: E402  (torch and numpy only at import)
 TIMED = (1, 16, 128)
 TOPK_BATCHES = (1, 16, 128, 1024)
 K = 1000
+L8 = 2048  # the int8 rounds' bins at k = 2000
 
 
 def emit(obj):
@@ -85,7 +101,8 @@ def time_launch(launch):
 
 
 def kernel_rows(bt, gen, dev, batches=TIMED, bins=(2048,), kernels=(1, 2)):
-    """Timings of kernels 1-2 (and 8) at each (L, B), with their bounds."""
+    """Timings of kernels 1-2 (and 8) at each (L, B), with their bounds,
+    each with the outputs of one launch."""
     N = cs.N_ARTICLES
     for L in bins:
         c_pad = catalog(gen, dev, L)
@@ -109,56 +126,108 @@ def kernel_rows(bt, gen, dev, batches=TIMED, bins=(2048,), kernels=(1, 2)):
                 bound, by = cs.pass_bound_ms(B, c_pad.shape[0], L, thr,
                                              outputs=outputs)
                 yield {"kernel": kernel, "L": L, "B": B, **time_launch(launch),
-                       "bound_ms": bound, "bound_by": by}
+                       "bound_ms": bound, "bound_by": by}, launch()
+
+
+def int8_rows(qt, gen, dev, batches=TIMED):
+    """Timings of kernels 6-7 at L8 and each B, with their bounds, each with
+    the outputs of one launch."""
+    N = cs.N_ARTICLES
+    n_rows = -(-N // L8) * L8
+    codes, scales, bias = cs.scaled_catalog(gen, dev, n_rows, cs.E, N)
+    q_all = cs.random_rows(gen, dev, "normal", cs.Q_BLOCK)
+    for B in batches:
+        q = q_all[:B]
+        first = qt.bin_max2_scaled_first_round(q, codes, scales, bias, L8, N)
+        runs = {
+            6: (lambda: qt.bin_max2_scaled_first_round(
+                q, codes, scales, bias, L8, N), False),
+            7: (lambda: qt.bin_max2_scaled_round(
+                q, codes, scales, bias, first[2], first[3], L8, N), True),
+        }
+        for kernel, (launch, thr) in runs.items():
+            bound, by = cs.single_pass_bound_ms(B, n_rows, L8, True, thr)
+            yield {"kernel": kernel, "L": L8, "B": B, **time_launch(launch),
+                   "bound_ms": bound, "bound_by": by}, launch()
 
 
 def import_tree(tree):
-    """``bin_topk`` of the hm_retrieval_tpu_torch under ``tree``."""
+    """(``bin_topk``, ``quantized_topk``) of the hm_retrieval_tpu_torch under
+    ``tree``."""
     sys.path.insert(0, str(Path(tree).resolve()))
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 
-    where = Path(bt.__file__).resolve()
-    if Path(tree).resolve() not in where.parents:
-        raise RuntimeError(f"imported {where}, not the tree {tree}")
-    return bt
+    for module in (bt, qt):
+        where = Path(module.__file__).resolve()
+        if Path(tree).resolve() not in where.parents:
+            raise RuntimeError(f"imported {where}, not the tree {tree}")
+    return bt, qt
 
 
-def time_tree(tree, seed):
-    """Kernels and exact_topk of the hm_retrieval_tpu_torch under ``tree``."""
-    bt = import_tree(tree)
+def timed_calls(fn, calls=10):
+    """Per-call ms of ``calls`` calls after a warm-up, each by CUDA events
+    (host syncs included), and the last call's outputs."""
+    fn()
+    times = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, out
+
+
+def time_tree(tree, seed, out):
+    """Kernels, exact_topk and quantized_topk of the hm_retrieval_tpu_torch
+    under ``tree``; every output timed is saved to ``out``."""
+    bt, qt = import_tree(tree)
     from hm_retrieval_tpu_torch.ops import _build
 
-    _build.build_all(["bin_max2"])
+    _build.build_all()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    for row in kernel_rows(bt, gen, dev, kernels=(1, 2)):
+    saved = {}
+
+    def keep(key, outs):
+        saved[key] = [t.cpu() if torch.is_tensor(t) else t for t in outs]
+
+    rows = [*kernel_rows(bt, gen, dev, kernels=(1, 2)),
+            *kernel_rows(bt, gen, dev, batches=(cs.Q_BLOCK,),
+                         bins=(2048, 512), kernels=(8,)),
+            *int8_rows(qt, gen, dev)]
+    for row, outs in rows:
         emit({"tree": tree, **row})
-    for row in kernel_rows(bt, gen, dev, batches=(cs.Q_BLOCK,),
-                           bins=(2048, 512), kernels=(8,)):
-        emit({"tree": tree, **row})
+        keep(f"kernel {row['kernel']} L={row['L']} B={row['B']}", outs)
     cand = cs.random_rows(gen, dev, "normal", cs.N_ARTICLES)
-    for B in TOPK_BATCHES:
-        q = cs.random_rows(gen, dev, "normal", B)
-        bt.exact_topk(q, cand, K)
-        times = []
-        for _ in range(10):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            _, _, rounds = bt.exact_topk(q, cand, K)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        emit({"tree": tree, "exact_topk": {"B": B, "k": K, "rounds": rounds,
-                                           "median_ms": statistics.median(times),
-                                           "ms": times}})
-        emit({"tree": tree, "profile": {"B": B, **profile_topk(bt, q, cand)}})
+    codes, scales, _ = cs.int8_catalog(gen, dev)
+    drivers = {
+        "exact_topk": (K, lambda q: bt.exact_topk(q, cand, K)),
+        "quantized_topk": (cs.SURVIVORS, lambda q: qt.quantized_topk(
+            q, codes, scales, cs.SURVIVORS, n_valid=cs.N_ARTICLES,
+            max_rounds=cs.MAX_ROUNDS)),
+    }
+    for name, (k, driver) in drivers.items():
+        for B in TOPK_BATCHES:
+            q = cs.random_rows(gen, dev, "normal", B)
+            times, outs = timed_calls(lambda: driver(q))
+            keep(f"{name} B={B}", outs)
+            emit({"tree": tree, name: {
+                "B": B, "k": k, "rounds": outs[2],
+                "median_ms": statistics.median(times), "ms": times}})
+            emit({"tree": tree, "profile": {
+                "driver": name, "B": B, **profile_calls(lambda: driver(q))}})
+    torch.save(saved, out)
 
 
-def profile_topk(bt, q, cand, calls=5):
-    """Device time a call of exact_topk's kernels by torch.profiler: the
-    bin-max kernels' and the others', and the share of the profiled window
-    in which the card ran no kernel."""
+def profile_calls(fn, calls=5):
+    """Device time a call of ``fn``'s kernels by torch.profiler: the bin-max
+    kernels' (this tree's template, or an earlier tree's int8 template) and
+    the others', and the share of the profiled window in which the card ran
+    no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -166,14 +235,15 @@ def profile_topk(bt, q, cand, calls=5):
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         for _ in range(calls):
-            bt.exact_topk(q, cand, K)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     spans = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = {"bin_max": 0.0, "other": 0.0}
     for e in spans:
-        key = "bin_max" if "bin_max_kernel" in e.name else "other"
+        key = ("bin_max" if "bin_max_kernel" in e.name
+               or "int8_pass_kernel" in e.name else "other")
         busy[key] += e.time_range.elapsed_us() / 1e3
     return {
         "calls": calls, "device_events": len(spans),
@@ -197,18 +267,45 @@ def serve_tree(tree, seed):
 
 def alternate(mode, trees, seed, pairs):
     """``mode`` on each tree in a process of its own, ``pairs`` pairs,
-    alternating which tree runs first: OLD, NEW, NEW, OLD, ..."""
+    alternating which tree runs first: OLD, NEW, NEW, OLD, ... Returns the
+    (tree, output file) of each run."""
+    out_dir = ROOT / "build" / "bench"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs = []
     for pair in range(pairs):
         for tree in trees if pair % 2 == 0 else trees[::-1]:
             emit({"run": mode, "tree": tree, "pair": pair})
+            out = out_dir / f"{mode}-{pair}-{len(runs)}.pt"
             proc = subprocess.run(
                 [sys.executable, __file__, mode, "--tree", tree, "--seed",
-                 str(seed)], capture_output=True, text=True, timeout=600,
+                 str(seed), "--out", str(out)], capture_output=True,
+                text=True, timeout=900,
             )
             sys.stdout.write(proc.stdout)
             if proc.returncode != 0:
                 sys.stderr.write(proc.stderr)
                 raise SystemExit(f"{mode} of {tree} failed ({proc.returncode})")
+            runs.append((tree, out))
+    return runs
+
+
+def same(a, b):
+    """Bitwise equality of two saved outputs (tensors and plain values)."""
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y
+        for x, y in zip(a, b))
+
+
+def compare_runs(runs):
+    """Whether every saved output is bit-identical across all runs, both
+    trees: one line per output, then a summary."""
+    saved = [(tree, torch.load(out)) for tree, out in runs]
+    first = saved[0][1]
+    verdict = {}
+    for key in first:
+        verdict[key] = all(same(first[key], s[key]) for _, s in saved[1:])
+        emit({"bitwise": {"output": key, "identical": verdict[key]}})
+    emit({"bitwise_all": all(verdict.values()), "runs": len(saved)})
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +340,10 @@ NO_MMA = """  asm volatile(""
 WALK = "    if (active) {\n      float acc[WM][WN][4];"
 NO_WALK = "    if (active && steps < 0) {\n      float acc[WM][WN][4];"
 PICK = "  err = pick_cluster(kernel, s, tiles_of(B, L), &cluster);\n"
+CONVERT = """      codes_to_bf16(sc + slot * stage, sconv, Ek, ld, gtid, gthreads);
+      group_sync(1 + grp, gthreads);
+"""
+EPILOGUE = "      if constexpr (kInt8) scaled(acc, slot);\n"
 
 VARIANTS = {
     "as_is": [],
@@ -250,6 +351,8 @@ VARIANTS = {
     "no_mma": [(MMA, NO_MMA)],
     "neither": [(CASCADE, ONE_MAX), (MMA, NO_MMA)],
     "ring_only": [(WALK, NO_WALK)],
+    "no_convert": [(CONVERT, "")],
+    "no_epilogue": [(EPILOGUE, "")],
     **{f"c{c}": [(PICK, f"  cluster = {c};\n")] for c in (1, 2, 4, 8)},
 }
 
@@ -286,20 +389,22 @@ def build_variants(names):
     return built
 
 
-def use(bt, lib):
-    """Point the wrappers of ``bt`` at the kernels of ``lib``."""
-    def kernel(name):
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = bt._ARGTYPES[name]
-            fn.restype = ctypes.c_int
-        return fn
+def use(lib, *modules):
+    """Point the kernel wrappers of ``modules`` at the kernels of ``lib``."""
+    for module in modules:
+        def kernel(name, module=module):
+            fn = getattr(lib, name)
+            if fn.argtypes is None:
+                fn.argtypes = module._ARGTYPES[name]
+                fn.restype = ctypes.c_int
+            return fn
 
-    bt._kernel = kernel
+        module._kernel = kernel
 
 
 def ablate(seed):
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 
     built = build_variants(list(VARIANTS))
     for name, (_, regs) in built.items():
@@ -308,16 +413,22 @@ def ablate(seed):
     # the forced cluster sizes must answer as the as-is build does
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = cs.random_rows(gen, dev, "normal", cs.Q_BLOCK)
+    N = cs.N_ARTICLES
     for L in (2048, 1024, 512):
         c_pad = catalog(gen, dev, L)
+        n8 = -(-N // L) * L
+        codes, scales, bias = cs.scaled_catalog(gen, dev, n8, cs.E, N)
         want = {}
         for name in ("as_is", "c1", "c2", "c4", "c8"):
-            use(bt, built[name][0])
+            use(built[name][0], bt, qt)
             for B in (1, 37, 128):
-                k1 = bt.bin_max2_first_round(q[:B], c_pad, L, cs.N_ARTICLES)
-                k2 = bt.bin_max2_round(q[:B], c_pad, k1[2], k1[3], L,
-                                       cs.N_ARTICLES)
-                got = [x.clone() for x in k1 + k2]
+                k1 = bt.bin_max2_first_round(q[:B], c_pad, L, N)
+                k2 = bt.bin_max2_round(q[:B], c_pad, k1[2], k1[3], L, N)
+                k6 = qt.bin_max2_scaled_first_round(q[:B], codes, scales,
+                                                    bias, L, N)
+                k7 = qt.bin_max2_scaled_round(q[:B], codes, scales, bias,
+                                              k6[2], k6[3], L, N)
+                got = [x.clone() for x in k1 + k2 + k6 + k7]
                 if name == "as_is":
                     want[B] = got
                 elif not all(torch.equal(g, w) for g, w in zip(got, want[B])):
@@ -325,14 +436,17 @@ def ablate(seed):
                                        "from the as-is build")
         emit({"cluster_check": {"L": L, "ok": True}})
     for name in VARIANTS:
-        use(bt, built[name][0])
+        use(built[name][0], bt, qt)
         cluster = name.startswith("c")
         rows = kernel_rows(
             bt, torch.Generator(device=dev).manual_seed(seed), dev,
             batches=(1, 128) if cluster else TIMED,
             bins=(2048, 1024, 512) if cluster else (2048,),
             kernels=(1,) if cluster else (1, 2))
-        for row in rows:
+        if not cluster:
+            rows = [*rows, *int8_rows(
+                qt, torch.Generator(device=dev).manual_seed(seed), dev)]
+        for row, _ in rows:
             emit({"variant": name, **row})
 
 
@@ -343,6 +457,7 @@ def main(argv=None):
     ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pairs", type=int, default=5)
+    ap.add_argument("--out", help="time: where to save the outputs timed")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bin_max_bench: CUDA is not available", file=sys.stderr)
@@ -351,11 +466,11 @@ def main(argv=None):
         if len(args.tree) != 2:
             ap.error(f"{args.mode} takes two --tree")
         if args.mode == "ab":
-            alternate("time", args.tree, args.seed, 2)
+            compare_runs(alternate("time", args.tree, args.seed, 2))
         else:
             alternate("serve-one", args.tree, args.seed, args.pairs)
     elif args.mode == "time":
-        time_tree(args.tree[0], args.seed)
+        time_tree(args.tree[0], args.seed, args.out)
     elif args.mode == "serve-one":
         serve_tree(args.tree[0], args.seed)
     else:

@@ -57,14 +57,18 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    agree; where they differ, only between scores within TOL. Recall
    against the exact fp32 top-1000 is printed, not held to a limit.
 6. The rounds kernels against their plain versions on the card, at the
-   served shapes: the int8 first and refinement rounds on phase 4's codes
-   cut to the 106,496 rows of the chunks that hold a valid row, as
-   quantized_topk streams them (105,542 valid, a -inf bias on 1% of them),
-   B=128, L=2048,
-   the refinement round on the thresholds the first revealed; the
-   single-keep pass on the bf16 catalog at L=2048 and L=512, at +inf
-   thresholds and at those of a previous round. Integer-valued queries
-   must give bit-identical outputs, normal ones values within TOL. Then
+   served shapes: the int8 first and refinement rounds (kernels 6-7, the
+   int8 instances of bin_max2.cu's template) over random int8 codes of the
+   106,496 rows of the chunks that hold a valid row, as quantized_topk
+   streams them (105,542 valid, a -inf bias on 1% of them), at B = 1, 16,
+   37, 128 and L = 2048 (k=1000) and L = 1024 (k=100), the refinement
+   round on the thresholds the first revealed, each (L, B) printing the
+   kernels' launch shape under phase 2's cluster rule; timed at B = 1, 16,
+   128, L = 2048, by graph and by events; and at E = 64 and 256 on
+   integer inputs. The single-keep pass on the bf16 catalog at L=2048 and
+   L=512, at +inf thresholds and at those of a previous round.
+   Integer-valued queries must give bit-identical outputs, normal ones
+   values within TOL. Then
    the drivers: quantized_topk with 8 rounds at B = 128 and 1024 (2000
    survivors) must answer as its 128-row blocks answer alone, and each
    block whose stop rule held within 8 rounds the exact top-2000 of the
@@ -83,6 +87,14 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    rescore included) wherever the survivors agree. Rounds per batch and
    recall against the exact fp32 top-1000, beside phase 5's single-pass
    recall, are printed, not held to a limit.
+8. Widths the kernels do not take as they are (phase_widths): over 20,000
+   rows of integer-valued embeddings, BruteForceIndex("auto") (k=1000) and
+   QuantizedIndex (k=100) with one pass and with 8 rounds at E = 8 and 100
+   run the kernels on E padded to 16 and 112 and answer bit-identically to
+   the same indices on the CPU; at E = 520 the exact index routes to
+   "full" and the rounds to "scan", the one pass runs its kernels at 528,
+   and at E = 600 the one pass routes to "scan", each route with a log
+   line.
 
 Output: per-phase JSON lines, then the card's name and power limit, the
 {"kernels": [...]} line, and as the last line
@@ -93,6 +105,7 @@ Exits non-zero, printing no result, when CUDA is not available.
 import argparse
 import contextlib
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -254,15 +267,7 @@ def phase_kernels(gen, dev):
             infos = {n: bt.launch_info(B, E, L, keep=1 if n == names[2] else 2,
                                        threshold=n != names[0], device=dev)
                      for n in names}
-            for n, info in infos.items():
-                # the launcher's rule: the largest cluster size whose whole
-                # grid the card holds at once
-                fits = [c for c in (2, 4, 8)
-                        if info["resident"][c] >= info["clusters"]]
-                require(info["cluster"] == max(fits, default=1),
-                        f"{n} L={L} B={B}: cluster {info['cluster']}, "
-                        f"resident {info['resident']}")
-            emit({"kernel_launch": {"L": L, "B": B, **infos}})
+            check_clusters(infos, L, B)
         inf_s = torch.full((Q_BLOCK, L), float("inf"), device=dev)
         inf_i = torch.full((Q_BLOCK, L), -1, dtype=torch.int32, device=dev)
         for kind in ("integer", "normal"):
@@ -366,6 +371,19 @@ def phase_kernels(gen, dev):
         emit({"kernel_check": {"E": width, "L": L, "B": B,
                                "inputs": "integer", "ok": True}})
     return stats
+
+
+def check_clusters(infos, L, B):
+    """Each kernel's launch shape at (L, B) holds the launcher's rule: the
+    largest cluster size whose whole grid the card holds at once. Prints
+    the shapes as one kernel_launch line."""
+    for n, info in infos.items():
+        fits = [c for c in (2, 4, 8)
+                if info["resident"][c] >= info["clusters"]]
+        require(info["cluster"] == max(fits, default=1),
+                f"{n} L={L} B={B}: cluster {info['cluster']}, "
+                f"resident {info['resident']}")
+    emit({"kernel_launch": {"L": L, "B": B, **infos}})
 
 
 def hm_schema():
@@ -717,62 +735,117 @@ def random_rows(gen, dev, kind, n):
     return x.to(torch.bfloat16)
 
 
+ROUNDS_KERNELS = ("bin_max2_scaled_first_round", "bin_max2_scaled_round")
+
+
+def scaled_catalog(gen, dev, n_rows, width, n_valid):
+    """Random int8 codes and per-row scales of ``n_rows`` rows, a -inf bias
+    on 1% of the first ``n_valid`` and 0 past them: as quantized_topk pads
+    what the rounds stream."""
+    codes = torch.randint(-127, 128, (n_rows, width), generator=gen,
+                          device=dev, dtype=torch.int8)
+    scales = torch.rand(n_rows, generator=gen, device=dev) * 0.05 + 1e-3
+    bias = torch.zeros(n_rows, device=dev)
+    bias[:n_valid][torch.rand(n_valid, generator=gen, device=dev)
+                   < 0.01] = float("-inf")
+    return codes, scales, bias
+
+
 def phase_rounds_kernels(gen, dev):
-    """Kernels 6-8 against their plain versions at the served shapes."""
+    """Kernels 6-8 against their plain versions at the served shapes:
+    kernels 6-7 at every (B, L) of KERNEL_BATCHES x (2048, 1024), timed at
+    TIMED_BATCHES, and at E = 64 and 256; kernel 8 at L = 2048 and 512."""
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
     from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 
-    stats = {n: {"max_abs_err": 0.0, "id_mismatches": 0}
-             for n in ("bin_max2_scaled_first_round", "bin_max2_scaled_round",
-                       "bin_max_round")}
-    L = 2048
-    # quantized_topk streams the chunks that hold a valid row (106,496 of
-    # the 131,072 rows); the rounds mask rows >= n_valid themselves, so pad
-    # rows keep bias 0
-    n_rows = -(-N_ARTICLES // L) * L
-    codes, scales, _ = int8_catalog(gen, dev)
-    codes, scales = codes[:n_rows], scales[:n_rows]
-    bias = torch.zeros(n_rows, device=dev)
-    bias[:N_ARTICLES][torch.rand(N_ARTICLES, generator=gen, device=dev)
-                      < 0.01] = float("-inf")
-    for kind in ("integer", "normal"):
-        q = random_rows(gen, dev, kind, Q_BLOCK)
-        k6 = qt.bin_max2_scaled_first_round(q, codes, scales, bias, L,
-                                            N_ARTICLES)
-        p6 = qt.scaled_round_plain(q, codes, scales, bias, L, N_ARTICLES)
-        # each chain refines on the thresholds its own round 1 revealed
-        k7 = qt.bin_max2_scaled_round(q, codes, scales, bias, k6[2], k6[3], L,
-                                      N_ARTICLES)
-        p7 = qt.scaled_round_plain(q, codes, scales, bias, L, N_ARTICLES,
-                                   p6[2], p6[3])
-        torch.cuda.synchronize()
-        for name, got, want in (("bin_max2_scaled_first_round", k6, p6),
-                                ("bin_max2_scaled_round", k7, p7)):
-            hold_cells(stats[name], name, kind, got, want,
-                       lambda: pass_scores(q, codes, scales, bias))
-        emit({"rounds_kernel_check": {"kernels": "int8 rounds", "L": L,
-                                      "B": Q_BLOCK, "inputs": kind,
-                                      "ok": True}})
-        if kind != "normal":
-            continue
-        for name, thr, plain in (
-            ("bin_max2_scaled_first_round", (), ()),
-            ("bin_max2_scaled_round", (k6[2], k6[3]), (p6[2], p6[3])),
-        ):
-            bound, by = single_pass_bound_ms(Q_BLOCK, n_rows, L, True,
-                                             bool(thr))
-            stats[name].update(
-                L=L, B=Q_BLOCK, rows=n_rows,
-                ms=cuda_ms(lambda: getattr(qt, name)(
-                    q, codes, scales, bias, *thr, L, N_ARTICLES), 50),
-                plain_ms=cuda_ms(lambda: qt.scaled_round_plain(
-                    q, codes, scales, bias, L, N_ARTICLES, *plain), 3),
-                bound_ms=bound, bound_by=by,
-            )
+    stats = {n: {"max_abs_err": 0.0, "id_mismatches": 0, "shapes": []}
+             for n in ROUNDS_KERNELS + ("bin_max_round",)}
+    # quantized_topk streams the chunks that hold a valid row: 106,496 of
+    # the 131,072 rows at L = 2048 and at L = 1024 alike
+    n_rows = -(-N_ARTICLES // 2048) * 2048
+    n_valid = N_ARTICLES
+    codes, scales, bias = scaled_catalog(gen, dev, n_rows, E, n_valid)
+    for k, L in ((SERVE_K, 2048), (100, 1024)):
+        require(bt.default_bins(k) == L and -(-n_valid // L) * L == n_rows,
+                f"the rounds at k={k} do not stream {n_rows} rows at L={L}")
+        for B in KERNEL_BATCHES:
+            check_clusters({n: bt.launch_info(
+                B, E, L, threshold=n == ROUNDS_KERNELS[1], int8=True,
+                device=dev) for n in ROUNDS_KERNELS}, L, B)
+        for kind in ("integer", "normal"):
+            q_all = random_rows(gen, dev, kind, Q_BLOCK)
+            for B in KERNEL_BATCHES:
+                q = q_all[:B]
+                k6 = qt.bin_max2_scaled_first_round(q, codes, scales, bias, L,
+                                                    n_valid)
+                p6 = qt.scaled_round_plain(q, codes, scales, bias, L, n_valid)
+                # each chain refines on the thresholds its own round 1
+                # revealed
+                k7 = qt.bin_max2_scaled_round(q, codes, scales, bias, k6[2],
+                                              k6[3], L, n_valid)
+                p7 = qt.scaled_round_plain(q, codes, scales, bias, L, n_valid,
+                                           p6[2], p6[3])
+                torch.cuda.synchronize()
+                for name, got, want in ((ROUNDS_KERNELS[0], k6, p6),
+                                        (ROUNDS_KERNELS[1], k7, p7)):
+                    hold_cells(stats[name], f"{name} L={L} B={B}", kind, got,
+                               want, lambda: pass_scores(q, codes, scales,
+                                                         bias))
+                emit({"rounds_kernel_check": {"kernels": "int8 rounds",
+                                              "L": L, "B": B, "inputs": kind,
+                                              "ok": True}})
+                if kind != "normal" or L != 2048 or B not in TIMED_BATCHES:
+                    continue
+                for name, thr, plain in (
+                    (ROUNDS_KERNELS[0], (), ()),
+                    (ROUNDS_KERNELS[1], k6[2:], p6[2:]),
+                ):
+                    bound, by = single_pass_bound_ms(B, n_rows, L, True,
+                                                     bool(thr))
+
+                    def launch():
+                        return getattr(qt, name)(q, codes, scales, bias,
+                                                 *thr, L, n_valid)
+
+                    row = {
+                        "L": L, "B": B, "rows": n_rows,
+                        "ms": graph_ms(launch, 50),
+                        "events_ms": cuda_ms(launch, 50),
+                        "plain_ms": cuda_ms(lambda: qt.scaled_round_plain(
+                            q, codes, scales, bias, L, n_valid, *plain), 3),
+                        "bound_ms": bound, "bound_by": by,
+                    }
+                    stats[name]["shapes"].append(row)
+                    if B == Q_BLOCK:
+                        stats[name].update({key: row[key] for key in (
+                            "ms", "events_ms", "plain_ms", "bound_ms",
+                            "bound_by")})
     del codes, scales, bias
+    # the other instantiation (A fragments read from shared memory), at
+    # widths other than E = 128, on integer inputs
+    for width in (64, 256):
+        L, B, n_valid = 1024, 37, 16000
+        codes, scales, bias = scaled_catalog(gen, dev, 16384, width, n_valid)
+        q = torch.randint(-4, 5, (B, width), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        k6 = qt.bin_max2_scaled_first_round(q, codes, scales, bias, L,
+                                            n_valid)
+        p6 = qt.scaled_round_plain(q, codes, scales, bias, L, n_valid)
+        checks = ((ROUNDS_KERNELS[0], k6, p6),
+                  (ROUNDS_KERNELS[1],
+                   qt.bin_max2_scaled_round(q, codes, scales, bias, k6[2],
+                                            k6[3], L, n_valid),
+                   qt.scaled_round_plain(q, codes, scales, bias, L, n_valid,
+                                         p6[2], p6[3])))
+        torch.cuda.synchronize()
+        for name, got, want in checks:
+            hold_cells(stats[name], f"{name} E={width}", "integer", got, want,
+                       None)
+        emit({"rounds_kernel_check": {"kernels": "int8 rounds", "E": width,
+                                      "L": L, "B": B, "inputs": "integer",
+                                      "ok": True}})
 
     st = stats["bin_max_round"]
-    st["shapes"] = []
     for L in (2048, 512):  # default_bins(k, 1) at k = 1000 and 100
         n_pad = -(-N_ARTICLES // L) * L
         inf_s = torch.full((Q_BLOCK, L), float("inf"), device=dev)
@@ -978,8 +1051,7 @@ def phase_rounds_serving(shared, single_pass_recall, repeats, dev, workdir):
     launches = dict(qt.LAUNCHES)
     exact_launches = dict(bt.LAUNCHES)
     # ---------------------------------------------------------------------
-    rounds_kernels = ("bin_max2_scaled_first_round", "bin_max2_scaled_round")
-    require(all(launches[n] > 0 for n in rounds_kernels)
+    require(all(launches[n] > 0 for n in ROUNDS_KERNELS)
             and not any(launches[n] for n in SINGLE_PASS_KERNELS)
             and not any(exact_launches.values()),
             f"the rounds path launched {launches}, {exact_launches}")
@@ -1253,6 +1325,87 @@ def phase_quantized_serving(shared, repeats, dev, workdir):
     return launches, recalls
 
 
+WIDTH_ROWS = 20_000  # over 16,384: BruteForceIndex("auto") takes the kernels
+WIDTH_K = 100  # the quantized indices' k (400 survivors)
+
+
+class Records(logging.Handler):
+    """Collects the port's log records."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+
+def phase_widths(seed, dev):
+    """Widths the kernels do not take as they are, on the card against the
+    same indices on the CPU, over WIDTH_ROWS rows of integer-valued
+    embeddings (exact in bf16 and in fp32 sums, so the answers must be
+    bit-identical): BruteForceIndex("auto") and QuantizedIndex one pass and
+    with 8 rounds at E = 8 and 100 run the kernels on E padded to a
+    multiple of 16; at E = 520 BruteForceIndex runs "full" and the rounds
+    "scan" (past KERNEL_MAX_E = 512), the one pass the kernels (528 <=
+    INT8_KERNEL_MAX_E = 576), and at E = 600 the one pass runs "scan", each
+    route with a log line."""
+    from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
+    from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    rng = np.random.default_rng(seed)
+    indices = {
+        "exact": lambda i, x, d: BruteForceIndex(SERVE_K, i, x, device=d),
+        "quantized_one_pass": lambda i, x, d: QuantizedIndex(
+            WIDTH_K, i, x, device=d),
+        "quantized_rounds": lambda i, x, d: QuantizedIndex(
+            WIDTH_K, i, x, pallas_rounds=MAX_ROUNDS, device=d),
+    }
+    cases = [(w, name, "pallas") for w in (8, 100) for name in indices]
+    cases += [(520, "exact", "full"), (520, "quantized_rounds", "scan"),
+              (520, "quantized_one_pass", "pallas"),
+              (600, "quantized_one_pass", "scan")]
+    log = Records()
+    logging.getLogger("hm_retrieval_tpu_torch").addHandler(log)
+    rows = []
+    try:
+        for width, name, engine in cases:
+            ids = np.arange(1, WIDTH_ROWS + 1, dtype=np.int32)
+            emb = rng.integers(-4, 5, (WIDTH_ROWS, width)).astype(np.float32)
+            q = rng.integers(-4, 5, (16, width)).astype(np.float32)
+            del log.records[:]
+            card = indices[name](ids, emb, dev)
+            host = indices[name](ids, emb, "cpu")
+            routed = [m for m in log.records if "widest" in m]
+            require(card._engine == host._engine == engine
+                    and len(routed) == 2 * (engine != "pallas"),
+                    f"{name} E={width}: engine {card._engine!r}, expected "
+                    f"{engine!r}; log {log.records}")
+            # --- this path: counts from 0 ---------------------------------
+            bt.reset_launches()
+            qt.reset_launches()
+            got = card.topk_from_embeddings(torch.tensor(q, device=dev))
+            torch.cuda.synchronize()
+            launches = {n: c for n, c in {**bt.LAUNCHES, **qt.LAUNCHES}.items()
+                        if c}
+            # -----------------------------------------------------------------
+            require(bool(launches) == (engine == "pallas"),
+                    f"{name} E={width}: launched {launches}")
+            want = host.topk_from_embeddings(torch.tensor(q))
+            require(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+                    f"{name} E={width}: the card's answers differ from the "
+                    "CPU's")
+            rows.append({"E": width, "index": name, "engine": engine,
+                         "launches": launches, "log": routed[:1],
+                         "identical_to_cpu": True})
+    finally:
+        logging.getLogger("hm_retrieval_tpu_torch").removeHandler(log)
+    for row in rows:
+        emit({"width": row})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1294,8 +1447,9 @@ def main(argv=None):
             "bin_max_round"]
         rounds = phase_rounds_serving(shared, recalls, args.repeats, dev,
                                       Path(d))
-        for name in ("bin_max2_scaled_first_round", "bin_max2_scaled_round"):
+        for name in ROUNDS_KERNELS:
             launches[name] = rounds[name]
+    phase_widths(args.seed, dev)
 
     pallas = "hm_retrieval_tpu/ops/pallas_retrieval.py"
     kernel_files = {
@@ -1304,8 +1458,8 @@ def main(argv=None):
         "bin_max2_scaled_single_pass": ("bin_max2_int8.cu", 352),
         "bin_max2_scaled_fold_pass": ("bin_max2_int8.cu", 464),
         "bin_max2_raw_fold_pass": ("bin_max2_int8.cu", 593),
-        "bin_max2_scaled_first_round": ("bin_max2_int8.cu", 311),
-        "bin_max2_scaled_round": ("bin_max2_int8.cu", 701),
+        "bin_max2_scaled_first_round": ("bin_max2.cu", 311),
+        "bin_max2_scaled_round": ("bin_max2.cu", 701),
         "bin_max_round": ("bin_max2.cu", 158),
     }
     kernels = [

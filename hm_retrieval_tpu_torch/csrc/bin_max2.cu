@@ -1,26 +1,35 @@
-// Streaming top-k-per-bin passes of the exact top-k retrieval, for Hopper
-// (sm_90a), bound with ctypes through a plain C interface.
+// Streaming top-k-per-bin passes of the exact top-k retrieval and of the
+// exact int8 rounds, for Hopper (sm_90a), bound with ctypes through a plain C
+// interface.
 //
-// Replaces three kernels of hm_retrieval_tpu/ops/pallas_retrieval.py:
-//   ::_bin_max2_first_kernel  (launcher bin_max2_first_round: top-2, round 1,
-//                              no thresholds)
-//   ::_bin_max2_kernel        (launcher bin_max2_round: top-2 below the
-//                              thresholds, refinement rounds)
-//   ::_bin_max_kernel         (launcher bin_max_round: top-1 below the
-//                              thresholds; round 1 is a launch with +inf / -1
-//                              thresholds, as in the JAX driver)
-// All three launchers instantiate ONE template, bin_max_kernel<kThreshold,
-// kKeep, kSteps>, so every pass computes the score of a (query row, catalog
-// row) pair with the same code: the refinement rounds are exact only
+// Replaces five kernels of hm_retrieval_tpu/ops/pallas_retrieval.py:
+//   ::_bin_max2_first_kernel         (launcher bin_max2_first_round: top-2,
+//                                     round 1, no thresholds)
+//   ::_bin_max2_kernel               (launcher bin_max2_round: top-2 below the
+//                                     thresholds, refinement rounds)
+//   ::_bin_max_kernel                (launcher bin_max_round: top-1 below the
+//                                     thresholds; round 1 is a launch with
+//                                     +inf / -1 thresholds, as in the JAX
+//                                     driver)
+//   ::_bin_max2_scaled_first_kernel  (launcher bin_max2_scaled_first_round:
+//                                     round 1 of the int8 rounds)
+//   ::_bin_max2_scaled_kernel        (launcher bin_max2_scaled_round: int8
+//                                     rounds 2.. below the thresholds)
+// All five launchers instantiate ONE template, bin_max_kernel<kThreshold,
+// kKeep, kSteps, kInt8>, so every pass computes the score of a (query row,
+// catalog row) pair with the same code: the refinement rounds are exact only
 // because every pass reproduces identical fp32 scores.
 //
-// What it computes. The catalog C (n_pad x E, bf16, n_pad % L == 0) is read
-// in chunks of L rows; bin b of chunk c is catalog row c*L + b. For each
-// (query row, bin) cell the kernel keeps the lexicographic top-kKeep (m1, a1
-// and, for kKeep = 2, m2, a2) under the order (score desc, index asc) of the
-// fp32 scores Q @ C^T, over rows < n_valid and, with kThreshold, only over
-// elements strictly below the cell's threshold (thr_s, thr_i). Unfilled slots
-// hold -inf / BIG_IDX.
+// What it computes. The catalog C (n_pad x E, n_pad % L == 0) is read in
+// chunks of L rows; bin b of chunk c is catalog row c*L + b. It is bf16, or
+// (kInt8) int8 codes with an fp32 scale and bias a row. The score of a (query
+// row, catalog row) pair is the fp32 sum of Q @ C^T, and for int8
+// __fmaf_rn(sum, scale[row], bias[row]) (bias 0 or -inf; a -inf bias scores
+// -inf). For each (query row, bin) cell the kernel keeps the lexicographic
+// top-kKeep (m1, a1 and, for kKeep = 2, m2, a2) under the order (score desc,
+// index asc), over rows < n_valid and, with kThreshold, only over elements
+// strictly below the cell's threshold (thr_s, thr_i). Unfilled slots hold
+// -inf / BIG_IDX.
 //
 // Design. Grid (c, L / BN, ceil(B / BM)) in clusters of c blocks along x.
 // The c blocks of a cluster share one tile of up to BM = 128 query rows x
@@ -37,20 +46,24 @@
 // [s * n / S, (s + 1) * n / S) in increasing order (a segment may be empty).
 // A group stages its segment's BN x E catalog tiles through its own
 // cp.async ring of `stages` slots (a named barrier of the group's threads a
-// step); its warps read their B fragments with ldmatrix and compute their
-// scores with mma.sync m16n8k16 (bf16 operands, fp32 accumulation, k in
-// increasing 16-wide steps; at E = 128 the query's A fragments stay in
-// registers and E is known to the compiler), then run the eligibility
-// test, the n_valid mask (only on a chunk that crosses n_valid) and the
-// top-2 (or top-1) cascade of the single walk per cell, in registers; the
-// cells hold chunk numbers, and the threshold's row index becomes a chunk
-// number once, so the per-element work is compares and selects only. At
-// the end every group writes its partial cells to shared memory, the
-// groups of a block merge into one partial, and after cluster.sync() each
-// block merges its share of the cells over the c blocks' partials, read
-// through distributed shared memory (map_shared_rank), and writes them out.
-// No atomics, no second launch; a last cluster.sync() keeps every block's
-// shared memory alive until the others have read it.
+// step); an int8 slot holds the BN code rows and their BN scales and BN
+// biases, and once it has landed the group converts its codes into one bf16
+// tile of its own (exact: |code| <= 128 has at most 8 significant bits),
+// behind a second barrier. Its warps read their B fragments with ldmatrix
+// and compute their scores with mma.sync m16n8k16 (bf16 operands, fp32
+// accumulation, k in increasing 16-wide steps; at E = 128 the query's A
+// fragments stay in registers and E is known to the compiler), apply the
+// int8 epilogue, then run the eligibility test, the n_valid mask (only on a
+// chunk that crosses n_valid) and the top-2 (or top-1) cascade of the single
+// walk per cell, in registers; the cells hold chunk numbers, and the
+// threshold's row index becomes a chunk number once, so the per-element work
+// is compares and selects only. At the end every group writes its partial
+// cells to shared memory, the groups of a block merge into one partial, and
+// after cluster.sync() each block merges its share of the cells over the c
+// blocks' partials, read through distributed shared memory
+// (map_shared_rank), and writes them out. No atomics, no second launch; a
+// last cluster.sync() keeps every block's shared memory alive until the
+// others have read it.
 //
 // Why the split is exact. Within a segment the strict '>' cascade over
 // increasing catalog rows yields the lexicographic top-kKeep of that
@@ -64,22 +77,31 @@
 // (x.s == y.s && x.i < y.i), so it restores the index order between
 // segments, and an unfilled (-inf, BIG_IDX) slot loses to every admitted
 // element (scores that never pass '>' against -inf, such as -inf or NaN,
-// are never admitted, in the single walk as in a segment). Identical
-// scores: every (query row, catalog row) score comes from the same
-// mma.sync sequence, at the same position of the mma tile (row % 16,
-// bin % 8) and in the same k-order, in every segment, block shape, pass
-// and kernel of the template.
+// are never admitted, in the single walk as in a segment; so a -inf bias
+// row is never admitted). Identical scores: every (query row, catalog row)
+// score comes from the same mma.sync sequence, at the same position of the
+// mma tile (row % 16, bin % 8) and in the same k-order, in every segment,
+// block shape, pass and kernel of the template, and the int8 epilogue reads
+// nothing but that sum and its own row's scale and bias, so it gives every
+// segment and pass the same fp32 score too. The k-order and tile positions
+// are those of the int8 rounds' earlier single-walk kernel, so the two give
+// the same scores.
 //
-// What bounds it on the H100. One pass reads the catalog once (27 MB at the
-// H&M catalog, E = 128) and writes 2-4 (B, L) outputs; its product is 2 * B
-// * n_pad * E operations, so by the roofline the pass is bound by memory
-// bytes at B <= 128. The launcher picks the cluster size (pick_cluster):
-// the largest whose whole grid the card holds at once, by its occupancy
-// query; every group keeps up to `stages - 1` tiles in flight. At B = 128
-// the per-chunk compute, not the bytes, sets the pace: by the ablation of
-// bin_max_bench.py the ring alone takes about half of kernel 1's time, and
-// the mma.sync steps and the cascade add to it one after the other, since
-// each of the SM's 8 warps runs both and no other warp hides them (PERF.md).
+// What bounds it on the H100. One bf16 pass reads the catalog once (27 MB at
+// the H&M catalog, E = 128; an int8 pass 14 MB of codes and 0.9 MB of scales
+// and biases) and writes 2-4 (B, L) outputs; its product is 2 * B * n_pad * E
+// operations, so by the roofline the pass is bound by memory bytes at B <=
+// 128. The launcher picks the cluster size (pick_cluster): the largest whose
+// whole grid the card holds at once, by its occupancy query; every group
+// keeps up to `stages - 1` tiles in flight. At B = 128 the per-chunk compute,
+// not the bytes, sets the pace: by the ablation of bin_max_bench.py the ring
+// alone takes about half of kernel 1's time, and the mma.sync steps and the
+// cascade add to it one after the other, since each of the SM's 8 warps runs
+// both and no other warp hides them (PERF.md). The int8 instances move half
+// the bytes but are slower than the bf16 ones: converting each landed tile
+// (and its second barrier) is their largest part at every B and does not
+// overlap the mma steps; converting the B fragments in registers instead
+// would keep the conversion and repeat it on the warps that share a bin half.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -107,8 +129,22 @@ constexpr int SMEM_MAX = 232448;  // dynamic shared memory of one block
 constexpr int A_STEPS = 8;        // E = 128: A fragments kept in registers
 constexpr int BIG_IDX = 0x7fffffff;
 
-// Block shape of a launch over B query rows of width E. It depends on B and
-// E only, never on the pass, and it never changes what a score is.
+// Bytes of one ring slot: BN catalog rows of width E as bf16 (row stride
+// E + PAD), or as int8 codes (row stride E) followed by their BN scales and
+// BN biases.
+__host__ __device__ constexpr int slot_bytes(int E, bool int8) {
+  return int8 ? BN * E + 2 * BN * 4 : BN * (E + PAD) * 2;
+}
+
+// Bytes a group keeps beside its ring: for int8, the bf16 tile its warps
+// read, converted from the landed slot.
+__host__ __device__ constexpr int tile_bytes(int E, bool int8) {
+  return int8 ? BN * (E + PAD) * 2 : 0;
+}
+
+// Block shape of a launch over B query rows of width E. It depends on B, E
+// and the catalog's type only, never on the pass, and it never changes what
+// a score is.
 struct Shape {
   int wpg;     // warps per group: 2 per 32-row pair of m-tiles
   int groups;  // warp groups, each walking its own segment
@@ -116,19 +152,20 @@ struct Shape {
   int smem;    // dynamic shared memory, bytes
 };
 
-Shape shape_for(int B, int E) {
+Shape shape_for(int B, int E, bool int8) {
   Shape s;
   const int rows = B < BM ? B : BM;
   const int tile_rows = (rows + 31) / 32 * 32;
   s.wpg = tile_rows / 32 * (BN / (8 * WN));
   const int ld = E + PAD;
-  const int stage = BN * ld * 2;
+  const int stage = slot_bytes(E, int8);
+  const int tile = tile_bytes(E, int8);
   const int qbytes = tile_rows * ld * 2;
   const int part = 2 * tile_rows * PS * 8;  // keep-2 partial cells a group
   for (s.groups = MAX_WARPS / s.wpg;; --s.groups) {
-    s.stages = (SMEM_MAX - qbytes) / (s.groups * stage);
+    s.stages = (SMEM_MAX - qbytes - s.groups * tile) / (s.groups * stage);
     if (s.stages > MAX_STAGES) s.stages = MAX_STAGES;
-    const int ring = s.groups * s.stages * stage;
+    const int ring = s.groups * (s.stages * stage + tile);
     const int parts = s.groups * part;
     s.smem = qbytes + (ring > parts ? ring : parts);
     if ((s.stages >= 2 && s.smem <= SMEM_MAX) || s.groups == 1) break;
@@ -242,6 +279,37 @@ __device__ __forceinline__ void tile_scores(
   }
 }
 
+// Codes 2h and 2h + 1 of the four int8 codes in w as bf16x2, the lower in
+// the low half. Exact: the fp32 with bits 0x4B0000uu is 2^23 + uu, so with
+// uu = code + 128 it less 2^23 + 128 is the code; a value of at most 8
+// significant bits is the upper half of its fp32, which is its bf16.
+__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t w, int h) {
+  const uint32_t u = w ^ 0x80808080u;  // code + 128, one byte each
+  const float lo =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + 2 * h)) -
+      8388736.f;
+  const float hi =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441 + 2 * h)) -
+      8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// A landed int8 slot's BN code rows (row stride E bytes) into the group's
+// bf16 tile (row stride ld), 8 codes a thread and step.
+__device__ __forceinline__ void codes_to_bf16(const unsigned char* src,
+                                              __nv_bfloat16* dst, int E,
+                                              int ld, int gtid,
+                                              int gthreads) {
+  const int vecs = E / 8;
+  for (int v = gtid; v < BN * vecs; v += gthreads) {
+    const int r = v / vecs, cv = v % vecs;
+    const uint2 w = *reinterpret_cast<const uint2*>(src + r * E + cv * 8);
+    *reinterpret_cast<uint4*>(dst + r * ld + cv * 8) =
+        make_uint4(codes_bf16x2(w.x, 0), codes_bf16x2(w.x, 1),
+                   codes_bf16x2(w.y, 0), codes_bf16x2(w.y, 1));
+  }
+}
+
 // Running lexicographic top-kKeep of one cell in the merge.
 template <int kKeep>
 struct Top {
@@ -299,15 +367,17 @@ __device__ __forceinline__ Top<kKeep> merged(const float* const (&ps)[kMax],
 }
 
 // Block (32 * wpg, groups) threads, grid (c, L / BN, ceil(B / BM)) in
-// clusters of (c, 1, 1). Dynamic shared memory (shape_for(B, E).smem): the
-// query tile, then the groups' rings, which the partial cells reuse after
-// the walk.
-template <bool kThreshold, int kKeep, int kSteps>
+// clusters of (c, 1, 1). Dynamic shared memory (shape_for(B, E, kInt8).smem):
+// the query tile, then the groups' rings (and, for int8, each group's bf16
+// tile), which the partial cells reuse after the walk.
+template <bool kThreshold, int kKeep, int kSteps, bool kInt8>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
-    bin_max_kernel(const __nv_bfloat16* __restrict__ q,   // (B, E)
-                   const __nv_bfloat16* __restrict__ c,   // (n_pad, E)
-                   const float* __restrict__ thr_s,       // (B, L)
-                   const int* __restrict__ thr_i,         // (B, L)
+    bin_max_kernel(const __nv_bfloat16* __restrict__ q,  // (B, E)
+                   const void* __restrict__ c,  // (n_pad, E) bf16 or int8
+                   const float* __restrict__ scales,  // (n_pad,), int8 only
+                   const float* __restrict__ bias,    // (n_pad,), int8 only
+                   const float* __restrict__ thr_s,   // (B, L)
+                   const int* __restrict__ thr_i,     // (B, L)
                    float* __restrict__ m1_out, int* __restrict__ a1_out,
                    float* __restrict__ m2_out, int* __restrict__ a2_out,
                    int B, int E, int L, int n_chunks, int n_valid,
@@ -337,11 +407,14 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   const bool two = wrow + 16 < rows;          // so does m-tile 1
   const int Ek = kSteps > 0 ? 16 * kSteps : E;  // E, known to the compiler
   const int ld = Ek + PAD;  // shared row stride, in bf16
-  const int vecs = Ek / 8;  // 16-byte vectors per row
+  const int vecs = Ek / 8;  // 16-byte vectors per bf16 row
+  const int stage = slot_bytes(Ek, kInt8);
 
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ring = sq + tile_rows * ld;
-  __nv_bfloat16* sc = ring + grp * stages * BN * ld;
+  unsigned char* ring = smem_raw + tile_rows * ld * 2;
+  // this group's ring, then (int8) its bf16 tile
+  unsigned char* sc = ring + grp * (stages * stage + tile_bytes(Ek, kInt8));
+  __nv_bfloat16* sconv = reinterpret_cast<__nv_bfloat16*>(sc + stages * stage);
 
   // Query tile, resident for the whole run, in one cp.async group of its
   // own; rows past B are zeros.
@@ -366,11 +439,28 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   // empty past the end so that the count of groups stays fixed).
   auto load = [&](int i, int slot) {
     if (i < steps) {
-      const __nv_bfloat16* src = c + ((size_t)(ch0 + i) * L + bin0) * Ek;
-      __nv_bfloat16* dst = sc + slot * BN * ld;
-      for (int v = gtid; v < BN * vecs; v += gthreads) {
-        const int r = v / vecs, cv = v % vecs;
-        cp_async16(dst + r * ld + cv * 8, src + (size_t)r * Ek + cv * 8);
+      const size_t row = (size_t)(ch0 + i) * L + bin0;  // the tile's first
+      unsigned char* dst = sc + slot * stage;
+      if constexpr (kInt8) {
+        const int8_t* src = static_cast<const int8_t*>(c) + row * Ek;
+        const int cvecs = Ek / 16;  // 16-byte vectors per int8 row
+        for (int v = gtid; v < BN * cvecs; v += gthreads) {
+          const int r = v / cvecs, cv = v % cvecs;
+          cp_async16(dst + r * Ek + cv * 16, src + (size_t)r * Ek + cv * 16);
+        }
+        if (gtid < 2 * (BN / 4)) {  // BN scales, then BN biases
+          const int which = gtid / (BN / 4), cv = gtid % (BN / 4);
+          cp_async16(dst + BN * Ek + which * BN * 4 + cv * 16,
+                     (which ? bias : scales) + row + cv * 4);
+        }
+      } else {
+        const __nv_bfloat16* src =
+            static_cast<const __nv_bfloat16*>(c) + row * Ek;
+        __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(dst);
+        for (int v = gtid; v < BN * vecs; v += gthreads) {
+          const int r = v / vecs, cv = v % vecs;
+          cp_async16(d + r * ld + cv * 8, src + (size_t)r * Ek + cv * 8);
+        }
       }
     }
     cp_async_commit();
@@ -422,8 +512,10 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 #pragma unroll
   for (int mm = 0; mm < WM; ++mm)
     pa[mm] = sq + (wrow + mm * 16 + r8 + (mi & 1) * 8) * ld + (mi >> 1) * 8;
+  // B fragments: from the landed bf16 slot, or from the group's bf16 tile
   const __nv_bfloat16* pb =
-      sc + (wbin + r8 + (mi >> 1) * 8) * ld + (mi & 1) * 8;
+      (kInt8 ? sconv : reinterpret_cast<const __nv_bfloat16*>(sc)) +
+      (wbin + r8 + (mi >> 1) * 8) * ld + (mi & 1) * 8;
   uint32_t areg[WM][kSteps > 0 ? kSteps : 1][4];
   if (kSteps > 0) {
 #pragma unroll
@@ -432,6 +524,25 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
       for (int k = 0; k < kSteps; ++k)
         ldmatrix_x4(areg[mm][k], pa[mm] + k * 16);
   }
+
+  // The int8 epilogue of one chunk's sums: score = sum * scale + bias of
+  // the cell's catalog row, from the landed slot's scales and biases.
+  auto scaled = [&](float (&acc)[WM][WN][4], int landed) {
+    const float* sb = reinterpret_cast<const float*>(sc + landed * stage +
+                                                     BN * Ek);
+#pragma unroll
+    for (int jj = 0; jj < WN; ++jj) {
+      const int b = wbin + jj * 8 + 2 * t;
+      const float2 s2 = *reinterpret_cast<const float2*>(sb + b);
+      const float2 b2 = *reinterpret_cast<const float2*>(sb + BN + b);
+#pragma unroll
+      for (int mm = 0; mm < WM; ++mm)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mm][jj][e] = __fmaf_rn(acc[mm][jj][e], e & 1 ? s2.y : s2.x,
+                                     e & 1 ? b2.y : b2.x);
+    }
+  };
 
   // The cascade of one chunk's scores into the cells; `masked` (a
   // compile-time flag) applies the n_valid mask, which a chunk whose bins
@@ -471,6 +582,11 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     cp_async_wait_dyn(stages - 2);  // step i has landed ...
     group_sync(1 + grp, gthreads);  // ... for the group; slot i-1 is free
     load(i + stages - 1, slot == 0 ? stages - 1 : slot - 1);
+    if constexpr (kInt8) {
+      // the bf16 tile is free: every warp of the group is past step i-1
+      codes_to_bf16(sc + slot * stage, sconv, Ek, ld, gtid, gthreads);
+      group_sync(1 + grp, gthreads);
+    }
     if (active) {
       float acc[WM][WN][4];
 #pragma unroll
@@ -479,7 +595,9 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
         for (int jj = 0; jj < WN; ++jj)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mm][jj][e] = 0.f;
-      tile_scores<kSteps>(pa, pb + slot * BN * ld, Ek, two, areg, acc);
+      tile_scores<kSteps>(pa, kInt8 ? pb : pb + slot * BN * ld, Ek, two,
+                          areg, acc);
+      if constexpr (kInt8) scaled(acc, slot);
       const int ch = ch0 + i;
       if (ch * L + bin0 + BN <= n_valid)
         cascade(acc, ch, std::false_type());
@@ -580,21 +698,21 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   cluster.sync();  // no block leaves while another reads its partial
 }
 
-using KernelFn = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
-                          const float*, const int*, float*, int*, float*,
-                          int*, int, int, int, int, int, int);
+using KernelFn = void (*)(const __nv_bfloat16*, const void*, const float*,
+                          const float*, const float*, const int*, float*,
+                          int*, float*, int*, int, int, int, int, int, int);
 
 // The instantiation a pass runs at width E: A fragments in registers at
 // E = 16 * A_STEPS, from shared memory otherwise. Both sum in one k-order.
-template <bool kThreshold, int kKeep>
+template <bool kThreshold, int kKeep, bool kInt8>
 KernelFn kernel_for(int E) {
-  return E == 16 * A_STEPS ? bin_max_kernel<kThreshold, kKeep, A_STEPS>
-                           : bin_max_kernel<kThreshold, kKeep, 0>;
+  return E == 16 * A_STEPS ? bin_max_kernel<kThreshold, kKeep, A_STEPS, kInt8>
+                           : bin_max_kernel<kThreshold, kKeep, 0, kInt8>;
 }
 
-cudaError_t prepare(KernelFn kernel, int B, int E, Shape* s) {
+cudaError_t prepare(KernelFn kernel, int B, int E, bool int8, Shape* s) {
   if (B <= 0 || E <= 0 || E % 16 != 0) return cudaErrorInvalidValue;
-  *s = shape_for(B, E);
+  *s = shape_for(B, E, int8);
   if (s->stages < 2 || s->smem > SMEM_MAX) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s->smem);
@@ -675,13 +793,14 @@ cudaError_t pick_cluster(KernelFn kernel, const Shape& s, int tiles,
 
 int tiles_of(int B, int L) { return L / BN * ((B + BM - 1) / BM); }
 
-int launch(KernelFn kernel, const void* q, const void* c, const void* thr_s,
+int launch(KernelFn kernel, bool int8, const void* q, const void* c,
+           const void* scales, const void* bias, const void* thr_s,
            const void* thr_i, void* m1, void* a1, void* m2, void* a2, int B,
            int E, int n_pad, int L, int n_valid, void* stream) {
   if (L <= 0 || L % BN != 0 || n_pad <= 0 || n_pad % L != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Shape s;
-  cudaError_t err = prepare(kernel, B, E, &s);
+  cudaError_t err = prepare(kernel, B, E, int8, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
   int cluster = 1;
   err = pick_cluster(kernel, s, tiles_of(B, L), &cluster);
@@ -690,13 +809,23 @@ int launch(KernelFn kernel, const void* q, const void* c, const void* thr_s,
   const cudaLaunchConfig_t cfg =
       config(s, B, L, cluster, static_cast<cudaStream_t>(stream), &attr);
   err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(c), static_cast<const float*>(thr_s),
-      static_cast<const int*>(thr_i), static_cast<float*>(m1),
-      static_cast<int*>(a1), static_cast<float*>(m2), static_cast<int*>(a2),
-      B, E, L, n_pad / L, n_valid, s.stages);
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(q), c,
+      static_cast<const float*>(scales), static_cast<const float*>(bias),
+      static_cast<const float*>(thr_s), static_cast<const int*>(thr_i),
+      static_cast<float*>(m1), static_cast<int*>(a1), static_cast<float*>(m2),
+      static_cast<int*>(a2), B, E, L, n_pad / L, n_valid, s.stages);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel of a pass: keep 1 or 2, thresholds or not, int8 or bf16.
+KernelFn pass_kernel(int keep, int threshold, int int8, int E) {
+  if (int8)
+    return threshold ? kernel_for<true, 2, true>(E)
+                     : kernel_for<false, 2, true>(E);
+  return keep == 1   ? kernel_for<true, 1, false>(E)
+         : threshold ? kernel_for<true, 2, false>(E)
+                     : kernel_for<false, 2, false>(E);
 }
 
 }  // namespace
@@ -707,39 +836,61 @@ extern "C" int bin_max2_first_round(const void* q, const void* c, void* m1,
                                     void* a1, void* m2, void* a2, int B,
                                     int E, int n_pad, int L, int n_valid,
                                     void* stream) {
-  return launch(kernel_for<false, 2>(E), q, c, nullptr, nullptr, m1, a1, m2,
-                a2, B, E, n_pad, L, n_valid, stream);
+  return launch(pass_kernel(2, 0, 0, E), false, q, c, nullptr, nullptr,
+                nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_valid,
+                stream);
 }
 
 extern "C" int bin_max2_round(const void* q, const void* c, const void* thr_s,
                               const void* thr_i, void* m1, void* a1, void* m2,
                               void* a2, int B, int E, int n_pad, int L,
                               int n_valid, void* stream) {
-  return launch(kernel_for<true, 2>(E), q, c, thr_s, thr_i, m1, a1, m2, a2, B,
-                E, n_pad, L, n_valid, stream);
+  return launch(pass_kernel(2, 1, 0, E), false, q, c, nullptr, nullptr,
+                thr_s, thr_i, m1, a1, m2, a2, B, E, n_pad, L, n_valid,
+                stream);
 }
 
 extern "C" int bin_max_round(const void* q, const void* c, const void* thr_s,
                              const void* thr_i, void* m, void* a, int B, int E,
                              int n_pad, int L, int n_valid, void* stream) {
-  return launch(kernel_for<true, 1>(E), q, c, thr_s, thr_i, m, a, nullptr,
-                nullptr, B, E, n_pad, L, n_valid, stream);
+  return launch(pass_kernel(1, 1, 0, E), false, q, c, nullptr, nullptr,
+                thr_s, thr_i, m, a, nullptr, nullptr, B, E, n_pad, L, n_valid,
+                stream);
 }
 
-// Launch shape of a pass (keep 1 or 2; threshold 0 or 1) over B rows of
-// width E and L bins, as launch() takes it: out[0..11] = cluster size, warps
-// per block, warp groups, ring stages, shared bytes, registers a thread,
-// local (spilled) bytes a thread, clusters of the launch (bin tiles x row
-// groups), and clusters of 1, 2, 4 and 8 blocks resident at once. Returns a
-// CUDA error code (0 = success).
-extern "C" int bin_max_launch_info(int keep, int threshold, int B, int E,
-                                   int L, int* out) {
-  const KernelFn kernel = keep == 1   ? kernel_for<true, 1>(E)
-                          : threshold ? kernel_for<true, 2>(E)
-                                      : kernel_for<false, 2>(E);
+extern "C" int bin_max2_scaled_first_round(const void* q, const void* codes,
+                                           const void* scales,
+                                           const void* bias, void* m1,
+                                           void* a1, void* m2, void* a2,
+                                           int B, int E, int n_pad, int L,
+                                           int n_valid, void* stream) {
+  return launch(pass_kernel(2, 0, 1, E), true, q, codes, scales, bias,
+                nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_valid,
+                stream);
+}
+
+extern "C" int bin_max2_scaled_round(const void* q, const void* codes,
+                                     const void* scales, const void* bias,
+                                     const void* thr_s, const void* thr_i,
+                                     void* m1, void* a1, void* m2, void* a2,
+                                     int B, int E, int n_pad, int L,
+                                     int n_valid, void* stream) {
+  return launch(pass_kernel(2, 1, 1, E), true, q, codes, scales, bias, thr_s,
+                thr_i, m1, a1, m2, a2, B, E, n_pad, L, n_valid, stream);
+}
+
+// Launch shape of a pass (keep 1 or 2; threshold 0 or 1; int8 0 or 1) over B
+// rows of width E and L bins, as launch() takes it: out[0..11] = cluster
+// size, warps per block, warp groups, ring stages, shared bytes, registers a
+// thread, local (spilled) bytes a thread, clusters of the launch (bin tiles
+// x row groups), and clusters of 1, 2, 4 and 8 blocks resident at once.
+// Returns a CUDA error code (0 = success).
+extern "C" int bin_max_launch_info(int keep, int threshold, int int8, int B,
+                                   int E, int L, int* out) {
+  const KernelFn kernel = pass_kernel(keep, threshold, int8, E);
   if (L <= 0 || L % BN != 0) return static_cast<int>(cudaErrorInvalidValue);
   Shape s;
-  cudaError_t err = prepare(kernel, B, E, &s);
+  cudaError_t err = prepare(kernel, B, E, int8 != 0, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
   err = cudaFuncGetAttributes(&fa, kernel);

@@ -1,26 +1,18 @@
-// Top-2-per-bin passes over an int8 catalog, for Hopper (sm_90a), bound with
-// ctypes through a plain C interface: the single-pass survivor selection and
-// the exact int8 refinement rounds.
+// Top-2-per-bin single passes over an int8 catalog, for Hopper (sm_90a),
+// bound with ctypes through a plain C interface: the survivor selection of
+// the quantized index's one-pass engine.
 //
-// Replaces five kernels of hm_retrieval_tpu/ops/pallas_retrieval.py:
+// Replaces three kernels of hm_retrieval_tpu/ops/pallas_retrieval.py:
 //   ::_bin_max2_scaled_nomask_kernel  (launcher bin_max2_scaled_single_pass,
 //                                      F = 1, scale and bias)
 //   ::_bin_max2_scaled_fold_kernel    (launcher bin_max2_scaled_fold_pass,
 //                                      F >= 1, scale and bias)
 //   ::_bin_max2_raw_fold_kernel       (launcher bin_max2_raw_fold_pass,
 //                                      F >= 1, raw dot products)
-//   ::_bin_max2_scaled_first_kernel   (launcher bin_max2_scaled_first_round,
-//                                      round 1 of the int8 rounds)
-//   ::_bin_max2_scaled_kernel         (launcher bin_max2_scaled_round,
-//                                      rounds 2.. below the thresholds)
-// All five launchers instantiate ONE template, int8_pass_kernel<kScaled,
-// kRounds, kThreshold>, with one tile configuration, one mma order and one
-// epilogue (__fmaf_rn(acc, scale, bias)). The rounds take this template and
-// not the bf16 one of bin_max2.cu because it already stages the int8 codes
-// and their scales and biases; the rounds add only the n_valid mask and the
-// threshold test. The rounds are exact only if round r recomputes the very
-// fp32 scores round r-1's thresholds were taken from: the first round and the
-// refinement rounds differ in nothing but that test.
+// All three launchers instantiate ONE template, int8_pass_kernel<kScaled>,
+// with one tile configuration, one mma order and one epilogue
+// (__fmaf_rn(acc, scale, bias)). The int8 refinement rounds are not here:
+// they are the int8 instances of bin_max2.cu's template.
 //
 // What it computes. The catalog is read in sub-tiles of L rows: sub-tile u
 // holds catalog rows u*L .. u*L + L - 1, and bin b of sub-tile u is row
@@ -28,41 +20,35 @@
 // c*F .. c*F + F - 1). Per (query row, bin) cell, the score of row u*L + b is
 //   kScaled:  (q . codes[row]) * scales[row] + bias[row]   (bias 0 or -inf)
 //   raw:      q . codes[row]
-// Single pass (!kRounds): within a chunk the F scores of a cell are
-// max-reduced in increasing slot order (a tie keeps the lower slot:
-// take = s_t > s), and the winner goes through the cell's top-2 cascade
-// (gt1 = s > m1, gt2 = s > m2). Rounds (kRounds, F = 1): a row >= n_valid
-// and, with kThreshold, a row not strictly below the cell's threshold
-// (thr_s, thr_i) under (score desc, index asc) scores -inf, and every row
-// goes through the cascade. The outputs (m1, a1, m2, a2), each (B, L), hold
-// the scores and the catalog rows u*L + b of the winners; a -inf score never
-// enters a cell (a cell whose threshold is -inf admits nothing), so an
-// unfilled slot keeps -inf / BIG_IDX. The row written is the JAX wrapper's
-// globalized chunk id (chunk*F + slot)*L + bin, computed as u*L + bin.
+// Within a chunk the F scores of a cell are max-reduced in increasing slot
+// order (a tie keeps the lower slot: take = s_t > s), and the winner goes
+// through the cell's top-2 cascade (gt1 = s > m1, gt2 = s > m2). The outputs
+// (m1, a1, m2, a2), each (B, L), hold the scores and the catalog rows
+// u*L + b of the winners; a -inf score never enters a cell, so an unfilled
+// slot keeps -inf / BIG_IDX. The row written is the JAX wrapper's globalized
+// chunk id (chunk*F + slot)*L + bin, computed as u*L + bin.
 //
-// Design. As in bin_max2.cu, a block owns BM query rows x BN bins for the
-// whole run and walks the sub-tiles u = 0 .. n_sub-1 in increasing order with
-// the cell state in registers: the strict '>' of tournament and cascade gives
-// the (score desc, index asc) order only under that walk. The block stages
-// its BN rows of each sub-tile as int8 (and, for kScaled, their BN scales and
-// biases) through a STAGES-deep cp.async ring; the query tile stays resident
-// in shared memory as bf16, and the thresholds of the block's cells in
-// registers. Each warp computes 16 x BN scores with mma.sync m16n8k16 on bf16
+// Design. A block owns BM = 64 query rows x BN = 32 bins for the whole run,
+// one warp per 16 rows, grid (L / BN, ceil(B / BM)), and walks the sub-tiles
+// u = 0 .. n_sub-1 in increasing order with the cell state in registers: the
+// strict '>' of tournament and cascade gives the (score desc, index asc)
+// order only under that walk. The block stages its BN rows of each sub-tile
+// as int8 (and, for kScaled, their BN scales and biases) through a
+// STAGES-deep cp.async ring; the query tile stays resident in shared memory
+// as bf16. Each warp computes 16 x BN scores with mma.sync m16n8k16 on bf16
 // with fp32 sums; the int8 codes are converted to bf16 in registers as the B
 // fragments are built, which is exact (|code| <= 127 fits bf16's 8-bit
 // significand). The ring is per sub-tile, so shared memory does not grow
-// with F.
+// with F: the tiles need 384 * E + 7,168 bytes (kScaled), so E <= 576 fits a
+// block (the wrappers' INT8_KERNEL_MAX_E).
 //
 // What bounds it on the H100 (3.35 TB/s, 989 TFLOP/s bf16). At the H&M
-// served shapes (E = 128, L = 2048; N_pad = 131,072 rows for the single
-// passes, the 106,496 rows of the chunks that hold a valid row for the
-// rounds) one pass moves 18-22 MB (codes, scales, bias, the four (B, L)
-// outputs; 2 MB more of thresholds in a refinement round), and does
+// served shapes (E = 128, L = 2048, N_pad = 131,072 rows) one pass moves
+// 18-22 MB (codes, scales, bias, the four (B, L) outputs) and does
 // 2*B*N_pad*E operations: bound by bytes at B <= 128 (5.5-6.6 us against
-// 0.5-4.3 us of tensor work) and by
-// operations at B = 1024 (34.7 us against 15.4 us of bytes). This first
-// version makes no attempt at TMA or wgmma, and at B <= 64 uses 64 blocks of
-// one query tile; its times are in PERF.md.
+// 0.5-4.3 us of tensor work) and by operations at B = 1024 (34.7 us against
+// 15.4 us of bytes). This first version makes no attempt at TMA or wgmma,
+// and at B <= 64 uses 64 blocks of one query tile; its times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,18 +113,15 @@ __device__ __forceinline__ uint32_t codes_bf16x2(const int8_t* p) {
 }
 
 // Grid: (L / BN, ceil(B / BM)). Dynamic shared memory: smem_bytes(E, kScaled).
-// kThreshold implies kRounds, and kRounds F = 1.
-template <bool kScaled, bool kRounds, bool kThreshold>
+template <bool kScaled>
 __global__ void __launch_bounds__(THREADS)
     int8_pass_kernel(const __nv_bfloat16* __restrict__ q,  // (B, E)
                      const int8_t* __restrict__ codes,     // (n_sub*L, E)
                      const float* __restrict__ scales,     // (n_sub*L,)
                      const float* __restrict__ bias,       // (n_sub*L,)
-                     const float* __restrict__ thr_s,      // (B, L)
-                     const int* __restrict__ thr_i,        // (B, L)
                      float* __restrict__ m1_out, int* __restrict__ a1_out,
                      float* __restrict__ m2_out, int* __restrict__ a2_out,
-                     int B, int E, int L, int F, int n_sub, int n_valid) {
+                     int B, int E, int L, int F, int n_sub) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ldq = E + QPAD;  // shared query row stride, in bf16
   const int ldc = E + CPAD;  // shared code row stride, in bytes
@@ -188,10 +171,9 @@ __global__ void __launch_bounds__(THREADS)
 
   // Cell (j, e) of this thread: row g (e < 2) or g + 8 (e >= 2) of the
   // warp's 16, bin j*8 + 2t + (e & 1) of the block's BN: the mma
-  // accumulator layout. fs / fi: the fold tournament's winner so far (the
-  // rounds' masked score); ts / ti: the cell's threshold.
-  float m1[NT][4], m2[NT][4], fs[NT][4], ts[NT][4];
-  int a1[NT][4], a2[NT][4], fi[NT][4], ti[NT][4];
+  // accumulator layout. fs / fi: the fold tournament's winner so far.
+  float m1[NT][4], m2[NT][4], fs[NT][4];
+  int a1[NT][4], a2[NT][4], fi[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
 #pragma unroll
@@ -202,16 +184,6 @@ __global__ void __launch_bounds__(THREADS)
       a2[j][e] = BIG_IDX;
       fs[j][e] = -CUDART_INF_F;
       fi[j][e] = BIG_IDX;
-      ts[j][e] = CUDART_INF_F;
-      ti[j][e] = -1;
-      if (kThreshold) {
-        const int row = row0 + warp * 16 + g + (e >> 1) * 8;
-        if (row < B) {
-          const size_t o = (size_t)row * L + bin0 + j * 8 + 2 * t + (e & 1);
-          ts[j][e] = thr_s[o];
-          ti[j][e] = thr_i[o];
-        }
-      }
     }
   }
 
@@ -250,7 +222,7 @@ __global__ void __launch_bounds__(THREADS)
     }
 
     const int base = u * L + bin0;
-    const bool last = kRounds || slot == F - 1;
+    const bool last = slot == F - 1;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
@@ -260,13 +232,7 @@ __global__ void __launch_bounds__(THREADS)
         float s = acc[j][e];
         if (kScaled)  // bias is 0 or -inf: fused or not, the same value
           s = __fmaf_rn(s, ss[stage * BN + col], sb[stage * BN + col]);
-        if (kRounds) {
-          bool ok = flat < n_valid;
-          if (kThreshold)
-            ok = ok && (s < ts[j][e] || (s == ts[j][e] && flat > ti[j][e]));
-          fs[j][e] = ok ? s : -CUDART_INF_F;
-          fi[j][e] = flat;
-        } else if (slot == 0 || s > fs[j][e]) {
+        if (slot == 0 || s > fs[j][e]) {
           fs[j][e] = s;
           fi[j][e] = flat;
         }
@@ -302,18 +268,16 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <bool kScaled, bool kRounds, bool kThreshold>
+template <bool kScaled>
 int launch(const void* q, const void* codes, const void* scales,
-           const void* bias, const void* thr_s, const void* thr_i, void* m1,
-           void* a1, void* m2, void* a2, int B, int E, int n_rows, int L,
-           int F, int n_valid, void* stream) {
+           const void* bias, void* m1, void* a1, void* m2, void* a2, int B,
+           int E, int n_rows, int L, int F, void* stream) {
   if (B <= 0 || E <= 0 || E % 16 != 0 || L <= 0 || L % BN != 0 || F <= 0 ||
-      n_rows <= 0 || n_rows % L != 0 || (n_rows / L) % F != 0 ||
-      (kRounds && F != 1) || n_valid < 0 || n_valid > n_rows)
+      n_rows <= 0 || n_rows % L != 0 || (n_rows / L) % F != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(E, kScaled);
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = int8_pass_kernel<kScaled, kRounds, kThreshold>;
+  auto kernel = int8_pass_kernel<kScaled>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -322,9 +286,8 @@ int launch(const void* q, const void* codes, const void* scales,
   kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(codes),
       static_cast<const float*>(scales), static_cast<const float*>(bias),
-      static_cast<const float*>(thr_s), static_cast<const int*>(thr_i),
       static_cast<float*>(m1), static_cast<int*>(a1), static_cast<float*>(m2),
-      static_cast<int*>(a2), B, E, L, F, n_rows / L, n_valid);
+      static_cast<int*>(a2), B, E, L, F, n_rows / L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -339,9 +302,8 @@ extern "C" int bin_max2_scaled_single_pass(const void* q, const void* codes,
                                            void* a1, void* m2, void* a2,
                                            int B, int E, int n_pad, int L,
                                            void* stream) {
-  return launch<true, false, false>(q, codes, scales, bias, nullptr, nullptr,
-                                    m1, a1, m2, a2, B, E, n_pad, L, 1, n_pad,
-                                    stream);
+  return launch<true>(q, codes, scales, bias, m1, a1, m2, a2, B, E, n_pad, L,
+                      1, stream);
 }
 
 extern "C" int bin_max2_scaled_fold_pass(const void* q, const void* codes,
@@ -349,38 +311,14 @@ extern "C" int bin_max2_scaled_fold_pass(const void* q, const void* codes,
                                          void* m1, void* a1, void* m2,
                                          void* a2, int B, int E, int n_pad,
                                          int L, int F, void* stream) {
-  return launch<true, false, false>(q, codes, scales, bias, nullptr, nullptr,
-                                    m1, a1, m2, a2, B, E, n_pad, L, F, n_pad,
-                                    stream);
+  return launch<true>(q, codes, scales, bias, m1, a1, m2, a2, B, E, n_pad, L,
+                      F, stream);
 }
 
 extern "C" int bin_max2_raw_fold_pass(const void* q, const void* codes,
                                       void* m1, void* a1, void* m2, void* a2,
                                       int B, int E, int n_full, int L, int F,
                                       void* stream) {
-  return launch<false, false, false>(q, codes, nullptr, nullptr, nullptr,
-                                     nullptr, m1, a1, m2, a2, B, E, n_full, L,
-                                     F, n_full, stream);
-}
-
-extern "C" int bin_max2_scaled_first_round(const void* q, const void* codes,
-                                           const void* scales,
-                                           const void* bias, void* m1,
-                                           void* a1, void* m2, void* a2,
-                                           int B, int E, int n_pad, int L,
-                                           int n_valid, void* stream) {
-  return launch<true, true, false>(q, codes, scales, bias, nullptr, nullptr,
-                                   m1, a1, m2, a2, B, E, n_pad, L, 1, n_valid,
-                                   stream);
-}
-
-extern "C" int bin_max2_scaled_round(const void* q, const void* codes,
-                                     const void* scales, const void* bias,
-                                     const void* thr_s, const void* thr_i,
-                                     void* m1, void* a1, void* m2, void* a2,
-                                     int B, int E, int n_pad, int L,
-                                     int n_valid, void* stream) {
-  return launch<true, true, true>(q, codes, scales, bias, thr_s, thr_i, m1,
-                                  a1, m2, a2, B, E, n_pad, L, 1, n_valid,
-                                  stream);
+  return launch<false>(q, codes, nullptr, nullptr, m1, a1, m2, a2, B, E,
+                       n_full, L, F, stream);
 }

@@ -10,7 +10,9 @@ an index saved by either package loads in the other.
 
 - ``"pallas"``: the streaming bin-max rounds (``ops/bin_topk.py``, CUDA
   kernels on the card). The name is the JAX package's, kept so artifacts
-  stay interchangeable.
+  stay interchangeable. It runs the exact ``"full"`` path instead, with a
+  log line, where the kernels cannot: k > 2048, or an embedding width that,
+  padded to a multiple of 16, exceeds ``KERNEL_MAX_E``.
 - ``"full"``: one fp32 product plus the bias, then a stable top-k.
 - ``"auto"``: ``"pallas"`` when the padded catalog exceeds 16384 rows, else
   ``"full"``, decided by size alone on every device.
@@ -31,7 +33,9 @@ from hm_retrieval_tpu_torch.device import DeviceLike, resolve_device
 from hm_retrieval_tpu_torch.indices.artifact import clear_stale, load_index_arrays
 from hm_retrieval_tpu_torch.ops.bin_topk import (
     BIN_CHOICES,
+    KERNEL_MAX_E,
     exact_topk,
+    padded_width,
     plain_scores,
 )
 from hm_retrieval_tpu_torch.ops.topk import topk_pair
@@ -109,6 +113,18 @@ class BruteForceIndex:
                 "'full' path instead of the kernels",
                 self.k,
                 BIN_CHOICES[-1],
+            )
+            self._engine = "full"
+        elif method == "pallas" and padded_width(embeddings.shape[1]) > (
+            KERNEL_MAX_E
+        ):
+            logger.warning(
+                "embedding width %d (padded to %d) exceeds the kernels' "
+                "widest %d; running the exact 'full' path instead of the "
+                "kernels",
+                embeddings.shape[1],
+                padded_width(embeddings.shape[1]),
+                KERNEL_MAX_E,
             )
             self._engine = "full"
 

@@ -15,12 +15,18 @@ Survivor engines (``method``):
   ``pallas_rounds > 1`` the exact rounds over the dequantized scores
   instead, with at most that many passes per block of 128 query rows (a
   global scale takes them with every row's scale equal to it). The name is
-  the JAX package's, kept so artifacts stay interchangeable.
+  the JAX package's, kept so artifacts stay interchangeable. It runs the
+  ``"scan"`` engine instead, with a log line, where the embedding width,
+  padded to a multiple of 16, exceeds the widest its kernels take
+  (``INT8_KERNEL_MAX_E`` for one pass, ``KERNEL_MAX_E`` for the rounds).
 - ``"scan"``: per chunk of ``chunk`` rows, int8 queries times int8 codes,
   times the row scale plus the bias, and a running top-``k_over``. The
   chunk product is an fp32 product of the integer-valued operands, exact
-  since |sum| <= 127^2 * E < 2^24 for E <= 1040; the per-chunk top-k is
-  exact where the JAX package uses ``lax.approx_max_k``.
+  since |sum| <= 127^2 * E < 2^24 for E <= ``SCAN_EXACT_E`` = 1040; wider
+  products are summed so over slices of at most 1040 columns and the
+  partial sums added in int32, as exact as the JAX package's int32 product.
+  The per-chunk top-k is exact where the JAX package uses
+  ``lax.approx_max_k``.
 - ``"auto"``: ``"pallas"`` whenever the survivors fit its bin layout, on
   every device, else ``"scan"``.
 
@@ -42,8 +48,14 @@ import torch
 from hm_retrieval_tpu_torch.device import DeviceLike, resolve_device
 from hm_retrieval_tpu_torch.indices.artifact import clear_stale, load_index_arrays
 from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
-from hm_retrieval_tpu_torch.ops.bin_topk import full_fp32, plain_scores
+from hm_retrieval_tpu_torch.ops.bin_topk import (
+    KERNEL_MAX_E,
+    full_fp32,
+    padded_width,
+    plain_scores,
+)
 from hm_retrieval_tpu_torch.ops.quantized_topk import (
+    INT8_KERNEL_MAX_E,
     pallas_feasible,
     quantized_topk,
     quantized_topk_global,
@@ -56,6 +68,9 @@ logger = logging.getLogger(__name__)
 # 127 and never promotes to float64, so host and device builds agree bit
 # for bit with each other and with the JAX package.
 _INV_127 = np.float32(1.0 / 127.0)
+# Widest product the scan engine sums in fp32 at once: 127^2 * 1040 < 2^24,
+# so a sum of that many code products is an exact integer.
+SCAN_EXACT_E = 1040
 
 
 def _pad_to_multiple(n: int, m: int) -> int:
@@ -68,6 +83,38 @@ def _resolve_method(method: str, k_eff: int, dim: int) -> str:
     if method != "auto":
         return method
     return "pallas" if pallas_feasible(k_eff, dim) else "scan"
+
+
+def _engine_of(method: str, pallas_rounds: int, dim: int) -> str:
+    """The engine a resolved method runs: "pallas" runs "scan", with a log
+    line, where the padded width exceeds the widest its kernels take."""
+    widest = KERNEL_MAX_E if pallas_rounds > 1 else INT8_KERNEL_MAX_E
+    if method == "pallas" and padded_width(dim) > widest:
+        logger.warning(
+            "embedding width %d (padded to %d) exceeds the int8 kernels' "
+            "widest %d; running the 'scan' engine instead of the kernels",
+            dim,
+            padded_width(dim),
+            widest,
+        )
+        return "scan"
+    return method
+
+
+def _int_scores(qq: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(B, rows) fp32 qq @ codes^T of integer-valued operands (|x| <= 127),
+    exact before the final rounding to fp32: one fp32 product up to
+    ``SCAN_EXACT_E`` columns, else exact fp32 products of slices that wide,
+    added in int32."""
+    dim = codes.shape[1]
+    if dim <= SCAN_EXACT_E:
+        return plain_scores(qq, codes)
+    total = 0
+    for a in range(0, dim, SCAN_EXACT_E):
+        part = plain_scores(qq[:, a : a + SCAN_EXACT_E],
+                            codes[:, a : a + SCAN_EXACT_E])
+        total = total + part.to(torch.int32)
+    return total.to(torch.float32)
 
 
 def shrink_survivors(k_floor: int, k_over: int, dim: int) -> int:
@@ -248,6 +295,7 @@ class QuantizedIndex:
             self.rescore,
             dim,
         )
+        self._engine = _engine_of(self.method, self.pallas_rounds, dim)
 
         ids = np.zeros((n_pad,), np.int32)
         ids[:n] = identifiers
@@ -346,9 +394,9 @@ class QuantizedIndex:
         top_i = torch.zeros((b, self.k_over), dtype=torch.int32, device=q.device)
         for base in range(0, n_pad, self.chunk):
             end = base + self.chunk
-            # integer-valued fp32 operands: the sums are exact
+            # integer-valued operands: the sums are exact
             s = (
-                plain_scores(qq, self.codes[base:end]) * self.scales[base:end]
+                _int_scores(qq, self.codes[base:end]) * self.scales[base:end]
                 + self._score_bias[base:end]
             )
             cols = torch.arange(
@@ -370,7 +418,7 @@ class QuantizedIndex:
         q = query_embeddings.to(self.device, torch.float32)
         n = self.num_candidates
         kk = min(self.k_over, n) if self.embeddings is not None else self.k
-        if self.method == "pallas":
+        if self._engine == "pallas":
             if self.scale_mode == "global" and self.pallas_rounds == 1:
                 top_s, top_i, _ = quantized_topk_global(
                     q, self.codes, self.global_scale, kk, n_valid=n,
@@ -474,6 +522,7 @@ class QuantizedIndex:
         idx.k_over = int(min(max(idx.oversample * idx.k, idx.k), idx.chunk))
         # as the JAX package: resolved with k, not k_over
         idx.method = _resolve_method(method, idx.k, codes.shape[1])
+        idx._engine = _engine_of(idx.method, idx.pallas_rounds, codes.shape[1])
         codes_p = np.zeros((n_pad, codes.shape[1]), np.int8)
         codes_p[:n] = codes
         scales_p = np.zeros((n_pad,), np.float32)

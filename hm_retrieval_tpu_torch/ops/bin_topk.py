@@ -14,7 +14,8 @@ provably below the k-th value, which gives the exact top-k values in
 first: a query block then returns its leaderboard as it stands, as the JAX
 package does.
 
-The three passes are hand-written CUDA kernels (``csrc/bin_max2.cu``). Beside
+The three passes are hand-written CUDA kernels (``csrc/bin_max2.cu``, whose
+template also holds the int8 rounds of ``ops/quantized_topk.py``). Beside
 them is their plain PyTorch version. A wrapper runs the plain version only
 for CPU tensors; for CUDA tensors it launches the kernel or raises (a
 refused cluster launch included), and adds one to ``LAUNCHES[<kernel>]`` per
@@ -24,6 +25,12 @@ warps, and merge the parts under the explicit (score desc, index asc)
 order, which gives what one walk in increasing chunk order gives:
 ``bin_cells_plain``. ``_topk_rounds`` takes its two passes as closures, so
 it also drives the int8 rounds of ``ops/quantized_topk.py``.
+
+The kernels step through E 16 columns at a time, so ``exact_topk`` pads
+the query and its catalog copy with zero columns to a multiple of 16 on
+every device (``padded_width``): a zero column adds an exact zero to every
+score, so no answer changes. A width past ``KERNEL_MAX_E`` is the callers'
+to route elsewhere (``BruteForceIndex`` takes its ``"full"`` path).
 
 The bin count ``L`` is an explicit argument. Its default, ``default_bins``,
 is the value the JAX package's ``pick_bins`` gives for query blocks of at
@@ -48,9 +55,11 @@ BIG_IDX = 2**31 - 1  # index of a never-filled slot
 BIN_CHOICES = (256, 384, 512, 768, 1024, 1536, 2048)
 Q_BLOCK = 128  # query rows per refinement loop
 MAX_ROUNDS = 8  # streaming passes per query block, at most
-# Kernel tiling that the wrappers check for (csrc/bin_max2.cu): bins per
-# block, and the widest E whose staged tiles fit in shared memory.
+# Kernel tiling that the wrappers check for (csrc/bin_max2.cu, all its
+# instances): bins per block, the k step that E must be a multiple of, and
+# the widest E whose staged tiles fit in shared memory.
 KERNEL_BIN_TILE = 32
+KERNEL_K_STEP = 16
 KERNEL_MAX_E = 512
 
 # Launches of each CUDA kernel since the last reset_launches().
@@ -64,6 +73,22 @@ LAUNCHES: Dict[str, int] = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def padded_width(E: int) -> int:
+    """E rounded up to a multiple of the kernels' k step."""
+    return -(-E // KERNEL_K_STEP) * KERNEL_K_STEP
+
+
+def _padded(t: torch.Tensor, rows: int, width: Optional[int] = None):
+    """``t`` with zero rows up to ``rows`` and, for a matrix, zero columns
+    up to ``width``; ``t`` itself (contiguous) when nothing is added."""
+    shape = (rows,) if t.dim() == 1 else (rows, width or t.shape[1])
+    if tuple(t.shape) == shape:
+        return t.contiguous()
+    out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
 
 
 def default_bins(k: int, keep_per_bin: int = 2) -> int:
@@ -179,7 +204,7 @@ _ARGTYPES = {
     "bin_max2_first_round": [_P] * 6 + [_I] * 5 + [_P],
     "bin_max2_round": [_P] * 8 + [_I] * 5 + [_P],
     "bin_max_round": [_P] * 6 + [_I] * 5 + [_P],
-    "bin_max_launch_info": [_I] * 5 + [_P],
+    "bin_max_launch_info": [_I] * 6 + [_P],
 }
 
 
@@ -215,10 +240,10 @@ def _check(q, c_padded, L, thr_s, thr_i):
                 "the CUDA kernels take bf16 q and c_padded, got "
                 f"{q.dtype} and {c_padded.dtype}"
             )
-        if E % 16 or E > KERNEL_MAX_E:
+        if E % KERNEL_K_STEP or E > KERNEL_MAX_E:
             raise ValueError(
-                f"the CUDA kernels need E % 16 == 0 and E <= {KERNEL_MAX_E}"
-                f", got E={E}"
+                f"the CUDA kernels need E % {KERNEL_K_STEP} == 0 and E <= "
+                f"{KERNEL_MAX_E}, got E={E}"
             )
         if L % KERNEL_BIN_TILE:
             raise ValueError(
@@ -233,10 +258,11 @@ def _check(q, c_padded, L, thr_s, thr_i):
 
 def launch_info(
     B: int, E: int, L: int, keep: int = 2, threshold: bool = True,
-    device=None,
+    int8: bool = False, device=None,
 ) -> Dict[str, object]:
     """The launch shape the kernel of a pass (keep 1 or 2, with or without
-    thresholds) takes over B query rows, as its launcher computes it: the
+    thresholds; ``int8``: the int8 rounds of ``ops/quantized_topk.py``, keep
+    2) takes over B query rows, as its launcher computes it: the
     cluster size it picks, warps, ring and shared bytes, the compiler's
     registers and local (spilled) bytes a thread, the launch's clusters
     (bin tiles x row groups), and ``resident``: the clusters of 1, 2, 4 and
@@ -245,7 +271,7 @@ def launch_info(
     out = (ctypes.c_int * 12)()
     with torch.cuda.device(device):
         err = _kernel("bin_max_launch_info")(
-            keep, int(threshold), B, E, L, ctypes.addressof(out)
+            keep, int(threshold), int(int8), B, E, L, ctypes.addressof(out)
         )
     if err != 0:
         raise RuntimeError(f"bin_max_launch_info: CUDA error {err}")
@@ -430,7 +456,8 @@ def exact_topk(
 
     Operands are cast to ``compute_dtype`` (bf16, with fp32 accumulation);
     the CUDA kernels take bf16 only, and ``torch.float32`` is a CPU-only
-    choice that runs the plain versions at full precision. Each pass keeps
+    choice that runs the plain versions at full precision. Both are padded
+    with zero columns to ``padded_width(E)``, on every device. Each pass keeps
     ``keep_per_bin`` (1 or 2) elements per cell. Queries run in blocks of
     ``Q_BLOCK`` rows, each with its own refinement loop of at most
     ``MAX_ROUNDS`` passes; with ``lockstep`` (keep 2, B a multiple of
@@ -458,11 +485,12 @@ def exact_topk(
             f"{Q_BLOCK} (B={B}, keep_per_bin={keep_per_bin})"
         )
     n_pad = -(-N // L) * L
-    q = queries.to(compute_dtype).contiguous()
+    width = padded_width(E)  # zero columns add exact zeros to every score
+    q = _padded(queries.to(compute_dtype), B, width)
     c_padded = torch.zeros(
-        (n_pad, E), dtype=compute_dtype, device=candidates.device
+        (n_pad, width), dtype=compute_dtype, device=candidates.device
     )
-    c_padded[:N] = candidates.to(compute_dtype)
+    c_padded[:N, :E] = candidates.to(compute_dtype)
     if lockstep:
         # Every block refines in lockstep: one launch per round covers all
         # B rows (a cell's result does not depend on the other rows, so it

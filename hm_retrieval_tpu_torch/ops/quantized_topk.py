@@ -24,11 +24,20 @@ masked and chunks wholly past them not streamed, round r > 1 below round
 r-1's thresholds) until nothing hidden can enter the top k, or
 ``max_rounds`` passes have run.
 
-The five passes are one hand-written CUDA kernel template
-(``csrc/bin_max2_int8.cu``). Beside them are their plain PyTorch versions. A
-wrapper runs the plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises, and adds one to ``LAUNCHES[<kernel>]`` per
-launch.
+The three single passes are one hand-written CUDA kernel template
+(``csrc/bin_max2_int8.cu``); the two rounds passes are the int8 instances of
+the exact passes' template (``csrc/bin_max2.cu``). Beside them are their
+plain PyTorch versions. A wrapper runs the plain version only for CPU
+tensors; for CUDA tensors it launches the kernel or raises, and adds one to
+``LAUNCHES[<kernel>]`` per launch.
+
+Widths. The kernels step through E 16 columns at a time, so the drivers pad
+the query and their copies of the codes with zero columns to
+``padded_width(E)`` on every device (a zero column adds exact zeros), while
+the plan is taken at the real E: L and F decide which rows survive a single
+pass, and the JAX package plans with the real E. ``INT8_KERNEL_MAX_E`` (the
+single passes) and ``KERNEL_MAX_E`` (the rounds) are the widest padded E the
+two kernel files take.
 
 The plan. Fold F and bin count L decide which rows survive a single pass,
 so the port picks what the JAX package picks: ``single_pass_plan`` is the
@@ -55,19 +64,27 @@ from hm_retrieval_tpu_torch.ops import _build
 from hm_retrieval_tpu_torch.ops.bin_topk import (
     BIG_IDX,
     BIN_CHOICES,
+    KERNEL_K_STEP,
+    KERNEL_MAX_E,
     MAX_ROUNDS,
     NEG_INF,
     Q_BLOCK,
+    _padded,
     _topk_rounds,
     bin_cells_plain,
     default_bins,
+    padded_width,
     plain_scores,
 )
 from hm_retrieval_tpu_torch.ops.topk import topk_pair
 
-# Bins per block of the int8 kernels (csrc/bin_max2_int8.cu: BN), which the
-# wrappers check L against.
+# Bins per block of the int8 kernels (BN of csrc/bin_max2_int8.cu and of the
+# rounds' csrc/bin_max2.cu), which the wrappers check L against, and the
+# widest padded E of the single passes (bin_max2_int8.cu), whose tiles need
+# 384 * E + 7,168 bytes of a block's 232,448; the rounds take what every
+# instance of bin_max2.cu takes, KERNEL_MAX_E.
 INT8_KERNEL_BIN_TILE = 32
+INT8_KERNEL_MAX_E = 576
 # The JAX package's off-TPU VMEM budget (pallas_retrieval.VMEM_BUDGET).
 PLAN_BUDGET = 15_000_000
 # (q_block, fold) candidates of _single_pass_policy, in its order.
@@ -227,15 +244,26 @@ _ARGTYPES = {
 }
 
 
+# The source of each kernel: the rounds are instances of bin_max2.cu.
+_SOURCE = {
+    "bin_max2_scaled_single_pass": "bin_max2_int8",
+    "bin_max2_scaled_fold_pass": "bin_max2_int8",
+    "bin_max2_raw_fold_pass": "bin_max2_int8",
+    "bin_max2_scaled_first_round": "bin_max2",
+    "bin_max2_scaled_round": "bin_max2",
+}
+
+
 def _kernel(name: str):
-    fn = getattr(_build.load("bin_max2_int8"), name)
+    fn = getattr(_build.load(_SOURCE[name]), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, codes, L, F, scales, bias, thr_s=None, thr_i=None):
+def _check(q, codes, L, F, scales, bias, thr_s=None, thr_i=None,
+           max_e=INT8_KERNEL_MAX_E):
     if q.dim() != 2 or codes.dim() != 2:
         raise ValueError("q must be (B, E) and codes (N, E)")
     B, E = q.shape
@@ -266,8 +294,11 @@ def _check(q, codes, L, F, scales, bias, thr_s=None, thr_i=None):
     if q.is_cuda:
         if q.dtype != torch.bfloat16:
             raise TypeError(f"the CUDA kernels take bf16 q, got {q.dtype}")
-        if E % 16:
-            raise ValueError(f"the CUDA kernels need E % 16 == 0, got E={E}")
+        if E % KERNEL_K_STEP or E > max_e:
+            raise ValueError(
+                f"the CUDA kernels need E % {KERNEL_K_STEP} == 0 and E <= "
+                f"{max_e}, got E={E}"
+            )
         if L % INT8_KERNEL_BIN_TILE:
             raise ValueError(
                 "the CUDA kernels need L % "
@@ -357,7 +388,8 @@ def bin_max2_raw_fold_pass(q: torch.Tensor, codes: torch.Tensor, L: int, F: int)
 
 
 def _check_rounds(q, codes_padded, scales, bias, L, n_valid, thr_s, thr_i):
-    _check(q, codes_padded, L, 1, scales, bias, thr_s, thr_i)
+    _check(q, codes_padded, L, 1, scales, bias, thr_s, thr_i,
+           max_e=KERNEL_MAX_E)
     if not 0 <= n_valid <= codes_padded.shape[0]:
         raise ValueError(
             f"n_valid={n_valid} outside [0, {codes_padded.shape[0]}]"
@@ -426,14 +458,6 @@ def _resolve_bins(B, E, k, N, L, fold):
     return fold, L
 
 
-def _pad_rows(t: torch.Tensor, n: int, value=0) -> torch.Tensor:
-    if t.shape[0] == n:
-        return t.contiguous()
-    out = torch.full((n, *t.shape[1:]), value, dtype=t.dtype, device=t.device)
-    out[: t.shape[0]] = t
-    return out
-
-
 def quantized_topk(
     queries: torch.Tensor,
     codes: torch.Tensor,
@@ -458,6 +482,8 @@ def quantized_topk(
 
     Operands are cast to ``compute_dtype`` (bf16, fp32 sums); the CUDA
     kernels take bf16 only, and ``torch.float32`` is a CPU-only choice.
+    The plan takes the real E; the passes get q and the codes padded with
+    zero columns to ``padded_width(E)``.
     Returns (values (B, k) fp32, catalog rows (B, k) int32, rounds = the
     maximum over query blocks, 1 for the single pass)."""
     B, E = queries.shape
@@ -484,12 +510,13 @@ def quantized_topk(
     # The rounds mask rows >= n_valid themselves, so they stream only the
     # chunks that hold a valid row; the single pass streams every row.
     n_pad = -(-(n_valid if rounds else N) // chunk) * chunk
-    codes_p = _pad_rows(codes[:n_pad], n_pad)
-    scales_p = _pad_rows(scales[:n_pad].to(torch.float32), n_pad)
+    width = padded_width(E)
+    codes_p = _padded(codes[:n_pad], n_pad, width)
+    scales_p = _padded(scales[:n_pad].to(torch.float32), n_pad)
     bias_p = torch.zeros(n_pad, dtype=torch.float32, device=queries.device)
     if bias is not None:
         bias_p[: min(N, n_pad)] = bias[:n_pad].to(torch.float32)
-    q = queries.to(compute_dtype).contiguous()
+    q = _padded(queries.to(compute_dtype), B, width)
     if rounds:
         vs, idxs, most = [], [], 0
         for s in range(0, B, Q_BLOCK):
@@ -537,7 +564,8 @@ def quantized_topk_global(
     real rows (``n_full``, a multiple of F*L) stream through the raw pass;
     the tail of fewer than F*L rows is scored by one plain fp32 product and
     pre-reduced to its top-k; the k winners are scaled once at the end.
-    Nothing is launched when ``n_valid < F*L``.
+    Nothing is launched when ``n_valid < F*L``. The plan takes the real E;
+    the pass gets q and the codes padded to ``padded_width(E)``.
     Returns (values (B, k) fp32, catalog rows (B, k) int32, rounds = 1)."""
     B, E = queries.shape
     N = codes.shape[0]
@@ -553,7 +581,11 @@ def quantized_topk_global(
     q = queries.to(compute_dtype).contiguous()
     vals, ids = [], []
     if n_full:
-        m1, a1, m2, a2 = bin_max2_raw_fold_pass(q, codes[:n_full], L, fold)
+        width = padded_width(E)
+        m1, a1, m2, a2 = bin_max2_raw_fold_pass(
+            _padded(q, B, width), _padded(codes[:n_full], n_full, width), L,
+            fold,
+        )
         vals += [m1, m2]
         ids += [a1, a2]
     T = n_valid - n_full

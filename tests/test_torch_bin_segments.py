@@ -1,4 +1,5 @@
-"""The split-and-merge rule of the exact passes' kernels (csrc/bin_max2.cu).
+"""The split-and-merge rule of the kernels of csrc/bin_max2.cu: the exact
+passes (kernels 1, 2, 8) and the int8 rounds (kernels 6-7).
 
 The kernels cut each (query row, bin) cell's chunk walk into contiguous
 segments, over the blocks of a cluster and over warp groups inside a block,
@@ -10,8 +11,10 @@ numpy. It must equal the single walk (``bin_cells_plain``) bit for bit for
 any segment count, uneven and empty segments included, on integer scores
 heavy with ties, with n_valid ending inside a segment, and with thresholds
 from a real first round; and the JAX package's passes in interpret mode.
-The CUDA kernels themselves are held against ``bin_cells_plain`` on the card
-by chip_smoke.py.
+The int8 rounds run the same split over scaled scores,
+__fmaf_rn(q . codes, scale, bias) with a bias of 0 or -inf, so the model
+holds them too, -inf bias rows included. The CUDA kernels themselves are
+held against ``bin_cells_plain`` on the card by chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -269,3 +272,87 @@ def test_int8_kernels_keep_their_own_bin_tile():
     kernel's."""
     assert qt.INT8_KERNEL_BIN_TILE == 32
     assert not hasattr(qt, "KERNEL_BIN_TILE")
+
+
+def _fma_scores(q, codes, scales, bias):
+    """The int8 rounds' scores, __fmaf_rn(q . codes, scale, bias): the
+    integer sum times an fp32 scale is exact in fp64 and the bias is 0 or
+    -inf, so one rounding to fp32 is the fused multiply-add's."""
+    dot = q.astype(np.float64) @ codes.astype(np.float64).T
+    return (dot * scales.astype(np.float64) + bias).astype(np.float32)
+
+
+def _int8_catalog(rng, kind, n_pad, n_valid, L):
+    """Codes, scales and a bias over ``n_pad`` rows as the rounds' driver
+    passes them: -inf on ~10% of the valid rows and on bins 0..2 of every
+    chunk (cells that stay unfilled), 0 and scale 0 past n_valid."""
+    if kind == "ties":
+        codes = rng.integers(-2, 3, size=(n_pad, 16)).astype(np.int8)
+        scales = np.full(n_pad, 0.5, np.float32)
+    else:
+        codes = rng.integers(-127, 128, size=(n_pad, 16)).astype(np.int8)
+        scales = (rng.random(n_pad) * 0.05 + 1e-3).astype(np.float32)
+    bias = np.where(rng.random(n_pad) < 0.1, -np.inf, 0.0).astype(np.float32)
+    bias[np.arange(n_pad) % L < 3] = -np.inf
+    scales[n_valid:] = 0.0
+    bias[n_valid:] = 0.0
+    return codes, scales, bias
+
+
+class TestInt8Rounds:
+    """Kernels 6-7 as instances of the split: the segmented model over the
+    scaled scores equals the single walk (``scaled_round_plain``) and the
+    JAX package's int8 rounds passes in interpret mode, bit for bit."""
+
+    def _inputs(self, rng, kind, n_pad, n_valid, L):
+        q = rng.integers(-4, 5, size=(B, 16)).astype(np.float32)
+        return (q, *_int8_catalog(rng, kind, n_pad, n_valid, L))
+
+    def _plain(self, q, codes, scales, bias, L, n_valid, thr=None):
+        thr = () if thr is None else tuple(torch.tensor(x) for x in thr)
+        return [x.numpy() for x in qt.scaled_round_plain(
+            torch.tensor(q).to(torch.bfloat16), torch.tensor(codes),
+            torch.tensor(scales), torch.tensor(bias), L, n_valid, *thr)]
+
+    @pytest.mark.parametrize("thresholds", [False, True])
+    @pytest.mark.parametrize("segments", range(1, 9))
+    def test_scaled_split_equals_one_walk(self, rng, segments, thresholds):
+        args = self._inputs(rng, "ties", N_CHUNKS * L, N_VALID, L)
+        scores = _fma_scores(*args)
+        thr = None
+        if thresholds:
+            thr = self._plain(*args, L, N_VALID)[2:]
+        blocks = _kernel_bounds(N_CHUNKS, 1, segments)
+        want = self._plain(*args, L, N_VALID, thr)
+        _assert_bitwise(_segmented(scores, N_VALID, blocks, thr), want)
+        bias = args[3]
+        for a in want[1::2]:  # a -inf bias row is never admitted
+            filled = a != bt.BIG_IDX
+            assert filled.any() and np.isfinite(bias[a[filled]]).all()
+
+    @pytest.mark.parametrize("kind", ["integer", "ties"])
+    @pytest.mark.parametrize(
+        "cluster,groups", [(1, 1), (1, 5), (2, 3), (4, 2), (8, 8)]
+    )
+    def test_scaled_rounds_equal_jax(self, rng, kind, cluster, groups):
+        LJ, NPAD, NV = 128, 1024, 1000  # NV inside the last chunk
+        q, codes, scales, bias = self._inputs(rng, kind, NPAD, NV, LJ)
+        scores = _fma_scores(q, codes, scales, bias)
+        blocks = _kernel_bounds(NPAD // LJ, cluster, groups)
+        jargs = (jnp.asarray(q, jnp.bfloat16), jnp.asarray(codes),
+                 jnp.asarray(scales)[None], jnp.asarray(bias)[None])
+        j1 = pr.bin_max2_scaled_first_round(*jargs, L=LJ, n_valid=NV,
+                                            interpret=True)
+        j1 = [np.asarray(x) for x in j1]
+        _assert_bitwise(_segmented(scores, NV, blocks, None, 2, L=LJ), j1)
+        j2 = pr.bin_max2_scaled_round(*jargs, j1[2], j1[3], L=LJ,
+                                      n_valid=NV, interpret=True)
+        j2 = [np.asarray(x) for x in j2]
+        _assert_bitwise(
+            _segmented(scores, NV, blocks, (j1[2], j1[3]), 2, L=LJ), j2)
+        _assert_bitwise(
+            self._plain(q, codes, scales, bias, LJ, NV, (j1[2], j1[3])), j2)
+        for a in j1[1::2] + j2[1::2]:
+            filled = a != bt.BIG_IDX
+            assert filled.any() and (a[filled] < NV).all()
+            assert np.isfinite(bias[a[filled]]).all()

@@ -4,7 +4,9 @@ hm_retrieval_tpu_torch, chip_smoke.py or bin_max_bench.py, nothing the card's ma
 absent."""
 
 import ast
+import ctypes
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -180,3 +182,37 @@ def test_sources_and_launch_counters():
     assert set(bt.LAUNCHES.values()) == {0}
     assert set(qt.LAUNCHES.values()) == {0}
     assert hm_retrieval_tpu_torch.__version__
+
+
+def _launchers():
+    """{source: {C launcher: its parameter types}} of csrc/*.cu."""
+    out = {}
+    for name in _build.sources():
+        text = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        out[name] = {
+            fn: [" ".join(p.split()[:-1]) for p in params.split(",")]
+            for fn, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', text)
+        }
+    return out
+
+
+def test_each_wrapper_binds_a_launcher_of_its_source():
+    """Every wrapper loads its C launcher from the source that defines it,
+    with one ctypes type per parameter: a pointer (or the stream) as
+    c_void_p, an int as c_int. The int8 rounds are instances of
+    bin_max2.cu's template; bin_max2_int8.cu keeps the single passes."""
+    launchers = _launchers()
+    sources = {**{n: "bin_max2" for n in bt._ARGTYPES}, **qt._SOURCE}
+    assert set(sources) == set(bt._ARGTYPES) | set(qt._ARGTYPES)
+    assert set(launchers["bin_max2_int8"]) == {
+        "bin_max2_scaled_single_pass", "bin_max2_scaled_fold_pass",
+        "bin_max2_raw_fold_pass"}
+    for fn, source in sources.items():
+        params = launchers[source][fn]
+        argtypes = {**bt._ARGTYPES, **qt._ARGTYPES}[fn]
+        want = [ctypes.c_int if p == "int" else ctypes.c_void_p
+                for p in params]
+        assert argtypes == want, fn
+    int8 = (_build.CSRC_DIR / "bin_max2_int8.cu").read_text()
+    assert "kRounds" not in int8 and "kThreshold" not in int8

@@ -1,0 +1,384 @@
+"""Embedding widths the CUDA kernels do not take as they are.
+
+The kernels step through E 16 columns at a time, and their staged tiles
+bound E. So the port's drivers pad the query and their catalog copies with
+zero columns to a multiple of 16 on every device (exact: a zero column adds
+exact zeros to every score), while the single-pass plan keeps the real E,
+since L and F decide which rows survive and the JAX package plans with the
+real E. Past the widest width a kernel file takes, the indices run their
+other engine with a log line: ``BruteForceIndex`` the exact ``"full"``
+path, ``QuantizedIndex`` the ``"scan"`` engine, whose integer product stays
+exact at every E by summing slices of at most 1040 columns in fp32 and
+adding the partial sums in int32.
+
+Everything is held against the JAX package on the same inputs: its Pallas
+drivers in interpret mode and its indices. Tolerances as in
+``test_torch_bin_topk``: integer inputs bit-identical, normal inputs within
+TOL with ids equal wherever the competing scores differ by more.
+"""
+
+import logging
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hm_retrieval_tpu.indices.brute_force import (
+    BruteForceIndex as JaxBruteForceIndex,
+)
+from hm_retrieval_tpu.indices.quantized import QuantizedIndex as JaxQuantized
+from hm_retrieval_tpu.ops import pallas_retrieval as pr
+from hm_retrieval_tpu_torch.indices import quantized as pq
+from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
+from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
+from hm_retrieval_tpu_torch.ops import bin_topk as bt
+from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+from test_torch_bin_topk import _assert_same_ranking, _inputs
+
+WIDTHS = (8, 100)
+KINDS = ("integer", "normal")
+
+
+def _dtypes(kind):
+    """(JAX, torch) compute dtypes: bf16 for exact integer inputs, fp32
+    for normal inputs."""
+    if kind == "integer":
+        return jnp.bfloat16, torch.bfloat16
+    return jnp.float32, torch.float32
+
+
+def _int8_catalog(rng, N, E):
+    codes = rng.integers(-127, 128, size=(N, E)).astype(np.int8)
+    scales = (rng.random(N) * 0.05 + 1e-3).astype(np.float32)
+    bias = np.where(rng.random(N) < 0.05, -np.inf, 0.0).astype(np.float32)
+    return codes, scales, bias
+
+
+def _scaled_scores(q, codes, scales, bias, n_valid):
+    s = q.astype(np.float64) @ codes.astype(np.float64).T * scales + bias
+    s[:, n_valid:] = -np.inf
+    return np.where(np.isfinite(s), s, -np.inf)
+
+
+def _spy(monkeypatch, module, names):
+    """Each named wrapper of ``module`` records its (q, catalog) operands
+    and runs as before."""
+    seen = []
+    for name in names:
+        wrapper = getattr(module, name)
+
+        def run(q, c, *args, _wrapper=wrapper, **kwargs):
+            seen.append((q, c))
+            return _wrapper(q, c, *args, **kwargs)
+
+        monkeypatch.setattr(module, name, run)
+    return seen
+
+
+def _assert_padded(seen, E):
+    """Every launch got E padded to the kernels' k step, zeros past E."""
+    width = bt.padded_width(E)
+    assert seen and width % 16 == 0 and width - E < 16
+    for q, c in seen:
+        assert q.shape[1] == c.shape[1] == width
+        assert not bool(q[:, E:].any()) and not bool(c[:, E:].any())
+
+
+class TestPaddedWidth:
+    @pytest.mark.parametrize(
+        "E, width", [(1, 16), (8, 16), (16, 16), (100, 112), (520, 528)]
+    )
+    def test_padded_width(self, E, width):
+        assert bt.padded_width(E) == width
+
+    def test_kernel_widths(self):
+        """The widest padded E of each kernel file: bin_max2.cu (kernels 1,
+        2, 8 and the int8 rounds) and bin_max2_int8.cu (the single passes,
+        whose tiles take 384 * E + 7,168 bytes of 232,448)."""
+        assert bt.KERNEL_MAX_E == 512
+        assert qt.INT8_KERNEL_MAX_E == 576
+        assert 384 * 576 + 7168 <= 232448 < 384 * 592 + 7168
+
+
+class TestExactWidths:
+    @pytest.mark.parametrize("kind", KINDS)
+    @pytest.mark.parametrize("E", WIDTHS)
+    def test_exact_topk_matches_jax(self, rng, E, kind):
+        B, N, k, L = 8, 3000, 10, 256
+        q, c = _inputs(rng, kind, B, N, E)
+        jdt, tdt = _dtypes(kind)
+        jv, ji, jr = pr.pallas_exact_topk(
+            jnp.asarray(q), jnp.asarray(c), k, L=L, interpret=True,
+            compute_dtype=jdt,
+        )
+        v, i, rounds = bt.exact_topk(
+            torch.tensor(q), torch.tensor(c), k, L=L, compute_dtype=tdt
+        )
+        assert rounds == int(jr)
+        scores = q.astype(np.float64) @ c.astype(np.float64).T
+        _assert_same_ranking(v.numpy(), i.numpy(), jv, ji, scores,
+                             kind == "integer")
+
+    @pytest.mark.parametrize("keep_per_bin", [1, 2])
+    @pytest.mark.parametrize("E", WIDTHS)
+    def test_kernels_get_padded_operands(self, rng, monkeypatch, E,
+                                         keep_per_bin):
+        seen = _spy(monkeypatch, bt, ("bin_max2_first_round",
+                                      "bin_max2_round", "bin_max_round"))
+        q, c = _inputs(rng, "integer", 4, 2000, E)
+        want = bt.exact_topk(torch.tensor(q), torch.tensor(c), 10,
+                             keep_per_bin=keep_per_bin)
+        _assert_padded(seen, E)
+        # the same answer as the caller's own zero columns
+        width = bt.padded_width(E)
+        qp, cp = (np.pad(x, ((0, 0), (0, width - E))) for x in (q, c))
+        got = bt.exact_topk(torch.tensor(qp), torch.tensor(cp), 10,
+                            keep_per_bin=keep_per_bin)
+        for g, w in zip(got[:2], want[:2]):
+            assert torch.equal(g, w)
+
+    def test_no_copy_at_a_multiple_of_16(self, rng, monkeypatch):
+        seen = _spy(monkeypatch, bt, ("bin_max2_first_round",))
+        q, c = _inputs(rng, "integer", 4, 2000, 32)
+        qb = torch.tensor(q).to(torch.bfloat16)
+        bt.exact_topk(qb, torch.tensor(c), 10)
+        assert seen[0][0].data_ptr() == qb.data_ptr()
+        assert seen[0][1].shape == (2048, 32)
+
+    @pytest.mark.parametrize("E", WIDTHS)
+    def test_brute_force_index_matches_jax(self, rng, E):
+        """The index's kernel path against the JAX index's ("pallas" runs
+        only on a TPU there, so its driver in interpret mode): integer
+        embeddings, exact in bf16, bit-identical."""
+        n, k = 3000, 10
+        q, emb = _inputs(rng, "integer", 8, n, E)
+        ids = rng.permutation(n).astype(np.int32) + 3
+        idx = BruteForceIndex(k, ids, emb, method="pallas", device="cpu")
+        assert idx._engine == "pallas"
+        jv, ji, _ = pr.pallas_exact_topk(jnp.asarray(q), jnp.asarray(emb), k,
+                                         interpret=True)
+        got = idx.topk_from_embeddings(torch.tensor(q))
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(got[1].numpy(), ids[np.asarray(ji)])
+
+    @pytest.mark.parametrize("E, engine", [(100, "pallas"), (512, "pallas"),
+                                           (513, "full"), (520, "full")])
+    def test_width_past_the_kernels_routes_to_full(self, rng, caplog, E,
+                                                   engine):
+        n, k = 17000, 10  # "auto" takes the kernels by size
+        q, emb = _inputs(rng, "integer", 4, n, E)
+        ids = np.arange(n, dtype=np.int32)
+        with caplog.at_level(logging.WARNING):
+            idx = BruteForceIndex(k, ids, emb, device="cpu")
+        assert (idx.method, idx._engine) == ("pallas", engine)
+        routed = [r for r in caplog.records if "widest" in r.getMessage()]
+        assert len(routed) == (engine == "full")
+        if engine == "full":
+            want = JaxBruteForceIndex(k, ids, emb, method="full")
+            want = want.topk_from_embeddings(jnp.asarray(q))
+            got = idx.topk_from_embeddings(torch.tensor(q))
+            np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+            np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+class TestQuantizedWidths:
+    @pytest.mark.parametrize("kind", KINDS)
+    @pytest.mark.parametrize("max_rounds", [1, 8])
+    @pytest.mark.parametrize("E", WIDTHS)
+    def test_quantized_topk_matches_jax(self, rng, E, max_rounds, kind):
+        B, N, n_valid, k = 16, 3000, 2500, 10
+        q = _inputs(rng, kind, B, 1, E)[0]
+        codes, scales, bias = _int8_catalog(rng, N, E)
+        jdt, tdt = _dtypes(kind)
+        wv, wi, wr = pr.pallas_quantized_topk(
+            jnp.asarray(q), jnp.asarray(codes), jnp.asarray(scales), k,
+            n_valid=n_valid, bias=jnp.asarray(bias), max_rounds=max_rounds,
+            interpret=True, compute_dtype=jdt,
+        )
+        v, i, rounds = qt.quantized_topk(
+            torch.tensor(q), torch.tensor(codes), torch.tensor(scales), k,
+            n_valid=n_valid, bias=torch.tensor(bias), max_rounds=max_rounds,
+            compute_dtype=tdt,
+        )
+        assert rounds == int(wr)
+        scores = _scaled_scores(q, codes, scales, bias, n_valid)
+        _assert_same_ranking(v.numpy(), i.numpy(), wv, wi, scores,
+                             kind == "integer")
+
+    @pytest.mark.parametrize("kind", KINDS)
+    @pytest.mark.parametrize("E", WIDTHS)
+    def test_quantized_topk_global_matches_jax(self, rng, E, kind):
+        B, n_valid, k, L, F = 8, 1500, 10, 256, 2
+        q = _inputs(rng, kind, B, 1, E)[0]
+        codes = rng.integers(-127, 128, size=(2048, E)).astype(np.int8)
+        g = np.float32(0.013)
+        jdt, tdt = _dtypes(kind)
+        wv, wi, _ = pr.pallas_quantized_topk_global(
+            jnp.asarray(q), jnp.asarray(codes), g, k, n_valid=n_valid, L=L,
+            fold=F, interpret=True, compute_dtype=jdt,
+        )
+        v, i, _ = qt.quantized_topk_global(
+            torch.tensor(q), torch.tensor(codes), float(g), k,
+            n_valid=n_valid, L=L, fold=F, compute_dtype=tdt,
+        )
+        scores = (q.astype(np.float64) @ codes[:n_valid].astype(np.float64).T
+                  * np.float64(g))
+        _assert_same_ranking(v.numpy(), i.numpy(), wv, wi, scores,
+                             kind == "integer")
+
+    @pytest.mark.parametrize("max_rounds", [1, 8])
+    @pytest.mark.parametrize("E", WIDTHS)
+    def test_kernels_get_padded_operands_and_the_plan_the_real_width(
+        self, rng, monkeypatch, E, max_rounds
+    ):
+        planned = []
+        plan = qt.single_pass_plan
+
+        def spy_plan(B, width, *args):
+            planned.append(width)
+            return plan(B, width, *args)
+
+        monkeypatch.setattr(qt, "single_pass_plan", spy_plan)
+        seen = _spy(monkeypatch, qt, (
+            "bin_max2_scaled_single_pass", "bin_max2_scaled_fold_pass",
+            "bin_max2_raw_fold_pass", "bin_max2_scaled_first_round",
+            "bin_max2_scaled_round",
+        ))
+        q = torch.tensor(_inputs(rng, "integer", 4, 1, E)[0])
+        codes, scales, _ = (torch.tensor(a) for a in
+                            _int8_catalog(rng, 3000, E))
+        got = qt.quantized_topk(q, codes, scales, 10, n_valid=2900,
+                                max_rounds=max_rounds)
+        qt.quantized_topk_global(q, codes, 0.5, 10, n_valid=2900)
+        _assert_padded(seen, E)
+        assert planned == ([E] if max_rounds == 1 else []) + [E]
+        # the same answer as the caller's own zero columns, at the bins
+        # and fold of the real width
+        width = bt.padded_width(E)
+        _, fold, L = plan(4, E, 10, 3000)
+        if max_rounds > 1:
+            fold, L = None, None
+        want = qt.quantized_topk(
+            torch.nn.functional.pad(q, (0, width - E)),
+            torch.nn.functional.pad(codes, (0, width - E)), scales, 10,
+            n_valid=2900, max_rounds=max_rounds, L=L, fold=fold,
+        )
+        for g, w in zip(got[:2], want[:2]):
+            assert torch.equal(g, w)
+
+    def test_no_copy_at_a_multiple_of_16(self, rng, monkeypatch):
+        seen = _spy(monkeypatch, qt, ("bin_max2_scaled_fold_pass",))
+        q = torch.tensor(_inputs(rng, "integer", 4, 1, 32)[0])
+        qb = q.to(torch.bfloat16)
+        codes, scales, _ = (torch.tensor(a) for a in
+                            _int8_catalog(rng, 2048, 32))
+        qt.quantized_topk(qb, codes, scales, 10, max_rounds=1, fold=2)
+        assert seen[0][0].data_ptr() == qb.data_ptr()
+        assert seen[0][1].data_ptr() == codes.data_ptr()
+
+    @pytest.mark.parametrize("rounds", [1, 8])
+    @pytest.mark.parametrize("E", WIDTHS)
+    def test_quantized_index_matches_jax(self, rng, E, rounds):
+        n, k = 3000, 10
+        ids = rng.permutation(n).astype(np.int32) + 7
+        emb = rng.normal(size=(n, E)).astype(np.float32)
+        q = rng.normal(size=(8, E)).astype(np.float32)
+        kw = dict(method="pallas", pallas_rounds=rounds)
+        jidx = JaxQuantized(k, ids, emb, **kw)
+        idx = QuantizedIndex(k, ids, emb, device="cpu", **kw)
+        assert (idx.method, idx._engine, idx.k_over) == (
+            "pallas", "pallas", jidx.k_over)
+        want = jidx.topk_from_embeddings(jnp.asarray(q))
+        got = idx.topk_from_embeddings(torch.tensor(q))
+        row_of = np.zeros(ids.max() + 1, np.int64)
+        row_of[ids] = np.arange(n)
+        scores = q.astype(np.float64) @ emb.astype(np.float64).T
+        _assert_same_ranking(
+            got[0].numpy(), row_of[got[1].numpy()], np.asarray(want[0]),
+            row_of[np.asarray(want[1])], scores, False,
+        )
+
+    @pytest.mark.parametrize(
+        "E, rounds, engine",
+        [(512, 8, "pallas"), (520, 8, "scan"), (520, 1, "pallas"),
+         (576, 1, "pallas"), (600, 1, "scan")],
+    )
+    def test_width_past_the_kernels_routes_to_scan(self, rng, caplog,
+                                                   tmp_path, E, rounds,
+                                                   engine):
+        """The one-pass kernels take padded widths up to 576, the rounds
+        (bin_max2.cu's instances) up to 512; past them the scan engine
+        runs, with a log line, and the saved method stays "pallas"."""
+        n, k = 2000, 5
+        ids = np.arange(n, dtype=np.int32)
+        emb = rng.normal(size=(n, E)).astype(np.float32)
+        q = torch.tensor(rng.normal(size=(3, E)).astype(np.float32))
+        kw = dict(method="pallas", pallas_rounds=rounds, device="cpu")
+        with caplog.at_level(logging.WARNING):
+            idx = QuantizedIndex(k, ids, emb, **kw)
+        assert (idx.method, idx._engine) == ("pallas", engine)
+        routed = [r for r in caplog.records if "widest" in r.getMessage()]
+        assert len(routed) == (engine == "scan")
+        if engine == "scan":
+            scan = QuantizedIndex(k, ids, emb, method="scan", device="cpu")
+            for g, w in zip(idx.topk_from_embeddings(q),
+                            scan.topk_from_embeddings(q)):
+                assert torch.equal(g, w)
+            idx.save(str(tmp_path))
+            loaded = pq.QuantizedIndex.load(str(tmp_path), device="cpu")
+            assert (loaded.method, loaded._engine) == ("pallas", "scan")
+
+
+class TestScanWidth:
+    """The scan engine's integer product past 1040 columns, where an fp32
+    sum of code products is no longer exact (127^2 * 2048 > 2^24)."""
+
+    E, N, B, K = 2048, 1500, 16, 6
+
+    def _data(self, rng):
+        """Catalog rows of +-1 (codes +-127, one scale) near a query sign
+        pattern, and integer-valued queries of magnitude 100..127 with that
+        pattern: sums of 2^24 .. 2^25, most of them odd."""
+        sign = rng.choice([-1.0, 1.0], size=self.E).astype(np.float32)
+        flips = rng.random((self.N, self.E)) < rng.random((self.N, 1)) * 0.2
+        emb = np.where(flips, -sign, sign).astype(np.float32)
+        q = (sign * rng.integers(100, 128, size=(self.B, self.E))).astype(
+            np.float32)
+        return np.arange(self.N, dtype=np.int32) + 11, emb, q
+
+    def _reference(self, idx, q):
+        """Values and rows from an int64 product: the integer sums, each
+        rounded once to fp32, then as the engine scales them."""
+        t = np.max(np.abs(q), axis=1, keepdims=True) * np.float32(1 / 127)
+        qq = np.clip(np.rint(q / t), -127, 127).astype(np.int64)
+        codes = idx.codes[: self.N].numpy().astype(np.int64)
+        dots = qq @ codes.T
+        assert dots.max() > 2**24  # past fp32's exact integers
+        s = dots.astype(np.float32) * idx.scales[: self.N].numpy()
+        rows = np.argsort(-s, axis=1, kind="stable")[:, : self.K]
+        return np.take_along_axis(s, rows, 1) * t, rows
+
+    def test_scan_is_exact_past_1040_columns(self, rng):
+        ids, emb, q = self._data(rng)
+        kw = dict(method="scan", rescore=False, oversample=1, chunk=1024)
+        idx = QuantizedIndex(self.K, ids, emb, device="cpu", **kw)
+        assert idx.codes[: self.N].abs().min() == 127
+        got_v, got_ids = idx.topk_from_embeddings(torch.tensor(q))
+        want_v, rows = self._reference(idx, q)
+        np.testing.assert_array_equal(got_v.numpy(), want_v)
+        np.testing.assert_array_equal(got_ids.numpy(), ids[rows])
+        jv, jids = JaxQuantized(self.K, ids, emb, **kw).topk_from_embeddings(
+            jnp.asarray(q))
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(got_ids.numpy(), np.asarray(jids))
+
+    @pytest.mark.parametrize("E", [16, 1040, 1041, 2080, 2500])
+    def test_int_scores_at_slice_edges(self, rng, E):
+        qq = torch.tensor(rng.integers(-127, 128, size=(3, E)),
+                          dtype=torch.float32)
+        codes = torch.tensor(rng.integers(-127, 128, size=(50, E)),
+                             dtype=torch.int8)
+        want = (qq.numpy().astype(np.int64)
+                @ codes.numpy().astype(np.int64).T).astype(np.float32)
+        np.testing.assert_array_equal(pq._int_scores(qq, codes).numpy(), want)
