@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Time the kernels of csrc/bin_max2.cu (the exact passes, kernels 1, 2, 8,
-and the int8 rounds, kernels 6-7) on one card: two trees side by side, or
-ablated builds of this tree's kernel.
+the per-row int8 single passes, kernels 3-4, and the int8 rounds, kernels
+6-7) and of csrc/bin_max2_int8.cu (the raw pass, kernel 5) on one card: two
+trees side by side, or ablated builds of this tree's bin_max2.cu.
 
     python3 bin_max_bench.py ab --tree OLD --tree NEW [--seed 0]
     python3 bin_max_bench.py serve --tree OLD --tree NEW [--pairs 5]
     python3 bin_max_bench.py ablate [--seed 0]
 
-``ab`` times kernels 1, 2, 6, 7 and 8, ``exact_topk`` and
-``quantized_topk(max_rounds=8)`` from each tree's own
+``ab`` times kernels 1-8, ``exact_topk`` and ``quantized_topk`` (8 rounds
+and one pass) from each tree's own
 ``hm_retrieval_tpu_torch`` (for example a ``git archive`` of an earlier
 commit unpacked under ``build/``), one process per tree in the order OLD,
 NEW, NEW, OLD, so that a drift of the card or host shows as a difference
@@ -29,8 +30,17 @@ trees (``bitwise``).
   (``bin_max2_scaled_round``, on the thresholds of its own round 1) at
   B = 1, 16, 128, L=2048, over the 106,496 rows the rounds stream (a -inf
   bias on 1% of the valid rows), timed alike.
-- ``exact_topk`` at k=1000 and ``quantized_topk(max_rounds=8)`` at k=2000
-  (phase 6's per-row int8 catalog, 131,072 rows), B = 1, 16, 128, 1024: the
+- kernels 3-5 at the served (fold F, bins L, batch B) of each single-pass
+  plan (``chip_smoke.QUANT_PLANS``: (1, 2048, 1024), (2, 2048, 128),
+  (8, 2048, 16), (8, 2048, 1), (16, 512, 16)): kernel 3
+  (``bin_max2_scaled_single_pass``) at F = 1, kernel 4
+  (``bin_max2_scaled_fold_pass``) at F > 1, over phase 4's per-row int8
+  catalog (131,072 rows, a -inf bias on the pad rows), and kernel 5
+  (``bin_max2_raw_fold_pass``) over its full chunks of real rows, timed
+  alike.
+- ``exact_topk`` at k=1000 and ``quantized_topk`` at k=2000 with 8 rounds
+  and with one pass (phase 4's per-row int8 catalog, 131,072 rows), B = 1,
+  16, 128, 1024: the
   median of 10 calls, each timed by CUDA events (host syncs included, as
   served); then 5 calls under ``torch.profiler``: device ms a call of the
   bin-max kernels and of every other kernel, and the share of the profiled
@@ -44,13 +54,16 @@ alternate which tree runs first.
 
 ``ablate`` builds this tree's ``bin_max2.cu`` as it is and with parts of
 the kernel's walk replaced (the outputs of those builds are wrong; only
-their time is read) and with the cluster size forced, and times kernels 1-2
-and the int8 instances, kernels 6-7, at B = 1, 16, 128, L=2048 (kernel 1
-also at L = 1024 and 512 for the cluster sizes). The forced cluster sizes
-must give the as-is outputs bit for bit, kernels 6-7's included. Variants:
+their time is read) and with the cluster size or the warp groups forced,
+and times kernels 1-2 and the int8 rounds, kernels 6-7, at B = 1, 16, 128,
+L=2048 (kernel 1 also at L = 1024 and 512 for the cluster sizes), and the
+int8 single passes, kernels 3-4, at every served plan. The forced cluster
+sizes and groups must give the as-is outputs bit for bit, kernels 3, 4, 6
+and 7's included. Variants:
 
 - ``as_is``: the kernel as it is;
-- ``no_cascade``: the top-2 cascade replaced by one max a cell;
+- ``no_cascade``: the top-2 cascade replaced by one max a cell (the fold
+  tournament kept);
 - ``no_mma``: each ``mma.sync`` removed, its operands still loaded;
 - ``neither``: both;
 - ``ring_only``: the ring's copies and barriers (and the int8 instances'
@@ -58,7 +71,10 @@ must give the as-is outputs bit for bit, kernels 6-7's included. Variants:
 - ``no_convert``: the int8 instances' conversion of each landed tile to
   bf16 and its barrier removed (the mma reads a stale tile);
 - ``no_epilogue``: the int8 instances' ``sum * scale + bias`` removed;
-- ``c1`` .. ``c8``: the cluster size forced to 1, 2, 4, 8.
+- ``no_tournament``: the fold pass's tournament removed (each chunk's last
+  sub-tile goes to the cascade);
+- ``c1`` .. ``c8``: the cluster size forced to 1, 2, 4, 8;
+- ``g1``, ``g2``: at most 1 or 2 warp groups a block.
 
 Each line printed is one JSON object; needs a card, exits 2 without one.
 """
@@ -151,6 +167,29 @@ def int8_rows(qt, gen, dev, batches=TIMED):
                    "bound_ms": bound, "bound_by": by}, launch()
 
 
+def single_pass_rows(qt, gen, dev, plans=cs.QUANT_PLANS, kernels=(3, 4, 5)):
+    """Timings of kernels 3-5 at each served (F, L, B), with their bounds,
+    each with the outputs of one launch: kernel 3 at F = 1, kernel 4 at
+    F > 1, kernel 5 over the full chunks of real rows at every plan."""
+    number = dict(zip(cs.SINGLE_PASS_KERNELS, (3, 4, 5)))
+    codes, scales, bias = cs.int8_catalog(gen, dev)
+    for F, L, B in plans:
+        q = cs.random_rows(gen, dev, "normal", B)
+        for name, (c, args) in cs.plan_cases(codes, scales, bias, F,
+                                             L).items():
+            if number[name] not in kernels:
+                continue
+            bound, by = cs.single_pass_bound_ms(
+                B, c.shape[0], L, name != cs.SINGLE_PASS_KERNELS[2])
+
+            def launch():
+                return getattr(qt, name)(q, c, *args)
+
+            yield {"kernel": number[name], "F": F, "L": L, "B": B,
+                   "rows": c.shape[0], **time_launch(launch),
+                   "bound_ms": bound, "bound_by": by}, launch()
+
+
 def import_tree(tree):
     """(``bin_topk``, ``quantized_topk``) of the hm_retrieval_tpu_torch under
     ``tree``."""
@@ -198,10 +237,11 @@ def time_tree(tree, seed, out):
     rows = [*kernel_rows(bt, gen, dev, kernels=(1, 2)),
             *kernel_rows(bt, gen, dev, batches=(cs.Q_BLOCK,),
                          bins=(2048, 512), kernels=(8,)),
-            *int8_rows(qt, gen, dev)]
+            *int8_rows(qt, gen, dev), *single_pass_rows(qt, gen, dev)]
     for row, outs in rows:
         emit({"tree": tree, **row})
-        keep(f"kernel {row['kernel']} L={row['L']} B={row['B']}", outs)
+        fold = f" F={row['F']}" if "F" in row else ""
+        keep(f"kernel {row['kernel']}{fold} L={row['L']} B={row['B']}", outs)
     cand = cs.random_rows(gen, dev, "normal", cs.N_ARTICLES)
     codes, scales, _ = cs.int8_catalog(gen, dev)
     drivers = {
@@ -209,6 +249,9 @@ def time_tree(tree, seed, out):
         "quantized_topk": (cs.SURVIVORS, lambda q: qt.quantized_topk(
             q, codes, scales, cs.SURVIVORS, n_valid=cs.N_ARTICLES,
             max_rounds=cs.MAX_ROUNDS)),
+        "quantized_topk_one_pass": (cs.SURVIVORS, lambda q: qt.quantized_topk(
+            q, codes, scales, cs.SURVIVORS, n_valid=cs.N_ARTICLES,
+            max_rounds=1)),
     }
     for name, (k, driver) in drivers.items():
         for B in TOPK_BATCHES:
@@ -225,9 +268,9 @@ def time_tree(tree, seed, out):
 
 def profile_calls(fn, calls=5):
     """Device time a call of ``fn``'s kernels by torch.profiler: the bin-max
-    kernels' (this tree's template, or an earlier tree's int8 template) and
-    the others', and the share of the profiled window in which the card ran
-    no kernel."""
+    kernels' (bin_max2.cu's template and bin_max2_int8.cu's kernel, by
+    either tree's names) and the others', and the share of the profiled
+    window in which the card ran no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -242,8 +285,9 @@ def profile_calls(fn, calls=5):
              if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = {"bin_max": 0.0, "other": 0.0}
     for e in spans:
-        key = ("bin_max" if "bin_max_kernel" in e.name
-               or "int8_pass_kernel" in e.name else "other")
+        key = ("bin_max" if any(k in e.name for k in (
+            "bin_max_kernel", "int8_pass_kernel", "raw_fold_kernel"))
+            else "other")
         busy[key] += e.time_range.elapsed_us() / 1e3
     return {
         "calls": calls, "device_events": len(spans),
@@ -312,18 +356,36 @@ def compare_runs(runs):
 # Ablation: this tree's kernel source with one part replaced
 # ---------------------------------------------------------------------------
 
-CASCADE = """      if (ch * L + bin0 + BN <= n_valid)
-        cascade(acc, ch, std::false_type());
-      else
-        cascade(acc, ch, std::true_type());
+CASCADE = """      } else if (ch * L + bin0 + BN <= n_valid) {
+        cascade(acc, [ch](int, int, int) { return ch; }, std::false_type());
+      } else {
+        cascade(acc, [ch](int, int, int) { return ch; }, std::true_type());
+      }
 """
-ONE_MAX = """#pragma unroll
+FOLD_CASCADE = """        if (fslot == F - 1)
+          cascade(fs, [&](int mm, int jj, int e) { return fu[mm][jj][e]; },
+                  std::false_type());
+"""
+
+
+def one_max(scores):
+    """One max a cell of ``scores`` in place of the cascade."""
+    return f"""#pragma unroll
       for (int mm = 0; mm < WM; ++mm)
 #pragma unroll
         for (int jj = 0; jj < WN; ++jj)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            m1[mm][jj][e] = fmaxf(m1[mm][jj][e], acc[mm][jj][e]);
+            m1[mm][jj][e] = fmaxf(m1[mm][jj][e], {scores}[mm][jj][e]);
+"""
+
+
+NO_CASCADE = [(CASCADE, "      } else {\n" + one_max("acc") + "      }\n"),
+              (FOLD_CASCADE, "        if (fslot == F - 1) {\n"
+               + one_max("fs") + "        }\n")]
+TOURNAMENT = "        tournament(acc, ch, fslot == 0);\n" + FOLD_CASCADE
+NO_TOURNAMENT = """        if (fslot == F - 1)
+          cascade(acc, [ch](int, int, int) { return ch; }, std::false_type());
 """
 MMA = """  asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -344,17 +406,22 @@ CONVERT = """      codes_to_bf16(sc + slot * stage, sconv, Ek, ld, gtid, gthread
       group_sync(1 + grp, gthreads);
 """
 EPILOGUE = "      if constexpr (kInt8) scaled(acc, slot);\n"
+GROUPS = "  for (s.groups = MAX_WARPS / s.wpg;; --s.groups) {\n"
 
 VARIANTS = {
     "as_is": [],
-    "no_cascade": [(CASCADE, ONE_MAX)],
+    "no_cascade": NO_CASCADE,
     "no_mma": [(MMA, NO_MMA)],
-    "neither": [(CASCADE, ONE_MAX), (MMA, NO_MMA)],
+    "neither": [*NO_CASCADE, (MMA, NO_MMA)],
     "ring_only": [(WALK, NO_WALK)],
     "no_convert": [(CONVERT, "")],
     "no_epilogue": [(EPILOGUE, "")],
+    "no_tournament": [(TOURNAMENT, NO_TOURNAMENT)],
     **{f"c{c}": [(PICK, f"  cluster = {c};\n")] for c in (1, 2, 4, 8)},
+    **{f"g{g}": [(GROUPS, f"  for (s.groups = {g} < MAX_WARPS / s.wpg ? {g} "
+                  ": MAX_WARPS / s.wpg;; --s.groups) {\n")] for g in (1, 2)},
 }
+FORCED = ("c1", "c2", "c4", "c8", "g1", "g2")
 
 
 def build_variants(names):
@@ -410,25 +477,32 @@ def ablate(seed):
     for name, (_, regs) in built.items():
         emit({"variant": name, "ptxas": regs})
     dev = torch.device("cuda")
-    # the forced cluster sizes must answer as the as-is build does
+    # the forced cluster sizes and groups must answer as the as-is build
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = cs.random_rows(gen, dev, "normal", cs.Q_BLOCK)
+    q = cs.random_rows(gen, dev, "normal", 1024)
     N = cs.N_ARTICLES
+    codes_q, scales_q, bias_q = cs.int8_catalog(gen, dev)
     for L in (2048, 1024, 512):
         c_pad = catalog(gen, dev, L)
         n8 = -(-N // L) * L
         codes, scales, bias = cs.scaled_catalog(gen, dev, n8, cs.E, N)
         want = {}
-        for name in ("as_is", "c1", "c2", "c4", "c8"):
+        for name in ("as_is", *FORCED):
             use(built[name][0], bt, qt)
-            for B in (1, 37, 128):
-                k1 = bt.bin_max2_first_round(q[:B], c_pad, L, N)
-                k2 = bt.bin_max2_round(q[:B], c_pad, k1[2], k1[3], L, N)
-                k6 = qt.bin_max2_scaled_first_round(q[:B], codes, scales,
-                                                    bias, L, N)
-                k7 = qt.bin_max2_scaled_round(q[:B], codes, scales, bias,
-                                              k6[2], k6[3], L, N)
-                got = [x.clone() for x in k1 + k2 + k6 + k7]
+            for B in (1, 37, 128, 1024):
+                k3 = qt.bin_max2_scaled_single_pass(q[:B], codes_q, scales_q,
+                                                    bias_q, L)
+                k4 = [x for F in (2, 8) for x in qt.bin_max2_scaled_fold_pass(
+                    q[:B], codes_q, scales_q, bias_q, L, F)]
+                got = [x.clone() for x in (*k3, *k4)]
+                if B <= cs.Q_BLOCK:
+                    k1 = bt.bin_max2_first_round(q[:B], c_pad, L, N)
+                    k2 = bt.bin_max2_round(q[:B], c_pad, k1[2], k1[3], L, N)
+                    k6 = qt.bin_max2_scaled_first_round(q[:B], codes, scales,
+                                                        bias, L, N)
+                    k7 = qt.bin_max2_scaled_round(q[:B], codes, scales, bias,
+                                                  k6[2], k6[3], L, N)
+                    got += [x.clone() for x in k1 + k2 + k6 + k7]
                 if name == "as_is":
                     want[B] = got
                 elif not all(torch.equal(g, w) for g, w in zip(got, want[B])):
@@ -437,15 +511,18 @@ def ablate(seed):
         emit({"cluster_check": {"L": L, "ok": True}})
     for name in VARIANTS:
         use(built[name][0], bt, qt)
-        cluster = name.startswith("c")
+        forced = name in FORCED
         rows = kernel_rows(
             bt, torch.Generator(device=dev).manual_seed(seed), dev,
-            batches=(1, 128) if cluster else TIMED,
-            bins=(2048, 1024, 512) if cluster else (2048,),
-            kernels=(1,) if cluster else (1, 2))
-        if not cluster:
+            batches=(1, 128) if forced else TIMED,
+            bins=(2048, 1024, 512) if forced else (2048,),
+            kernels=(1,) if forced else (1, 2))
+        if not forced:
             rows = [*rows, *int8_rows(
                 qt, torch.Generator(device=dev).manual_seed(seed), dev)]
+        rows = [*rows, *single_pass_rows(
+            qt, torch.Generator(device=dev).manual_seed(seed), dev,
+            kernels=(3, 4))]
         for row, _ in rows:
             emit({"variant": name, **row})
 

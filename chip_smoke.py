@@ -41,10 +41,16 @@ Phases, each of which must pass (a failure raises and exits non-zero):
 4. The int8 single-pass kernels against their plain versions on the card,
    on the same catalog as int8 codes padded to 131,072 rows, E=128, at the
    served (fold F, bins L, batch B) of each plan: (1, 2048, 1024),
-   (2, 2048, 128), (8, 2048, 16) and (16, 512, 16); the raw (global-scale)
-   pass over the full chunks of real rows. Integer-valued queries must give
-   bit-identical outputs, normal ones values within TOL. Then
-   quantized_topk as a whole against a matmul + topk yardstick.
+   (2, 2048, 128), (8, 2048, 16), (8, 2048, 1) and (16, 512, 16); the raw
+   (global-scale) pass over the full chunks of real rows. The per-row
+   passes (kernels 3-4, instances of bin_max2.cu's template) print their
+   launch shape at each plan under phase 2's cluster rule. Integer-valued
+   queries must give bit-identical outputs, normal ones values within TOL;
+   each kernel is timed at each plan by graph ("ms") and by events
+   ("events_ms"). Kernels 3-4 also run at E = 64, 256 and 576 (the
+   instantiation that reads the query from shared memory) on integer
+   inputs, bit-identical. Then quantized_topk as a whole against a matmul +
+   topk yardstick.
 5. Quantized serving at full H&M width, on phase 3's embedded catalog and
    model: QuantizedIndex(method="auto") must resolve to the kernels with
    2000 survivors, and its build on the card must equal the host
@@ -94,7 +100,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    the same indices on the CPU; at E = 520 the exact index routes to
    "full" and the rounds to "scan", the one pass runs its kernels at 528,
    and at E = 600 the one pass routes to "scan", each route with a log
-   line.
+   line. The one pass's launch shapes at padded E = 528 and 576 are
+   printed.
 
 Output: per-phase JSON lines, then the card's name and power limit, the
 {"kernels": [...]} line, and as the last line
@@ -131,7 +138,8 @@ TOL = 1e-4  # relative to max(1, |score|): fp32 summation order
 N_PAD_Q = 131_072  # the H&M catalog padded to the quantized index's chunk
 # (fold F, bins L, batch B) of the single-pass plans at the served shapes:
 # k_over = 2000 at B = 1024, 128, <= 16, and k <= 100 at any B
-QUANT_PLANS = ((1, 2048, 1024), (2, 2048, 128), (8, 2048, 16), (16, 512, 16))
+QUANT_PLANS = ((1, 2048, 1024), (2, 2048, 128), (8, 2048, 16), (8, 2048, 1),
+               (16, 512, 16))
 SURVIVORS = 2000  # k_over of the served quantized index
 MAX_ROUNDS = 8  # the drivers' cap on passes per query block
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -373,17 +381,17 @@ def phase_kernels(gen, dev):
     return stats
 
 
-def check_clusters(infos, L, B):
+def check_clusters(infos, L, B, **where):
     """Each kernel's launch shape at (L, B) holds the launcher's rule: the
     largest cluster size whose whole grid the card holds at once. Prints
-    the shapes as one kernel_launch line."""
+    the shapes as one kernel_launch line, with ``where`` (e.g. the fold)."""
     for n, info in infos.items():
         fits = [c for c in (2, 4, 8)
                 if info["resident"][c] >= info["clusters"]]
         require(info["cluster"] == max(fits, default=1),
                 f"{n} L={L} B={B}: cluster {info['cluster']}, "
                 f"resident {info['resident']}")
-    emit({"kernel_launch": {"L": L, "B": B, **infos}})
+    emit({"kernel_launch": {"L": L, "B": B, **where, **infos}})
 
 
 def hm_schema():
@@ -582,6 +590,20 @@ def pass_args(name, args):
     return L, 1, scales, bias
 
 
+def plan_cases(codes, scales, bias, F, L):
+    """{kernel name: (codes, wrapper arguments after (q, codes))} of the
+    single passes at plan (F, L): the per-row pass (no fold at F = 1) over
+    the whole padded catalog, the raw pass over its full chunks of real
+    rows."""
+    n_full = N_ARTICLES // (F * L) * (F * L)
+    if F == 1:
+        cases = {SINGLE_PASS_KERNELS[0]: (codes, (scales, bias, L))}
+    else:
+        cases = {SINGLE_PASS_KERNELS[1]: (codes, (scales, bias, L, F))}
+    cases[SINGLE_PASS_KERNELS[2]] = (codes[:n_full], (L, F))
+    return cases
+
+
 def run_pass(name, q, codes, args, plain=False):
     """One single-pass kernel through its wrapper, or its plain version."""
     from hm_retrieval_tpu_torch.ops import quantized_topk as qt
@@ -615,6 +637,10 @@ def int8_catalog(gen, dev):
 
 
 def phase_quantized_kernels(gen, dev):
+    """Kernels 3-5 against their plain versions at every plan of
+    QUANT_PLANS, timed there, and kernels 3-4 at other widths; then
+    quantized_topk against a yardstick."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
     from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 
     codes, scales, bias = int8_catalog(gen, dev)
@@ -627,12 +653,11 @@ def phase_quantized_kernels(gen, dev):
         "bin_max2_raw_fold_pass": (2, 2048, 128),
     }
     for F, L, B in QUANT_PLANS:
-        n_full = N_ARTICLES // (F * L) * (F * L)
-        if F == 1:
-            cases = {SINGLE_PASS_KERNELS[0]: (codes, (scales, bias, L))}
-        else:
-            cases = {SINGLE_PASS_KERNELS[1]: (codes, (scales, bias, L, F))}
-        cases[SINGLE_PASS_KERNELS[2]] = (codes[:n_full], (L, F))
+        cases = plan_cases(codes, scales, bias, F, L)
+        check_clusters({name: bt.launch_info(B, E, L, threshold=False,
+                                             int8=True, fold=F, device=dev)
+                        for name in cases if name != SINGLE_PASS_KERNELS[2]},
+                       L, B, F=F)
         for kind in ("integer", "normal"):
             if kind == "integer":
                 q = torch.randint(-4, 5, (B, E), generator=gen, device=dev)
@@ -660,17 +685,23 @@ def phase_quantized_kernels(gen, dev):
                     st["id_mismatches"] += mism
                 del scores
                 bound, by = single_pass_bound_ms(B, c.shape[0], L, sc is not None)
+
+                def launch():
+                    return run_pass(name, q, c, args)
+
                 row = {
                     "F": F, "L": L, "B": B, "rows": c.shape[0],
-                    "ms": cuda_ms(lambda: run_pass(name, q, c, args), 50),
+                    "ms": graph_ms(launch, 50),
+                    "events_ms": cuda_ms(launch, 50),
                     "plain_ms": cuda_ms(lambda: run_pass(
                         name, q, c, args, plain=True), 3),
                     "bound_ms": bound, "bound_by": by,
                 }
                 st["shapes"].append(row)
                 if headline[name] == (F, L, B):
-                    st.update({k: row[k] for k in
-                               ("ms", "plain_ms", "bound_ms", "bound_by")})
+                    st.update({k: row[k] for k in ("ms", "events_ms",
+                                                   "plain_ms", "bound_ms",
+                                                   "bound_by")})
             emit({"quantized_kernel_check": {"F": F, "L": L, "B": B,
                                              "inputs": kind, "ok": True}})
 
@@ -693,6 +724,24 @@ def phase_quantized_kernels(gen, dev):
                          "torch.topk over (B, N)",
         })
     emit({"quantized_topk": rows})
+    del codes, scales, bias, deq
+    # the other instantiation (A fragments read from shared memory) of
+    # kernels 3-4, at widths other than E = 128 up to the widest, on
+    # integer inputs with -inf bias rows
+    for width in (64, 256, qt.INT8_KERNEL_MAX_E):
+        L, n_rows, B = 1024, 16384, 37
+        codes, scales, bias = scaled_catalog(gen, dev, n_rows, width, n_rows)
+        q = torch.randint(-4, 5, (B, width), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        for name, args in ((SINGLE_PASS_KERNELS[0], (scales, bias, L)),
+                           (SINGLE_PASS_KERNELS[1], (scales, bias, L, 2))):
+            got = run_pass(name, q, codes, args)
+            want = run_pass(name, q, codes, args, plain=True)
+            torch.cuda.synchronize()
+            hold_cells(stats[name], f"{name} E={width}", "integer", got, want,
+                       None)
+        emit({"quantized_kernel_check": {"E": width, "L": L, "B": B,
+                                         "inputs": "integer", "ok": True}})
     return stats
 
 
@@ -1404,6 +1453,14 @@ def phase_widths(seed, dev):
         logging.getLogger("hm_retrieval_tpu_torch").removeHandler(log)
     for row in rows:
         emit({"width": row})
+    # the one pass's kernels at the widest padded widths they serve
+    for width in (528, qt.INT8_KERNEL_MAX_E):
+        for B in (16, Q_BLOCK):
+            emit({"width_launch": {"E": width, "B": B, **{
+                name: bt.launch_info(B, width, 2048, threshold=False,
+                                     int8=True, fold=F, device=dev)
+                for name, F in (("bin_max2_scaled_single_pass", 1),
+                                ("bin_max2_scaled_fold_pass", 2))}}})
 
 
 def main(argv=None):
@@ -1455,8 +1512,8 @@ def main(argv=None):
     kernel_files = {
         "bin_max2_first_round": ("bin_max2.cu", 276),
         "bin_max2_round": ("bin_max2.cu", 207),
-        "bin_max2_scaled_single_pass": ("bin_max2_int8.cu", 352),
-        "bin_max2_scaled_fold_pass": ("bin_max2_int8.cu", 464),
+        "bin_max2_scaled_single_pass": ("bin_max2.cu", 352),
+        "bin_max2_scaled_fold_pass": ("bin_max2.cu", 464),
         "bin_max2_raw_fold_pass": ("bin_max2_int8.cu", 593),
         "bin_max2_scaled_first_round": ("bin_max2.cu", 311),
         "bin_max2_scaled_round": ("bin_max2.cu", 701),

@@ -1,35 +1,50 @@
-// Streaming top-k-per-bin passes of the exact top-k retrieval and of the
-// exact int8 rounds, for Hopper (sm_90a), bound with ctypes through a plain C
-// interface.
+// Streaming top-k-per-bin passes of the exact top-k retrieval, of the exact
+// int8 rounds and of the int8 single pass, for Hopper (sm_90a), bound with
+// ctypes through a plain C interface.
 //
-// Replaces five kernels of hm_retrieval_tpu/ops/pallas_retrieval.py:
-//   ::_bin_max2_first_kernel         (launcher bin_max2_first_round: top-2,
-//                                     round 1, no thresholds)
-//   ::_bin_max2_kernel               (launcher bin_max2_round: top-2 below the
-//                                     thresholds, refinement rounds)
-//   ::_bin_max_kernel                (launcher bin_max_round: top-1 below the
-//                                     thresholds; round 1 is a launch with
-//                                     +inf / -1 thresholds, as in the JAX
-//                                     driver)
-//   ::_bin_max2_scaled_first_kernel  (launcher bin_max2_scaled_first_round:
-//                                     round 1 of the int8 rounds)
-//   ::_bin_max2_scaled_kernel        (launcher bin_max2_scaled_round: int8
-//                                     rounds 2.. below the thresholds)
-// All five launchers instantiate ONE template, bin_max_kernel<kThreshold,
-// kKeep, kSteps, kInt8>, so every pass computes the score of a (query row,
-// catalog row) pair with the same code: the refinement rounds are exact only
-// because every pass reproduces identical fp32 scores.
+// Replaces seven kernels of hm_retrieval_tpu/ops/pallas_retrieval.py:
+//   ::_bin_max2_first_kernel          (launcher bin_max2_first_round: top-2,
+//                                      round 1, no thresholds)
+//   ::_bin_max2_kernel                (launcher bin_max2_round: top-2 below
+//                                      the thresholds, refinement rounds)
+//   ::_bin_max_kernel                 (launcher bin_max_round: top-1 below
+//                                      the thresholds; round 1 is a launch
+//                                      with +inf / -1 thresholds, as in the
+//                                      JAX driver)
+//   ::_bin_max2_scaled_first_kernel   (launcher bin_max2_scaled_first_round:
+//                                      round 1 of the int8 rounds)
+//   ::_bin_max2_scaled_kernel         (launcher bin_max2_scaled_round: int8
+//                                      rounds 2.. below the thresholds)
+//   ::_bin_max2_scaled_nomask_kernel  (launcher bin_max2_scaled_single_pass:
+//                                      the int8 single pass, no fold)
+//   ::_bin_max2_scaled_fold_kernel    (launcher bin_max2_scaled_fold_pass:
+//                                      the int8 single pass with the fold
+//                                      tournament)
+// All seven launchers instantiate ONE template, bin_max_kernel<kThreshold,
+// kKeep, kSteps, kInt8, kFold>, so every pass computes the score of a (query
+// row, catalog row) pair with the same code: the refinement rounds are exact
+// only because every pass reproduces identical fp32 scores.
 //
-// What it computes. The catalog C (n_pad x E, n_pad % L == 0) is read in
-// chunks of L rows; bin b of chunk c is catalog row c*L + b. It is bf16, or
-// (kInt8) int8 codes with an fp32 scale and bias a row. The score of a (query
-// row, catalog row) pair is the fp32 sum of Q @ C^T, and for int8
+// What it computes. The catalog C (n_pad x E) is read in sub-tiles of L
+// rows: bin b of sub-tile u is catalog row u*L + b. It is bf16, or (kInt8)
+// int8 codes with an fp32 scale and bias a row. The score of a (query row,
+// catalog row) pair is the fp32 sum of Q @ C^T, and for int8
 // __fmaf_rn(sum, scale[row], bias[row]) (bias 0 or -inf; a -inf bias scores
 // -inf). For each (query row, bin) cell the kernel keeps the lexicographic
 // top-kKeep (m1, a1 and, for kKeep = 2, m2, a2) under the order (score desc,
 // index asc), over rows < n_valid and, with kThreshold, only over elements
 // strictly below the cell's threshold (thr_s, thr_i). Unfilled slots hold
-// -inf / BIG_IDX.
+// -inf / BIG_IDX. With kFold, F consecutive sub-tiles make one fold chunk
+// (chunk c = sub-tiles c*F .. c*F + F - 1, n_pad % (F*L) == 0): within a
+// chunk a cell's F scores are reduced in increasing slot order (slot 0 taken
+// unconditionally, a later slot where it scores strictly higher, so a tie
+// keeps the lower slot), and only the winner, with its row u*L + b, enters
+// the cascade. The single passes have no n_valid mask: validity and padding
+// ride the bias as -inf. The no-fold single pass (and the fold pass at
+// F = 1, the same function) is the int8 instance of the rounds' first pass,
+// launched with n_valid = n_pad, so no tournament and no mask is run; the
+// fold pass at F > 1 is the kFold = true instance, which compiles the mask
+// out.
 //
 // Design. Grid (c, L / BN, ceil(B / BM)) in clusters of c blocks along x.
 // The c blocks of a cluster share one tile of up to BM = 128 query rows x
@@ -41,26 +56,28 @@
 // (all of the block's rows and bins), and groups = 8 / wpg, so that at
 // small B the warps that would have computed all-zero row tiles walk chunks
 // of their own instead: 8 warps a block at every B, one block an SM.
-// Each cell's chunk walk 0 .. n_chunks - 1 is cut into S = c * groups
-// contiguous segments: segment s = rank * groups + group walks chunks
-// [s * n / S, (s + 1) * n / S) in increasing order (a segment may be empty).
-// A group stages its segment's BN x E catalog tiles through its own
-// cp.async ring of `stages` slots (a named barrier of the group's threads a
-// step); an int8 slot holds the BN code rows and their BN scales and BN
-// biases, and once it has landed the group converts its codes into one bf16
-// tile of its own (exact: |code| <= 128 has at most 8 significant bits),
-// behind a second barrier. Its warps read their B fragments with ldmatrix
-// and compute their scores with mma.sync m16n8k16 (bf16 operands, fp32
-// accumulation, k in increasing 16-wide steps; at E = 128 the query's A
-// fragments stay in registers and E is known to the compiler), apply the
-// int8 epilogue, then run the eligibility test, the n_valid mask (only on a
-// chunk that crosses n_valid) and the top-2 (or top-1) cascade of the single
-// walk per cell, in registers; the cells hold chunk numbers, and the
-// threshold's row index becomes a chunk number once, so the per-element work
-// is compares and selects only. At the end every group writes its partial
-// cells to shared memory, the groups of a block merge into one partial, and
-// after cluster.sync() each block merges its share of the cells over the c
-// blocks' partials, read through distributed shared memory
+// Each cell's walk over the n chunks (fold chunks with kFold, sub-tiles
+// otherwise) is cut into S = c * groups contiguous segments of whole
+// chunks: segment s = rank * groups + group walks chunks [s * n / S,
+// (s + 1) * n / S) in increasing order, and their sub-tiles in increasing
+// order (a segment may be empty). A group stages its segment's BN x E
+// sub-tiles through its own cp.async ring of `stages` slots (a named
+// barrier of the group's threads a step); an int8 slot holds the BN code
+// rows and their BN scales and BN biases, and once it has landed the group
+// converts its codes into one bf16 tile of its own (exact: |code| <= 128
+// has at most 8 significant bits), behind a second barrier. Its warps read
+// their B fragments with ldmatrix and compute their scores with mma.sync
+// m16n8k16 (bf16 operands, fp32 accumulation, k in increasing 16-wide
+// steps; at E = 128 the query's A fragments stay in registers and E is
+// known to the compiler), apply the int8 epilogue, then (kFold) the
+// tournament, then the eligibility test, the n_valid mask (only on a chunk
+// that crosses n_valid) and the top-2 (or top-1) cascade of the single walk
+// per cell, in registers; the cells hold sub-tile numbers, and the
+// threshold's row index becomes a sub-tile number once, so the per-element
+// work is compares and selects only. At the end every group writes its
+// partial cells to shared memory, the groups of a block merge into one
+// partial, and after cluster.sync() each block merges its share of the
+// cells over the c blocks' partials, read through distributed shared memory
 // (map_shared_rank), and writes them out. No atomics, no second launch; a
 // last cluster.sync() keeps every block's shared memory alive until the
 // others have read it.
@@ -87,21 +104,46 @@
 // are those of the int8 rounds' earlier single-walk kernel, so the two give
 // the same scores.
 //
+// Why the fold split is exact. A segment holds whole fold chunks, so each
+// chunk's tournament sees all F of its sub-tiles in increasing slot order,
+// as in the single walk, and every segment admits exactly the winners the
+// single walk admits: one element per (chunk, cell), whatever the split.
+// The cell stores the winner's sub-tile u = c*F + slot, and row_of turns it
+// into row u*L + b, as the JAX wrapper globalizes (c*F + slot)*L + b. The
+// winners of distinct chunks order as their chunks do, since their rows lie
+// in disjoint increasing ranges, and the tournament already kept the lowest
+// slot of a tie within a chunk; so the segment's strict '>' cascade over
+// increasing chunks gives the lexicographic top-kKeep of its winners, and
+// the merge above, unchanged, gives the single walk's. A split inside a
+// chunk would not: two sub-tiles of one (chunk, bin) in two segments would
+// each send a winner, and both rows could survive.
+//
 // What bounds it on the H100. One bf16 pass reads the catalog once (27 MB at
-// the H&M catalog, E = 128; an int8 pass 14 MB of codes and 0.9 MB of scales
-// and biases) and writes 2-4 (B, L) outputs; its product is 2 * B * n_pad * E
-// operations, so by the roofline the pass is bound by memory bytes at B <=
-// 128. The launcher picks the cluster size (pick_cluster): the largest whose
-// whole grid the card holds at once, by its occupancy query; every group
-// keeps up to `stages - 1` tiles in flight. At B = 128 the per-chunk compute,
-// not the bytes, sets the pace: by the ablation of bin_max_bench.py the ring
-// alone takes about half of kernel 1's time, and the mma.sync steps and the
-// cascade add to it one after the other, since each of the SM's 8 warps runs
-// both and no other warp hides them (PERF.md). The int8 instances move half
-// the bytes but are slower than the bf16 ones: converting each landed tile
-// (and its second barrier) is their largest part at every B and does not
-// overlap the mma steps; converting the B fragments in registers instead
-// would keep the conversion and repeat it on the warps that share a bin half.
+// the H&M catalog, E = 128; an int8 pass 14-17 MB of codes and 0.9-1 MB of
+// scales and biases) and writes 2-4 (B, L) outputs; its product is 2 * B *
+// n_pad * E operations, so by the roofline the pass is bound by memory bytes
+// at B <= 128 and by operations at B = 1024 (the single pass: 0.0347 ms of
+// tensor work against 0.0155 ms of bytes over 131,072 rows at the published
+// 989 TFLOP/s and 3.35 TB/s of the H100 SXM at its 700 W limit; PERF.md times
+// the passes on an NVIDIA H100 80GB HBM3 at 700 W). The launcher picks the
+// cluster size (pick_cluster): the largest whose whole grid the card holds at
+// once, by its occupancy query; every group keeps up to `stages - 1` tiles in
+// flight. At B = 128 the per-chunk compute, not the bytes, sets the pace: by
+// the ablation of bin_max_bench.py the ring alone takes about half of kernel
+// 1's time, and the mma.sync steps and the cascade add to it one after the
+// other, since each of the SM's 8 warps runs both and no other warp hides
+// them (PERF.md). The int8 instances move half the bytes but are slower than
+// the bf16 ones: converting each landed tile (and its second barrier) is
+// their largest part at every B and does not overlap the mma steps;
+// converting the B fragments in registers instead would keep the conversion
+// and repeat it on the warps that share a bin half.
+// At B = 1024 the single pass runs 8 row groups of 64 bin tiles, one block
+// each (no cluster fits the 512 blocks in one wave), and each block walks
+// every chunk: the conversion, the mma.sync steps and the cascade (about 8
+// compares and selects per score at E = 128, on the SM's 128 lanes about
+// what the mma costs at the tensor-core peak) run one after the other on
+// each warp, each of the 8 row groups converts the same codes again, and
+// mma.sync does not reach the peak that bounds the pass.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -369,8 +411,10 @@ __device__ __forceinline__ Top<kKeep> merged(const float* const (&ps)[kMax],
 // Block (32 * wpg, groups) threads, grid (c, L / BN, ceil(B / BM)) in
 // clusters of (c, 1, 1). Dynamic shared memory (shape_for(B, E, kInt8).smem):
 // the query tile, then the groups' rings (and, for int8, each group's bf16
-// tile), which the partial cells reuse after the walk.
-template <bool kThreshold, int kKeep, int kSteps, bool kInt8>
+// tile), which the partial cells reuse after the walk. n_chunks counts the
+// chunks of the walk: fold chunks of `fold` sub-tiles with kFold, sub-tiles
+// otherwise (fold is read only with kFold).
+template <bool kThreshold, int kKeep, int kSteps, bool kInt8, bool kFold>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     bin_max_kernel(const __nv_bfloat16* __restrict__ q,  // (B, E)
                    const void* __restrict__ c,  // (n_pad, E) bf16 or int8
@@ -381,7 +425,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
                    float* __restrict__ m1_out, int* __restrict__ a1_out,
                    float* __restrict__ m2_out, int* __restrict__ a2_out,
                    int B, int E, int L, int n_chunks, int n_valid,
-                   int stages) {
+                   int fold, int stages) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -409,6 +453,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   const int ld = Ek + PAD;  // shared row stride, in bf16
   const int vecs = Ek / 8;  // 16-byte vectors per bf16 row
   const int stage = slot_bytes(Ek, kInt8);
+  const int F = kFold ? fold : 1;  // sub-tiles a chunk
 
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   unsigned char* ring = smem_raw + tile_rows * ld * 2;
@@ -428,18 +473,20 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   }
   cp_async_commit();
 
-  // This group's segment of the chunk walk.
+  // This group's segment of the chunk walk: whole chunks, one sub-tile a
+  // step, starting at sub-tile u0.
   const int nseg = csize * groups;
   const int seg = rank * groups + grp;
   const int ch0 = static_cast<int>((long long)seg * n_chunks / nseg);
   const int steps =
-      static_cast<int>((long long)(seg + 1) * n_chunks / nseg) - ch0;
+      F * (static_cast<int>((long long)(seg + 1) * n_chunks / nseg) - ch0);
+  const int u0 = ch0 * F;
 
   // Stage step i of the segment into ring slot `slot` (one cp.async group,
   // empty past the end so that the count of groups stays fixed).
   auto load = [&](int i, int slot) {
     if (i < steps) {
-      const size_t row = (size_t)(ch0 + i) * L + bin0;  // the tile's first
+      const size_t row = (size_t)(u0 + i) * L + bin0;  // the tile's first
       unsigned char* dst = sc + slot * stage;
       if constexpr (kInt8) {
         const int8_t* src = static_cast<const int8_t*>(c) + row * Ek;
@@ -468,12 +515,13 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 
   // Cell (mm, jj, e) of this thread: row wrow + mm * 16 + g + (e >> 1) * 8
   // of the block's tile, bin wbin + jj * 8 + 2t + (e & 1) of its BN (the mma
-  // accumulator layout), catalog row chunk * L + bin0 + that bin. During
-  // the walk a1 and a2 hold chunk numbers (BIG_IDX: unfilled), and the
-  // threshold's index ti is held as tc = floor((ti - bin0 - bin) / L), so
-  // that the row test flat > ti is the chunk test chunk > tc.
-  float m1[WM][WN][4], m2[WM][WN][4], ts[WM][WN][4];
-  int a1[WM][WN][4], a2[WM][WN][4], tc[WM][WN][4];
+  // accumulator layout), catalog row u * L + bin0 + that bin of sub-tile u.
+  // During the walk a1 and a2 hold sub-tile numbers (BIG_IDX: unfilled),
+  // and the threshold's index ti is held as tc = floor((ti - bin0 - bin) /
+  // L), so that the row test flat > ti is the sub-tile test u > tc. With
+  // kFold, (fs, fu) is the running winner of the chunk's tournament.
+  float m1[WM][WN][4], m2[WM][WN][4], ts[WM][WN][4], fs[WM][WN][4];
+  int a1[WM][WN][4], a2[WM][WN][4], tc[WM][WN][4], fu[WM][WN][4];
   const int bin_t = bin0 + wbin + 2 * t;  // the bin of cell (0, 0, 0)
 #pragma unroll
   for (int mm = 0; mm < WM; ++mm) {
@@ -487,6 +535,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
         a2[mm][jj][e] = BIG_IDX;
         ts[mm][jj][e] = CUDART_INF_F;
         tc[mm][jj][e] = -1;
+        fs[mm][jj][e] = -CUDART_INF_F;
+        fu[mm][jj][e] = BIG_IDX;
         if (kThreshold) {
           const int row = row0 + wrow + mm * 16 + g + (e >> 1) * 8;
           const int bin = bin_t + jj * 8 + (e & 1);
@@ -544,10 +594,12 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     }
   };
 
-  // The cascade of one chunk's scores into the cells; `masked` (a
-  // compile-time flag) applies the n_valid mask, which a chunk whose bins
-  // all lie below n_valid does not need.
-  auto cascade = [&](const float (&acc)[WM][WN][4], int ch, auto masked) {
+  // The cascade of one step's scores into the cells, each score from
+  // sub-tile index(mm, jj, e); `masked` (a compile-time flag) applies the
+  // n_valid mask, which a sub-tile whose bins all lie below n_valid does
+  // not need.
+  auto cascade = [&](const float (&acc)[WM][WN][4], auto index,
+                     auto masked) {
 #pragma unroll
     for (int mm = 0; mm < WM; ++mm) {
       if (mm == 1 && !two) break;
@@ -558,6 +610,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
           // An element that is not admitted counts as -inf, which never
           // passes '>': it is folded into both tests.
           const float s = acc[mm][jj][e];
+          const int ch = index(mm, jj, e);
           bool ok = true;
           if (decltype(masked)::value)
             ok = ch * L + bin_t + jj * 8 + (e & 1) < n_valid;
@@ -577,7 +630,27 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     }
   };
 
-  int slot = 0;  // ring slot of step i
+  // The fold tournament of sub-tile u's scores (kFold): the first slot of a
+  // chunk is taken unconditionally, a later one where it scores strictly
+  // higher, so a tie keeps the lower slot.
+  auto tournament = [&](const float (&acc)[WM][WN][4], int u, bool first) {
+#pragma unroll
+    for (int mm = 0; mm < WM; ++mm) {
+      if (mm == 1 && !two) break;
+#pragma unroll
+      for (int jj = 0; jj < WN; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool take = first | (acc[mm][jj][e] > fs[mm][jj][e]);
+          fs[mm][jj][e] = take ? acc[mm][jj][e] : fs[mm][jj][e];
+          fu[mm][jj][e] = take ? u : fu[mm][jj][e];
+        }
+      }
+    }
+  };
+
+  int slot = 0;   // ring slot of step i
+  int fslot = 0;  // fold slot of step i: segments start at a chunk
   for (int i = 0; i < steps; ++i) {
     cp_async_wait_dyn(stages - 2);  // step i has landed ...
     group_sync(1 + grp, gthreads);  // ... for the group; slot i-1 is free
@@ -598,13 +671,20 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
       tile_scores<kSteps>(pa, kInt8 ? pb : pb + slot * BN * ld, Ek, two,
                           areg, acc);
       if constexpr (kInt8) scaled(acc, slot);
-      const int ch = ch0 + i;
-      if (ch * L + bin0 + BN <= n_valid)
-        cascade(acc, ch, std::false_type());
-      else
-        cascade(acc, ch, std::true_type());
+      const int ch = u0 + i;  // the sub-tile
+      if constexpr (kFold) {
+        tournament(acc, ch, fslot == 0);
+        if (fslot == F - 1)
+          cascade(fs, [&](int mm, int jj, int e) { return fu[mm][jj][e]; },
+                  std::false_type());
+      } else if (ch * L + bin0 + BN <= n_valid) {
+        cascade(acc, [ch](int, int, int) { return ch; }, std::false_type());
+      } else {
+        cascade(acc, [ch](int, int, int) { return ch; }, std::true_type());
+      }
     }
     slot = slot + 1 == stages ? 0 : slot + 1;
+    if constexpr (kFold) fslot = fslot + 1 == F ? 0 : fslot + 1;
   }
   cp_async_wait<0>();
   __syncthreads();  // every group is past its walk: the ring is free
@@ -616,7 +696,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   const int stride = groups * part;  // from one slot to the next
   float* ps = reinterpret_cast<float*>(ring);
   int* pi = reinterpret_cast<int*>(ps + kKeep * stride);
-  // The catalog row of chunk number a at bin bin_t + off.
+  // The catalog row of sub-tile number a at bin bin_t + off.
   auto row_of = [&](int a, int off) {
     return a == BIG_IDX ? BIG_IDX : a * L + bin_t + off;
   };
@@ -700,14 +780,16 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 
 using KernelFn = void (*)(const __nv_bfloat16*, const void*, const float*,
                           const float*, const float*, const int*, float*,
-                          int*, float*, int*, int, int, int, int, int, int);
+                          int*, float*, int*, int, int, int, int, int, int,
+                          int);
 
 // The instantiation a pass runs at width E: A fragments in registers at
 // E = 16 * A_STEPS, from shared memory otherwise. Both sum in one k-order.
-template <bool kThreshold, int kKeep, bool kInt8>
+template <bool kThreshold, int kKeep, bool kInt8, bool kFold = false>
 KernelFn kernel_for(int E) {
-  return E == 16 * A_STEPS ? bin_max_kernel<kThreshold, kKeep, A_STEPS, kInt8>
-                           : bin_max_kernel<kThreshold, kKeep, 0, kInt8>;
+  return E == 16 * A_STEPS
+             ? bin_max_kernel<kThreshold, kKeep, A_STEPS, kInt8, kFold>
+             : bin_max_kernel<kThreshold, kKeep, 0, kInt8, kFold>;
 }
 
 cudaError_t prepare(KernelFn kernel, int B, int E, bool int8, Shape* s) {
@@ -793,11 +875,14 @@ cudaError_t pick_cluster(KernelFn kernel, const Shape& s, int tiles,
 
 int tiles_of(int B, int L) { return L / BN * ((B + BM - 1) / BM); }
 
+// A pass over n_pad rows in chunks of `fold` sub-tiles of L rows (fold = 1
+// but for the fold pass).
 int launch(KernelFn kernel, bool int8, const void* q, const void* c,
            const void* scales, const void* bias, const void* thr_s,
            const void* thr_i, void* m1, void* a1, void* m2, void* a2, int B,
-           int E, int n_pad, int L, int n_valid, void* stream) {
-  if (L <= 0 || L % BN != 0 || n_pad <= 0 || n_pad % L != 0)
+           int E, int n_pad, int L, int n_valid, int fold, void* stream) {
+  if (L <= 0 || L % BN != 0 || fold <= 0 || n_pad <= 0 ||
+      n_pad % ((long long)L * fold) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Shape s;
   cudaError_t err = prepare(kernel, B, E, int8, &s);
@@ -813,13 +898,17 @@ int launch(KernelFn kernel, bool int8, const void* q, const void* c,
       static_cast<const float*>(scales), static_cast<const float*>(bias),
       static_cast<const float*>(thr_s), static_cast<const int*>(thr_i),
       static_cast<float*>(m1), static_cast<int*>(a1), static_cast<float*>(m2),
-      static_cast<int*>(a2), B, E, L, n_pad / L, n_valid, s.stages);
+      static_cast<int*>(a2), B, E, L, n_pad / (L * fold), n_valid, fold,
+      s.stages);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel of a pass: keep 1 or 2, thresholds or not, int8 or bf16.
-KernelFn pass_kernel(int keep, int threshold, int int8, int E) {
+// The kernel of a pass: keep 1 or 2, thresholds or not, int8 or bf16, and
+// (fold > 1) the fold tournament. The single pass at fold 1 is the int8
+// first round's kernel.
+KernelFn pass_kernel(int keep, int threshold, int int8, int fold, int E) {
+  if (int8 && fold > 1) return kernel_for<false, 2, true, true>(E);
   if (int8)
     return threshold ? kernel_for<true, 2, true>(E)
                      : kernel_for<false, 2, true>(E);
@@ -836,8 +925,8 @@ extern "C" int bin_max2_first_round(const void* q, const void* c, void* m1,
                                     void* a1, void* m2, void* a2, int B,
                                     int E, int n_pad, int L, int n_valid,
                                     void* stream) {
-  return launch(pass_kernel(2, 0, 0, E), false, q, c, nullptr, nullptr,
-                nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_valid,
+  return launch(pass_kernel(2, 0, 0, 1, E), false, q, c, nullptr, nullptr,
+                nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1,
                 stream);
 }
 
@@ -845,17 +934,17 @@ extern "C" int bin_max2_round(const void* q, const void* c, const void* thr_s,
                               const void* thr_i, void* m1, void* a1, void* m2,
                               void* a2, int B, int E, int n_pad, int L,
                               int n_valid, void* stream) {
-  return launch(pass_kernel(2, 1, 0, E), false, q, c, nullptr, nullptr,
-                thr_s, thr_i, m1, a1, m2, a2, B, E, n_pad, L, n_valid,
+  return launch(pass_kernel(2, 1, 0, 1, E), false, q, c, nullptr, nullptr,
+                thr_s, thr_i, m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1,
                 stream);
 }
 
 extern "C" int bin_max_round(const void* q, const void* c, const void* thr_s,
                              const void* thr_i, void* m, void* a, int B, int E,
                              int n_pad, int L, int n_valid, void* stream) {
-  return launch(pass_kernel(1, 1, 0, E), false, q, c, nullptr, nullptr,
+  return launch(pass_kernel(1, 1, 0, 1, E), false, q, c, nullptr, nullptr,
                 thr_s, thr_i, m, a, nullptr, nullptr, B, E, n_pad, L, n_valid,
-                stream);
+                1, stream);
 }
 
 extern "C" int bin_max2_scaled_first_round(const void* q, const void* codes,
@@ -864,8 +953,8 @@ extern "C" int bin_max2_scaled_first_round(const void* q, const void* codes,
                                            void* a1, void* m2, void* a2,
                                            int B, int E, int n_pad, int L,
                                            int n_valid, void* stream) {
-  return launch(pass_kernel(2, 0, 1, E), true, q, codes, scales, bias,
-                nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_valid,
+  return launch(pass_kernel(2, 0, 1, 1, E), true, q, codes, scales, bias,
+                nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1,
                 stream);
 }
 
@@ -875,19 +964,45 @@ extern "C" int bin_max2_scaled_round(const void* q, const void* codes,
                                      void* m1, void* a1, void* m2, void* a2,
                                      int B, int E, int n_pad, int L,
                                      int n_valid, void* stream) {
-  return launch(pass_kernel(2, 1, 1, E), true, q, codes, scales, bias, thr_s,
-                thr_i, m1, a1, m2, a2, B, E, n_pad, L, n_valid, stream);
+  return launch(pass_kernel(2, 1, 1, 1, E), true, q, codes, scales, bias,
+                thr_s, thr_i, m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1,
+                stream);
 }
 
-// Launch shape of a pass (keep 1 or 2; threshold 0 or 1; int8 0 or 1) over B
-// rows of width E and L bins, as launch() takes it: out[0..11] = cluster
-// size, warps per block, warp groups, ring stages, shared bytes, registers a
-// thread, local (spilled) bytes a thread, clusters of the launch (bin tiles
-// x row groups), and clusters of 1, 2, 4 and 8 blocks resident at once.
-// Returns a CUDA error code (0 = success).
-extern "C" int bin_max_launch_info(int keep, int threshold, int int8, int B,
-                                   int E, int L, int* out) {
-  const KernelFn kernel = pass_kernel(keep, threshold, int8, E);
+// The int8 single passes: every row is streamed (n_valid = n_pad), a -inf
+// bias marks the invalid and padded ones. The fold pass reduces each fold
+// chunk of F sub-tiles per cell before the cascade.
+extern "C" int bin_max2_scaled_single_pass(const void* q, const void* codes,
+                                           const void* scales,
+                                           const void* bias, void* m1,
+                                           void* a1, void* m2, void* a2,
+                                           int B, int E, int n_pad, int L,
+                                           void* stream) {
+  return launch(pass_kernel(2, 0, 1, 1, E), true, q, codes, scales, bias,
+                nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_pad, 1,
+                stream);
+}
+
+extern "C" int bin_max2_scaled_fold_pass(const void* q, const void* codes,
+                                         const void* scales, const void* bias,
+                                         void* m1, void* a1, void* m2,
+                                         void* a2, int B, int E, int n_pad,
+                                         int L, int F, void* stream) {
+  return launch(pass_kernel(2, 0, 1, F, E), true, q, codes, scales, bias,
+                nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_pad, F,
+                stream);
+}
+
+// Launch shape of a pass (keep 1 or 2; threshold 0 or 1; int8 0 or 1; fold
+// 1, or F > 1 for the int8 fold pass) over B rows of width E and L bins, as
+// launch() takes it: out[0..11] = cluster size, warps per block, warp
+// groups, ring stages, shared bytes, registers a thread, local (spilled)
+// bytes a thread, clusters of the launch (bin tiles x row groups), and
+// clusters of 1, 2, 4 and 8 blocks resident at once. Returns a CUDA error
+// code (0 = success).
+extern "C" int bin_max_launch_info(int keep, int threshold, int int8,
+                                   int fold, int B, int E, int L, int* out) {
+  const KernelFn kernel = pass_kernel(keep, threshold, int8, fold, E);
   if (L <= 0 || L % BN != 0) return static_cast<int>(cudaErrorInvalidValue);
   Shape s;
   cudaError_t err = prepare(kernel, B, E, int8 != 0, &s);

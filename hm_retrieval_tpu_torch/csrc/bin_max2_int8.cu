@@ -1,54 +1,48 @@
-// Top-2-per-bin single passes over an int8 catalog, for Hopper (sm_90a),
-// bound with ctypes through a plain C interface: the survivor selection of
-// the quantized index's one-pass engine.
+// Top-2-per-bin single pass over an int8 catalog with one global scale, for
+// Hopper (sm_90a), bound with ctypes through a plain C interface: the
+// survivor selection of the global-scale quantized index's one-pass engine.
 //
-// Replaces three kernels of hm_retrieval_tpu/ops/pallas_retrieval.py:
-//   ::_bin_max2_scaled_nomask_kernel  (launcher bin_max2_scaled_single_pass,
-//                                      F = 1, scale and bias)
-//   ::_bin_max2_scaled_fold_kernel    (launcher bin_max2_scaled_fold_pass,
-//                                      F >= 1, scale and bias)
-//   ::_bin_max2_raw_fold_kernel       (launcher bin_max2_raw_fold_pass,
-//                                      F >= 1, raw dot products)
-// All three launchers instantiate ONE template, int8_pass_kernel<kScaled>,
-// with one tile configuration, one mma order and one epilogue
-// (__fmaf_rn(acc, scale, bias)). The int8 refinement rounds are not here:
-// they are the int8 instances of bin_max2.cu's template.
+// Replaces one kernel of hm_retrieval_tpu/ops/pallas_retrieval.py:
+//   ::_bin_max2_raw_fold_kernel  (launcher bin_max2_raw_fold_pass, F >= 1,
+//                                 raw dot products)
+// It is the last kernel still in the port's first design, and the next to
+// become an instance of bin_max2.cu's cluster-split template (the raw one:
+// no scale, no bias); the per-row single passes and the int8 rounds already
+// are.
 //
 // What it computes. The catalog is read in sub-tiles of L rows: sub-tile u
 // holds catalog rows u*L .. u*L + L - 1, and bin b of sub-tile u is row
 // u*L + b. F consecutive sub-tiles make one chunk (chunk c = sub-tiles
-// c*F .. c*F + F - 1). Per (query row, bin) cell, the score of row u*L + b is
-//   kScaled:  (q . codes[row]) * scales[row] + bias[row]   (bias 0 or -inf)
-//   raw:      q . codes[row]
+// c*F .. c*F + F - 1), and the catalog holds full chunks of real rows only.
+// Per (query row, bin) cell, the score of row u*L + b is the raw q . codes.
 // Within a chunk the F scores of a cell are max-reduced in increasing slot
 // order (a tie keeps the lower slot: take = s_t > s), and the winner goes
 // through the cell's top-2 cascade (gt1 = s > m1, gt2 = s > m2). The outputs
 // (m1, a1, m2, a2), each (B, L), hold the scores and the catalog rows
-// u*L + b of the winners; a -inf score never enters a cell, so an unfilled
-// slot keeps -inf / BIG_IDX. The row written is the JAX wrapper's globalized
-// chunk id (chunk*F + slot)*L + bin, computed as u*L + bin.
+// u*L + b of the winners; an unfilled slot keeps -inf / BIG_IDX. The row
+// written is the JAX wrapper's globalized chunk id (chunk*F + slot)*L + bin,
+// computed as u*L + bin.
 //
 // Design. A block owns BM = 64 query rows x BN = 32 bins for the whole run,
 // one warp per 16 rows, grid (L / BN, ceil(B / BM)), and walks the sub-tiles
 // u = 0 .. n_sub-1 in increasing order with the cell state in registers: the
 // strict '>' of tournament and cascade gives the (score desc, index asc)
 // order only under that walk. The block stages its BN rows of each sub-tile
-// as int8 (and, for kScaled, their BN scales and biases) through a
-// STAGES-deep cp.async ring; the query tile stays resident in shared memory
-// as bf16. Each warp computes 16 x BN scores with mma.sync m16n8k16 on bf16
-// with fp32 sums; the int8 codes are converted to bf16 in registers as the B
-// fragments are built, which is exact (|code| <= 127 fits bf16's 8-bit
-// significand). The ring is per sub-tile, so shared memory does not grow
-// with F: the tiles need 384 * E + 7,168 bytes (kScaled), so E <= 576 fits a
-// block (the wrappers' INT8_KERNEL_MAX_E).
+// as int8 through a STAGES-deep cp.async ring; the query tile stays resident
+// in shared memory as bf16. Each warp computes 16 x BN scores with mma.sync
+// m16n8k16 on bf16 with fp32 sums; the int8 codes are converted to bf16 in
+// registers as the B fragments are built, which is exact (|code| <= 127
+// fits bf16's 8-bit significand). The ring is per sub-tile, so shared memory
+// does not grow with F: the tiles need 384 * E + 5,120 bytes, so E <= 576
+// fits a block (the wrappers' INT8_KERNEL_MAX_E).
 //
-// What bounds it on the H100 (3.35 TB/s, 989 TFLOP/s bf16). At the H&M
-// served shapes (E = 128, L = 2048, N_pad = 131,072 rows) one pass moves
-// 18-22 MB (codes, scales, bias, the four (B, L) outputs) and does
-// 2*B*N_pad*E operations: bound by bytes at B <= 128 (5.5-6.6 us against
-// 0.5-4.3 us of tensor work) and by operations at B = 1024 (34.7 us against
-// 15.4 us of bytes). This first version makes no attempt at TMA or wgmma,
-// and at B <= 64 uses 64 blocks of one query tile; its times are in PERF.md.
+// What bounds it on the H100 (SXM: 3.35 TB/s, 989 TFLOP/s bf16, published for
+// its 700 W limit). At the H&M served shapes (E = 128, L = 2048, 102,400
+// full-chunk rows) one pass moves 13-17 MB (codes and the four (B, L)
+// outputs) and does 2*B*rows*E operations: bound by bytes at B <= 128 and by
+// operations at B = 1024. This first version makes no attempt at TMA or
+// wgmma, and at B <= 64 uses 64 blocks of one query tile; its times are in
+// PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,11 +62,9 @@ constexpr int CPAD = 16;         // bytes of code row padding in shared memory
 constexpr int BIG_IDX = 0x7fffffff;
 constexpr size_t MAX_SMEM = 232448;  // what one block may use on sm_90
 
-size_t smem_bytes(int E, bool scaled) {
-  size_t b = (size_t)BM * (E + QPAD) * sizeof(__nv_bfloat16) +
-             (size_t)STAGES * BN * (E + CPAD);
-  if (scaled) b += (size_t)2 * STAGES * BN * sizeof(float);
-  return b;
+size_t smem_bytes(int E) {
+  return (size_t)BM * (E + QPAD) * sizeof(__nv_bfloat16) +
+         (size_t)STAGES * BN * (E + CPAD);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -112,23 +104,18 @@ __device__ __forceinline__ uint32_t codes_bf16x2(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Grid: (L / BN, ceil(B / BM)). Dynamic shared memory: smem_bytes(E, kScaled).
-template <bool kScaled>
+// Grid: (L / BN, ceil(B / BM)). Dynamic shared memory: smem_bytes(E).
 __global__ void __launch_bounds__(THREADS)
-    int8_pass_kernel(const __nv_bfloat16* __restrict__ q,  // (B, E)
-                     const int8_t* __restrict__ codes,     // (n_sub*L, E)
-                     const float* __restrict__ scales,     // (n_sub*L,)
-                     const float* __restrict__ bias,       // (n_sub*L,)
-                     float* __restrict__ m1_out, int* __restrict__ a1_out,
-                     float* __restrict__ m2_out, int* __restrict__ a2_out,
-                     int B, int E, int L, int F, int n_sub) {
+    raw_fold_kernel(const __nv_bfloat16* __restrict__ q,  // (B, E)
+                    const int8_t* __restrict__ codes,     // (n_sub*L, E)
+                    float* __restrict__ m1_out, int* __restrict__ a1_out,
+                    float* __restrict__ m2_out, int* __restrict__ a2_out,
+                    int B, int E, int L, int F, int n_sub) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ldq = E + QPAD;  // shared query row stride, in bf16
   const int ldc = E + CPAD;  // shared code row stride, in bytes
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   int8_t* sc = reinterpret_cast<int8_t*>(sq + BM * ldq);  // STAGES x BN x ldc
-  float* ss = reinterpret_cast<float*>(sc + STAGES * BN * ldc);  // STAGES x BN
-  float* sb = ss + STAGES * BN;                                  // STAGES x BN
 
   const int bin0 = blockIdx.x * BN;
   const int row0 = blockIdx.y * BM;
@@ -158,12 +145,6 @@ __global__ void __launch_bounds__(THREADS)
       for (int v = tid; v < BN * cvecs; v += THREADS) {
         const int r = v / cvecs, cv = v % cvecs;
         cp_async16(dst + r * ldc + cv * 16, src + (size_t)r * E + cv * 16);
-      }
-      if (kScaled && tid < 2 * (BN / 4)) {
-        const int which = tid / (BN / 4), cv = tid % (BN / 4);
-        const float* gsrc =
-            (which ? bias : scales) + (size_t)u * L + bin0 + cv * 4;
-        cp_async16((which ? sb : ss) + stage * BN + cv * 4, gsrc);
       }
     }
     cp_async_commit();  // an empty group past the end keeps the count
@@ -229,9 +210,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + 2 * t + (e & 1);
         const int flat = base + col;
-        float s = acc[j][e];
-        if (kScaled)  // bias is 0 or -inf: fused or not, the same value
-          s = __fmaf_rn(s, ss[stage * BN + col], sb[stage * BN + col]);
+        const float s = acc[j][e];
         if (slot == 0 || s > fs[j][e]) {
           fs[j][e] = s;
           fi[j][e] = flat;
@@ -268,24 +247,20 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <bool kScaled>
-int launch(const void* q, const void* codes, const void* scales,
-           const void* bias, void* m1, void* a1, void* m2, void* a2, int B,
-           int E, int n_rows, int L, int F, void* stream) {
+int launch(const void* q, const void* codes, void* m1, void* a1, void* m2,
+           void* a2, int B, int E, int n_rows, int L, int F, void* stream) {
   if (B <= 0 || E <= 0 || E % 16 != 0 || L <= 0 || L % BN != 0 || F <= 0 ||
       n_rows <= 0 || n_rows % L != 0 || (n_rows / L) % F != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(E, kScaled);
+  const size_t smem = smem_bytes(E);
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = int8_pass_kernel<kScaled>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      raw_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(L / BN, (B + BM - 1) / BM);
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  raw_fold_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(codes),
-      static_cast<const float*>(scales), static_cast<const float*>(bias),
       static_cast<float*>(m1), static_cast<int*>(a1), static_cast<float*>(m2),
       static_cast<int*>(a2), B, E, L, F, n_rows / L);
   return static_cast<int>(cudaGetLastError());
@@ -293,32 +268,12 @@ int launch(const void* q, const void* codes, const void* scales,
 
 }  // namespace
 
-// Each launcher returns cudaGetLastError() after the launch (0 = success),
+// The launcher returns cudaGetLastError() after the launch (0 = success),
 // or cudaErrorInvalidValue without launching for shapes the tiles do not
 // cover, including a width E whose tiles overflow shared memory.
-extern "C" int bin_max2_scaled_single_pass(const void* q, const void* codes,
-                                           const void* scales,
-                                           const void* bias, void* m1,
-                                           void* a1, void* m2, void* a2,
-                                           int B, int E, int n_pad, int L,
-                                           void* stream) {
-  return launch<true>(q, codes, scales, bias, m1, a1, m2, a2, B, E, n_pad, L,
-                      1, stream);
-}
-
-extern "C" int bin_max2_scaled_fold_pass(const void* q, const void* codes,
-                                         const void* scales, const void* bias,
-                                         void* m1, void* a1, void* m2,
-                                         void* a2, int B, int E, int n_pad,
-                                         int L, int F, void* stream) {
-  return launch<true>(q, codes, scales, bias, m1, a1, m2, a2, B, E, n_pad, L,
-                      F, stream);
-}
-
 extern "C" int bin_max2_raw_fold_pass(const void* q, const void* codes,
                                       void* m1, void* a1, void* m2, void* a2,
                                       int B, int E, int n_full, int L, int F,
                                       void* stream) {
-  return launch<false>(q, codes, nullptr, nullptr, m1, a1, m2, a2, B, E,
-                       n_full, L, F, stream);
+  return launch(q, codes, m1, a1, m2, a2, B, E, n_full, L, F, stream);
 }

@@ -15,7 +15,8 @@ first: a query block then returns its leaderboard as it stands, as the JAX
 package does.
 
 The three passes are hand-written CUDA kernels (``csrc/bin_max2.cu``, whose
-template also holds the int8 rounds of ``ops/quantized_topk.py``). Beside
+template also holds the int8 rounds and the per-row int8 single passes of
+``ops/quantized_topk.py``). Beside
 them is their plain PyTorch version. A wrapper runs the plain version only
 for CPU tensors; for CUDA tensors it launches the kernel or raises (a
 refused cluster launch included), and adds one to ``LAUNCHES[<kernel>]`` per
@@ -55,9 +56,9 @@ BIG_IDX = 2**31 - 1  # index of a never-filled slot
 BIN_CHOICES = (256, 384, 512, 768, 1024, 1536, 2048)
 Q_BLOCK = 128  # query rows per refinement loop
 MAX_ROUNDS = 8  # streaming passes per query block, at most
-# Kernel tiling that the wrappers check for (csrc/bin_max2.cu, all its
-# instances): bins per block, the k step that E must be a multiple of, and
-# the widest E whose staged tiles fit in shared memory.
+# Kernel tiling that the wrappers check for (csrc/bin_max2.cu, its bf16
+# instances and the int8 rounds): bins per block, the k step that E must be
+# a multiple of, and the widest E whose staged tiles fit in shared memory.
 KERNEL_BIN_TILE = 32
 KERNEL_K_STEP = 16
 KERNEL_MAX_E = 512
@@ -204,7 +205,7 @@ _ARGTYPES = {
     "bin_max2_first_round": [_P] * 6 + [_I] * 5 + [_P],
     "bin_max2_round": [_P] * 8 + [_I] * 5 + [_P],
     "bin_max_round": [_P] * 6 + [_I] * 5 + [_P],
-    "bin_max_launch_info": [_I] * 6 + [_P],
+    "bin_max_launch_info": [_I] * 7 + [_P],
 }
 
 
@@ -258,11 +259,13 @@ def _check(q, c_padded, L, thr_s, thr_i):
 
 def launch_info(
     B: int, E: int, L: int, keep: int = 2, threshold: bool = True,
-    int8: bool = False, device=None,
+    int8: bool = False, fold: int = 1, device=None,
 ) -> Dict[str, object]:
     """The launch shape the kernel of a pass (keep 1 or 2, with or without
-    thresholds; ``int8``: the int8 rounds of ``ops/quantized_topk.py``, keep
-    2) takes over B query rows, as its launcher computes it: the
+    thresholds; ``int8``: the int8 passes of ``ops/quantized_topk.py``, keep
+    2: the rounds, or the single pass without thresholds, whose fold
+    ``fold`` > 1 selects the tournament's kernel) takes over B query rows,
+    as its launcher computes it: the
     cluster size it picks, warps, ring and shared bytes, the compiler's
     registers and local (spilled) bytes a thread, the launch's clusters
     (bin tiles x row groups), and ``resident``: the clusters of 1, 2, 4 and
@@ -271,7 +274,8 @@ def launch_info(
     out = (ctypes.c_int * 12)()
     with torch.cuda.device(device):
         err = _kernel("bin_max_launch_info")(
-            keep, int(threshold), int(int8), B, E, L, ctypes.addressof(out)
+            keep, int(threshold), int(int8), fold, B, E, L,
+            ctypes.addressof(out)
         )
     if err != 0:
         raise RuntimeError(f"bin_max_launch_info: CUDA error {err}")

@@ -24,20 +24,22 @@ masked and chunks wholly past them not streamed, round r > 1 below round
 r-1's thresholds) until nothing hidden can enter the top k, or
 ``max_rounds`` passes have run.
 
-The three single passes are one hand-written CUDA kernel template
-(``csrc/bin_max2_int8.cu``); the two rounds passes are the int8 instances of
-the exact passes' template (``csrc/bin_max2.cu``). Beside them are their
-plain PyTorch versions. A wrapper runs the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises, and adds one to
-``LAUNCHES[<kernel>]`` per launch.
+The per-row single passes (no fold, and the fold tournament) and the two
+rounds passes are the int8 instances of the exact passes' hand-written CUDA
+template (``csrc/bin_max2.cu``), which splits each cell's walk over whole
+fold chunks; the raw pass of the global-scale index is a kernel of its own
+(``csrc/bin_max2_int8.cu``). Beside them are their plain PyTorch versions.
+A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises, and adds one to ``LAUNCHES[<kernel>]`` per
+launch.
 
 Widths. The kernels step through E 16 columns at a time, so the drivers pad
 the query and their copies of the codes with zero columns to
 ``padded_width(E)`` on every device (a zero column adds exact zeros), while
 the plan is taken at the real E: L and F decide which rows survive a single
 pass, and the JAX package plans with the real E. ``INT8_KERNEL_MAX_E`` (the
-single passes) and ``KERNEL_MAX_E`` (the rounds) are the widest padded E the
-two kernel files take.
+three single passes) and ``KERNEL_MAX_E`` (the rounds) are the widest padded
+E their kernels take.
 
 The plan. Fold F and bin count L decide which rows survive a single pass,
 so the port picks what the JAX package picks: ``single_pass_plan`` is the
@@ -78,11 +80,14 @@ from hm_retrieval_tpu_torch.ops.bin_topk import (
 )
 from hm_retrieval_tpu_torch.ops.topk import topk_pair
 
-# Bins per block of the int8 kernels (BN of csrc/bin_max2_int8.cu and of the
-# rounds' csrc/bin_max2.cu), which the wrappers check L against, and the
-# widest padded E of the single passes (bin_max2_int8.cu), whose tiles need
-# 384 * E + 7,168 bytes of a block's 232,448; the rounds take what every
-# instance of bin_max2.cu takes, KERNEL_MAX_E.
+# Bins per block of the int8 kernels (BN of csrc/bin_max2_int8.cu and of
+# csrc/bin_max2.cu), which the wrappers check L against, and the widest
+# padded E of the three single passes, which both files' tiles take at 576:
+# the raw pass's (bin_max2_int8.cu) need 384 * E + 5,120 bytes of a block's
+# 232,448, and the int8 instances of bin_max2.cu at 128 query rows 231,424
+# at E = 576 (the query tile and the partial cells, which outgrow the two
+# ring slots and the bf16 tile).
+# The rounds take what the bf16 instances of bin_max2.cu take, KERNEL_MAX_E.
 INT8_KERNEL_BIN_TILE = 32
 INT8_KERNEL_MAX_E = 576
 # The JAX package's off-TPU VMEM budget (pallas_retrieval.VMEM_BUDGET).
@@ -244,10 +249,11 @@ _ARGTYPES = {
 }
 
 
-# The source of each kernel: the rounds are instances of bin_max2.cu.
+# The source of each kernel: all but the raw pass are instances of
+# bin_max2.cu.
 _SOURCE = {
-    "bin_max2_scaled_single_pass": "bin_max2_int8",
-    "bin_max2_scaled_fold_pass": "bin_max2_int8",
+    "bin_max2_scaled_single_pass": "bin_max2",
+    "bin_max2_scaled_fold_pass": "bin_max2",
     "bin_max2_raw_fold_pass": "bin_max2_int8",
     "bin_max2_scaled_first_round": "bin_max2",
     "bin_max2_scaled_round": "bin_max2",

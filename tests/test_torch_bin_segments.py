@@ -13,8 +13,13 @@ heavy with ties, with n_valid ending inside a segment, and with thresholds
 from a real first round; and the JAX package's passes in interpret mode.
 The int8 rounds run the same split over scaled scores,
 __fmaf_rn(q . codes, scale, bias) with a bias of 0 or -inf, so the model
-holds them too, -inf bias rows included. The CUDA kernels themselves are
-held against ``bin_cells_plain`` on the card by chip_smoke.py.
+holds them too, -inf bias rows included. The per-row int8 single passes run
+it over fold chunks of F sub-tiles of L rows: a segment holds whole chunks,
+each chunk's F scores per cell go through the tournament (the lower slot
+keeps a tie) and only the winner enters the cascade; the model equals
+``single_pass_plain`` and the JAX single passes for F = 1, 2, 4, 8, and a
+split inside a fold chunk would not. The CUDA kernels themselves are held
+against the plain versions on the card by chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -30,17 +35,32 @@ B, L, N_CHUNKS = 5, 32, 10
 N_VALID = 250  # inside chunk 7: bin 26 of rows 224 .. 255
 
 
-def _cascade(scores, L, n_valid, chunks, thr, keep):
-    """One segment: the strict '>' cascade over ``chunks`` of L rows in
-    increasing order. Returns (m, a), each (keep, B, L)."""
+def _tournament(scores, L, ch, fold):
+    """Fold chunk ``ch``'s winner per cell: its F sub-tiles of L rows in
+    increasing slot order, slot 0 taken, a later one where it scores
+    strictly higher. Returns (scores, catalog rows), each (B, L)."""
+    bins = np.arange(L)
+    u0 = ch * fold
+    s = scores[:, u0 * L : (u0 + 1) * L]
+    flat = np.broadcast_to(bins + u0 * L, s.shape)
+    for u in range(u0 + 1, u0 + fold):
+        st = scores[:, u * L : (u + 1) * L]
+        take = st > s
+        s = np.where(take, st, s)
+        flat = np.where(take, bins + u * L, flat)
+    return s, flat
+
+
+def _cascade(scores, L, n_valid, chunks, thr, keep, fold=1):
+    """One segment: the strict '>' cascade over ``chunks`` in increasing
+    order, each chunk F = ``fold`` sub-tiles of L rows reduced by the
+    tournament first. Returns (m, a), each (keep, B, L)."""
     rows = scores.shape[0]
     m = np.full((keep, rows, L), -np.inf, np.float32)
     a = np.full((keep, rows, L), bt.BIG_IDX, np.int64)
-    bins = np.arange(L)
     for ch in chunks:
-        s = scores[:, ch * L : (ch + 1) * L]
-        flat = bins + ch * L
-        ok = np.broadcast_to(flat < n_valid, s.shape)
+        s, flat = _tournament(scores, L, ch, fold)
+        ok = flat < n_valid
         if thr is not None:
             ts, ti = thr
             ok = ok & ((s < ts) | ((s == ts) & (flat > ti)))
@@ -85,13 +105,13 @@ def _kernel_bounds(n_chunks, cluster, groups):
     ]
 
 
-def _segmented(scores, n_valid, blocks, thr=None, keep=2, L=L):
+def _segmented(scores, n_valid, blocks, thr=None, keep=2, L=L, fold=1):
     """The kernels' cells: each block's segments walked and merged into the
     block's partial, then the blocks' partials merged. ``blocks`` lists each
-    block's (first chunk, end chunk) segments. Returns (m, a) as the plain
-    version orders its outputs."""
+    block's (first chunk, end chunk) segments, in fold chunks of ``fold``
+    sub-tiles. Returns (m, a) as the plain version orders its outputs."""
     partials = [
-        _merge([_cascade(scores, L, n_valid, range(c0, c1), thr, keep)
+        _merge([_cascade(scores, L, n_valid, range(c0, c1), thr, keep, fold)
                 for c0, c1 in segs], keep)
         for segs in blocks
     ]
@@ -356,3 +376,118 @@ class TestInt8Rounds:
             filled = a != bt.BIG_IDX
             assert filled.any() and (a[filled] < NV).all()
             assert np.isfinite(bias[a[filled]]).all()
+
+
+FOLDS = [1, 2, 4, 8]
+
+
+def _single_pass_catalog(rng, kind, n_pad, n_real, L):
+    """Codes, scales and a bias over ``n_pad`` rows as the single pass's
+    driver passes them: validity rides the bias, -inf on ~10% of the real
+    rows, on bins 0..2 of every sub-tile (cells that stay unfilled) and on
+    every pad row past ``n_real``, whose codes and scales are 0."""
+    codes, scales, bias = _int8_catalog(rng, kind, n_pad, n_real, L)
+    codes[n_real:] = 0
+    bias[n_real:] = -np.inf
+    return codes, scales, bias
+
+
+class TestFoldSplit:
+    """Kernels 3-4 as instances of the split: segments of whole fold
+    chunks, the tournament inside each chunk, the merge unchanged. The
+    model equals the single walk (``single_pass_plain``) and the JAX
+    package's single passes in interpret mode, bit for bit."""
+
+    N_FOLD = 5  # fold chunks of the catalog
+
+    def _plain(self, q, codes, scales, bias, fold, L=L):
+        return [x.numpy() for x in qt.single_pass_plain(
+            torch.tensor(q).to(torch.bfloat16), torch.tensor(codes), L, fold,
+            torch.tensor(scales), torch.tensor(bias))]
+
+    def _inputs(self, rng, kind, fold, n_fold, L):
+        n_pad = n_fold * fold * L
+        q = rng.integers(-4, 5, size=(B, 16)).astype(np.float32)
+        return (q, *_single_pass_catalog(rng, kind, n_pad, n_pad - L // 2, L))
+
+    @pytest.mark.parametrize("kind", ["integer", "ties"])
+    @pytest.mark.parametrize(
+        "cluster,groups",
+        [(1, 1), (1, 3), (2, 3), (4, 2), (8, 1), (8, 8)],
+    )
+    @pytest.mark.parametrize("fold", FOLDS)
+    def test_fold_split_equals_single_pass_plain(self, rng, fold, cluster,
+                                                 groups, kind):
+        """Any cluster x group count, more segments than chunks (empty
+        segments) included."""
+        args = self._inputs(rng, kind, fold, self.N_FOLD, L)
+        n_pad = args[1].shape[0]
+        blocks = _kernel_bounds(self.N_FOLD, cluster, groups)
+        got = _segmented(_fma_scores(*args), n_pad, blocks, fold=fold)
+        want = self._plain(*args, fold)
+        _assert_bitwise(got, want)
+        bias = args[3]
+        for a in want[1::2]:  # a -inf bias row is never admitted
+            filled = a != bt.BIG_IDX
+            assert filled.any() and not filled.all()
+            assert np.isfinite(bias[a[filled]]).all()
+
+    @pytest.mark.parametrize(
+        "blocks",
+        [
+            [[(0, 0), (0, 3)], [(3, 3), (3, 5)]],  # empty segments
+            [[(0, 1)], [(1, 4)], [(4, 5)]],  # uneven
+            [[(c, c + 1)] for c in range(5)],  # a chunk each
+        ],
+        ids=["empty", "uneven", "one_chunk_each"],
+    )
+    @pytest.mark.parametrize("fold", FOLDS)
+    def test_uneven_and_empty_fold_segments(self, rng, fold, blocks):
+        args = self._inputs(rng, "ties", fold, self.N_FOLD, L)
+        got = _segmented(_fma_scores(*args), args[1].shape[0], blocks,
+                         fold=fold)
+        _assert_bitwise(got, self._plain(*args, fold))
+
+    @pytest.mark.parametrize("kind", ["integer", "ties"])
+    @pytest.mark.parametrize("fold", FOLDS)
+    def test_fold_split_equals_jax(self, rng, fold, kind):
+        LJ = 128
+        q, codes, scales, bias = self._inputs(rng, kind, fold, 2, LJ)
+        n_pad = codes.shape[0]
+        jargs = (jnp.asarray(q, jnp.bfloat16), jnp.asarray(codes),
+                 jnp.asarray(scales)[None], jnp.asarray(bias)[None])
+        if fold == 1:
+            want = pr.bin_max2_scaled_single_pass(*jargs, L=LJ,
+                                                  interpret=True)
+        else:
+            want = pr.bin_max2_scaled_fold_pass(*jargs, L=LJ, F=fold,
+                                                interpret=True)
+        want = [np.asarray(x) for x in want]
+        scores = _fma_scores(q, codes, scales, bias)
+        for cluster, groups in ((1, 1), (2, 1), (2, 4)):
+            blocks = _kernel_bounds(2, cluster, groups)
+            got = _segmented(scores, n_pad, blocks, L=LJ, fold=fold)
+            _assert_bitwise(got, want)
+        _assert_bitwise(self._plain(q, codes, scales, bias, fold, LJ), want)
+
+    def test_a_sub_tile_split_would_change_the_survivors(self):
+        """Why segments hold whole fold chunks: cut one chunk of F = 2 at
+        its sub-tile boundary and each half sends its own winner, so two
+        rows of one (chunk, bin) survive, where the single walk keeps the
+        tournament's one winner and leaves the second slot unfilled."""
+        fold = 2
+        scores = np.zeros((1, fold * L), np.float32)
+        scores[:, :L] = 2.0  # slot 0 wins every bin
+        scores[:, L:] = 1.0
+        one_chunk = _segmented(scores, fold * L, [[(0, 1)]], fold=fold)
+        np.testing.assert_array_equal(one_chunk[1][0], np.arange(L))
+        assert (one_chunk[3] == bt.BIG_IDX).all()
+        _assert_bitwise(one_chunk, [x.numpy() for x in qt.single_pass_plain(
+            torch.ones(1, 1), torch.ones(fold * L, 1, dtype=torch.int8), L,
+            fold, torch.tensor(scores[0]), torch.zeros(fold * L))])
+        # the same rows split at the sub-tile boundary, as two chunks of
+        # one sub-tile
+        split = _segmented(scores, fold * L, [[(0, 1)], [(1, 2)]], fold=1)
+        np.testing.assert_array_equal(split[1][0], np.arange(L))
+        np.testing.assert_array_equal(split[3][0], np.arange(L) + L)
+        assert not np.array_equal(split[3], one_chunk[3])

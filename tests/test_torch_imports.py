@@ -200,14 +200,16 @@ def _launchers():
 def test_each_wrapper_binds_a_launcher_of_its_source():
     """Every wrapper loads its C launcher from the source that defines it,
     with one ctypes type per parameter: a pointer (or the stream) as
-    c_void_p, an int as c_int. The int8 rounds are instances of
-    bin_max2.cu's template; bin_max2_int8.cu keeps the single passes."""
+    c_void_p, an int as c_int. The int8 rounds and the per-row single
+    passes are instances of bin_max2.cu's template; bin_max2_int8.cu keeps
+    the raw pass alone."""
     launchers = _launchers()
     sources = {**{n: "bin_max2" for n in bt._ARGTYPES}, **qt._SOURCE}
     assert set(sources) == set(bt._ARGTYPES) | set(qt._ARGTYPES)
-    assert set(launchers["bin_max2_int8"]) == {
-        "bin_max2_scaled_single_pass", "bin_max2_scaled_fold_pass",
-        "bin_max2_raw_fold_pass"}
+    assert set(launchers["bin_max2_int8"]) == {"bin_max2_raw_fold_pass"}
+    assert {"bin_max2_scaled_single_pass", "bin_max2_scaled_fold_pass",
+            "bin_max2_scaled_first_round",
+            "bin_max2_scaled_round"} <= set(launchers["bin_max2"])
     for fn, source in sources.items():
         params = launchers[source][fn]
         argtypes = {**bt._ARGTYPES, **qt._ARGTYPES}[fn]
@@ -216,3 +218,4 @@ def test_each_wrapper_binds_a_launcher_of_its_source():
         assert argtypes == want, fn
     int8 = (_build.CSRC_DIR / "bin_max2_int8.cu").read_text()
     assert "kRounds" not in int8 and "kThreshold" not in int8
+    assert "kScaled" not in int8
