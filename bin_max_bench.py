@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Time the kernels of csrc/bin_max2.cu (the exact passes, kernels 1, 2, 8,
-the per-row int8 single passes, kernels 3-4, and the int8 rounds, kernels
-6-7) and of csrc/bin_max2_int8.cu (the raw pass, kernel 5) on one card: two
-trees side by side, or ablated builds of this tree's bin_max2.cu.
+the int8 single passes, kernels 3-5, and the int8 rounds, kernels 6-7) on
+one card: two trees side by side, or ablated builds of this tree's
+bin_max2.cu. An earlier tree may keep some of them in other sources (its
+own csrc/), which ``ab`` builds and times alike.
 
     python3 bin_max_bench.py ab --tree OLD --tree NEW [--seed 0]
     python3 bin_max_bench.py serve --tree OLD --tree NEW [--pairs 5]
     python3 bin_max_bench.py ablate [--seed 0]
 
-``ab`` times kernels 1-8, ``exact_topk`` and ``quantized_topk`` (8 rounds
-and one pass) from each tree's own
+``ab`` times kernels 1-8, ``exact_topk``, ``quantized_topk`` (8 rounds
+and one pass) and ``quantized_topk_global`` from each tree's own
 ``hm_retrieval_tpu_torch`` (for example a ``git archive`` of an earlier
 commit unpacked under ``build/``), one process per tree in the order OLD,
 NEW, NEW, OLD, so that a drift of the card or host shows as a difference
@@ -38,13 +39,15 @@ trees (``bitwise``).
   catalog (131,072 rows, a -inf bias on the pad rows), and kernel 5
   (``bin_max2_raw_fold_pass``) over its full chunks of real rows, timed
   alike.
-- ``exact_topk`` at k=1000 and ``quantized_topk`` at k=2000 with 8 rounds
-  and with one pass (phase 4's per-row int8 catalog, 131,072 rows), B = 1,
-  16, 128, 1024: the
-  median of 10 calls, each timed by CUDA events (host syncs included, as
-  served); then 5 calls under ``torch.profiler``: device ms a call of the
-  bin-max kernels and of every other kernel, and the share of the profiled
-  window in which the card ran no kernel (the profiler's own host cost
+- ``exact_topk`` at k=1000, ``quantized_topk`` at k=2000 with 8 rounds
+  and with one pass (phase 4's per-row int8 catalog, 131,072 rows), and
+  ``quantized_topk_global`` at k=2000, one pass over the same codes under
+  one global scale (the raw pass over the full chunks of the 105,542 real
+  rows, the tail by a plain product), B = 1, 16, 128, 1024: the median of
+  10 calls, each timed by CUDA events (host syncs included, as served);
+  then 5 calls under ``torch.profiler``: device ms a call of the bin-max
+  kernels and of every other kernel, and the share of the profiled window
+  in which the card ran no kernel (the profiler's own host cost
   included).
 
 ``serve`` runs ``chip_smoke.py``'s phase 3 (the exact index serving string
@@ -57,9 +60,10 @@ the kernel's walk replaced (the outputs of those builds are wrong; only
 their time is read) and with the cluster size or the warp groups forced,
 and times kernels 1-2 and the int8 rounds, kernels 6-7, at B = 1, 16, 128,
 L=2048 (kernel 1 also at L = 1024 and 512 for the cluster sizes), and the
-int8 single passes, kernels 3-4, at every served plan. The forced cluster
-sizes and groups must give the as-is outputs bit for bit, kernels 3, 4, 6
-and 7's included. Variants:
+int8 single passes, kernels 3-5, at every served plan. The forced cluster
+sizes and groups must give the as-is outputs bit for bit, kernels 3-7's
+included (kernel 5 at F = 1, 2, 8 over the full chunks of real rows).
+Variants:
 
 - ``as_is``: the kernel as it is;
 - ``no_cascade``: the top-2 cascade replaced by one max a cell (the fold
@@ -70,7 +74,8 @@ and 7's included. Variants:
   conversion to bf16), nothing computed;
 - ``no_convert``: the int8 instances' conversion of each landed tile to
   bf16 and its barrier removed (the mma reads a stale tile);
-- ``no_epilogue``: the int8 instances' ``sum * scale + bias`` removed;
+- ``no_epilogue``: the per-row int8 instances' ``sum * scale + bias``
+  removed (the raw instance has none);
 - ``no_tournament``: the fold pass's tournament removed (each chunk's last
   sub-tile goes to the cascade);
 - ``c1`` .. ``c8``: the cluster size forced to 1, 2, 4, 8;
@@ -99,6 +104,7 @@ TIMED = (1, 16, 128)
 TOPK_BATCHES = (1, 16, 128, 1024)
 K = 1000
 L8 = 2048  # the int8 rounds' bins at k = 2000
+GLOBAL_SCALE = 0.02  # quantized_topk_global's one scale
 
 
 def emit(obj):
@@ -252,6 +258,9 @@ def time_tree(tree, seed, out):
         "quantized_topk_one_pass": (cs.SURVIVORS, lambda q: qt.quantized_topk(
             q, codes, scales, cs.SURVIVORS, n_valid=cs.N_ARTICLES,
             max_rounds=1)),
+        "quantized_topk_global": (cs.SURVIVORS, lambda q: (
+            qt.quantized_topk_global(q, codes, GLOBAL_SCALE, cs.SURVIVORS,
+                                     n_valid=cs.N_ARTICLES))),
     }
     for name, (k, driver) in drivers.items():
         for B in TOPK_BATCHES:
@@ -268,9 +277,9 @@ def time_tree(tree, seed, out):
 
 def profile_calls(fn, calls=5):
     """Device time a call of ``fn``'s kernels by torch.profiler: the bin-max
-    kernels' (bin_max2.cu's template and bin_max2_int8.cu's kernel, by
-    either tree's names) and the others', and the share of the profiled
-    window in which the card ran no kernel."""
+    kernels' (bin_max2.cu's template, and the kernels an earlier tree kept
+    in other sources, by their names) and the others', and the share of the
+    profiled window in which the card ran no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -405,7 +414,7 @@ PICK = "  err = pick_cluster(kernel, s, tiles_of(B, L), &cluster);\n"
 CONVERT = """      codes_to_bf16(sc + slot * stage, sconv, Ek, ld, gtid, gthreads);
       group_sync(1 + grp, gthreads);
 """
-EPILOGUE = "      if constexpr (kInt8) scaled(acc, slot);\n"
+EPILOGUE = "      if constexpr (kCat == Catalog::kScaled) scaled(acc, slot);\n"
 GROUPS = "  for (s.groups = MAX_WARPS / s.wpg;; --s.groups) {\n"
 
 VARIANTS = {
@@ -494,7 +503,9 @@ def ablate(seed):
                                                     bias_q, L)
                 k4 = [x for F in (2, 8) for x in qt.bin_max2_scaled_fold_pass(
                     q[:B], codes_q, scales_q, bias_q, L, F)]
-                got = [x.clone() for x in (*k3, *k4)]
+                k5 = [x for F in (1, 2, 8) for x in qt.bin_max2_raw_fold_pass(
+                    q[:B], codes_q[:N // (F * L) * F * L], L, F)]
+                got = [x.clone() for x in (*k3, *k4, *k5)]
                 if B <= cs.Q_BLOCK:
                     k1 = bt.bin_max2_first_round(q[:B], c_pad, L, N)
                     k2 = bt.bin_max2_round(q[:B], c_pad, k1[2], k1[3], L, N)
@@ -521,8 +532,7 @@ def ablate(seed):
             rows = [*rows, *int8_rows(
                 qt, torch.Generator(device=dev).manual_seed(seed), dev)]
         rows = [*rows, *single_pass_rows(
-            qt, torch.Generator(device=dev).manual_seed(seed), dev,
-            kernels=(3, 4))]
+            qt, torch.Generator(device=dev).manual_seed(seed), dev)]
         for row, _ in rows:
             emit({"variant": name, **row})
 

@@ -42,22 +42,23 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    on the same catalog as int8 codes padded to 131,072 rows, E=128, at the
    served (fold F, bins L, batch B) of each plan: (1, 2048, 1024),
    (2, 2048, 128), (8, 2048, 16), (8, 2048, 1) and (16, 512, 16); the raw
-   (global-scale) pass over the full chunks of real rows. The per-row
-   passes (kernels 3-4, instances of bin_max2.cu's template) print their
-   launch shape at each plan under phase 2's cluster rule. Integer-valued
-   queries must give bit-identical outputs, normal ones values within TOL;
-   each kernel is timed at each plan by graph ("ms") and by events
-   ("events_ms"). Kernels 3-4 also run at E = 64, 256 and 576 (the
-   instantiation that reads the query from shared memory) on integer
-   inputs, bit-identical. Then quantized_topk as a whole against a matmul +
-   topk yardstick.
+   (global-scale) pass (kernel 5) over the full chunks of real rows. All
+   three (instances of bin_max2.cu's template: kernels 3-4 of its per-row
+   int8 kind, kernel 5 of its raw kind) print their launch shape at each
+   plan under phase 2's cluster rule. Integer-valued queries must give
+   bit-identical outputs, normal ones values within TOL; each kernel is
+   timed at each plan by graph ("ms") and by events ("events_ms"). Kernels
+   3-5 also run at E = 64, 256 and 576 (the instantiation that reads the
+   query from shared memory) on integer inputs, bit-identical. Then
+   quantized_topk as a whole against a matmul + topk yardstick.
 5. Quantized serving at full H&M width, on phase 3's embedded catalog and
    model: QuantizedIndex(method="auto") must resolve to the kernels with
    2000 survivors, and its build on the card must equal the host
    quantization bit for bit; per-row and global-scale indices are saved and loaded
    back through RetrievalService.load(device="cuda") and answer the same
-   requests (B = 1, 16, 128, 1024). The fold pass must launch at B <= 128,
-   the no-fold pass at B = 1024, the raw pass at B = 16 and 128. Answers
+   requests (B = 1, 16, 128, 1024). The per-row index must launch the fold
+   pass once a batch at B <= 128 and the no-fold pass at B = 1024, the
+   global-scale index the raw pass once a batch at every B. Answers
    hold 1000 distinct articles, and equal the same driver run with the
    plain passes (fp32 rescore included) wherever the two passes' survivors
    agree; where they differ, only between scores within TOL. Recall
@@ -83,8 +84,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    rounds < 8; exact_topk(lockstep=True) at B=1024, k=1000 must return the
    per-block driver's ids. Timings beside a matmul + topk yardstick.
 7. Quantized serving with the rounds (pallas_rounds=8) at full H&M width,
-   on phase 3's catalog and model: per-row (B = 1, 16, 128, 1024) and
-   global-scale (B = 128) indices, saved and loaded back through
+   on phase 3's catalog and model: per-row and global-scale indices
+   (B = 1, 16, 128, 1024 each), saved and loaded back through
    RetrievalService.load(device="cuda"). The int8 rounds kernels must
    launch, the single-pass kernels must not. On every row the survivors
    equal the plain passes' survivors: values within TOL, ids differing only
@@ -578,6 +579,12 @@ def single_pass_bound_ms(B, n_rows, L, scaled, thresholds=False):
     return roofline_ms(nbytes, 2 * B * n_rows * E)
 
 
+def catalog_of(name):
+    """The catalog kind of bin_max2.cu's template that a single pass
+    instantiates (``bt.launch_info``'s ``catalog``)."""
+    return "raw" if name == "bin_max2_raw_fold_pass" else "scaled"
+
+
 def pass_args(name, args):
     """(L, F, scales, bias) of a single-pass wrapper's arguments after
     (q, codes)."""
@@ -655,9 +662,9 @@ def phase_quantized_kernels(gen, dev):
     for F, L, B in QUANT_PLANS:
         cases = plan_cases(codes, scales, bias, F, L)
         check_clusters({name: bt.launch_info(B, E, L, threshold=False,
-                                             int8=True, fold=F, device=dev)
-                        for name in cases if name != SINGLE_PASS_KERNELS[2]},
-                       L, B, F=F)
+                                             catalog=catalog_of(name), fold=F,
+                                             device=dev)
+                        for name in cases}, L, B, F=F)
         for kind in ("integer", "normal"):
             if kind == "integer":
                 q = torch.randint(-4, 5, (B, E), generator=gen, device=dev)
@@ -726,20 +733,23 @@ def phase_quantized_kernels(gen, dev):
     emit({"quantized_topk": rows})
     del codes, scales, bias, deq
     # the other instantiation (A fragments read from shared memory) of
-    # kernels 3-4, at widths other than E = 128 up to the widest, on
-    # integer inputs with -inf bias rows
+    # kernels 3-5, at widths other than E = 128 up to the widest, on
+    # integer inputs (with -inf bias rows for 3-4)
     for width in (64, 256, qt.INT8_KERNEL_MAX_E):
         L, n_rows, B = 1024, 16384, 37
         codes, scales, bias = scaled_catalog(gen, dev, n_rows, width, n_rows)
         q = torch.randint(-4, 5, (B, width), generator=gen,
                           device=dev).to(torch.bfloat16)
         for name, args in ((SINGLE_PASS_KERNELS[0], (scales, bias, L)),
-                           (SINGLE_PASS_KERNELS[1], (scales, bias, L, 2))):
+                           (SINGLE_PASS_KERNELS[1], (scales, bias, L, 2)),
+                           (SINGLE_PASS_KERNELS[2], (L, 1)),
+                           (SINGLE_PASS_KERNELS[2], (L, 2))):
             got = run_pass(name, q, codes, args)
             want = run_pass(name, q, codes, args, plain=True)
             torch.cuda.synchronize()
-            hold_cells(stats[name], f"{name} E={width}", "integer", got, want,
-                       None)
+            F = pass_args(name, args)[1]
+            hold_cells(stats[name], f"{name} E={width} F={F}", "integer", got,
+                       want, None)
         emit({"quantized_kernel_check": {"E": width, "L": L, "B": B,
                                          "inputs": "integer", "ok": True}})
     return stats
@@ -819,7 +829,7 @@ def phase_rounds_kernels(gen, dev):
                 f"the rounds at k={k} do not stream {n_rows} rows at L={L}")
         for B in KERNEL_BATCHES:
             check_clusters({n: bt.launch_info(
-                B, E, L, threshold=n == ROUNDS_KERNELS[1], int8=True,
+                B, E, L, threshold=n == ROUNDS_KERNELS[1], catalog="scaled",
                 device=dev) for n in ROUNDS_KERNELS}, L, B)
         for kind in ("integer", "normal"):
             q_all = random_rows(gen, dev, kind, Q_BLOCK)
@@ -1047,9 +1057,8 @@ def phase_rounds_serving(shared, single_pass_recall, repeats, dev, workdir):
     from hm_retrieval_tpu_torch.serving import RetrievalService
 
     requests = shared["requests"]
-    batches = {"per_row": SERVE_BATCHES, "global": (Q_BLOCK,)}
     services = {}
-    for mode in batches:
+    for mode in ("per_row", "global"):
         t0 = time.perf_counter()
         index = QuantizedIndex(SERVE_K, shared["ids"], shared["emb"],
                                method="auto", scale_mode=mode,
@@ -1079,7 +1088,7 @@ def phase_rounds_serving(shared, single_pass_recall, repeats, dev, workdir):
     qt.reset_launches()
     rows, answers = [], {}
     for mode, svc in services.items():
-        for B in batches[mode]:
+        for B in SERVE_BATCHES:
             before = dict(qt.LAUNCHES)
             svc.retrieve(requests[B])  # warm-up
             times = []
@@ -1458,9 +1467,11 @@ def phase_widths(seed, dev):
         for B in (16, Q_BLOCK):
             emit({"width_launch": {"E": width, "B": B, **{
                 name: bt.launch_info(B, width, 2048, threshold=False,
-                                     int8=True, fold=F, device=dev)
+                                     catalog=catalog_of(name), fold=F,
+                                     device=dev)
                 for name, F in (("bin_max2_scaled_single_pass", 1),
-                                ("bin_max2_scaled_fold_pass", 2))}}})
+                                ("bin_max2_scaled_fold_pass", 2),
+                                ("bin_max2_raw_fold_pass", 2))}}})
 
 
 def main(argv=None):
@@ -1514,7 +1525,7 @@ def main(argv=None):
         "bin_max2_round": ("bin_max2.cu", 207),
         "bin_max2_scaled_single_pass": ("bin_max2.cu", 352),
         "bin_max2_scaled_fold_pass": ("bin_max2.cu", 464),
-        "bin_max2_raw_fold_pass": ("bin_max2_int8.cu", 593),
+        "bin_max2_raw_fold_pass": ("bin_max2.cu", 593),
         "bin_max2_scaled_first_round": ("bin_max2.cu", 311),
         "bin_max2_scaled_round": ("bin_max2.cu", 701),
         "bin_max_round": ("bin_max2.cu", 158),

@@ -1,8 +1,8 @@
 // Streaming top-k-per-bin passes of the exact top-k retrieval, of the exact
-// int8 rounds and of the int8 single pass, for Hopper (sm_90a), bound with
+// int8 rounds and of the int8 single passes, for Hopper (sm_90a), bound with
 // ctypes through a plain C interface.
 //
-// Replaces seven kernels of hm_retrieval_tpu/ops/pallas_retrieval.py:
+// Replaces all eight kernels of hm_retrieval_tpu/ops/pallas_retrieval.py:
 //   ::_bin_max2_first_kernel          (launcher bin_max2_first_round: top-2,
 //                                      round 1, no thresholds)
 //   ::_bin_max2_kernel                (launcher bin_max2_round: top-2 below
@@ -20,31 +20,38 @@
 //   ::_bin_max2_scaled_fold_kernel    (launcher bin_max2_scaled_fold_pass:
 //                                      the int8 single pass with the fold
 //                                      tournament)
-// All seven launchers instantiate ONE template, bin_max_kernel<kThreshold,
-// kKeep, kSteps, kInt8, kFold>, so every pass computes the score of a (query
+//   ::_bin_max2_raw_fold_kernel       (launcher bin_max2_raw_fold_pass: the
+//                                      single pass of the global-scale
+//                                      index, raw dot products, F >= 1)
+// All eight launchers instantiate ONE template, bin_max_kernel<kThreshold,
+// kKeep, kSteps, kCat, kFold>, so every pass computes the score of a (query
 // row, catalog row) pair with the same code: the refinement rounds are exact
 // only because every pass reproduces identical fp32 scores.
 //
 // What it computes. The catalog C (n_pad x E) is read in sub-tiles of L
-// rows: bin b of sub-tile u is catalog row u*L + b. It is bf16, or (kInt8)
-// int8 codes with an fp32 scale and bias a row. The score of a (query row,
-// catalog row) pair is the fp32 sum of Q @ C^T, and for int8
-// __fmaf_rn(sum, scale[row], bias[row]) (bias 0 or -inf; a -inf bias scores
-// -inf). For each (query row, bin) cell the kernel keeps the lexicographic
-// top-kKeep (m1, a1 and, for kKeep = 2, m2, a2) under the order (score desc,
-// index asc), over rows < n_valid and, with kThreshold, only over elements
-// strictly below the cell's threshold (thr_s, thr_i). Unfilled slots hold
-// -inf / BIG_IDX. With kFold, F consecutive sub-tiles make one fold chunk
-// (chunk c = sub-tiles c*F .. c*F + F - 1, n_pad % (F*L) == 0): within a
-// chunk a cell's F scores are reduced in increasing slot order (slot 0 taken
-// unconditionally, a later slot where it scores strictly higher, so a tie
-// keeps the lower slot), and only the winner, with its row u*L + b, enters
-// the cascade. The single passes have no n_valid mask: validity and padding
-// ride the bias as -inf. The no-fold single pass (and the fold pass at
-// F = 1, the same function) is the int8 instance of the rounds' first pass,
-// launched with n_valid = n_pad, so no tournament and no mask is run; the
-// fold pass at F > 1 is the kFold = true instance, which compiles the mask
-// out.
+// rows: bin b of sub-tile u is catalog row u*L + b. Its kind (Catalog) is
+// bf16 rows; int8 codes with an fp32 scale and bias a row (kScaled); or raw
+// int8 codes under one global scale (kRaw), which the driver applies to the
+// k winners. The score of a (query row, catalog row) pair is the fp32 sum of
+// Q @ C^T, for kScaled __fmaf_rn(sum, scale[row], bias[row]) (bias 0 or
+// -inf; a -inf bias scores -inf); for kRaw the sum as it stands, with no
+// epilogue at all (an identity written as fmaf(sum, 1, 0) would turn a -0
+// sum into +0). For each (query row, bin) cell the kernel keeps the
+// lexicographic top-kKeep (m1, a1 and, for kKeep = 2, m2, a2) under the
+// order (score desc, index asc), over rows < n_valid and, with kThreshold,
+// only over elements strictly below the cell's threshold (thr_s, thr_i).
+// Unfilled slots hold -inf / BIG_IDX. With kFold, F consecutive sub-tiles
+// make one fold chunk (chunk c = sub-tiles c*F .. c*F + F - 1, n_pad %
+// (F*L) == 0): within a chunk a cell's F scores are reduced in increasing
+// slot order (slot 0 taken unconditionally, a later slot where it scores
+// strictly higher, so a tie keeps the lower slot), and only the winner, with
+// its row u*L + b, enters the cascade. The single passes have no n_valid
+// mask: the per-row passes carry validity and padding in the bias as -inf,
+// and the raw pass is given full chunks of real rows only. The no-fold
+// single passes (and the fold passes at F = 1, the same functions) are the
+// int8 instances of the rounds' first pass, launched with n_valid = n_pad,
+// so no tournament and no mask is run; the fold passes at F > 1 are the
+// kFold = true instances, which compile the mask out.
 //
 // Design. Grid (c, L / BN, ceil(B / BM)) in clusters of c blocks along x.
 // The c blocks of a cluster share one tile of up to BM = 128 query rows x
@@ -63,13 +70,15 @@
 // order (a segment may be empty). A group stages its segment's BN x E
 // sub-tiles through its own cp.async ring of `stages` slots (a named
 // barrier of the group's threads a step); an int8 slot holds the BN code
-// rows and their BN scales and BN biases, and once it has landed the group
-// converts its codes into one bf16 tile of its own (exact: |code| <= 128
-// has at most 8 significant bits), behind a second barrier. Its warps read
+// rows (and, kScaled, their BN scales and BN biases; a raw slot holds the
+// codes alone and nothing reads scales or biases), and once it has landed
+// the group converts its codes into one bf16 tile of its own (exact:
+// |code| <= 128 has at most 8 significant bits), behind a second barrier.
+// Its warps read
 // their B fragments with ldmatrix and compute their scores with mma.sync
 // m16n8k16 (bf16 operands, fp32 accumulation, k in increasing 16-wide
 // steps; at E = 128 the query's A fragments stay in registers and E is
-// known to the compiler), apply the int8 epilogue, then (kFold) the
+// known to the compiler), apply the kScaled epilogue, then (kFold) the
 // tournament, then the eligibility test, the n_valid mask (only on a chunk
 // that crosses n_valid) and the top-2 (or top-1) cascade of the single walk
 // per cell, in registers; the cells hold sub-tile numbers, and the
@@ -98,11 +107,11 @@
 // row is never admitted). Identical scores: every (query row, catalog row)
 // score comes from the same mma.sync sequence, at the same position of the
 // mma tile (row % 16, bin % 8) and in the same k-order, in every segment,
-// block shape, pass and kernel of the template, and the int8 epilogue reads
-// nothing but that sum and its own row's scale and bias, so it gives every
-// segment and pass the same fp32 score too. The k-order and tile positions
-// are those of the int8 rounds' earlier single-walk kernel, so the two give
-// the same scores.
+// block shape, pass and kernel of the template, and the kScaled epilogue
+// reads nothing but that sum and its own row's scale and bias, so it gives
+// every segment and pass the same fp32 score too. The k-order and tile
+// positions are those of the int8 rounds' and the raw pass's earlier
+// single-walk kernels, so the template gives the scores they gave.
 //
 // Why the fold split is exact. A segment holds whole fold chunks, so each
 // chunk's tournament sees all F of its sub-tiles in increasing slot order,
@@ -119,8 +128,9 @@
 // each send a winner, and both rows could survive.
 //
 // What bounds it on the H100. One bf16 pass reads the catalog once (27 MB at
-// the H&M catalog, E = 128; an int8 pass 14-17 MB of codes and 0.9-1 MB of
-// scales and biases) and writes 2-4 (B, L) outputs; its product is 2 * B *
+// the H&M catalog, E = 128; an int8 pass 13-17 MB of codes and, kScaled,
+// 0.9-1 MB of scales and biases) and writes 2-4 (B, L) outputs; its product
+// is 2 * B *
 // n_pad * E operations, so by the roofline the pass is bound by memory bytes
 // at B <= 128 and by operations at B = 1024 (the single pass: 0.0347 ms of
 // tensor work against 0.0155 ms of bytes over 131,072 rows at the published
@@ -137,7 +147,7 @@
 // their largest part at every B and does not overlap the mma steps;
 // converting the B fragments in registers instead would keep the conversion
 // and repeat it on the warps that share a bin half.
-// At B = 1024 the single pass runs 8 row groups of 64 bin tiles, one block
+// At B = 1024 the single passes run 8 row groups of 64 bin tiles, one block
 // each (no cluster fits the 512 blocks in one wave), and each block walks
 // every chunk: the conversion, the mma.sync steps and the cascade (about 8
 // compares and selects per score at E = 128, on the SM's 128 lanes about
@@ -171,21 +181,33 @@ constexpr int SMEM_MAX = 232448;  // dynamic shared memory of one block
 constexpr int A_STEPS = 8;        // E = 128: A fragments kept in registers
 constexpr int BIG_IDX = 0x7fffffff;
 
+// The catalog's kind (the C interface passes it as 0, 1, 2): bf16 rows;
+// int8 codes with an fp32 scale and bias a row; raw int8 codes, whose sum is
+// the score.
+enum class Catalog { kBf16 = 0, kScaled = 1, kRaw = 2 };
+
+__host__ __device__ constexpr bool is_int8(Catalog cat) {
+  return cat != Catalog::kBf16;
+}
+
 // Bytes of one ring slot: BN catalog rows of width E as bf16 (row stride
-// E + PAD), or as int8 codes (row stride E) followed by their BN scales and
-// BN biases.
-__host__ __device__ constexpr int slot_bytes(int E, bool int8) {
-  return int8 ? BN * E + 2 * BN * 4 : BN * (E + PAD) * 2;
+// E + PAD), or as int8 codes (row stride E), for kScaled followed by their
+// BN scales and BN biases. The host's shape_for and the kernel's ring both
+// take it from here.
+__host__ __device__ constexpr int slot_bytes(int E, Catalog cat) {
+  return cat == Catalog::kBf16     ? BN * (E + PAD) * 2
+         : cat == Catalog::kScaled ? BN * E + 2 * BN * 4
+                                   : BN * E;
 }
 
 // Bytes a group keeps beside its ring: for int8, the bf16 tile its warps
 // read, converted from the landed slot.
-__host__ __device__ constexpr int tile_bytes(int E, bool int8) {
-  return int8 ? BN * (E + PAD) * 2 : 0;
+__host__ __device__ constexpr int tile_bytes(int E, Catalog cat) {
+  return is_int8(cat) ? BN * (E + PAD) * 2 : 0;
 }
 
 // Block shape of a launch over B query rows of width E. It depends on B, E
-// and the catalog's type only, never on the pass, and it never changes what
+// and the catalog's kind only, never on the pass, and it never changes what
 // a score is.
 struct Shape {
   int wpg;     // warps per group: 2 per 32-row pair of m-tiles
@@ -194,14 +216,14 @@ struct Shape {
   int smem;    // dynamic shared memory, bytes
 };
 
-Shape shape_for(int B, int E, bool int8) {
+Shape shape_for(int B, int E, Catalog cat) {
   Shape s;
   const int rows = B < BM ? B : BM;
   const int tile_rows = (rows + 31) / 32 * 32;
   s.wpg = tile_rows / 32 * (BN / (8 * WN));
   const int ld = E + PAD;
-  const int stage = slot_bytes(E, int8);
-  const int tile = tile_bytes(E, int8);
+  const int stage = slot_bytes(E, cat);
+  const int tile = tile_bytes(E, cat);
   const int qbytes = tile_rows * ld * 2;
   const int part = 2 * tile_rows * PS * 8;  // keep-2 partial cells a group
   for (s.groups = MAX_WARPS / s.wpg;; --s.groups) {
@@ -409,23 +431,24 @@ __device__ __forceinline__ Top<kKeep> merged(const float* const (&ps)[kMax],
 }
 
 // Block (32 * wpg, groups) threads, grid (c, L / BN, ceil(B / BM)) in
-// clusters of (c, 1, 1). Dynamic shared memory (shape_for(B, E, kInt8).smem):
+// clusters of (c, 1, 1). Dynamic shared memory (shape_for(B, E, kCat).smem):
 // the query tile, then the groups' rings (and, for int8, each group's bf16
 // tile), which the partial cells reuse after the walk. n_chunks counts the
 // chunks of the walk: fold chunks of `fold` sub-tiles with kFold, sub-tiles
 // otherwise (fold is read only with kFold).
-template <bool kThreshold, int kKeep, int kSteps, bool kInt8, bool kFold>
+template <bool kThreshold, int kKeep, int kSteps, Catalog kCat, bool kFold>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     bin_max_kernel(const __nv_bfloat16* __restrict__ q,  // (B, E)
                    const void* __restrict__ c,  // (n_pad, E) bf16 or int8
-                   const float* __restrict__ scales,  // (n_pad,), int8 only
-                   const float* __restrict__ bias,    // (n_pad,), int8 only
+                   const float* __restrict__ scales,  // (n_pad,), kScaled
+                   const float* __restrict__ bias,    // (n_pad,), kScaled
                    const float* __restrict__ thr_s,   // (B, L)
                    const int* __restrict__ thr_i,     // (B, L)
                    float* __restrict__ m1_out, int* __restrict__ a1_out,
                    float* __restrict__ m2_out, int* __restrict__ a2_out,
                    int B, int E, int L, int n_chunks, int n_valid,
                    int fold, int stages) {
+  constexpr bool kInt8 = is_int8(kCat);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -452,13 +475,13 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   const int Ek = kSteps > 0 ? 16 * kSteps : E;  // E, known to the compiler
   const int ld = Ek + PAD;  // shared row stride, in bf16
   const int vecs = Ek / 8;  // 16-byte vectors per bf16 row
-  const int stage = slot_bytes(Ek, kInt8);
+  const int stage = slot_bytes(Ek, kCat);
   const int F = kFold ? fold : 1;  // sub-tiles a chunk
 
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   unsigned char* ring = smem_raw + tile_rows * ld * 2;
   // this group's ring, then (int8) its bf16 tile
-  unsigned char* sc = ring + grp * (stages * stage + tile_bytes(Ek, kInt8));
+  unsigned char* sc = ring + grp * (stages * stage + tile_bytes(Ek, kCat));
   __nv_bfloat16* sconv = reinterpret_cast<__nv_bfloat16*>(sc + stages * stage);
 
   // Query tile, resident for the whole run, in one cp.async group of its
@@ -495,10 +518,12 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
           const int r = v / cvecs, cv = v % cvecs;
           cp_async16(dst + r * Ek + cv * 16, src + (size_t)r * Ek + cv * 16);
         }
-        if (gtid < 2 * (BN / 4)) {  // BN scales, then BN biases
-          const int which = gtid / (BN / 4), cv = gtid % (BN / 4);
-          cp_async16(dst + BN * Ek + which * BN * 4 + cv * 16,
-                     (which ? bias : scales) + row + cv * 4);
+        if constexpr (kCat == Catalog::kScaled) {
+          if (gtid < 2 * (BN / 4)) {  // BN scales, then BN biases
+            const int which = gtid / (BN / 4), cv = gtid % (BN / 4);
+            cp_async16(dst + BN * Ek + which * BN * 4 + cv * 16,
+                       (which ? bias : scales) + row + cv * 4);
+          }
         }
       } else {
         const __nv_bfloat16* src =
@@ -575,7 +600,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
         ldmatrix_x4(areg[mm][k], pa[mm] + k * 16);
   }
 
-  // The int8 epilogue of one chunk's sums: score = sum * scale + bias of
+  // The kScaled epilogue of one chunk's sums: score = sum * scale + bias of
   // the cell's catalog row, from the landed slot's scales and biases.
   auto scaled = [&](float (&acc)[WM][WN][4], int landed) {
     const float* sb = reinterpret_cast<const float*>(sc + landed * stage +
@@ -670,7 +695,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
           for (int e = 0; e < 4; ++e) acc[mm][jj][e] = 0.f;
       tile_scores<kSteps>(pa, kInt8 ? pb : pb + slot * BN * ld, Ek, two,
                           areg, acc);
-      if constexpr (kInt8) scaled(acc, slot);
+      if constexpr (kCat == Catalog::kScaled) scaled(acc, slot);
       const int ch = u0 + i;  // the sub-tile
       if constexpr (kFold) {
         tournament(acc, ch, fslot == 0);
@@ -785,16 +810,16 @@ using KernelFn = void (*)(const __nv_bfloat16*, const void*, const float*,
 
 // The instantiation a pass runs at width E: A fragments in registers at
 // E = 16 * A_STEPS, from shared memory otherwise. Both sum in one k-order.
-template <bool kThreshold, int kKeep, bool kInt8, bool kFold = false>
+template <bool kThreshold, int kKeep, Catalog kCat, bool kFold = false>
 KernelFn kernel_for(int E) {
   return E == 16 * A_STEPS
-             ? bin_max_kernel<kThreshold, kKeep, A_STEPS, kInt8, kFold>
-             : bin_max_kernel<kThreshold, kKeep, 0, kInt8, kFold>;
+             ? bin_max_kernel<kThreshold, kKeep, A_STEPS, kCat, kFold>
+             : bin_max_kernel<kThreshold, kKeep, 0, kCat, kFold>;
 }
 
-cudaError_t prepare(KernelFn kernel, int B, int E, bool int8, Shape* s) {
+cudaError_t prepare(KernelFn kernel, int B, int E, Catalog cat, Shape* s) {
   if (B <= 0 || E <= 0 || E % 16 != 0) return cudaErrorInvalidValue;
-  *s = shape_for(B, E, int8);
+  *s = shape_for(B, E, cat);
   if (s->stages < 2 || s->smem > SMEM_MAX) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s->smem);
@@ -875,17 +900,36 @@ cudaError_t pick_cluster(KernelFn kernel, const Shape& s, int tiles,
 
 int tiles_of(int B, int L) { return L / BN * ((B + BM - 1) / BM); }
 
+// The kernel of a pass: keep 1 or 2, thresholds or not, the catalog's
+// kind, and (fold > 1) the fold tournament. A per-row single pass at fold 1
+// is the int8 first round's kernel; the raw pass has no thresholds.
+KernelFn pass_kernel(int keep, int threshold, Catalog cat, int fold, int E) {
+  constexpr Catalog kB = Catalog::kBf16, kS = Catalog::kScaled,
+                    kR = Catalog::kRaw;
+  if (cat == kR)
+    return fold > 1 ? kernel_for<false, 2, kR, true>(E)
+                    : kernel_for<false, 2, kR>(E);
+  if (cat == kS && fold > 1) return kernel_for<false, 2, kS, true>(E);
+  if (cat == kS)
+    return threshold ? kernel_for<true, 2, kS>(E)
+                     : kernel_for<false, 2, kS>(E);
+  return keep == 1   ? kernel_for<true, 1, kB>(E)
+         : threshold ? kernel_for<true, 2, kB>(E)
+                     : kernel_for<false, 2, kB>(E);
+}
+
 // A pass over n_pad rows in chunks of `fold` sub-tiles of L rows (fold = 1
-// but for the fold pass).
-int launch(KernelFn kernel, bool int8, const void* q, const void* c,
+// but for the fold passes), by the kernel pass_kernel picks.
+int launch(int keep, int threshold, Catalog cat, const void* q, const void* c,
            const void* scales, const void* bias, const void* thr_s,
            const void* thr_i, void* m1, void* a1, void* m2, void* a2, int B,
            int E, int n_pad, int L, int n_valid, int fold, void* stream) {
   if (L <= 0 || L % BN != 0 || fold <= 0 || n_pad <= 0 ||
       n_pad % ((long long)L * fold) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const KernelFn kernel = pass_kernel(keep, threshold, cat, fold, E);
   Shape s;
-  cudaError_t err = prepare(kernel, B, E, int8, &s);
+  cudaError_t err = prepare(kernel, B, E, cat, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
   int cluster = 1;
   err = pick_cluster(kernel, s, tiles_of(B, L), &cluster);
@@ -904,19 +948,6 @@ int launch(KernelFn kernel, bool int8, const void* q, const void* c,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel of a pass: keep 1 or 2, thresholds or not, int8 or bf16, and
-// (fold > 1) the fold tournament. The single pass at fold 1 is the int8
-// first round's kernel.
-KernelFn pass_kernel(int keep, int threshold, int int8, int fold, int E) {
-  if (int8 && fold > 1) return kernel_for<false, 2, true, true>(E);
-  if (int8)
-    return threshold ? kernel_for<true, 2, true>(E)
-                     : kernel_for<false, 2, true>(E);
-  return keep == 1   ? kernel_for<true, 1, false>(E)
-         : threshold ? kernel_for<true, 2, false>(E)
-                     : kernel_for<false, 2, false>(E);
-}
-
 }  // namespace
 
 // Each launcher returns cudaGetLastError() after the launch (0 = success);
@@ -925,26 +956,23 @@ extern "C" int bin_max2_first_round(const void* q, const void* c, void* m1,
                                     void* a1, void* m2, void* a2, int B,
                                     int E, int n_pad, int L, int n_valid,
                                     void* stream) {
-  return launch(pass_kernel(2, 0, 0, 1, E), false, q, c, nullptr, nullptr,
-                nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1,
-                stream);
+  return launch(2, 0, Catalog::kBf16, q, c, nullptr, nullptr, nullptr, nullptr,
+                m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1, stream);
 }
 
 extern "C" int bin_max2_round(const void* q, const void* c, const void* thr_s,
                               const void* thr_i, void* m1, void* a1, void* m2,
                               void* a2, int B, int E, int n_pad, int L,
                               int n_valid, void* stream) {
-  return launch(pass_kernel(2, 1, 0, 1, E), false, q, c, nullptr, nullptr,
-                thr_s, thr_i, m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1,
-                stream);
+  return launch(2, 1, Catalog::kBf16, q, c, nullptr, nullptr, thr_s, thr_i, m1,
+                a1, m2, a2, B, E, n_pad, L, n_valid, 1, stream);
 }
 
 extern "C" int bin_max_round(const void* q, const void* c, const void* thr_s,
                              const void* thr_i, void* m, void* a, int B, int E,
                              int n_pad, int L, int n_valid, void* stream) {
-  return launch(pass_kernel(1, 1, 0, 1, E), false, q, c, nullptr, nullptr,
-                thr_s, thr_i, m, a, nullptr, nullptr, B, E, n_pad, L, n_valid,
-                1, stream);
+  return launch(1, 1, Catalog::kBf16, q, c, nullptr, nullptr, thr_s, thr_i, m,
+                a, nullptr, nullptr, B, E, n_pad, L, n_valid, 1, stream);
 }
 
 extern "C" int bin_max2_scaled_first_round(const void* q, const void* codes,
@@ -953,9 +981,8 @@ extern "C" int bin_max2_scaled_first_round(const void* q, const void* codes,
                                            void* a1, void* m2, void* a2,
                                            int B, int E, int n_pad, int L,
                                            int n_valid, void* stream) {
-  return launch(pass_kernel(2, 0, 1, 1, E), true, q, codes, scales, bias,
-                nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1,
-                stream);
+  return launch(2, 0, Catalog::kScaled, q, codes, scales, bias, nullptr,
+                nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1, stream);
 }
 
 extern "C" int bin_max2_scaled_round(const void* q, const void* codes,
@@ -964,9 +991,8 @@ extern "C" int bin_max2_scaled_round(const void* q, const void* codes,
                                      void* m1, void* a1, void* m2, void* a2,
                                      int B, int E, int n_pad, int L,
                                      int n_valid, void* stream) {
-  return launch(pass_kernel(2, 1, 1, 1, E), true, q, codes, scales, bias,
-                thr_s, thr_i, m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1,
-                stream);
+  return launch(2, 1, Catalog::kScaled, q, codes, scales, bias, thr_s, thr_i,
+                m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1, stream);
 }
 
 // The int8 single passes: every row is streamed (n_valid = n_pad), a -inf
@@ -978,9 +1004,8 @@ extern "C" int bin_max2_scaled_single_pass(const void* q, const void* codes,
                                            void* a1, void* m2, void* a2,
                                            int B, int E, int n_pad, int L,
                                            void* stream) {
-  return launch(pass_kernel(2, 0, 1, 1, E), true, q, codes, scales, bias,
-                nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_pad, 1,
-                stream);
+  return launch(2, 0, Catalog::kScaled, q, codes, scales, bias, nullptr,
+                nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_pad, 1, stream);
 }
 
 extern "C" int bin_max2_scaled_fold_pass(const void* q, const void* codes,
@@ -988,24 +1013,37 @@ extern "C" int bin_max2_scaled_fold_pass(const void* q, const void* codes,
                                          void* m1, void* a1, void* m2,
                                          void* a2, int B, int E, int n_pad,
                                          int L, int F, void* stream) {
-  return launch(pass_kernel(2, 0, 1, F, E), true, q, codes, scales, bias,
-                nullptr, nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_pad, F,
-                stream);
+  return launch(2, 0, Catalog::kScaled, q, codes, scales, bias, nullptr,
+                nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_pad, F, stream);
 }
 
-// Launch shape of a pass (keep 1 or 2; threshold 0 or 1; int8 0 or 1; fold
-// 1, or F > 1 for the int8 fold pass) over B rows of width E and L bins, as
+// The raw single pass of the global-scale index: the catalog is full chunks
+// of F sub-tiles of real rows (n_full % (F * L) == 0), so every row is
+// streamed (n_valid = n_full) with no mask, no scale and no bias.
+extern "C" int bin_max2_raw_fold_pass(const void* q, const void* codes,
+                                      void* m1, void* a1, void* m2, void* a2,
+                                      int B, int E, int n_full, int L, int F,
+                                      void* stream) {
+  return launch(2, 0, Catalog::kRaw, q, codes, nullptr, nullptr, nullptr,
+                nullptr, m1, a1, m2, a2, B, E, n_full, L, n_full, F, stream);
+}
+
+// Launch shape of a pass (keep 1 or 2; threshold 0 or 1; catalog 0 = bf16,
+// 1 = int8 scaled, 2 = int8 raw; fold 1, or F > 1 for an int8 fold pass)
+// over B rows of width E and L bins, as
 // launch() takes it: out[0..11] = cluster size, warps per block, warp
 // groups, ring stages, shared bytes, registers a thread, local (spilled)
 // bytes a thread, clusters of the launch (bin tiles x row groups), and
 // clusters of 1, 2, 4 and 8 blocks resident at once. Returns a CUDA error
 // code (0 = success).
-extern "C" int bin_max_launch_info(int keep, int threshold, int int8,
+extern "C" int bin_max_launch_info(int keep, int threshold, int catalog,
                                    int fold, int B, int E, int L, int* out) {
-  const KernelFn kernel = pass_kernel(keep, threshold, int8, fold, E);
-  if (L <= 0 || L % BN != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (catalog < 0 || catalog > 2 || L <= 0 || L % BN != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Catalog cat = static_cast<Catalog>(catalog);
+  const KernelFn kernel = pass_kernel(keep, threshold, cat, fold, E);
   Shape s;
-  cudaError_t err = prepare(kernel, B, E, int8 != 0, &s);
+  cudaError_t err = prepare(kernel, B, E, cat, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
   err = cudaFuncGetAttributes(&fa, kernel);

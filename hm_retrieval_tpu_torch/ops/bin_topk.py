@@ -15,7 +15,7 @@ first: a query block then returns its leaderboard as it stands, as the JAX
 package does.
 
 The three passes are hand-written CUDA kernels (``csrc/bin_max2.cu``, whose
-template also holds the int8 rounds and the per-row int8 single passes of
+template also holds the int8 rounds and the three int8 single passes of
 ``ops/quantized_topk.py``). Beside
 them is their plain PyTorch version. A wrapper runs the plain version only
 for CPU tensors; for CUDA tensors it launches the kernel or raises (a
@@ -62,6 +62,8 @@ MAX_ROUNDS = 8  # streaming passes per query block, at most
 KERNEL_BIN_TILE = 32
 KERNEL_K_STEP = 16
 KERNEL_MAX_E = 512
+# The catalog kinds of the template, in the order of its C enum.
+CATALOGS = ("bf16", "scaled", "raw")
 
 # Launches of each CUDA kernel since the last reset_launches().
 LAUNCHES: Dict[str, int] = {
@@ -259,13 +261,14 @@ def _check(q, c_padded, L, thr_s, thr_i):
 
 def launch_info(
     B: int, E: int, L: int, keep: int = 2, threshold: bool = True,
-    int8: bool = False, fold: int = 1, device=None,
+    catalog: str = "bf16", fold: int = 1, device=None,
 ) -> Dict[str, object]:
     """The launch shape the kernel of a pass (keep 1 or 2, with or without
-    thresholds; ``int8``: the int8 passes of ``ops/quantized_topk.py``, keep
-    2: the rounds, or the single pass without thresholds, whose fold
-    ``fold`` > 1 selects the tournament's kernel) takes over B query rows,
-    as its launcher computes it: the
+    thresholds; ``catalog`` one of ``CATALOGS``: ``"scaled"``, the per-row
+    int8 passes of ``ops/quantized_topk.py``, keep 2: the rounds, or the
+    single pass without thresholds; ``"raw"``, the global-scale single
+    pass; for both, ``fold`` > 1 selects the tournament's kernel) takes over
+    B query rows, as its launcher computes it: the
     cluster size it picks, warps, ring and shared bytes, the compiler's
     registers and local (spilled) bytes a thread, the launch's clusters
     (bin tiles x row groups), and ``resident``: the clusters of 1, 2, 4 and
@@ -274,7 +277,7 @@ def launch_info(
     out = (ctypes.c_int * 12)()
     with torch.cuda.device(device):
         err = _kernel("bin_max_launch_info")(
-            keep, int(threshold), int(int8), fold, B, E, L,
+            keep, int(threshold), CATALOGS.index(catalog), fold, B, E, L,
             ctypes.addressof(out)
         )
     if err != 0:

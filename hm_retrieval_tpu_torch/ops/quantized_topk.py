@@ -24,11 +24,11 @@ masked and chunks wholly past them not streamed, round r > 1 below round
 r-1's thresholds) until nothing hidden can enter the top k, or
 ``max_rounds`` passes have run.
 
-The per-row single passes (no fold, and the fold tournament) and the two
-rounds passes are the int8 instances of the exact passes' hand-written CUDA
+The three single passes (per-row scales without and with the fold
+tournament, and the raw pass of the global-scale index) and the two rounds
+passes are the int8 instances of the exact passes' hand-written CUDA
 template (``csrc/bin_max2.cu``), which splits each cell's walk over whole
-fold chunks; the raw pass of the global-scale index is a kernel of its own
-(``csrc/bin_max2_int8.cu``). Beside them are their plain PyTorch versions.
+fold chunks. Beside them are their plain PyTorch versions.
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises, and adds one to ``LAUNCHES[<kernel>]`` per
 launch.
@@ -80,13 +80,11 @@ from hm_retrieval_tpu_torch.ops.bin_topk import (
 )
 from hm_retrieval_tpu_torch.ops.topk import topk_pair
 
-# Bins per block of the int8 kernels (BN of csrc/bin_max2_int8.cu and of
-# csrc/bin_max2.cu), which the wrappers check L against, and the widest
-# padded E of the three single passes, which both files' tiles take at 576:
-# the raw pass's (bin_max2_int8.cu) need 384 * E + 5,120 bytes of a block's
-# 232,448, and the int8 instances of bin_max2.cu at 128 query rows 231,424
-# at E = 576 (the query tile and the partial cells, which outgrow the two
-# ring slots and the bf16 tile).
+# Bins per block of the int8 kernels (BN of csrc/bin_max2.cu), which the
+# wrappers check L against, and the widest padded E of the three single
+# passes: at 128 query rows their instances take 231,424 bytes of a block's
+# 232,448 at E = 576 (the query tile and the partial cells, which outgrow the
+# two ring slots and the bf16 tile; the raw pass's slots are smaller still).
 # The rounds take what the bf16 instances of bin_max2.cu take, KERNEL_MAX_E.
 INT8_KERNEL_BIN_TILE = 32
 INT8_KERNEL_MAX_E = 576
@@ -249,19 +247,9 @@ _ARGTYPES = {
 }
 
 
-# The source of each kernel: all but the raw pass are instances of
-# bin_max2.cu.
-_SOURCE = {
-    "bin_max2_scaled_single_pass": "bin_max2",
-    "bin_max2_scaled_fold_pass": "bin_max2",
-    "bin_max2_raw_fold_pass": "bin_max2_int8",
-    "bin_max2_scaled_first_round": "bin_max2",
-    "bin_max2_scaled_round": "bin_max2",
-}
-
 
 def _kernel(name: str):
-    fn = getattr(_build.load(_SOURCE[name]), name)
+    fn = getattr(_build.load("bin_max2"), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int

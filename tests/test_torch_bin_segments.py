@@ -1,5 +1,6 @@
 """The split-and-merge rule of the kernels of csrc/bin_max2.cu: the exact
-passes (kernels 1, 2, 8) and the int8 rounds (kernels 6-7).
+passes (kernels 1, 2, 8), the int8 rounds (kernels 6-7) and the int8 single
+passes (kernels 3-5).
 
 The kernels cut each (query row, bin) cell's chunk walk into contiguous
 segments, over the blocks of a cluster and over warp groups inside a block,
@@ -13,10 +14,12 @@ heavy with ties, with n_valid ending inside a segment, and with thresholds
 from a real first round; and the JAX package's passes in interpret mode.
 The int8 rounds run the same split over scaled scores,
 __fmaf_rn(q . codes, scale, bias) with a bias of 0 or -inf, so the model
-holds them too, -inf bias rows included. The per-row int8 single passes run
-it over fold chunks of F sub-tiles of L rows: a segment holds whole chunks,
-each chunk's F scores per cell go through the tournament (the lower slot
-keeps a tie) and only the winner enters the cascade; the model equals
+holds them too, -inf bias rows included. The single passes run it over fold
+chunks of F sub-tiles of L rows: a segment holds whole chunks, each chunk's
+F scores per cell go through the tournament (the lower slot keeps a tie)
+and only the winner enters the cascade; over the per-row scaled scores
+(kernels 3-4) and over the raw sums of the global-scale index (kernel 5,
+full chunks of real rows, no epilogue) the model equals
 ``single_pass_plain`` and the JAX single passes for F = 1, 2, 4, 8, and a
 split inside a fold chunk would not. The CUDA kernels themselves are held
 against the plain versions on the card by chip_smoke.py.
@@ -392,23 +395,62 @@ def _single_pass_catalog(rng, kind, n_pad, n_real, L):
     return codes, scales, bias
 
 
-class TestFoldSplit:
-    """Kernels 3-4 as instances of the split: segments of whole fold
+def _raw_scores(q, codes):
+    """The raw pass's scores, the integer sum q . codes as it stands: exact
+    in fp64 and in fp32 for these inputs."""
+    return (q.astype(np.float64) @ codes.astype(np.float64).T).astype(
+        np.float32)
+
+
+def _raw_catalog(rng, kind, n_rows):
+    """Raw codes as the global-scale driver passes them: full chunks of real
+    rows, no scale, bias or padding."""
+    hi = 3 if kind == "ties" else 128
+    return rng.integers(-hi + 1, hi, size=(n_rows, 16)).astype(np.int8)
+
+
+class _FoldSplitCases:
+    """The single passes as instances of the split: segments of whole fold
     chunks, the tournament inside each chunk, the merge unchanged. The
     model equals the single walk (``single_pass_plain``) and the JAX
-    package's single passes in interpret mode, bit for bit."""
+    package's single passes in interpret mode, bit for bit. A subclass
+    names the scores: per-row scaled (kernels 3-4) or raw (kernel 5)."""
 
     N_FOLD = 5  # fold chunks of the catalog
+    RAW = False
 
     def _plain(self, q, codes, scales, bias, fold, L=L):
+        scaled = () if self.RAW else (torch.tensor(scales), torch.tensor(bias))
         return [x.numpy() for x in qt.single_pass_plain(
             torch.tensor(q).to(torch.bfloat16), torch.tensor(codes), L, fold,
-            torch.tensor(scales), torch.tensor(bias))]
+            *scaled)]
 
     def _inputs(self, rng, kind, fold, n_fold, L):
         n_pad = n_fold * fold * L
         q = rng.integers(-4, 5, size=(B, 16)).astype(np.float32)
+        if self.RAW:
+            return q, _raw_catalog(rng, kind, n_pad), None, None
         return (q, *_single_pass_catalog(rng, kind, n_pad, n_pad - L // 2, L))
+
+    def _scores(self, q, codes, scales, bias):
+        if self.RAW:
+            return _raw_scores(q, codes)
+        return _fma_scores(q, codes, scales, bias)
+
+    def _jax(self, q, codes, scales, bias, fold, L):
+        qj, cj = jnp.asarray(q, jnp.bfloat16), jnp.asarray(codes)
+        if self.RAW:
+            out = pr.bin_max2_raw_fold_pass(qj, cj, L=L, F=fold,
+                                            interpret=True)
+        elif fold == 1:
+            out = pr.bin_max2_scaled_single_pass(
+                qj, cj, jnp.asarray(scales)[None], jnp.asarray(bias)[None],
+                L=L, interpret=True)
+        else:
+            out = pr.bin_max2_scaled_fold_pass(
+                qj, cj, jnp.asarray(scales)[None], jnp.asarray(bias)[None],
+                L=L, F=fold, interpret=True)
+        return [np.asarray(x) for x in out]
 
     @pytest.mark.parametrize("kind", ["integer", "ties"])
     @pytest.mark.parametrize(
@@ -423,14 +465,17 @@ class TestFoldSplit:
         args = self._inputs(rng, kind, fold, self.N_FOLD, L)
         n_pad = args[1].shape[0]
         blocks = _kernel_bounds(self.N_FOLD, cluster, groups)
-        got = _segmented(_fma_scores(*args), n_pad, blocks, fold=fold)
+        got = _segmented(self._scores(*args), n_pad, blocks, fold=fold)
         want = self._plain(*args, fold)
         _assert_bitwise(got, want)
         bias = args[3]
-        for a in want[1::2]:  # a -inf bias row is never admitted
+        for a in want[1::2]:
             filled = a != bt.BIG_IDX
-            assert filled.any() and not filled.all()
-            assert np.isfinite(bias[a[filled]]).all()
+            if self.RAW:  # every cell sees N_FOLD winners
+                assert filled.all()
+            else:  # a -inf bias row is never admitted
+                assert filled.any() and not filled.all()
+                assert np.isfinite(bias[a[filled]]).all()
 
     @pytest.mark.parametrize(
         "blocks",
@@ -444,7 +489,7 @@ class TestFoldSplit:
     @pytest.mark.parametrize("fold", FOLDS)
     def test_uneven_and_empty_fold_segments(self, rng, fold, blocks):
         args = self._inputs(rng, "ties", fold, self.N_FOLD, L)
-        got = _segmented(_fma_scores(*args), args[1].shape[0], blocks,
+        got = _segmented(self._scores(*args), args[1].shape[0], blocks,
                          fold=fold)
         _assert_bitwise(got, self._plain(*args, fold))
 
@@ -452,23 +497,20 @@ class TestFoldSplit:
     @pytest.mark.parametrize("fold", FOLDS)
     def test_fold_split_equals_jax(self, rng, fold, kind):
         LJ = 128
-        q, codes, scales, bias = self._inputs(rng, kind, fold, 2, LJ)
-        n_pad = codes.shape[0]
-        jargs = (jnp.asarray(q, jnp.bfloat16), jnp.asarray(codes),
-                 jnp.asarray(scales)[None], jnp.asarray(bias)[None])
-        if fold == 1:
-            want = pr.bin_max2_scaled_single_pass(*jargs, L=LJ,
-                                                  interpret=True)
-        else:
-            want = pr.bin_max2_scaled_fold_pass(*jargs, L=LJ, F=fold,
-                                                interpret=True)
-        want = [np.asarray(x) for x in want]
-        scores = _fma_scores(q, codes, scales, bias)
+        args = self._inputs(rng, kind, fold, 2, LJ)
+        n_pad = args[1].shape[0]
+        want = self._jax(*args, fold, LJ)
+        scores = self._scores(*args)
         for cluster, groups in ((1, 1), (2, 1), (2, 4)):
             blocks = _kernel_bounds(2, cluster, groups)
             got = _segmented(scores, n_pad, blocks, L=LJ, fold=fold)
             _assert_bitwise(got, want)
-        _assert_bitwise(self._plain(q, codes, scales, bias, fold, LJ), want)
+        _assert_bitwise(self._plain(*args, fold, LJ), want)
+
+
+class TestFoldSplit(_FoldSplitCases):
+    """Kernels 3-4, the per-row single passes, over scaled scores with -inf
+    bias rows."""
 
     def test_a_sub_tile_split_would_change_the_survivors(self):
         """Why segments hold whole fold chunks: cut one chunk of F = 2 at
@@ -491,3 +533,53 @@ class TestFoldSplit:
         np.testing.assert_array_equal(split[1][0], np.arange(L))
         np.testing.assert_array_equal(split[3][0], np.arange(L) + L)
         assert not np.array_equal(split[3], one_chunk[3])
+
+
+class TestRawFoldSplit(_FoldSplitCases):
+    """Kernel 5, the global-scale index's raw single pass, as the template's
+    raw kind: the same split over the raw sums, full chunks of real rows, no
+    scale, bias or mask."""
+
+    RAW = True
+
+    @pytest.mark.parametrize(
+        "fold,n_fold,cluster,groups",
+        [(8, 6, 2, 4), (16, 12, 4, 4), (2, 25, 2, 1), (1, 51, 1, 1)],
+        ids=["F8_6_over_8", "F16_12_over_16", "F2_25_over_2",
+             "F1_51_over_1"],
+    )
+    def test_served_chunk_counts(self, rng, fold, n_fold, cluster, groups):
+        """The chunk and segment counts of the served plans (F, L, B) =
+        (8, 2048, <= 16), (16, 512, 16), (2, 2048, 128), (1, 2048, 1024)
+        over the 105,542 real articles: 6 full chunks over 2 blocks of 4
+        groups leave 2 segments empty, 12 over 16 leave 4."""
+        args = self._inputs(rng, "integer", fold, n_fold, L)
+        blocks = _kernel_bounds(n_fold, cluster, groups)
+        if n_fold < cluster * groups:
+            assert any(c0 == c1 for segs in blocks for c0, c1 in segs)
+        got = _segmented(self._scores(*args), args[1].shape[0], blocks,
+                         fold=fold)
+        _assert_bitwise(got, self._plain(*args, fold))
+
+    def test_raw_scores_need_no_epilogue(self):
+        """The raw kind hands each sum to the tournament as it stands. An
+        identity epilogue written as fmaf(sum, 1, 0) is not one: it turns a
+        -0 sum into +0, so the cells whose maximum is -0 would change their
+        bits."""
+        fold, n_fold = 2, 3
+        scores = np.full((1, n_fold * fold * L), -1.0, np.float32)
+        scores[:, L:2 * L] = -0.0  # slot 1 of chunk 0 wins every bin
+        blocks = _kernel_bounds(n_fold, 2, 2)
+        raw = _segmented(scores, scores.shape[1], blocks, fold=fold)
+        assert (raw[0] == 0).all() and np.signbit(raw[0]).all()
+        np.testing.assert_array_equal(raw[1][0], np.arange(L) + L)
+        assert (raw[2] == -1).all()
+        _assert_bitwise(raw, _segmented(scores, scores.shape[1],
+                                        [[(0, n_fold)]], fold=fold))
+        # fmaf(s, 1, 0), one rounding of the exact s * 1 + 0
+        fma = (scores.astype(np.float64) * 1.0 + 0.0).astype(np.float32)
+        fma = _segmented(fma, scores.shape[1], blocks, fold=fold)
+        assert (fma[0] == 0).all() and not np.signbit(fma[0]).any()
+        np.testing.assert_array_equal(fma[1], raw[1])
+        assert not np.array_equal(fma[0].view(np.int32),
+                                  raw[0].view(np.int32))

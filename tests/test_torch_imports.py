@@ -149,7 +149,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
 
 
 def test_sources_and_launch_counters():
-    assert _build.sources() == ["bin_max2", "bin_max2_int8"]
+    assert _build.sources() == ["bin_max2"]
     assert set(bt.LAUNCHES) == {
         "bin_max2_first_round",
         "bin_max2_round",
@@ -198,24 +198,20 @@ def _launchers():
 
 
 def test_each_wrapper_binds_a_launcher_of_its_source():
-    """Every wrapper loads its C launcher from the source that defines it,
-    with one ctypes type per parameter: a pointer (or the stream) as
-    c_void_p, an int as c_int. The int8 rounds and the per-row single
-    passes are instances of bin_max2.cu's template; bin_max2_int8.cu keeps
-    the raw pass alone."""
+    """Every wrapper loads its C launcher from the one source, bin_max2.cu,
+    whose template holds all eight kernels (the raw pass of the
+    global-scale index included), with one ctypes type per parameter: a
+    pointer (or the stream) as c_void_p, an int as c_int."""
     launchers = _launchers()
-    sources = {**{n: "bin_max2" for n in bt._ARGTYPES}, **qt._SOURCE}
-    assert set(sources) == set(bt._ARGTYPES) | set(qt._ARGTYPES)
-    assert set(launchers["bin_max2_int8"]) == {"bin_max2_raw_fold_pass"}
-    assert {"bin_max2_scaled_single_pass", "bin_max2_scaled_fold_pass",
-            "bin_max2_scaled_first_round",
-            "bin_max2_scaled_round"} <= set(launchers["bin_max2"])
-    for fn, source in sources.items():
-        params = launchers[source][fn]
-        argtypes = {**bt._ARGTYPES, **qt._ARGTYPES}[fn]
+    assert set(launchers) == {"bin_max2"}
+    argtypes = {**bt._ARGTYPES, **qt._ARGTYPES}
+    assert set(launchers["bin_max2"]) == set(argtypes)
+    for fn, params in launchers["bin_max2"].items():
         want = [ctypes.c_int if p == "int" else ctypes.c_void_p
                 for p in params]
-        assert argtypes == want, fn
-    int8 = (_build.CSRC_DIR / "bin_max2_int8.cu").read_text()
-    assert "kRounds" not in int8 and "kThreshold" not in int8
-    assert "kScaled" not in int8
+        assert argtypes[fn] == want, fn
+    # the raw pass is the template's raw kind, launched with no scales
+    text = (_build.CSRC_DIR / "bin_max2.cu").read_text()
+    raw = text[text.index('extern "C" int bin_max2_raw_fold_pass'):]
+    raw = raw[:raw.index("}")]
+    assert "Catalog::kRaw" in raw and "scales" not in raw

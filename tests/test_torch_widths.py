@@ -95,20 +95,20 @@ class TestPaddedWidth:
     def test_kernel_widths(self):
         """The widest padded E of the kernels: bin_max2.cu's bf16 instances
         and the int8 rounds take 512; the three single passes take 576,
-        which both files' tiles hold in a block's 232,448 bytes: the raw
-        pass of bin_max2_int8.cu needs 384 * E + 5,120; the int8 instances
-        of bin_max2.cu at 128 query rows need the bf16 query tile (row
-        stride E + 8) and the larger of two ring slots of E-byte code rows
-        with their scales and biases plus one bf16 tile, and the keep-2
-        partial cells (128 rows x 40 x 8 bytes x 2), as shape_for counts
-        them (231,424 at E = 576, read on the card by launch_info)."""
+        which their int8 instances of bin_max2.cu hold in a block's 232,448
+        bytes at 128 query rows: the bf16 query tile (row stride E + 8) and
+        the larger of two ring slots of E-byte code rows (with their scales
+        and biases for the per-row passes, the codes alone for the raw pass)
+        plus one bf16 tile, and the keep-2 partial cells (128 rows x 40 x 8
+        bytes x 2), as shape_for counts them (231,424 at E = 576 for both
+        kinds, read on the card by launch_info)."""
         assert bt.KERNEL_MAX_E == 512
         assert qt.INT8_KERNEL_MAX_E == 576
         E = qt.INT8_KERNEL_MAX_E
-        assert 384 * E + 5120 <= 232448
-        ring = 2 * (32 * E + 256) + 2 * 32 * (E + 8)
         partials = 2 * 128 * 40 * 8
-        assert 2 * 128 * (E + 8) + max(ring, partials) == 231424 <= 232448
+        for scales_and_biases in (2 * 32 * 4, 0):  # per-row passes, raw
+            ring = 2 * (32 * E + scales_and_biases) + 2 * 32 * (E + 8)
+            assert 2 * 128 * (E + 8) + max(ring, partials) == 231424 <= 232448
 
 
 class TestExactWidths:
