@@ -103,6 +103,32 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    and at E = 600 the one pass routes to "scan", each route with a log
    line. The one pass's launch shapes at padded E = 528 and 576 are
    printed.
+9. Training at full H&M width (bench.py's model from the port's classes:
+   customer_id 1,371,980 x 128, article_id 105,542 x 128, product types
+   130 x 16, colours 50 x 8, towers [256], joint 128, logQ from a
+   Dirichlet(0.5) popularity with seed 0), B = 512, TrainingConfig's
+   defaults (sparse Adagrad, lr 0.05). No TPU kernel lies on this path, and
+   the bin-max kernels' counts must stay 0 through it. Synthetic shards
+   (numpy, shard_*.npz and the manifest) hold a learnable stream: 4096
+   customers, each buying a favourite article 80% of the time. Then:
+   (a) at 5,000 customers and 2,000 articles, each path's 3 card steps
+       against the port's CPU steps from the same state and batches: the
+       losses and every tensor of the state within rtol 1e-4 / atol 1e-5;
+   (b) each path through make_single_device_trainer and
+       ShardDataset.iter_batches(shuffle) -> device_feed -> step: sparse
+       Adagrad with and without a 16-long mean-pooled purchase history,
+       dense Adagrad, dense Adam (lr 1e-3), 512 uniform negatives (dense
+       Adagrad), and the chunked step at K = 8; 8 warm-up steps, one of them
+       under torch.cuda.set_sync_debug_mode("error"), then 48 timed steps
+       (CUDA events each); the same steps on batches already on the card
+       (what the feed costs); 3 steps under torch.profiler (idle share,
+       device operations a step, the top operations); every loss finite and
+       the last five lower than the first five; on the sparse paths every
+       untouched table and accumulator row bit-unchanged; the step's bound;
+   (c) 3 sparse and 3 dense Adagrad steps replayed twice from one saved
+       state at full width: every tensor and loss bit-identical;
+   (d) 8 single sparse steps against one chunked call of the same 8 steps,
+       on the same batches on the card, in turns over 8 rounds.
 
 Output: per-phase JSON lines, then the card's name and power limit, the
 {"kernels": [...]} line, and as the last line
@@ -112,6 +138,7 @@ Exits non-zero, printing no result, when CUDA is not available.
 
 import argparse
 import contextlib
+import itertools
 import json
 import logging
 import statistics
@@ -1474,6 +1501,588 @@ def phase_widths(seed, dev):
                                 ("bin_max2_raw_fold_pass", 2))}}})
 
 
+# --- phase 9: training ------------------------------------------------------
+TRAIN_B = 512  # TrainingConfig's train_batch_size
+TRAIN_WARMUP, TRAIN_STEPS = 8, 48  # untimed, then timed steps a path
+TRAIN_ROWS = 64 * TRAIN_B  # rows of the synthetic shards
+SHARD_ROWS = 8192
+ACTIVE_CUSTOMERS = 4096  # customers that buy, spread over the full table
+HISTORY_LEN = 16  # BASELINE config[3]'s purchase history
+NUM_NEGATIVES = 512  # uniform negatives of the mixed path
+CHUNK_K = 8  # steps a chunk on the chunked path
+SMALL_CUSTOMERS, SMALL_ARTICLES = 5000, 2000  # the card-against-CPU check
+ADAM_LR = 1e-3  # the reference's Keras Adam default
+# Adam's eps in the card-against-CPU check only: at 1e-8 Adam divides
+# rounding noise by eps where a gradient is zero in exact arithmetic (the
+# candidate tower's last bias, which the in-batch softmax cannot see), so two
+# summation orders differ there by up to lr
+CHECK_ADAM_EPS = 1e-3
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5  # card vs CPU, fp32, 3 steps
+FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores, published
+# (name, TrainingConfig fields, purchase history?)
+TRAIN_PATHS = (
+    ("sparse_adagrad", {}, False),
+    ("sparse_adagrad_history", {}, True),
+    ("dense_adagrad", {"use_sparse_embedding_optimizer": False}, False),
+    ("dense_adam", {"optimizer_name": "adam",
+                    "optimizer_kwargs": {"learning_rate": ADAM_LR}}, False),
+    ("mixed_negatives", {"num_uniform_negatives": NUM_NEGATIVES}, False),
+    ("chunked_k8", {"steps_per_dispatch": CHUNK_K}, False),
+)
+
+
+def sized_feature(name, kind, family, width, rows, **kw):
+    """A feature whose table holds ``rows`` ids past OOV, without building a
+    vocab of ``rows`` strings (as bench.py's H&M-scale model does)."""
+    from hm_retrieval_tpu_torch.schema import Feature
+
+    class Sized(Feature):
+        @property
+        def num_embeddings(self):
+            return rows + 1
+
+    return Sized(name, kind, family, embedding_size=width,
+                 vocab=np.array(["x"]), **kw)
+
+
+def article_popularity(n_articles):
+    """bench.py's logQ: Dirichlet(0.5) popularity from seed 0; logq[0] = 0."""
+    probs = np.random.default_rng(0).dirichlet(np.full(n_articles, 0.5))
+    logq = np.zeros(n_articles + 1, np.float32)
+    logq[1:] = np.log(probs + 1e-12).astype(np.float32)
+    return probs, logq
+
+
+def train_model(n_customers, n_articles, logq, history, dev):
+    """bench.py's H&M model (``hm_scale_model``) from the port's classes."""
+    from hm_retrieval_tpu_torch.models import TwoTowerModel
+
+    query = [sized_feature("customer_id", "categorical", "query", E,
+                           n_customers)]
+    if history:
+        query.append(sized_feature(
+            "purchase_history", "sequence", "query", E, n_articles,
+            max_len=HISTORY_LEN, pooling="mean"))
+    candidate = [
+        sized_feature("article_id", "categorical", "candidate", E, n_articles),
+        sized_feature("product_type_name", "categorical", "candidate", 16,
+                      N_PRODUCT_TYPES),
+        sized_feature("colour_group_name", "categorical", "candidate", 8,
+                      N_COLOURS),
+    ]
+    return TwoTowerModel(query, candidate, "article_id", E, [256], [256],
+                         logq=logq, device=dev)
+
+
+def train_columns(rng, n_rows, n_customers, n_articles, probs):
+    """A learnable stream: each of ACTIVE_CUSTOMERS customers (spread over
+    the whole table) buys its favourite article 80% of the time and a
+    popular one otherwise; the history mixes the favourite with popular
+    articles, padded at random lengths. Product type and colour are
+    attributes of the article. Returns the rows and the catalog columns."""
+    n_active = min(ACTIVE_CUSTOMERS, n_customers)
+    active = rng.choice(n_customers, n_active, replace=False) + 1
+    favourite = rng.choice(n_articles, n_active, p=probs) + 1
+    product_type = rng.integers(1, N_PRODUCT_TYPES + 1, n_articles + 1)
+    colour = rng.integers(1, N_COLOURS + 1, n_articles + 1)
+    who = rng.integers(0, n_active, n_rows)
+    article = np.where(rng.random(n_rows) < 0.8, favourite[who],
+                       rng.choice(n_articles, n_rows, p=probs) + 1)
+    hist = np.where(rng.random((n_rows, HISTORY_LEN)) < 0.5,
+                    favourite[who][:, None],
+                    rng.choice(n_articles, (n_rows, HISTORY_LEN), p=probs) + 1)
+    hist[np.arange(HISTORY_LEN) >= rng.integers(0, HISTORY_LEN + 1,
+                                                n_rows)[:, None]] = 0
+    rows = {
+        "customer_id": active[who].astype(np.int32),
+        "purchase_history": hist.astype(np.int32),
+        "article_id": article.astype(np.int32),
+        "product_type_name": product_type[article].astype(np.int32),
+        "colour_group_name": colour[article].astype(np.int32),
+    }
+    ids = np.arange(1, n_articles + 1)
+    catalog = {"article_id": ids.astype(np.int32),
+               "product_type_name": product_type[ids].astype(np.int32),
+               "colour_group_name": colour[ids].astype(np.int32)}
+    return rows, catalog
+
+
+def write_shards(dirpath, rows):
+    """``shard_*.npz`` plus the manifest ``ShardDataset`` reads."""
+    from hm_retrieval_tpu_torch.data import MANIFEST_NAME
+
+    dirpath.mkdir(parents=True)
+    n = len(rows["customer_id"])
+    for s, lo in enumerate(range(0, n, SHARD_ROWS)):
+        np.savez(dirpath / f"shard_{s:05d}.npz",
+                 **{k: v[lo:lo + SHARD_ROWS] for k, v in rows.items()})
+    (dirpath / MANIFEST_NAME).write_text(json.dumps({
+        "num_rows": n, "num_shards": -(-n // SHARD_ROWS),
+        "max_rows": SHARD_ROWS,
+        "features": {k: str(v.dtype) for k, v in rows.items()}}))
+
+
+def training_config(fields, check=False):
+    from hm_retrieval_tpu_torch.schema import TrainingConfig
+
+    fields = dict(fields)
+    if check and fields.get("optimizer_name") == "adam":
+        fields["optimizer_kwargs"] = {**fields["optimizer_kwargs"],
+                                      "eps": CHECK_ADAM_EPS}
+    return TrainingConfig(**fields)
+
+
+def state_tensors(state):
+    """Every tensor of a training state, by a name."""
+    out = {f"params/{n}": p.detach() for n, p in state.params.items()}
+    opt = getattr(state, "opt_state", None) or state.dense_opt_state
+    for field_name, value in opt._asdict().items():
+        if isinstance(value, torch.Tensor):
+            out[f"opt/{field_name}"] = value
+        else:
+            out.update({f"opt/{field_name}/{n}": t for n, t in value.items()})
+    if hasattr(state, "sparse_state"):
+        out.update({f"acc/{n}": t
+                    for n, t in state.sparse_state.accumulators.items()})
+    return out
+
+
+def to_device(batch, dev):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in batch.items()}
+
+
+def phase_training_vs_cpu(dev):
+    """Each path's card step against the port's own CPU step at a reduced
+    vocabulary and the full widths: 3 steps (one chunk of 3 on the chunked
+    path) from one state, the loss and every tensor of the state within
+    TRAIN_RTOL / TRAIN_ATOL."""
+    from hm_retrieval_tpu_torch.data import make_chunked_train_step
+    from hm_retrieval_tpu_torch.models import (
+        make_single_device_trainer, train_state_from_numpy,
+        train_state_to_numpy,
+    )
+    from hm_retrieval_tpu_torch.models.mixed_negatives import (
+        CandidateCatalog, step_seed,
+    )
+
+    rng = np.random.default_rng(1)
+    probs, logq = article_popularity(SMALL_ARTICLES)
+    rows, catalog_cols = train_columns(rng, 3 * TRAIN_B, SMALL_CUSTOMERS,
+                                       SMALL_ARTICLES, probs)
+    batches = [{k: v[i * TRAIN_B:(i + 1) * TRAIN_B] for k, v in rows.items()}
+               for i in range(3)]
+    out = {}
+    for name, fields, history in TRAIN_PATHS:
+        tc = training_config(fields, check=True)
+        side = []  # (catalog, state, step) on the card, then on the CPU
+        for d in (dev, torch.device("cpu")):
+            model = train_model(SMALL_CUSTOMERS, SMALL_ARTICLES, logq, history,
+                                d)
+            catalog = (CandidateCatalog(catalog_cols, device=d)
+                       if tc.num_uniform_negatives else None)
+            side.append((catalog,
+                         *make_single_device_trainer(model, tc, catalog)))
+        (card_cat, card_state, card_step), (_, cpu_state, cpu_step) = side
+        cpu_state = train_state_from_numpy(cpu_state,
+                                           train_state_to_numpy(card_state))
+        losses = {"cuda": [], "cpu": []}
+        if name.startswith("chunked"):
+            stacked = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+            card_state, m = make_chunked_train_step(card_step)(
+                card_state, to_device(stacked, dev))
+            losses["cuda"] = m["losses"].tolist()
+            for b in batches:
+                cpu_state, m = cpu_step(cpu_state, to_device(b, "cpu"))
+                losses["cpu"].append(float(m["loss"]))
+        else:
+            gen = torch.Generator(device=dev)
+            for b in batches:
+                kw = [{}, {}]
+                if card_cat is not None:  # the same rows on both sides
+                    gen.manual_seed(step_seed(tc.seed, card_state.step))
+                    neg = card_cat.sample(gen, tc.num_uniform_negatives)
+                    kw = [{"negatives": neg},
+                          {"negatives": {k: v.cpu() for k, v in neg.items()}}]
+                card_state, m = card_step(card_state, to_device(b, dev), **kw[0])
+                losses["cuda"].append(float(m["loss"]))
+                cpu_state, m = cpu_step(cpu_state, to_device(b, "cpu"), **kw[1])
+                losses["cpu"].append(float(m["loss"]))
+        got = {k: t.cpu() for k, t in state_tensors(card_state).items()}
+        want = state_tensors(cpu_state)
+        require(set(got) == set(want), f"{name}: state layouts differ")
+        worst, worst_name = 0.0, None
+        for key, w in want.items():
+            g = got[key]
+            if not w.is_floating_point():
+                require(torch.equal(g, w), f"{name}: {key} differs")
+                continue
+            err = (g - w).abs()
+            require(bool((err <= TRAIN_ATOL + TRAIN_RTOL * w.abs()).all()),
+                    f"{name}: {key} outside tolerance, max err "
+                    f"{float(err.max())}")
+            if float(err.max()) > worst:
+                worst, worst_name = float(err.max()), key
+        lc, lh = np.array(losses["cuda"]), np.array(losses["cpu"])
+        require(np.all(np.abs(lc - lh) <= TRAIN_ATOL + TRAIN_RTOL * np.abs(lh)),
+                f"{name}: losses {lc} on the card, {lh} on the CPU")
+        require(card_state.step == cpu_state.step == 3, f"{name}: step count")
+        out[name] = {"losses_card": lc.tolist(), "losses_cpu": lh.tolist(),
+                     "max_abs_err_state": worst, "worst_tensor": worst_name,
+                     "tensors": len(want)}
+        del side, card_state, cpu_state
+    emit({"training_vs_cpu": {"customers": SMALL_CUSTOMERS,
+                              "articles": SMALL_ARTICLES, "B": TRAIN_B,
+                              "rtol": TRAIN_RTOL, "atol": TRAIN_ATOL,
+                              "paths": out}})
+
+
+def train_step_bound(model, batches, tc):
+    """Least time of one step at these batches: (ms, what bounds it, ms of
+    the operations at the fp32 peak). Bytes: each batch column and gathered
+    row read once; the sparse path reads and writes each touched row of a
+    table and its accumulator once (unique ids of this run's batches,
+    averaged), the dense path writes a gradient of every parameter and reads
+    it with the parameter and its state, writing both back. Operations: the
+    towers' products and Q @ Cᵀ, forward and two backward products each."""
+    from hm_retrieval_tpu_torch.models.train_path import uses_sparse_step
+
+    sparse = uses_sparse_step(tc)
+    adam = tc.optimizer_name.lower() == "adam"
+    state_bufs = 2 if adam else 1
+    m_neg = tc.num_uniform_negatives
+    nbytes = sum(v.nbytes for v in batches[0].values())
+    tables = {}
+    for tower in (model.query_tower, model.candidate_tower):
+        for f in tower.features:
+            table = tower.embeddings[f.name]
+            rows = TRAIN_B * (f.max_len or 1)
+            if tower is model.candidate_tower:
+                rows += m_neg
+            nbytes += rows * table.shape[1] * 4  # gathered rows
+            tables[f.name] = table
+    params = dict(model.named_parameters())
+    dense_floats = sum(p.numel() for n, p in params.items()
+                       if ".embeddings." not in n)
+    table_floats = sum(t.numel() for t in tables.values())
+    if sparse:
+        touched = sum(
+            np.mean([len(np.unique(b[f])) for b in batches])
+            * tables[f].shape[1] for f in tables)
+        nbytes += 4 * touched * 4  # table and accumulator rows, in and out
+        opt_floats = dense_floats
+    else:
+        opt_floats = dense_floats + table_floats
+    # gradient written, then gradient, parameter and state read, parameter
+    # and state written
+    nbytes += opt_floats * 4 * (1 + 1 + 1 + state_bufs + 1 + state_bufs)
+    flops = 0
+    for tower, n in ((model.query_tower, TRAIN_B),
+                     (model.candidate_tower, TRAIN_B + m_neg)):
+        flops += sum(2 * n * layer.weight.numel() for layer in tower.dense)
+    flops += 2 * TRAIN_B * (TRAIN_B + m_neg) * E
+    flops *= 3  # forward, and the two products of the backward
+    ms, by = roofline_ms(nbytes, flops)
+    return ms, by, flops / FP32_FLOPS * 1e3, nbytes, flops
+
+
+def profile_steps(step_fn, state, dev_batches, steps_per_call=1):
+    """Calls over ``dev_batches`` under torch.profiler: the window's wall ms
+    a step, device ms a step, the share of the window the card ran nothing,
+    device operations a step and the top device operations by time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for b in dev_batches:
+            state, _ = step_fn(state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    spans = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in spans:
+        by_name.setdefault(e.name, [0, 0.0])
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
+    n = len(dev_batches) * steps_per_call
+    busy = sum(ms for _, ms in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return state, {
+        "steps": n, "wall_ms": wall_ms / n, "device_ms": busy / n,
+        "idle_share": 1 - busy / wall_ms if spans else None,
+        "device_ops_per_step": len(spans) / n,
+        "top_ops": [{"name": k[:90], "per_step": c / n, "ms_per_step": ms / n}
+                    for k, (c, ms) in top],
+    }
+
+
+def run_training_path(name, fields, history, shards, catalog_cols, logq, dev):
+    """One path at full H&M width, through the entry points a trainer
+    calls: ``make_single_device_trainer``, then
+    ``ShardDataset.iter_batches(shuffle) -> device_feed -> step`` (chunked:
+    ``device_feed_chunked -> make_chunked_train_step``). TRAIN_WARMUP
+    untimed steps, one of them under ``set_sync_debug_mode("error")``, then
+    TRAIN_STEPS timed steps; the same steps again on batches already on the
+    card; a profiled window. The loss must be finite on every step and lower
+    at the end than at the start; on the sparse paths every table row and
+    accumulator row no batch touched must be bit-unchanged."""
+    from hm_retrieval_tpu_torch.data import (
+        ShardDataset, device_feed, device_feed_chunked,
+        make_chunked_train_step,
+    )
+    from hm_retrieval_tpu_torch.models import make_single_device_trainer
+    from hm_retrieval_tpu_torch.models.mixed_negatives import CandidateCatalog
+    from hm_retrieval_tpu_torch.models.sparse_optimizer import SparseTrainState
+
+    tc = training_config(fields)
+    t0 = time.perf_counter()
+    model = train_model(N_CUSTOMERS, N_ARTICLES, logq, history, dev)
+    catalog = (CandidateCatalog(catalog_cols, device=dev)
+               if tc.num_uniform_negatives else None)
+    state, step = make_single_device_trainer(model, tc, catalog)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    sparse = isinstance(state, SparseTrainState)
+    before = {}
+    if sparse:
+        before = {n: (state.params[n].detach().clone(), acc.clone())
+                  for n, acc in state.sparse_state.accumulators.items()}
+    k = tc.steps_per_dispatch
+    n_batches = TRAIN_WARMUP + TRAIN_STEPS
+    host = []
+
+    def recorded(batches):
+        for b in batches:
+            host.append(b)
+            yield b
+
+    batches = recorded(itertools.islice(
+        ShardDataset(str(shards)).iter_batches(
+            TRAIN_B, tc.shuffle_buffer_size, seed=tc.seed,
+            drop_remainder=True),
+        n_batches))
+    if k > 1:
+        feed = device_feed_chunked(batches, k, device=dev)
+        fn = make_chunked_train_step(step)
+    else:
+        feed, fn = device_feed(batches, device=dev), step
+    warm_calls = max(2, TRAIN_WARMUP // k)
+    timed_steps = n_batches - warm_calls * k
+    losses, starts, ends = [], [], []
+    for i, b in enumerate(feed):
+        if i == warm_calls - 1:  # a warm step must not sync the host
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, m = fn(state, b)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            if i == warm_calls:
+                torch.cuda.synchronize()
+                wall0 = time.perf_counter()
+            if i >= warm_calls:
+                starts.append(torch.cuda.Event(enable_timing=True))
+                ends.append(torch.cuda.Event(enable_timing=True))
+                starts[-1].record()
+            state, m = fn(state, b)
+            if i >= warm_calls:
+                ends[-1].record()
+        losses.append(m["losses"] if k > 1 else m["loss"][None])
+    torch.cuda.synchronize()
+    fed_ms = (time.perf_counter() - wall0) * 1e3 / timed_steps
+    event_ms = [s.elapsed_time(e) / k for s, e in zip(starts, ends)]
+    losses = torch.cat(losses).cpu().numpy()
+    require(len(losses) == n_batches, f"{name}: {len(losses)} steps ran")
+    require(bool(np.isfinite(losses).all()), f"{name}: a loss is not finite")
+    require(losses[-5:].mean() < losses[:5].mean(),
+            f"{name}: the loss did not fall ({losses[:5]} -> {losses[-5:]})")
+
+    # the same steps on batches already on the card: what the feed costs
+    timed = host[warm_calls * k:]
+    if k > 1:
+        timed = [{c: np.stack([b[c] for b in timed[j:j + k]]) for c in timed[0]}
+                 for j in range(0, len(timed), k)]
+    on_card = [to_device(b, dev) for b in timed]
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter()
+    for b in on_card:
+        state, _ = fn(state, b)
+    torch.cuda.synchronize()
+    on_card_ms = (time.perf_counter() - wall0) * 1e3 / timed_steps
+    state, prof = profile_steps(fn, state, on_card[:max(1, 3 // k)], k)
+
+    untouched = {}
+    for table, (p0, a0) in before.items():
+        feature = table.split(".")[-1]
+        mask = torch.ones(p0.shape[0], dtype=torch.bool, device=dev)
+        ids = np.unique(np.concatenate([b[feature].reshape(-1) for b in host]))
+        mask[torch.from_numpy(ids).to(dev).long()] = False
+        p1 = state.params[table].detach()
+        a1 = state.sparse_state.accumulators[table]
+        require(torch.equal(p1[mask], p0[mask]) and torch.equal(a1[mask],
+                                                                 a0[mask]),
+                f"{name}: an untouched row of {table} changed")
+        touched = ~mask
+        touched[0] = False  # OOV / pad row
+        moved = (a1[touched] != a0[touched]).any(dim=1)
+        require(bool(moved.any()), f"{name}: no touched row of {table} moved")
+        untouched[table] = {"untouched_rows": int(mask.sum()),
+                            "touched_rows": int(touched.sum()),
+                            "touched_rows_moved": int(moved.sum())}
+    bound_ms, bound_by, fp32_ops_ms, nbytes, flops = train_step_bound(
+        model, host, tc)
+    median_ms = statistics.median(event_ms)
+    row = {
+        "path": name, "B": TRAIN_B, "sparse": sparse,
+        "optimizer": tc.optimizer_name, "history_len": HISTORY_LEN * history,
+        "uniform_negatives": tc.num_uniform_negatives,
+        "steps_per_call": k, "timed_steps": timed_steps, "setup_s": setup_s,
+        "median_step_ms": median_ms, "min_step_ms": min(event_ms),
+        "max_step_ms": max(event_ms),
+        "examples_per_s": TRAIN_B / median_ms * 1e3,
+        "fed_wall_ms_per_step": fed_ms, "on_card_wall_ms_per_step": on_card_ms,
+        "feed_cost_ms_per_step": fed_ms - on_card_ms,
+        "loss_first5": losses[:5].tolist(), "loss_last5": losses[-5:].tolist(),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "fp32_ops_ms": fp32_ops_ms, "bytes": nbytes, "flops": flops,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile": prof, "untouched": untouched, "sync_free_step": True,
+    }
+    emit({"training": row})
+    return row
+
+
+def phase_training_determinism(shards, logq, dev):
+    """At full width, 3 sparse and 3 dense Adagrad steps replayed twice from
+    one saved state: tables, accumulators, dense params and losses must be
+    bit-identical."""
+    from hm_retrieval_tpu_torch.data import ShardDataset
+    from hm_retrieval_tpu_torch.models import make_single_device_trainer
+
+    host = list(itertools.islice(ShardDataset(str(shards)).iter_batches(
+        TRAIN_B, 0, drop_remainder=True), 3))
+    batches = [to_device(b, dev) for b in host]
+    out = {}
+    for name, fields in (("sparse_adagrad", {}),
+                         ("dense_adagrad",
+                          {"use_sparse_embedding_optimizer": False})):
+        model = train_model(N_CUSTOMERS, N_ARTICLES, logq, False, dev)
+        state, step = make_single_device_trainer(model,
+                                                 training_config(fields), None)
+        saved = {n: t.detach().clone() for n, t in state_tensors(state).items()}
+        runs = []
+        for _ in range(2):
+            with torch.no_grad():
+                for n, t in state_tensors(state).items():
+                    t.copy_(saved[n])
+            losses = []
+            for b in batches:
+                state, m = step(state, b)
+                losses.append(m["loss"])
+            runs.append(({n: t.detach().clone()
+                          for n, t in state_tensors(state).items()},
+                         torch.stack(losses)))
+        (s1, l1), (s2, l2) = runs
+        require(torch.equal(l1, l2), f"{name}: replayed losses differ")
+        differ = [n for n in s1 if not torch.equal(s1[n], s2[n])]
+        require(not differ, f"{name}: replay differs in {differ}")
+        changed = sum(not torch.equal(s1[n], saved[n]) for n in s1)
+        out[name] = {"tensors": len(s1), "changed_by_the_steps": changed,
+                     "losses": l1.tolist()}
+        del model, state, saved, runs, s1, s2
+        torch.cuda.empty_cache()
+    emit({"training_determinism": out})
+
+
+def phase_training_chunk_pairs(shards, logq, dev, rounds=8):
+    """CHUNK_K single sparse steps against one chunked call of the same
+    steps on the same batches already on the card, in turns (which runs
+    first alternates): wall ms a step, synchronized, each round."""
+    from hm_retrieval_tpu_torch.data import (
+        ShardDataset, make_chunked_train_step,
+    )
+    from hm_retrieval_tpu_torch.models import make_single_device_trainer
+
+    host = list(itertools.islice(ShardDataset(str(shards)).iter_batches(
+        TRAIN_B, 0, drop_remainder=True), CHUNK_K))
+    model = train_model(N_CUSTOMERS, N_ARTICLES, logq, False, dev)
+    state, step = make_single_device_trainer(model, training_config({}),
+                                             None)
+    singles = [to_device(b, dev) for b in host]
+    stacked = to_device({c: np.stack([b[c] for b in host]) for c in host[0]},
+                        dev)
+    chunk_step = make_chunked_train_step(step)
+
+    def run_single(s):
+        for b in singles:
+            s, _ = step(s, b)
+        return s
+
+    def run_chunked(s):
+        return chunk_step(s, stacked)[0]
+
+    runs = [("single", run_single), ("chunked", run_chunked)]
+    for _, fn in runs * 2:  # warm-up
+        state = fn(state)
+    ms = {"single": [], "chunked": []}
+    for r in range(rounds):
+        for name, fn in runs if r % 2 == 0 else runs[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = fn(state)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / CHUNK_K)
+    emit({"training_chunk_pairs": {
+        "steps": CHUNK_K, "rounds": rounds, **{f"{n}_ms": v for n, v in
+                                               ms.items()},
+        **{f"{n}_median_ms": statistics.median(v) for n, v in ms.items()},
+        "chunked_faster_rounds": sum(c < s for s, c in zip(ms["single"],
+                                                           ms["chunked"]))}})
+
+
+def phase_training(seed, dev, workdir):
+    """Phase 9 (see the module docstring)."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest",
+            "TF32 is on: the towers must run fp32")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    probs, logq = article_popularity(N_ARTICLES)
+    rows, catalog_cols = train_columns(rng, TRAIN_ROWS, N_CUSTOMERS,
+                                       N_ARTICLES, probs)
+    shards = workdir / "train_shards"
+    write_shards(shards, rows)
+    emit({"training_setup": {"rows": TRAIN_ROWS, "shards": -(-TRAIN_ROWS //
+                                                            SHARD_ROWS),
+                             "seconds": time.perf_counter() - t0}})
+    phase_training_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    # --- the main path: counts from 0; training launches no bin-max kernel
+    bt.reset_launches()
+    qt.reset_launches()
+    rows_out = []
+    for name, fields, history in TRAIN_PATHS:
+        torch.cuda.reset_peak_memory_stats()
+        rows_out.append(run_training_path(name, fields, history, shards,
+                                          catalog_cols, logq, dev))
+        torch.cuda.empty_cache()
+    launches = {**bt.LAUNCHES, **qt.LAUNCHES}
+    # ----------------------------------------------------------------------
+    require(set(launches.values()) == {0},
+            f"training launched bin-max kernels: {launches}")
+    phase_training_determinism(shards, logq, dev)
+    phase_training_chunk_pairs(shards, logq, dev)
+    torch.cuda.empty_cache()
+    return rows_out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1518,6 +2127,9 @@ def main(argv=None):
         for name in ROUNDS_KERNELS:
             launches[name] = rounds[name]
     phase_widths(args.seed, dev)
+    with tempfile.TemporaryDirectory(dir=build_root,
+                                     prefix="chip_smoke-train-") as d:
+        phase_training(args.seed, dev, Path(d))
 
     pallas = "hm_retrieval_tpu/ops/pallas_retrieval.py"
     kernel_files = {

@@ -2,10 +2,17 @@
 
 The JAX package ``hm_retrieval_tpu`` beside this one is the reference; this
 package imports none of it (nor JAX) and mirrors its module names so each
-counterpart is easy to find. The slice ported so far is the serving path:
+counterpart is easy to find. Ported so far, the serving path:
 
-    host-side string encode -> query tower -> exact top-k over the catalog
-    (streaming bin-max rounds, hand-written CUDA kernels) -> string decode
+    host-side string encode -> query tower -> exact or int8 top-k over the
+    catalog (streaming bin-max passes, hand-written CUDA kernels) -> string
+    decode
+
+and training on one device:
+
+    ShardDataset.iter_batches -> device_feed -> train step (in-batch
+    softmax with logQ, optional uniform negatives; sparse row Adagrad for
+    the tables, or the hand-written dense Adagrad / Adam)
 
 Every entry point takes ``device=None``, which means ``"cuda"``, and raises
 when CUDA is absent unless the caller asks for ``device="cpu"``. On the CPU

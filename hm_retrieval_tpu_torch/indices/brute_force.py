@@ -91,7 +91,7 @@ class BruteForceIndex:
         self.embeddings = torch.zeros(
             (n_pad, embeddings.shape[1]), dtype=torch.float32, device=self.device
         )
-        self.embeddings[:n] = embeddings.to(self.device, torch.float32)
+        self.embeddings[:n] = embeddings.detach().to(self.device, torch.float32)
         self._score_bias = torch.zeros(
             n_pad, dtype=torch.float32, device=self.device
         )
@@ -137,6 +137,7 @@ class BruteForceIndex:
         ids = self.identifiers[rows.clamp(0, n - 1).long()]
         return torch.where(valid, ids, torch.full_like(ids, MISSING_ID))
 
+    @torch.no_grad()
     def topk_from_embeddings(self, query_embeddings: torch.Tensor):
         """(B, E) query embeddings -> ((B, k) fp32 scores, (B, k) int32
         ids), best first."""

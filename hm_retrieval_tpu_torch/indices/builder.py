@@ -22,6 +22,7 @@ def _pad_rows(v, batch_size: int, n: int) -> np.ndarray:
     return np.pad(v, [(0, batch_size - n)] + [(0, 0)] * (v.ndim - 1))
 
 
+@torch.no_grad()
 def collect_catalog(
     candidate_id_col: str,
     embed_fn: Callable[[Batch], torch.Tensor],

@@ -303,7 +303,8 @@ class QuantizedIndex:
 
         if on_device:
             codes_p, scales_p, bias, emb_p, g = quantize_pad_device(
-                embeddings.to(self.device), n_pad, scale_mode, self.rescore
+                embeddings.detach().to(self.device), n_pad, scale_mode,
+                self.rescore,
             )
             self.global_scale = g if scale_mode == "global" else None
             self.codes, self.scales, self._score_bias = codes_p, scales_p, bias
@@ -412,6 +413,7 @@ class QuantizedIndex:
             return self._rescored(q, top_s, top_i, bias=True)
         return top_s[:, : self.k] * t, top_i[:, : self.k]
 
+    @torch.no_grad()
     def topk_from_embeddings(self, query_embeddings: torch.Tensor):
         """(B, E) query embeddings -> ((B, k) fp32 scores, (B, k) int32
         ids), best first."""
@@ -435,6 +437,7 @@ class QuantizedIndex:
             top_s, top_i = self._topk_scan(q)
         return top_s, self._ids_of(top_i)
 
+    @torch.no_grad()
     def query(self, query_fn: Callable, batch) -> torch.Tensor:
         """Embed queries, select: (B, k) int ids."""
         _, ids = self.topk_from_embeddings(query_fn(batch))

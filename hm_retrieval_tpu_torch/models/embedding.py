@@ -3,7 +3,8 @@ sequence pooling, concatenated into one (B, sum(E) + n_numeric) activation.
 
 Counterpart of ``hm_retrieval_tpu/models/embedding.py``. Batches arrive as
 int ids (0 = OOV / pad) and float32 numeric columns; table row 0 is the OOV
-row.
+row. Gathers go through ``F.embedding``, whose backward on the card sums the
+rows of duplicate ids after a sort, in the same order on every run.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from hm_retrieval_tpu_torch.schema.features import Feature, FeatureKind
 
@@ -54,19 +56,29 @@ def apply_embeddings(
     features: List[Feature],
     batch: Dict[str, torch.Tensor],
     attention: Optional[Dict[str, torch.Tensor]] = None,
+    rows: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Gather + concat. ``batch[name]`` is (B,) int for categorical
     features, (B, max_len) int for sequence features and (B,) float for
-    numeric ones."""
+    numeric ones.
+
+    ``rows``: optional pre-gathered table rows per feature ((B, E) /
+    (B, L, E)) replacing the table lookups, the sparse optimizer's point
+    of differentiation (``models/sparse_optimizer.py``). Pooling and
+    concat stay shared, so the dense and sparse paths cannot drift
+    apart."""
     parts = []
     for f in features:
         x = batch[f.name]
-        if f.kind == FeatureKind.CATEGORICAL:
-            parts.append(tables[f.name][x.long()])
-        elif f.kind == FeatureKind.SEQUENCE:
-            emb = tables[f.name][x.long()]  # (B, L, E)
-            query = attention[f.name] if f.pooling == "attention" else None
-            parts.append(pool_sequence(f, x, emb, query))
-        else:
+        if f.kind == FeatureKind.NUMERIC:
             parts.append(x.to(torch.float32)[:, None])
+            continue
+        if rows is not None and f.name in rows:
+            emb = rows[f.name]
+        else:
+            emb = F.embedding(x.long(), tables[f.name])  # (B, E) / (B, L, E)
+        if f.kind == FeatureKind.SEQUENCE:
+            query = attention[f.name] if f.pooling == "attention" else None
+            emb = pool_sequence(f, x, emb, query)
+        parts.append(emb)
     return torch.cat(parts, dim=-1)

@@ -9,6 +9,10 @@ move weights across with ``models/bridge.py``).
 
 Dense layers are ``nn.Linear``, whose weight is (d_out, d_in): the transpose
 of the JAX package's (d_in, d_out) ``w``.
+
+Tables, dense layers and attention queries are all trainable parameters, as
+the JAX package updates all three. Serving runs the towers under
+``torch.no_grad()``, so no served forward records a graph.
 """
 
 from __future__ import annotations
@@ -40,10 +44,7 @@ class Tower(nn.Module):
         self.embeddings = nn.ParameterDict(
             {
                 f.name: nn.Parameter(
-                    torch.empty(
-                        f.num_embeddings, f.embedding_size, device=dev
-                    ),
-                    requires_grad=False,
+                    torch.empty(f.num_embeddings, f.embedding_size, device=dev)
                 )
                 for f in self.features
                 if f.kind != FeatureKind.NUMERIC
@@ -58,14 +59,9 @@ class Tower(nn.Module):
             nn.utils.skip_init(nn.Linear, d_in, d_out, device=dev)
             for d_in, d_out in zip(dims[:-1], dims[1:])
         )
-        for p in self.dense.parameters():
-            p.requires_grad_(False)
         self.attention = nn.ParameterDict(
             {
-                f.name: nn.Parameter(
-                    torch.zeros(f.embedding_size, device=dev),
-                    requires_grad=False,
-                )
+                f.name: nn.Parameter(torch.zeros(f.embedding_size, device=dev))
                 for f in self.features
                 if f.kind == FeatureKind.SEQUENCE and f.pooling == "attention"
             }
@@ -85,10 +81,20 @@ class Tower(nn.Module):
         for query in self.attention.values():
             query.zero_()
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Feature dict of (B,) / (B, max_len) tensors -> (B, joint)."""
+    def forward(
+        self,
+        batch: Dict[str, torch.Tensor],
+        rows: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        """Feature dict of (B,) / (B, max_len) tensors -> (B, joint).
+        ``rows`` optionally replaces table gathers (see
+        ``apply_embeddings``)."""
         x = apply_embeddings(
-            dict(self.embeddings), self.features, batch, dict(self.attention)
+            dict(self.embeddings),
+            self.features,
+            batch,
+            dict(self.attention),
+            rows=rows,
         )
         for layer in self.dense:
             x = torch.relu(layer(x))

@@ -2,8 +2,9 @@
 
 Counterpart of ``export_model`` in the JAX package's
 ``runners/checkpoint.py``: the full model and each tower as plain npz trees
-in the JAX layout, so either package loads the other's towers. Train-state
-checkpoints belong to the training slice, which is not ported yet.
+in the JAX layout, so either package loads the other's towers. The
+train-state ``CheckpointManager`` is not ported yet; ``models/bridge.py``
+carries a training state to and from the JAX layout.
 """
 
 from __future__ import annotations

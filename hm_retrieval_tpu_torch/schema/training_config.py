@@ -1,7 +1,9 @@
 """Training config (own copy of the JAX package's).
 
-Serving only carries it through ``Schema.load``/``save`` so the schema
-artifact round-trips unchanged; the training loop is not ported yet.
+``models/train_path.py::make_single_device_trainer`` reads the optimizer,
+its kwargs, logQ, uniform negatives, the sparse-table switch and the seed;
+``Schema.load``/``save`` carry the whole config so the schema artifact
+round-trips unchanged. The mesh fields wait for the distributed steps.
 """
 
 from __future__ import annotations

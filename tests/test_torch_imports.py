@@ -1,7 +1,8 @@
 """The port stands alone: no JAX and nothing of the JAX package in
 hm_retrieval_tpu_torch, chip_smoke.py or bin_max_bench.py, nothing the card's machine lacks
 (pandas) on its import path, and no silent CPU fallback when the card is
-absent."""
+absent. Serving records no autograd graph, though the towers' parameters
+are trainable."""
 
 import ast
 import ctypes
@@ -79,6 +80,22 @@ def test_import_leaves_jax_out_of_sys_modules():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize(
+    "module", ["dataset", "device_feed", "shard_writer", "__init__"]
+)
+def test_the_data_copies_import_only_the_port(module):
+    """The reader and the manifest name are the port's own copies."""
+    roots = {
+        m.split(".")[0]
+        for m in _imported_modules(PKG / "data" / f"{module}.py")
+    }
+    assert roots <= {
+        "__future__", "concurrent", "glob", "json", "logging", "os",
+        "queue", "threading", "typing", "numpy", "torch",
+        "hm_retrieval_tpu_torch",
+    }, roots
 
 
 @pytest.fixture
@@ -215,3 +232,47 @@ def test_each_wrapper_binds_a_launcher_of_its_source():
     raw = text[text.index('extern "C" int bin_max2_raw_fold_pass'):]
     raw = raw[:raw.index("}")]
     assert "Catalog::kRaw" in raw and "scales" not in raw
+
+
+def test_serving_records_no_autograd_graph(tmp_path):
+    from hm_retrieval_tpu_torch.indices.builder import collect_catalog
+    from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
+    from hm_retrieval_tpu_torch.models import TwoTowerModel
+    from hm_retrieval_tpu_torch.schema import (
+        Feature, ModelConfig, Schema, TrainingConfig,
+    )
+
+    vocab = np.array([f"x{i}" for i in range(30)])
+    features = [
+        Feature("customer_id", "categorical", "query", embedding_size=8,
+                vocab=vocab),
+        Feature("article_id", "categorical", "candidate", embedding_size=8,
+                vocab=vocab),
+    ]
+    schema = Schema(features, ModelConfig(8, ks=[5]), TrainingConfig())
+    model = TwoTowerModel.create_from_schema(schema, device="cpu")
+    model.init_params(0)
+    assert all(p.requires_grad for p in model.parameters())
+
+    def embed(batch):  # a caller that forgets no_grad
+        return model.candidate_forward(
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+
+    ids, emb = collect_catalog(
+        "article_id", embed,
+        [{"article_id": np.arange(1, 31, dtype=np.int32)}], 30)
+    assert not emb.requires_grad
+    with_grad = embed({"article_id": np.arange(1, 31, dtype=np.int32)})
+    assert with_grad.requires_grad
+    exact = BruteForceIndex(5, ids, with_grad, device="cpu")
+    quant = QuantizedIndex(5, ids, with_grad, device="cpu")
+    for index in (exact, quant):
+        scores, _ = index.topk_from_embeddings(with_grad[:3])
+        assert not scores.requires_grad
+    assert not exact.embeddings.requires_grad
+    assert not quant.embeddings.requires_grad
+
+    svc = RetrievalService(schema, model.query_tower, exact, device="cpu")
+    q = svc.embed(svc.encode_query({"customer_id": ["x1", "x7", "nope"]}))
+    assert not q.requires_grad and q.grad_fn is None
+    assert len(svc.retrieve({"customer_id": ["x1"]})[0]) == 5

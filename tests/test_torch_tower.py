@@ -90,7 +90,7 @@ def test_query_tower_matches_jax(rng, pooling, hidden):
     )
     tower = tower_from_numpy(tf, params, device="cpu")
     got = tower({k: torch.from_numpy(v) for k, v in batch.items()})
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL, atol=ATOL)
     assert (got >= 0).all()  # every layer ends in ReLU
 
 
@@ -133,7 +133,7 @@ def test_candidate_tower_matches_jax(rng):
     got = tower_from_numpy(tf, params, device="cpu")(
         {k: torch.from_numpy(v) for k, v in batch.items()}
     )
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 def _two_tower_features():
@@ -212,4 +212,4 @@ def test_export_layout_loads_in_both_packages(tmp_path, rng):
         tower_forward(tree, jq, {k: jnp.asarray(v) for k, v in batch.items()})
     )
     got = model.query_forward({k: torch.from_numpy(v) for k, v in batch.items()})
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL, atol=ATOL)
