@@ -32,7 +32,7 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    on integer inputs, bit-identical.
 3. Serving at full H&M width: 1,371,980 customers and 105,542 articles,
    E=128, towers [256], k=1000, random weights from --seed. The catalog is
-   embedded with collect_catalog, indexed with BruteForceIndex("auto"),
+   embedded with collect_catalog_device, indexed with BruteForceIndex("auto"),
    which must resolve to the kernels, everything is saved and loaded back
    through RetrievalService.load(device="cuda"), and string requests of
    B = 1, 16, 128, 1024 customers (a few OOV) are answered. Answers must
@@ -129,6 +129,43 @@ Phases, each of which must pass (a failure raises and exits non-zero):
        state at full width: every tensor and loss bit-identical;
    (d) 8 single sparse steps against one chunked call of the same 8 steps,
        on the same batches on the card, in turns over 8 rounds.
+10. The modelling runner at full H&M width (phase_runner): phase 9's model
+   (ks 10, 100, 1000; TrainingConfig's defaults: sparse Adagrad, lr 0.05,
+   B = 512, test batches of 2048, candidate batches of 10,000, one epoch)
+   from its schema, saved with Schema.save, and shards written with phase
+   9's writer: 65,536 rows of the learnable stream to train on (128
+   steps), the next 16,384 to test on (8 batches), and all 105,542
+   articles with their side features. Then:
+   (a) modelling_runner(settings) on the card, counts from 0, with the
+       default profiler window (steps 20-40): every recall finite and in
+       [0, 1], recall@100 higher after the epoch than before, kernels 1-2
+       launched inside evaluate and no other kernel, the checkpoint at
+       step 128, the exported towers, the index artifact, and the
+       profiler's Chrome trace holding the card's kernels; the training
+       examples/s it logs include the profiler;
+   (b) evaluation_runner(settings) from the checkpoint equals the runner's
+       final recall exactly;
+   (c) the restored parameters: the checkpoint's bytes, save and restore
+       ms; build_index's wall ms, during which (and during
+       collect_catalog_device, whose catalog stays on the card) every copy
+       from the card to the host is recorded, and all of them together
+       must move less than one candidate batch's embeddings; evaluate's
+       wall ms and ms a batch, equal to the final recall again; the index's
+       save ms; the card's idle share over one evaluate batch (profiler);
+   (d) on the first two test batches, the exact index's answers against
+       the same index with exact_topk's kernels swapped for their plain
+       versions: values within TOL*max(1,|s|), ids swapped only between
+       scores within it, equal recall counts;
+   (e) the quantized family through build_index + evaluate, counts from
+       0: which single-pass kernel launched and how often, and its recall
+       beside the exact index's (a reading, not a gate); then, on the first
+       two test batches, that kernel (3 or 4, at B = 2048) against its
+       plain version on the inputs evaluate gives it: cells within TOL, ids
+       differing only between scores within 2*TOL, the answers with the
+       plain pass swapped in bit-equal wherever the two passes keep the
+       same survivors, and equal recall counts.
+   Each kernel's launches in (a) and (e) are added to its count on the
+   kernels line.
 
 Output: per-phase JSON lines, then the card's name and power limit, the
 {"kernels": [...]} line, and as the last line
@@ -141,6 +178,7 @@ import contextlib
 import itertools
 import json
 import logging
+import shutil
 import statistics
 import subprocess
 import sys
@@ -422,7 +460,7 @@ def check_clusters(infos, L, B, **where):
     emit({"kernel_launch": {"L": L, "B": B, **where, **infos}})
 
 
-def hm_schema():
+def hm_schema(n_customers=N_CUSTOMERS, n_articles=N_ARTICLES, logq=None):
     from hm_retrieval_tpu_torch.schema import (
         Feature, ModelConfig, Schema, TrainingConfig,
     )
@@ -432,9 +470,9 @@ def hm_schema():
 
     features = [
         Feature("customer_id", "categorical", "query", embedding_size=E,
-                vocab=vocab("c", N_CUSTOMERS)),
+                vocab=vocab("c", n_customers)),
         Feature("article_id", "categorical", "candidate", embedding_size=E,
-                vocab=vocab("a", N_ARTICLES)),
+                vocab=vocab("a", n_articles)),
         Feature("product_type_name", "categorical", "candidate",
                 embedding_size=16, vocab=vocab("pt", N_PRODUCT_TYPES)),
         Feature("colour_group_name", "categorical", "candidate",
@@ -442,12 +480,12 @@ def hm_schema():
     ]
     config = ModelConfig(E, ks=[10, 100, SERVE_K], query_tower_units=[256],
                          candidate_tower_units=[256])
-    return Schema(features, config, TrainingConfig())
+    return Schema(features, config, TrainingConfig(), logq=logq)
 
 
 def phase_serving(seed, repeats, dev, workdir):
     from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
-    from hm_retrieval_tpu_torch.indices.builder import collect_catalog
+    from hm_retrieval_tpu_torch.indices.builder import collect_catalog_device
     from hm_retrieval_tpu_torch.models import TwoTowerModel
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
     from hm_retrieval_tpu_torch.runners.checkpoint import export_model
@@ -475,7 +513,7 @@ def phase_serving(seed, repeats, dev, workdir):
             {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         )
 
-    ids, emb = collect_catalog("article_id", embed, batches, bs)
+    ids, emb = collect_catalog_device("article_id", embed, batches, bs)
     index = BruteForceIndex(max(schema.model_config.ks), ids, emb,
                             method="auto", device=dev)
     require(index.method == "pallas", f"auto resolved to {index.method!r}")
@@ -1417,8 +1455,8 @@ WIDTH_K = 100  # the quantized indices' k (400 survivors)
 class Records(logging.Handler):
     """Collects the port's log records."""
 
-    def __init__(self):
-        super().__init__(logging.WARNING)
+    def __init__(self, level=logging.WARNING):
+        super().__init__(level)
         self.records = []
 
     def emit(self, record):
@@ -1612,7 +1650,7 @@ def write_shards(dirpath, rows):
     from hm_retrieval_tpu_torch.data import MANIFEST_NAME
 
     dirpath.mkdir(parents=True)
-    n = len(rows["customer_id"])
+    n = len(next(iter(rows.values())))
     for s, lo in enumerate(range(0, n, SHARD_ROWS)):
         np.savez(dirpath / f"shard_{s:05d}.npz",
                  **{k: v[lo:lo + SHARD_ROWS] for k, v in rows.items()})
@@ -2083,6 +2121,430 @@ def phase_training(seed, dev, workdir):
     return rows_out
 
 
+# --- phase 10: the modelling runner -----------------------------------------
+RUNNER_TRAIN_ROWS = 128 * TRAIN_B  # one epoch of 128 steps
+RUNNER_TEST_ROWS = 8 * 2048  # 8 batches at TrainingConfig's test_batch_size
+RUNNER_CHECKED_BATCHES = 2  # test batches held against the plain passes
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def runner_settings(rng, n_customers, n_articles, workdir):
+    """The runner's inputs: bench.py's H&M schema (ks 10, 100, 1000 and
+    TrainingConfig's defaults) with phase 9's logQ, saved with the port's
+    ``Schema.save``; train, test and candidate shards written with phase 9's
+    writer. Train and test are consecutive rows of one learnable stream, so
+    the test rows are held out from the same customers' purchases."""
+    from hm_retrieval_tpu_torch.utils import Settings
+
+    probs, logq = article_popularity(n_articles)
+    rows, catalog = train_columns(rng, RUNNER_TRAIN_ROWS + RUNNER_TEST_ROWS,
+                                  n_customers, n_articles, probs)
+    rows.pop("purchase_history")
+    write_shards(workdir / "train",
+                 {k: v[:RUNNER_TRAIN_ROWS] for k, v in rows.items()})
+    write_shards(workdir / "test",
+                 {k: v[RUNNER_TRAIN_ROWS:] for k, v in rows.items()})
+    write_shards(workdir / "candidates", catalog)
+    hm_schema(n_customers, n_articles, logq).save(str(workdir / "schema"))
+    return Settings(
+        schema_dirpath=str(workdir / "schema"),
+        train_shards_dirpath=str(workdir / "train"),
+        test_shards_dirpath=str(workdir / "test"),
+        candidate_shards_dirpath=str(workdir / "candidates"),
+        model_dirpath=str(workdir / "model"),
+        index_dirpath=str(workdir / "index"),
+        checkpoint_dirpath=str(workdir / "checkpoints"),
+        tensorboard_logs_dir=str(workdir / "logs"),
+    )  # profile_steps: the default trace window, steps 20-40
+
+
+@contextlib.contextmanager
+def host_copies():
+    """Inside the block, every copy of a tensor from the card to the host
+    (``.cpu()``, ``.to(...)``, ``.tolist()``, ``.copy_`` into a host tensor)
+    is recorded as (method, shape, elements)."""
+    seen = []
+    saved = {name: getattr(torch.Tensor, name)
+             for name in ("cpu", "to", "tolist", "copy_")}
+
+    def wrap(name):
+        original = saved[name]
+
+        def method(self, *args, **kwargs):
+            out = original(self, *args, **kwargs)
+            if name == "copy_":
+                src = args[0] if args else kwargs["src"]
+                moved = self.device.type == "cpu" and src.device.type != "cpu"
+            else:
+                src = self
+                moved = self.device.type != "cpu" and (
+                    name == "tolist" or out.device.type == "cpu")
+            if moved:
+                seen.append((name, tuple(src.shape), src.numel()))
+            return out
+        return method
+
+    for name in saved:
+        setattr(torch.Tensor, name, wrap(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+
+
+def profile_eval_batch(model, index, batch, dev):
+    """One evaluate batch (query tower, top-k, metric) under torch.profiler:
+    wall ms, device ms, idle share, device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hm_retrieval_tpu_torch.metrics import IndexRecall
+
+    metric = IndexRecall([10, 100, SERVE_K])
+    sync(dev)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with torch.no_grad(), profile(activities=activities) as prof:
+        start = time.perf_counter()
+        q = model.query_forward(batch)
+        _, ids = index.topk_from_embeddings(q)
+        metric.update(ids, batch["article_id"])
+        sync(dev)
+        wall_ms = (time.perf_counter() - start) * 1e3
+    spans = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in spans) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "idle_share": 1 - busy / wall_ms if spans else None,
+            "device_ops": len(spans)}
+
+
+def trace_reading(settings, dev):
+    """The runner's profiler trace over its default window: the file must
+    exist and, on the card, hold the card's kernels."""
+    path = Path(settings.tensorboard_logs_dir,
+                f"trace_from_step_{settings.profile_steps[0]}.json")
+    require(path.exists(), f"no profiler trace at {path}")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    require(dev.type != "cuda" or kernels > 0,
+            "the profiler trace holds no kernel of the card")
+    return {"file": path.name, "bytes": path.stat().st_size,
+            "events": len(events), "kernel_events": kernels}
+
+
+def check_runner_recall(name, res, ks):
+    require(set(res) == set(ks), f"{name}: recall at {sorted(res)}")
+    require(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in res.values()),
+            f"{name}: a recall outside [0, 1]: {res}")
+
+
+def hold_exact_path(model, index, test_ds, tc, dev):
+    """The exact index's answers on the first test batches against the same
+    index with exact_topk's kernels swapped for their plain versions: values
+    within TOL·max(1, |s|), ids swapped only between scores within it, and
+    equal recall counts."""
+    from hm_retrieval_tpu_torch.metrics import IndexRecall
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+
+    n = index.num_candidates
+    require(torch.equal(index.identifiers[:n].cpu(),
+                        torch.arange(1, n + 1, dtype=torch.int32)),
+            "the catalog is not articles 1..N in order")
+    cb = index.embeddings[:n].to(torch.bfloat16)
+    plain = {
+        "bin_max2_first_round": lambda q, c, L, nv: bt.bin_max2_plain(
+            q, c, L, nv),
+        "bin_max2_round": lambda q, c, ts, ti, L, nv: bt.bin_max2_plain(
+            q, c, L, nv, ts, ti),
+    }
+    worst, mismatches, recalls = 0.0, 0, []
+    batches = itertools.islice(test_ds.iter_batches(tc.test_batch_size),
+                               RUNNER_CHECKED_BATCHES)
+    for b in batches:
+        tb = to_device(b, dev)
+        with torch.no_grad():
+            q = model.query_forward(tb)
+        got_v, got_ids = index.topk_from_embeddings(q)
+        with swapped(bt, **plain):
+            want_v, want_ids = index.topk_from_embeddings(q)
+        scores = bt.plain_scores(q.to(torch.bfloat16), cb)
+        finite = torch.isfinite(want_v)
+        require(bool(finite.all()) and bool(torch.isfinite(got_v).all()),
+                "an unfilled slot in the exact answers")
+        err = (got_v - want_v).abs()
+        require(bool((err <= TOL * want_v.abs().clamp_min(1.0)).all()),
+                f"exact values outside TOL, max err {float(err.max())}")
+        diff = got_ids != want_ids
+        rows = diff.nonzero()[:, 0]
+        s_got = scores[rows, (got_ids[diff] - 1).long()]
+        s_want = scores[rows, (want_ids[diff] - 1).long()]
+        require(bool(((s_got - s_want).abs()
+                      <= TOL * s_want.abs().clamp_min(1.0)).all()),
+                "exact ids differ between well-separated scores")
+        counts = []
+        for ids in (got_ids, want_ids):
+            metric = IndexRecall([10, 100, SERVE_K])
+            metric.update(ids, tb["article_id"])
+            counts.append(metric.hits.tolist())
+        require(counts[0] == counts[1],
+                f"recall counts differ: kernels {counts[0]}, plain {counts[1]}")
+        worst = max(worst, float(err.max()))
+        mismatches += int(diff.sum())
+        recalls.append(counts[0])
+    return {"batches": RUNNER_CHECKED_BATCHES, "B": tc.test_batch_size,
+            "max_abs_err": worst, "id_mismatches": mismatches,
+            "hits_at_10_100_1000": recalls, "tol": TOL}
+
+
+def hold_quantized_path(model, qindex, test_ds, tc, dev):
+    """The quantized index's single pass on the first test batches, at the
+    B, plan and inputs evaluate gives it, against its plain version: the
+    pass's (B, L) cells within TOL, ids differing only between pass scores
+    within 2*TOL; the answers with the plain pass swapped in bit-equal on
+    every row where the two passes keep the same survivors; equal recall
+    counts over the batch. Rows whose survivors differ (only by near ties,
+    by the cells' check) are counted."""
+    from hm_retrieval_tpu_torch.metrics import IndexRecall
+
+    worst, mismatches, other, recalls = 0.0, 0, 0, []
+    batches = itertools.islice(test_ds.iter_batches(tc.test_batch_size),
+                               RUNNER_CHECKED_BATCHES)
+    for b in batches:
+        tb = to_device(b, dev)
+        with torch.no_grad():
+            q = model.query_forward(tb)
+        with recorded_passes(plain=False) as rec_k:
+            got_v, got_ids = qindex.topk_from_embeddings(q)
+        with recorded_passes(plain=True) as rec_p:
+            want_v, want_ids = qindex.topk_from_embeddings(q)
+        require(len(rec_k) == 1 and len(rec_p) == 1,
+                f"{len(rec_k)} passes a batch, plain {len(rec_p)}")
+        qp, c, sc, bi, kout = rec_k[0]
+        require(qp.shape[0] == tc.test_batch_size,
+                f"the pass ran at B = {qp.shape[0]}")
+        pout = rec_p[0][4]
+        scores = pass_scores(qp, c, sc, bi)
+        for vi, ii in ((0, 1), (2, 3)):
+            e, m = compare_ranked(kout[vi], kout[ii], pout[vi], pout[ii],
+                                  scores)
+            worst, mismatches = max(worst, e), mismatches + m
+        del scores
+        same = ~((kout[1] != pout[1]) | (kout[3] != pout[3])).any(1)
+        require(torch.equal(got_v[same], want_v[same])
+                and torch.equal(got_ids[same], want_ids[same]),
+                "quantized answers differ from the plain pass's where the "
+                "survivors agree")
+        counts = []
+        for ids in (got_ids, want_ids):
+            metric = IndexRecall([10, 100, SERVE_K])
+            metric.update(ids, tb["article_id"])
+            counts.append(metric.hits.tolist())
+        require(counts[0] == counts[1], f"quantized recall counts differ: "
+                f"kernel {counts[0]}, plain {counts[1]}")
+        other += int((~same).sum())
+        recalls.append(counts[0])
+    return {"batches": RUNNER_CHECKED_BATCHES, "B": tc.test_batch_size,
+            "max_abs_err": worst, "id_mismatches": mismatches,
+            "rows_with_other_survivors": other,
+            "hits_at_10_100_1000": recalls, "tol": TOL}
+
+
+def phase_runner(seed, dev, workdir, n_customers=N_CUSTOMERS,
+                 n_articles=N_ARTICLES):
+    """Phase 10 (see the module docstring). Returns each kernel's launches
+    in the two paths driven from 0: the runner, then the quantized
+    family's build_index + evaluate."""
+    from hm_retrieval_tpu_torch.data import ShardDataset
+    from hm_retrieval_tpu_torch.indices.builder import collect_catalog_device
+    from hm_retrieval_tpu_torch.models import TwoTowerModel
+    from hm_retrieval_tpu_torch.models.train_path import (
+        create_single_device_state,
+    )
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.runners import (
+        CheckpointManager, build_index, evaluate, evaluation_runner,
+        modelling_runner,
+    )
+    from hm_retrieval_tpu_torch.schema import Schema
+
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    settings = runner_settings(np.random.default_rng(seed), n_customers,
+                               n_articles, workdir)
+    setup_s = time.perf_counter() - t0
+    log = Records(logging.INFO)
+    runner_log = logging.getLogger("hm_retrieval_tpu_torch.runners.modelling")
+    level = runner_log.level
+    runner_log.setLevel(logging.INFO)
+    runner_log.addHandler(log)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    # --- the main path: the runner, counts from 0 -------------------------
+    bt.reset_launches()
+    qt.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results = modelling_runner(settings, device=dev)
+    finally:
+        runner_log.removeHandler(log)
+        runner_log.setLevel(level)
+    runner_s = time.perf_counter() - t0
+    runner_launches = {**bt.LAUNCHES, **qt.LAUNCHES}
+    # ----------------------------------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    schema = Schema.load(settings.schema_dirpath)
+    tc, mc = schema.training_config, schema.model_config
+    for name in ("initial", "final"):
+        check_runner_recall(name, results[name], mc.ks)
+    require(results["final"][100] > results["initial"][100],
+            f"recall@100 did not rise: {results}")
+    # (on the CPU, where the phase can be rehearsed small, nothing launches)
+    require(not cuda or (runner_launches["bin_max2_first_round"] > 0
+                         and runner_launches["bin_max2_round"] > 0),
+            f"evaluate did not launch kernels 1-2: {runner_launches}")
+    require(all(v == 0 for k, v in runner_launches.items()
+                if k not in ("bin_max2_first_round", "bin_max2_round")),
+            f"the runner launched other kernels: {runner_launches}")
+    steps = RUNNER_TRAIN_ROWS // tc.train_batch_size
+    ckpt = CheckpointManager(settings.checkpoint_dirpath, device=dev)
+    require(ckpt.latest_step() == steps,
+            f"checkpoint at step {ckpt.latest_step()}, not {steps}")
+    for path in ("two_tower", "query_tower", "candidate_tower"):
+        require(Path(settings.model_dirpath, path, "params.npz").exists(),
+                f"no exported {path}")
+    require(Path(settings.index_dirpath, "index.npz").exists(),
+            "no index artifact")
+    throughput = [float(m.split()[2]) for m in log.records
+                  if m.startswith("Training throughput")]
+    require(len(throughput) == 1, f"throughput lines: {throughput}")
+    trace = trace_reading(settings, dev)
+
+    # --- eval only, from the checkpoint: equal to the runner's final -------
+    t0 = time.perf_counter()
+    eval_only = evaluation_runner(settings, device=dev)
+    eval_runner_s = time.perf_counter() - t0
+    require(eval_only == results["final"],
+            f"evaluation_runner {eval_only} != final {results['final']}")
+
+    # --- the restored model: checkpoint, build and evaluate times ---------
+    model = TwoTowerModel.create_from_schema(schema, device=dev)
+    state = create_single_device_state(model, tc)
+    sync(dev)
+    t0 = time.perf_counter()
+    state = ckpt.restore(state)
+    sync(dev)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    ckpt.close()
+    timing = CheckpointManager(str(workdir / "checkpoint_timing"), device=dev)
+    t0 = time.perf_counter()
+    timing.save(state.step, state)
+    save_copy_ms = (time.perf_counter() - t0) * 1e3
+    timing.wait_until_finished()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    ckpt_bytes = (workdir / "checkpoint_timing" / str(state.step)
+                  / "state.npz").stat().st_size
+    timing.close()
+    shutil.rmtree(workdir / "checkpoint_timing")
+
+    cand_ds = ShardDataset(settings.candidate_shards_dirpath)
+    test_ds = ShardDataset(settings.test_shards_dirpath)
+    k = min(max(mc.ks), cand_ds.num_rows)
+    cbs = tc.candidate_batch_size
+    sync(dev)
+    t0 = time.perf_counter()
+    with host_copies() as build_copies:
+        index = build_index(model, cand_ds, cbs, k, device=dev)
+        sync(dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    # in all, less than one candidate batch's embeddings may reach the host
+    build_moved = sum(n for *_, n in build_copies)
+    require(build_moved < cbs * E, f"the build copied {build_moved} "
+            f"elements to the host: {build_copies}")
+    require(index.method == "pallas" and index._engine == "pallas",
+            f"the exact index runs {index._engine!r}")
+    n_batches = -(-test_ds.num_rows // tc.test_batch_size)
+    t0 = time.perf_counter()
+    exact = evaluate(model, index, test_ds, tc.test_batch_size, mc.ks)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    require(exact == results["final"],
+            f"the restored model's recall {exact} != final {results['final']}")
+    t0 = time.perf_counter()
+    index.save(str(workdir / "index_timing"))
+    index_save_ms = (time.perf_counter() - t0) * 1e3
+    first = to_device(next(test_ds.iter_batches(tc.test_batch_size)), dev)
+    eval_profile = profile_eval_batch(model, index, first, dev)
+
+    def embed(batch):
+        return model.candidate_forward(to_device(batch, dev))
+
+    with host_copies() as copies:
+        ids, emb = collect_catalog_device(model.candidate_id_col, embed,
+                                          cand_ds.iter_batches(cbs), cbs)
+    require(emb.device == index.embeddings.device
+            and tuple(emb.shape) == (n_articles, E)
+            and sum(n for *_, n in copies) < cbs * E,
+            f"collect_catalog_device: {emb.device}, {tuple(emb.shape)}, "
+            f"host copies {copies}")
+    del emb
+
+    # --- kernels 1-2 against their plain versions on this path ------------
+    held = hold_exact_path(model, index, test_ds, tc, dev)
+
+    # --- the quantized family: a reading ----------------------------------
+    t0 = time.perf_counter()
+    qindex = build_index(model, cand_ds, cbs, k, index_type="quantized",
+                         device=dev)
+    sync(dev)
+    qbuild_ms = (time.perf_counter() - t0) * 1e3
+    require(qindex._engine == "pallas", f"quantized runs {qindex._engine!r}")
+    # --- the quantized path: counts from 0 --------------------------------
+    bt.reset_launches()
+    qt.reset_launches()
+    t0 = time.perf_counter()
+    quantized = evaluate(model, qindex, test_ds, tc.test_batch_size, mc.ks)
+    q_eval_ms = (time.perf_counter() - t0) * 1e3
+    q_launches = {**bt.LAUNCHES, **qt.LAUNCHES}
+    # ----------------------------------------------------------------------
+    check_runner_recall("quantized", quantized, mc.ks)
+    single = {n: q_launches[n] for n in SINGLE_PASS_KERNELS[:2]}
+    require(not cuda or sum(single.values()) > 0,
+            f"the quantized evaluate launched no single pass: {q_launches}")
+    # --- kernels 3-4 against their plain versions on this path ------------
+    q_held = hold_quantized_path(model, qindex, test_ds, tc, dev)
+    emit({"runner": {
+        "catalog": n_articles, "customers": n_customers, "E": E,
+        "train_rows": RUNNER_TRAIN_ROWS, "test_rows": RUNNER_TEST_ROWS,
+        "steps": steps, "setup_s": setup_s, "runner_s": runner_s,
+        "initial": results["initial"], "final": results["final"],
+        "train_examples_per_s": throughput[0],
+        "profiler_window": list(settings.profile_steps), "trace": trace,
+        "runner_launches": runner_launches,
+        "eval_runner_s": eval_runner_s, "eval_runner_equals_final": True,
+        "build_index_ms": build_ms, "build_host_copies": len(build_copies),
+        "build_host_elements": build_moved,
+        "evaluate_ms": eval_ms, "test_batches": n_batches,
+        "evaluate_ms_per_batch": eval_ms / n_batches,
+        "eval_batch_profile": eval_profile,
+        "checkpoint_bytes": ckpt_bytes, "checkpoint_save_ms": save_ms,
+        "checkpoint_save_copy_ms": save_copy_ms,
+        "checkpoint_restore_ms": restore_ms, "index_save_ms": index_save_ms,
+        "peak_mem_gb": peak_gb, "exact_vs_plain": held,
+        "quantized": {"recall": quantized, "exact_recall": exact,
+                      "k_over": qindex.k_over, "build_ms": qbuild_ms,
+                      "evaluate_ms": q_eval_ms,
+                      "single_pass_launches": single,
+                      "launches": q_launches, "vs_plain": q_held}}})
+    return {name: runner_launches[name] + q_launches[name]
+            for name in runner_launches}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2130,6 +2592,11 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(dir=build_root,
                                      prefix="chip_smoke-train-") as d:
         phase_training(args.seed, dev, Path(d))
+    with tempfile.TemporaryDirectory(dir=build_root,
+                                     prefix="chip_smoke-runner-") as d:
+        # phase 10's launches are added to each kernel's count
+        for name, n in phase_runner(args.seed, dev, Path(d)).items():
+            launches[name] += n
 
     pallas = "hm_retrieval_tpu/ops/pallas_retrieval.py"
     kernel_files = {

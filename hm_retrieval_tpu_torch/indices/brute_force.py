@@ -25,6 +25,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+from typing import Callable, Dict, Iterable
 
 import numpy as np
 import torch
@@ -48,6 +49,9 @@ MISSING_ID = -(2**31)
 
 
 class BruteForceIndex:
+    # build_from_batches keeps the catalog on the tower's device end to end
+    # (runners/modelling.py::build_index)
+    supports_device_build = True
     PAD_MULTIPLE = 1024
     PALLAS_MIN_ROWS = 16384  # "auto" takes the kernels above this n_pad
 
@@ -128,6 +132,36 @@ class BruteForceIndex:
             )
             self._engine = "full"
 
+    @classmethod
+    def build_from_batches(
+        cls,
+        k: int,
+        candidate_id_col: str,
+        embed_fn: Callable[[Dict[str, np.ndarray]], torch.Tensor],
+        batches: Iterable[Dict[str, np.ndarray]],
+        batch_size: int,
+        device: DeviceLike = None,
+        **kwargs,
+    ) -> "BruteForceIndex":
+        """Embed the full catalog with the candidate tower in batches of one
+        fixed size (``collect_catalog_device``: the embeddings stay on the
+        tower's device) and index it on ``device``. The JAX package's
+        boolean ``device`` (device build or host build) has no counterpart:
+        the port's build never copies the catalog to the host."""
+        from hm_retrieval_tpu_torch.indices.builder import (
+            collect_catalog_device,
+        )
+
+        identifiers, embeddings = collect_catalog_device(
+            candidate_id_col, embed_fn, batches, batch_size
+        )
+        logger.info(
+            "Built brute-force index over %d candidates (dim %d)",
+            len(identifiers),
+            embeddings.shape[1],
+        )
+        return cls(k, identifiers, embeddings, device=device, **kwargs)
+
     def _ids_of(self, rows: torch.Tensor) -> torch.Tensor:
         """Catalog rows -> identifiers. Rows outside the real catalog (a
         never-filled slot holds BIG_IDX) map to MISSING_ID rather than
@@ -153,6 +187,13 @@ class BruteForceIndex:
         ).expand_as(scores)
         top_scores, top_rows = topk_pair(scores, rows, self.k)
         return top_scores, self._ids_of(top_rows)
+
+    @torch.no_grad()
+    def query(self, query_fn: Callable, batch) -> torch.Tensor:
+        """Embed queries, score, select (ref: brute_force.py:108-114):
+        (B, k) int ids."""
+        _, ids = self.topk_from_embeddings(query_fn(batch))
+        return ids
 
     # ------------------------------------------------------------------
     # Persistence: index.npz + meta.json, as the JAX package writes them

@@ -221,6 +221,9 @@ class QuantizedIndex:
     lives (None: the card).
     """
 
+    # build_from_batches quantizes the catalog on the tower's device
+    # (runners/modelling.py::build_index)
+    supports_device_build = True
     PAD_MULTIPLE = 1024
 
     def __init__(
@@ -345,13 +348,16 @@ class QuantizedIndex:
         device: DeviceLike = None,
         **kwargs,
     ) -> "QuantizedIndex":
-        """Embed the catalog with the candidate tower (``collect_catalog``)
-        and quantize it where the tower put it. ``device`` is where the
-        index lives (the JAX package's boolean ``device`` has no
-        counterpart: the embeddings stay on the card either way)."""
-        from hm_retrieval_tpu_torch.indices.builder import collect_catalog
+        """Embed the catalog with the candidate tower (``collect_catalog_device``,
+        as ``BruteForceIndex.build_from_batches``) and quantize it where the
+        tower put it. ``device`` is where the index lives (the JAX package's
+        boolean ``device`` has no counterpart: the port's build never copies
+        the catalog to the host)."""
+        from hm_retrieval_tpu_torch.indices.builder import (
+            collect_catalog_device,
+        )
 
-        identifiers, embeddings = collect_catalog(
+        identifiers, embeddings = collect_catalog_device(
             candidate_id_col, embed_fn, batches, batch_size
         )
         logger.info(

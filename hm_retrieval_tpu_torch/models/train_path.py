@@ -29,6 +29,22 @@ def uses_sparse_step(tc: TrainingConfig) -> bool:
     )
 
 
+def create_single_device_state(
+    model: TwoTowerModel, training_config: TrainingConfig
+):
+    """The training state ``make_single_device_trainer`` starts from: the
+    model's parameters initialised from ``training_config.seed`` and the
+    chosen step's optimizer state over them (a template to restore a
+    checkpoint into)."""
+    tc = training_config
+    optimizer = OptimizerFactory.get_optimizer(
+        tc.optimizer_name, tc.optimizer_kwargs
+    )
+    if uses_sparse_step(tc):
+        return create_sparse_train_state(model, optimizer, seed=tc.seed)
+    return create_train_state(model, optimizer, seed=tc.seed)
+
+
 def make_single_device_trainer(
     model: TwoTowerModel, training_config: TrainingConfig, catalog=None
 ):
@@ -40,16 +56,15 @@ def make_single_device_trainer(
         tc.optimizer_name, tc.optimizer_kwargs
     )
     if uses_sparse_step(tc):
-        state = create_sparse_train_state(model, optimizer, seed=tc.seed)
         step_fn = make_sparse_train_step(
             model, optimizer, tc.optimizer_kwargs["learning_rate"]
         )
-        return state, step_fn
-    step_fn = make_train_step(
-        model,
-        optimizer,
-        catalog=catalog,
-        num_uniform_negatives=tc.num_uniform_negatives,
-        base_seed=tc.seed,
-    )
-    return create_train_state(model, optimizer, seed=tc.seed), step_fn
+    else:
+        step_fn = make_train_step(
+            model,
+            optimizer,
+            catalog=catalog,
+            num_uniform_negatives=tc.num_uniform_negatives,
+            base_seed=tc.seed,
+        )
+    return create_single_device_state(model, tc), step_fn

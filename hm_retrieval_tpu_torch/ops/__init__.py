@@ -7,7 +7,12 @@ from hm_retrieval_tpu_torch.ops.bin_topk import (
     exact_topk,
     reset_launches,
 )
-from hm_retrieval_tpu_torch.ops.topk import topk_dot, topk_pair
+from hm_retrieval_tpu_torch.ops.topk import (
+    merge_topk,
+    topk_dot,
+    topk_dot_chunked,
+    topk_pair,
+)
 
 __all__ = [
     "LAUNCHES",
@@ -16,7 +21,9 @@ __all__ = [
     "bin_max_round",
     "default_bins",
     "exact_topk",
+    "merge_topk",
     "reset_launches",
     "topk_dot",
+    "topk_dot_chunked",
     "topk_pair",
 ]

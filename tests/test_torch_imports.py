@@ -1,8 +1,8 @@
 """The port stands alone: no JAX and nothing of the JAX package in
 hm_retrieval_tpu_torch, chip_smoke.py or bin_max_bench.py, nothing the card's machine lacks
-(pandas) on its import path, and no silent CPU fallback when the card is
-absent. Serving records no autograd graph, though the towers' parameters
-are trainable."""
+(pandas) on its import path and tensorboardX only behind a guard, and no
+silent CPU fallback when the card is absent. Serving records no autograd graph, though the towers'
+parameters are trainable."""
 
 import ast
 import ctypes
@@ -98,6 +98,51 @@ def test_the_data_copies_import_only_the_port(module):
     }, roots
 
 
+# the modules of the modelling runner and what they may import
+RUNNER_MODULES = {
+    "metrics/index_recall.py": {"numpy", "torch"},
+    "metrics/__init__.py": set(),
+    "ops/topk.py": {"torch"},
+    "indices/builder.py": {"numpy", "torch"},
+    "runners/checkpoint.py": {"concurrent", "json", "os", "shutil", "uuid"},
+    "runners/modelling.py": {"dataclasses", "time", "numpy", "torch"},
+    "runners/__init__.py": set(),
+    "utils/settings.py": {"dataclasses", "json", "os"},
+    "utils/summary.py": {"os", "time", "numpy", "tensorboardX"},
+    "utils/profiling.py": {"os", "torch"},
+    "utils/__init__.py": set(),
+}
+
+
+@pytest.mark.parametrize("module", sorted(RUNNER_MODULES))
+def test_the_runner_modules_import_only_the_port(module):
+    """The runner's modules import the port, the standard library's
+    listed modules, numpy and torch; tensorboardX only inside a guard
+    (``utils/summary.py`` logs when it is absent)."""
+    roots = {
+        m.split(".")[0] for m in _imported_modules(PKG / module)
+    } - {"__future__", "logging", "typing", "hm_retrieval_tpu_torch"}
+    assert roots <= RUNNER_MODULES[module], roots
+
+
+def test_the_writer_survives_without_tensorboardx():
+    code = (
+        "import sys; sys.modules['tensorboardX'] = None\n"
+        "from hm_retrieval_tpu_torch.utils import summary\n"
+        "w = summary.MetricWriter('logs-never-written')\n"
+        "w.add_scalar('a', 1.0, 0); w.close()\n"
+        "print(summary._HAVE_TB, w._writer)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=str(ROOT), env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "None"]
+    assert not (ROOT / "logs-never-written").exists()
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -131,6 +176,28 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BruteForceIndex(3, np.arange(5), np.zeros((5, 4)))
     assert load_index(index_dir, device="cpu").k == 3
+
+
+def test_runner_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The modelling runner's entry points resolve ``device=None`` to the
+    card before they read anything, and run on the CPU only when asked."""
+    from hm_retrieval_tpu_torch.runners import (
+        CheckpointManager, build_index, evaluation_runner, modelling_runner,
+    )
+    from hm_retrieval_tpu_torch.utils import Settings
+
+    settings = Settings(schema_dirpath=str(tmp_path / "missing"))
+    for fn in (modelling_runner, evaluation_runner):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(settings)
+        with pytest.raises(FileNotFoundError):  # got past the device
+            fn(settings, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_index(None, None, 10, 5)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CheckpointManager(str(tmp_path / "ckpt"))
+    assert CheckpointManager(str(tmp_path / "ckpt"), device="cpu").device == (
+        torch.device("cpu"))
 
 
 def test_cuda_tensors_never_take_the_plain_path():
@@ -235,7 +302,7 @@ def test_each_wrapper_binds_a_launcher_of_its_source():
 
 
 def test_serving_records_no_autograd_graph(tmp_path):
-    from hm_retrieval_tpu_torch.indices.builder import collect_catalog
+    from hm_retrieval_tpu_torch.indices.builder import collect_catalog_device
     from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
     from hm_retrieval_tpu_torch.models import TwoTowerModel
     from hm_retrieval_tpu_torch.schema import (
@@ -258,7 +325,7 @@ def test_serving_records_no_autograd_graph(tmp_path):
         return model.candidate_forward(
             {k: torch.from_numpy(v) for k, v in batch.items()})
 
-    ids, emb = collect_catalog(
+    ids, emb = collect_catalog_device(
         "article_id", embed,
         [{"article_id": np.arange(1, 31, dtype=np.int32)}], 30)
     assert not emb.requires_grad

@@ -1,0 +1,238 @@
+"""The port's modelling stage on the JAX package's tiny pipeline.
+
+A module fixture runs the JAX package's ETL, schema and shard stages on the
+data of ``tests/test_runners.py`` (6,000 synthetic transactions, 300
+customers, 120 articles, seed 1), then the port's ``modelling_runner`` on
+those shards on the CPU. Recall must rise as the JAX runner's does; the
+port's exported towers, loaded into the JAX model, must give the port's
+final recall through the JAX ``build_index`` + ``evaluate``; the eval-only
+stage must reproduce it exactly; ``resume`` must continue the step count;
+and the options the port does not have must raise before any step.
+"""
+
+import dataclasses
+import os
+import shutil
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from hm_retrieval_tpu.data.dataset import ShardDataset as JaxShardDataset
+from hm_retrieval_tpu.models import TwoTowerModel as JaxTwoTowerModel
+from hm_retrieval_tpu.runners import (
+    build_index as jax_build_index,
+    build_schema_runner,
+    etl_runner,
+    evaluate as jax_evaluate,
+    shard_writer_runner,
+)
+from hm_retrieval_tpu.schema import (
+    Feature,
+    FeatureFamily,
+    FeatureKind,
+    ModelConfig,
+    Schema as JaxSchema,
+    TrainingConfig,
+)
+from hm_retrieval_tpu.utils.pytree_io import load_pytree_npz
+from hm_retrieval_tpu.utils.settings import Settings as JaxSettings
+from hm_retrieval_tpu.utils.synthetic import generate_hm_like_csvs
+
+from hm_retrieval_tpu_torch.runners import (
+    CheckpointManager,
+    evaluation_runner,
+    modelling_runner,
+)
+from hm_retrieval_tpu_torch.utils.settings import Settings
+
+KS = [10, 50]
+
+
+@pytest.fixture(scope="module")
+def pipeline(tmp_path_factory):
+    """The JAX package's first three stages, then the port's modelling
+    stage on the CPU."""
+    d = str(tmp_path_factory.mktemp("torch_pipeline"))
+    raw = generate_hm_like_csvs(
+        os.path.join(d, "raw"),
+        n_transactions=6000,
+        n_customers=300,
+        n_articles=120,
+        seed=1,
+    )
+    fields = dict(
+        transactions_filepath=raw["transactions"],
+        articles_filepath=raw["articles"],
+        customers_filepath=raw["customers"],
+        train_start_date=raw["train_start"],
+        train_end_date=raw["train_end"],
+        test_start_date=raw["test_start"],
+        test_end_date=raw["test_end"],
+        train_data_filepath=f"{d}/processed/train.parquet",
+        test_data_filepath=f"{d}/processed/test.parquet",
+        schema_dirpath=f"{d}/schema",
+        train_shards_dirpath=f"{d}/shards/train",
+        test_shards_dirpath=f"{d}/shards/test",
+        candidate_shards_dirpath=f"{d}/shards/candidates",
+        model_dirpath=f"{d}/artifacts/model",
+        index_dirpath=f"{d}/artifacts/index",
+        checkpoint_dirpath=f"{d}/artifacts/ckpt",
+        tensorboard_logs_dir=None,
+        profile_steps=None,
+        max_shard_rows=200,
+    )
+    jax_settings = JaxSettings(**fields)
+    schema = JaxSchema(
+        features=[
+            Feature("customer_id", FeatureKind.CATEGORICAL,
+                    FeatureFamily.QUERY, embedding_size=16),
+            Feature("article_id", FeatureKind.CATEGORICAL,
+                    FeatureFamily.CANDIDATE, embedding_size=16),
+            Feature("product_type_name", FeatureKind.CATEGORICAL,
+                    FeatureFamily.CANDIDATE, embedding_size=4),
+        ],
+        model_config=ModelConfig(joint_embedding_size=16, ks=KS),
+        training_config=TrainingConfig(
+            train_batch_size=128,
+            test_batch_size=256,
+            candidate_batch_size=64,
+            epochs=2,
+            shuffle_buffer_size=4096,
+            optimizer_kwargs={"learning_rate": 0.05},
+        ),
+        candidate_id_col="article_id",
+    )
+    etl_runner(jax_settings)
+    build_schema_runner(jax_settings, schema)
+    shard_writer_runner(jax_settings)
+    # one settings.json drives either package
+    jax_settings.to_json(f"{d}/settings.json")
+    settings = Settings.from_json(f"{d}/settings.json")
+    results = modelling_runner(settings, device="cpu")
+    return settings, results
+
+
+def _steps_per_epoch(settings):
+    ds = JaxShardDataset(settings.train_shards_dirpath)
+    return ds.num_rows // 128
+
+
+def test_training_improves_recall(pipeline):
+    _, results = pipeline
+    assert results["final"][50] > results["initial"][50], results
+    # random recall@10 over 120 articles ~ 0.083 (test_runners.py's bar)
+    assert results["final"][10] > 0.15, results
+    for res in results.values():
+        assert set(res) == set(KS)
+        assert all(0.0 <= v <= 1.0 for v in res.values())
+
+
+def test_artifacts_exist(pipeline):
+    settings, _ = pipeline
+    for p in [
+        f"{settings.model_dirpath}/two_tower/params.npz",
+        f"{settings.model_dirpath}/query_tower/params.npz",
+        f"{settings.model_dirpath}/candidate_tower/params.npz",
+        f"{settings.index_dirpath}/index.npz",
+        f"{settings.index_dirpath}/meta.json",
+    ]:
+        assert os.path.exists(p), p
+    ckpt = CheckpointManager(settings.checkpoint_dirpath, device="cpu")
+    assert ckpt.latest_step() == 2 * _steps_per_epoch(settings)
+    assert len(ckpt.all_steps()) == 2  # one an epoch
+
+
+def test_exported_towers_give_final_recall_in_jax(pipeline):
+    """The port's exported towers in the JAX model, through the JAX
+    ``build_index`` + ``evaluate`` (index "full" on both sides at 120
+    articles): the towers sum in another order, so the recall counts may
+    differ only where a true article's score ties the K-th within float
+    rounding; this data shows no such tie, and the counts are equal."""
+    settings, results = pipeline
+    schema = JaxSchema.load(settings.schema_dirpath)
+    tc, mc = schema.training_config, schema.model_config
+    model = JaxTwoTowerModel.create_from_schema(schema)
+    params = jax.tree.map(
+        jnp.asarray,
+        load_pytree_npz(f"{settings.model_dirpath}/two_tower/params.npz"),
+    )
+    cand_ds = JaxShardDataset(settings.candidate_shards_dirpath)
+    index = jax_build_index(
+        model, params, cand_ds, tc.candidate_batch_size,
+        min(max(mc.ks), cand_ds.num_rows),
+    )
+    assert index.method == "full"
+    got = jax_evaluate(
+        model, params, index,
+        JaxShardDataset(settings.test_shards_dirpath),
+        tc.test_batch_size, mc.ks,
+    )
+    assert got == results["final"]
+
+
+def test_evaluation_runner_equals_final(pipeline, tmp_path):
+    settings, results = pipeline
+    settings = dataclasses.replace(settings,
+                                   index_dirpath=str(tmp_path / "index"))
+    assert evaluation_runner(settings, device="cpu") == results["final"]
+    assert os.path.exists(tmp_path / "index" / "index.npz")
+
+
+def test_resume_continues_the_step_count(pipeline, tmp_path):
+    """The resumed run starts from the checkpoint: its first evaluation is
+    the first run's final one, and its step count goes on from there."""
+    settings, results = pipeline
+    shutil.copytree(settings.checkpoint_dirpath, tmp_path / "ckpt")
+    settings = dataclasses.replace(
+        settings,
+        checkpoint_dirpath=str(tmp_path / "ckpt"),
+        model_dirpath=str(tmp_path / "model"),
+        index_dirpath=str(tmp_path / "index"),
+    )
+    before = CheckpointManager(settings.checkpoint_dirpath,
+                               device="cpu").latest_step()
+    res = modelling_runner(settings, device="cpu", resume=True,
+                           training_overrides={"epochs": 1})
+    after = CheckpointManager(settings.checkpoint_dirpath,
+                              device="cpu").latest_step()
+    assert after == before + _steps_per_epoch(settings)
+    assert res["initial"] == results["final"]
+
+
+def test_unknown_override_raises(pipeline):
+    settings, _ = pipeline
+    with pytest.raises(ValueError, match="unknown TrainingConfig field"):
+        modelling_runner(settings, device="cpu",
+                         training_overrides={"epochz": 1})
+
+
+@pytest.mark.parametrize("option", ["savedmodel", "mesh", "distributed"])
+def test_unported_options_raise_before_any_step(pipeline, tmp_path, monkeypatch,
+                                                option):
+    from hm_retrieval_tpu_torch.runners import modelling
+
+    settings, _ = pipeline
+    settings = dataclasses.replace(
+        settings, checkpoint_dirpath=str(tmp_path / "ckpt"),
+        savedmodel_dirpath=(str(tmp_path / "sm") if option == "savedmodel"
+                            else None))
+
+    def no_trainer(*args, **kwargs):
+        raise AssertionError("a trainer was built")
+
+    monkeypatch.setattr(modelling, "make_single_device_trainer", no_trainer)
+    kw = {"mesh": object()} if option == "mesh" else (
+        {"distributed_index": True} if option == "distributed" else {})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+        modelling_runner(settings, device="cpu", **kw)
+    assert not (tmp_path / "ckpt").exists()
+
+
+def test_the_runner_raises_without_a_card(pipeline, monkeypatch):
+    settings, _ = pipeline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (modelling_runner, evaluation_runner):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(settings)
