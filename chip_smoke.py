@@ -114,6 +114,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    (a) at 5,000 customers and 2,000 articles, each path's 3 card steps
        against the port's CPU steps from the same state and batches: the
        losses and every tensor of the state within rtol 1e-4 / atol 1e-5;
+       before them, the card model's initial parameters must equal the CPU
+       model's of the same seed bit for bit (both draw on the CPU);
    (b) each path through make_single_device_trainer and
        ShardDataset.iter_batches(shuffle) -> device_feed -> step: sparse
        Adagrad with and without a 16-long mean-pooled purchase history,
@@ -135,7 +137,10 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    from its schema, saved with Schema.save, and shards written with phase
    9's writer: 65,536 rows of the learnable stream to train on (128
    steps), the next 16,384 to test on (8 batches), and all 105,542
-   articles with their side features. Then:
+   articles with their side features; the same stream as a transactions
+   CSV (t_dat, article_id: train rows over 45 days, test rows over the 7
+   after, each article as its zero-padded 10-digit H&M id, which the
+   schema's vocab holds as read back as an integer). Then:
    (a) modelling_runner(settings) on the card, counts from 0, with the
        default profiler window (steps 20-40): every recall finite and in
        [0, 1], recall@100 higher after the epoch than before, kernels 1-2
@@ -166,8 +171,47 @@ Phases, each of which must pass (a failure raises and exits non-zero):
        same survivors, and equal recall counts.
    Each kernel's launches in (a) and (e) are added to its count on the
    kernels line.
+11. The popularity baseline (phase_baseline) on phase 10's CSV and test
+   shards: baseline_modelling_runner(settings) on the card; its static
+   artifact must load through load_index as a StaticIndex on the card and
+   hold the train rows' 1000 most popular articles counted directly (count
+   descending, ties by first appearance; all 1000 in the vocab, so the
+   zero-padded ids were read as integers), and its recall must equal the
+   share of test rows among the top k. Its recall is printed beside phase
+   10's trained model's.
+12. The mesh-sharded index at full H&M width (phase_sharded), on phase 10's
+   trained catalog (105,542 x 128) and the query tower's first test batch,
+   k = 1000, make_mesh(1, 4, devices=[card] * 4): 26,386 rows a shard, the
+   last with 2 pad rows. Counts from 0 over the main path:
+   DistributedBruteForceIndex("pallas") (kernels 1-2 on [q | 1] against
+   [emb | bias], E + 1 = 129 padded to 144) and DistributedQuantizedIndex
+   ("pallas") with one pass (kernels 3-4, per-shard plans) and with
+   pallas_rounds = 8 (kernels 6-7) at B = 1, 16, 128, 1024, each of whose
+   kernels must launch; DistributedBruteForceIndex on a (2, 2) mesh at
+   B = 37 (the query padding); RetrievalService.load(mesh,
+   distributed_index=True) over phase 10's artifact answering 128
+   customers; evaluation_runner(mesh, distributed_index=True). Then, at each
+   B: the exact index against the same index on kernels 1-2's plain
+   versions and against the single-device index (values within
+   TOL*max(1,|s|), ids differing only between scores within TOL); each
+   quantized index's per-shard survivors against the plain passes' (within
+   TOL, ids only between pass scores within 2*TOL) and its answers
+   bit-equal wherever every shard keeps the same survivors, its recall
+   against the fp32 top 1000 no lower than the single-device index's by
+   more than 0.005; every answer finite, without NaN, pad rows or repeats.
+   The last shard's pad rows score exactly -inf through the bias column
+   (fp32 of the bf16 operands) and kernel 1 over them returns no NaN and
+   none of them. The (2, 2) mesh's answers against the (1, 4) mesh's, the
+   sharded service's strings against the single-device service's, as
+   above. The sharded artifact evaluation_runner saved holds 4 shard files
+   and loads back; over every test batch its recall counts differ from the
+   single-device index's by no more than the rows whose top k differ, and
+   equal evaluation_runner's and phase 10's. Each index is timed at each B
+   beside its single-device counterpart (CUDA events). Its launches are
+   added to each kernel's count on the kernels line.
 
-Output: per-phase JSON lines, then the card's name and power limit, the
+Output: per-phase JSON lines and each phase's seconds, then the card's name
+and power limit, the
 {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when CUDA is not available.
@@ -175,6 +219,7 @@ Exits non-zero, printing no result, when CUDA is not available.
 
 import argparse
 import contextlib
+import dataclasses
 import itertools
 import json
 import logging
@@ -281,9 +326,10 @@ def roofline_ms(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare_ranked(got_v, got_i, want_v, want_i, scores):
-    """Values within TOL; id mismatches only between scores within 2*TOL.
-    Returns (max |value difference| over finite slots, id mismatches)."""
+def compare_ranked(got_v, got_i, want_v, want_i, scores, gap=2 * TOL):
+    """Values within TOL; id mismatches only between scores within ``gap``
+    (relative to max(1, |score|)). Returns (max |value difference| over
+    finite slots, id mismatches)."""
     finite = torch.isfinite(want_v)
     require(
         torch.equal(torch.isfinite(got_v), finite), "unfilled slots differ"
@@ -296,7 +342,7 @@ def compare_ranked(got_v, got_i, want_v, want_i, scores):
     rows = diff.nonzero()[:, 0]
     s_got = scores[rows, got_i[diff].long()]
     s_want = scores[rows, want_i[diff].long()]
-    gap_ok = (s_got - s_want).abs() <= 2 * TOL * s_want.abs().clamp_min(1.0)
+    gap_ok = (s_got - s_want).abs() <= gap * s_want.abs().clamp_min(1.0)
     require(bool(gap_ok.all()), "ids differ between well-separated scores")
     return float(err.max()) if err.numel() else 0.0, int(diff.sum())
 
@@ -460,7 +506,8 @@ def check_clusters(infos, L, B, **where):
     emit({"kernel_launch": {"L": L, "B": B, **where, **infos}})
 
 
-def hm_schema(n_customers=N_CUSTOMERS, n_articles=N_ARTICLES, logq=None):
+def hm_schema(n_customers=N_CUSTOMERS, n_articles=N_ARTICLES, logq=None,
+              article_vocab=None):
     from hm_retrieval_tpu_torch.schema import (
         Feature, ModelConfig, Schema, TrainingConfig,
     )
@@ -468,11 +515,13 @@ def hm_schema(n_customers=N_CUSTOMERS, n_articles=N_ARTICLES, logq=None):
     def vocab(prefix, n):
         return np.array([f"{prefix}{i:07d}" for i in range(n)])
 
+    if article_vocab is None:
+        article_vocab = vocab("a", n_articles)
     features = [
         Feature("customer_id", "categorical", "query", embedding_size=E,
                 vocab=vocab("c", n_customers)),
         Feature("article_id", "categorical", "candidate", embedding_size=E,
-                vocab=vocab("a", n_articles)),
+                vocab=article_vocab),
         Feature("product_type_name", "categorical", "candidate",
                 embedding_size=16, vocab=vocab("pt", N_PRODUCT_TYPES)),
         Feature("colour_group_name", "categorical", "candidate",
@@ -1722,6 +1771,10 @@ def phase_training_vs_cpu(dev):
             side.append((catalog,
                          *make_single_device_trainer(model, tc, catalog)))
         (card_cat, card_state, card_step), (_, cpu_state, cpu_step) = side
+        # one seed gives the card the CPU's initial weights, bit for bit
+        require(all(torch.equal(t.cpu(), cpu_state.params[key])
+                    for key, t in card_state.params.items()),
+                f"{name}: one seed drew other initial weights on the card")
         cpu_state = train_state_from_numpy(cpu_state,
                                            train_state_to_numpy(card_state))
         losses = {"cuda": [], "cpu": []}
@@ -1765,7 +1818,8 @@ def phase_training_vs_cpu(dev):
         require(np.all(np.abs(lc - lh) <= TRAIN_ATOL + TRAIN_RTOL * np.abs(lh)),
                 f"{name}: losses {lc} on the card, {lh} on the CPU")
         require(card_state.step == cpu_state.step == 3, f"{name}: step count")
-        out[name] = {"losses_card": lc.tolist(), "losses_cpu": lh.tolist(),
+        out[name] = {"init_bitwise": True,
+                     "losses_card": lc.tolist(), "losses_cpu": lh.tolist(),
                      "max_abs_err_state": worst, "worst_tensor": worst_name,
                      "tensors": len(want)}
         del side, card_state, cpu_state
@@ -2125,6 +2179,12 @@ def phase_training(seed, dev, workdir):
 RUNNER_TRAIN_ROWS = 128 * TRAIN_B  # one epoch of 128 steps
 RUNNER_TEST_ROWS = 8 * 2048  # 8 batches at TrainingConfig's test_batch_size
 RUNNER_CHECKED_BATCHES = 2  # test batches held against the plain passes
+# Article i of the stream is H&M's article id HM_ARTICLE_BASE + i, written
+# zero-padded to 10 digits in the transactions CSV as H&M writes it
+# ("0108775015"): read back as integers, as pandas reads them (trap j)
+HM_ARTICLE_BASE = 108_775_014
+TRAIN_DAYS, TEST_DAYS = 45, 7
+TRAIN_START, TEST_START = np.datetime64("2020-08-01"), np.datetime64("2020-09-15")
 
 
 def sync(dev):
@@ -2149,8 +2209,18 @@ def runner_settings(rng, n_customers, n_articles, workdir):
     write_shards(workdir / "test",
                  {k: v[RUNNER_TRAIN_ROWS:] for k, v in rows.items()})
     write_shards(workdir / "candidates", catalog)
-    hm_schema(n_customers, n_articles, logq).save(str(workdir / "schema"))
+    write_transactions(workdir / "transactions.csv", rows["article_id"])
+    article_vocab = np.array([str(HM_ARTICLE_BASE + i)
+                              for i in range(1, n_articles + 1)])
+    hm_schema(n_customers, n_articles, logq,
+              article_vocab).save(str(workdir / "schema"))
     return Settings(
+        transactions_filepath=str(workdir / "transactions.csv"),
+        train_start_date=str(TRAIN_START),
+        train_end_date=str(TRAIN_START + TRAIN_DAYS - 1),
+        test_start_date=str(TEST_START),
+        test_end_date=str(TEST_START + TEST_DAYS - 1),
+        baseline_index_dirpath=str(workdir / "baseline_index"),
         schema_dirpath=str(workdir / "schema"),
         train_shards_dirpath=str(workdir / "train"),
         test_shards_dirpath=str(workdir / "test"),
@@ -2160,6 +2230,24 @@ def runner_settings(rng, n_customers, n_articles, workdir):
         checkpoint_dirpath=str(workdir / "checkpoints"),
         tensorboard_logs_dir=str(workdir / "logs"),
     )  # profile_steps: the default trace window, steps 20-40
+
+
+def stream_dates(n_train, n_test):
+    """t_dat of the stream's rows: the train rows spread over TRAIN_DAYS
+    from TRAIN_START, the test rows over TEST_DAYS from TEST_START."""
+    train = TRAIN_START + (np.arange(n_train) * TRAIN_DAYS) // n_train
+    test = TEST_START + (np.arange(n_test) * TEST_DAYS) // n_test
+    return np.concatenate([train, test]).astype(str)
+
+
+def write_transactions(path, articles):
+    """The stream as a transactions CSV (t_dat, article_id), in row order,
+    each article written as its zero-padded H&M id."""
+    dates = stream_dates(RUNNER_TRAIN_ROWS, RUNNER_TEST_ROWS)
+    with open(path, "w") as f:
+        f.write("t_dat,article_id\n")
+        f.writelines(f"{d},{HM_ARTICLE_BASE + int(a):010d}\n"
+                     for d, a in zip(dates, articles))
 
 
 @contextlib.contextmanager
@@ -2541,8 +2629,388 @@ def phase_runner(seed, dev, workdir, n_customers=N_CUSTOMERS,
                       "evaluate_ms": q_eval_ms,
                       "single_pass_launches": single,
                       "launches": q_launches, "vs_plain": q_held}}})
-    return {name: runner_launches[name] + q_launches[name]
-            for name in runner_launches}
+    launches = {name: runner_launches[name] + q_launches[name]
+                for name in runner_launches}
+    return launches, {"settings": settings, "final": results["final"],
+                      "model": model, "index": index, "qindex": qindex,
+                      "test_ds": test_ds, "tc": tc, "mc": mc}
+
+
+# --- phase 11: the popularity baseline -------------------------------------
+
+
+def popularity_reference(articles):
+    """The popularity order counted directly: count descending, ties in
+    order of first appearance."""
+    uniq, first, counts = np.unique(articles, return_index=True,
+                                    return_counts=True)
+    return uniq[np.lexsort((first, -counts))]
+
+
+def phase_baseline(ctx, dev):
+    """Phase 11 (see the module docstring)."""
+    from hm_retrieval_tpu_torch.data import ShardDataset
+    from hm_retrieval_tpu_torch.indices import StaticIndex, load_index
+    from hm_retrieval_tpu_torch.runners import baseline_modelling_runner
+
+    settings, mc = ctx["settings"], ctx["mc"]
+    t0 = time.perf_counter()
+    res = baseline_modelling_runner(settings, device=dev)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    check_runner_recall("baseline", res, mc.ks)
+    index = load_index(settings.baseline_index_dirpath, device=dev)
+    require(isinstance(index, StaticIndex)
+            and index.identifiers.device.type == dev.type,
+            f"the static artifact loads as {type(index).__name__}")
+    k = max(mc.ks)
+    train = ShardDataset(settings.train_shards_dirpath).load_all()["article_id"]
+    want = popularity_reference(train)[:k]
+    got = index.identifiers.cpu().numpy()
+    require(len(got) == k and np.array_equal(got, want),
+            "the popularity index is not the train rows' k most popular "
+            "articles (the CSV's zero-padded ids read as integers)")
+    test = ShardDataset(settings.test_shards_dirpath).load_all()["article_id"]
+    plain = {kk: float(np.isin(test, want[:kk]).mean()) for kk in mc.ks}
+    require(all(abs(res[kk] - plain[kk]) <= 1e-9 for kk in mc.ks),
+            f"baseline recall {res} != counted {plain}")
+    emit({"baseline": {"recall": res, "trained_final_recall": ctx["final"],
+                       "index_k": int(len(got)), "train_rows": int(len(train)),
+                       "test_rows": int(len(test)), "seconds": seconds}})
+
+
+# --- phase 12: the sharded serving index ------------------------------------
+
+SHARDS = 4  # model shards of phase 12's mesh, all on the one card
+PAD_B = 37  # query rows on the (2, 2) mesh, padded to 38
+
+
+def kernel_counts():
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    return {**bt.LAUNCHES, **qt.LAUNCHES}
+
+
+def timed_ms(fn, reps, dev):
+    """Device ms of ``fn`` by CUDA events on the card; wall ms elsewhere."""
+    if dev.type == "cuda":
+        return cuda_ms(fn, reps)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+@contextlib.contextmanager
+def plain_exact():
+    """Inside the block exact_topk runs kernels 1-2's plain versions."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+
+    with swapped(
+        bt,
+        bin_max2_first_round=lambda q, c, L, nv: bt.bin_max2_plain(q, c, L, nv),
+        bin_max2_round=lambda q, c, ts, ti, L, nv: bt.bin_max2_plain(
+            q, c, L, nv, ts, ti),
+    ):
+        yield
+
+
+@contextlib.contextmanager
+def recorded_survivors():
+    """Inside the block every quantized_topk call (one a shard) is recorded
+    as (q, codes, scales, bias, values, rows)."""
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    record, driver = [], qt.quantized_topk
+
+    def run(q, codes, scales, k, **kw):
+        v, i, r = driver(q, codes, scales, k, **kw)
+        record.append((q, codes, scales, kw.get("bias"), v, i))
+        return v, i, r
+
+    with swapped(qt, quantized_topk=run):
+        yield record
+
+
+def answers_ok(v, ids, k, n):
+    """No NaN, every slot filled with a real article, k distinct a row."""
+    require(not bool(torch.isnan(v).any()) and bool(torch.isfinite(v).all()),
+            "a NaN or unfilled slot in a sharded answer")
+    require(bool(((ids >= 1) & (ids <= n)).all()), "a pad row in an answer")
+    require(all(len(set(r)) == k for r in ids.cpu().tolist()),
+            "repeated articles in a sharded answer")
+
+
+def hold_sharded_quantized(index, q, rounds):
+    """A sharded quantized index's answers against the same index with its
+    passes' plain versions: each shard's survivors within TOL, ids
+    differing only between pass scores within 2*TOL; the answers bit-equal
+    on every row where all shards keep the same survivors."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+
+    with recorded_survivors() as rec_k:
+        got = index.topk_from_embeddings(q)
+    plain = plain_rounds() if rounds else recorded_passes(plain=True)
+    with recorded_survivors() as rec_p, plain:
+        want = index.topk_from_embeddings(q)
+    require(len(rec_k) == len(rec_p) == SHARDS,
+            f"{len(rec_k)} survivor calls, plain {len(rec_p)}")
+    worst, mismatches = 0.0, 0
+    same = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    for (qs, codes, sc, bi, kv, ki), (*_, pv, pi) in zip(rec_k, rec_p):
+        scores = pass_scores(qs.to(torch.bfloat16), codes, sc, bi)
+        err, mism = compare_ranked(kv, ki, pv, pi, scores)
+        worst, mismatches = max(worst, err), mismatches + mism
+        same &= (ki == pi).all(1)
+        del scores
+    require(torch.equal(got[0][same], want[0][same])
+            and torch.equal(got[1][same], want[1][same]),
+            "sharded answers differ from the plain passes' where the "
+            "survivors agree")
+    return got, {"max_abs_err": worst, "id_mismatches": mismatches,
+                 "rows_with_other_survivors": int((~same).sum())}
+
+
+def recall_vs(ids, exact_ids):
+    """Mean share of each row's exact top-k found in ``ids``."""
+    hit = (ids.unsqueeze(2) == exact_ids.unsqueeze(1)).any(2)
+    return float(hit.float().mean())
+
+
+def check_pad_rows(index, q, dev):
+    """The last shard's pad rows through the bias column: their fp32 scores
+    of the bf16 operands are exactly -inf and the real rows' finite, and
+    kernel 1 on the same operands returns no NaN and none of them."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+
+    s = SHARDS - 1
+    emb, bias = index._emb.shard(s), index._bias.shard(s)
+    per = emb.shape[0]
+    real = int(torch.isfinite(bias).sum())
+    ones = torch.ones((q.shape[0], 1), device=dev)
+    q_aug = torch.cat([q, ones], 1).to(torch.bfloat16)
+    c_aug = torch.cat([emb, bias[:, None]], 1).to(torch.bfloat16)
+    scores = bt.plain_scores(q_aug, c_aug)
+    require(bool(torch.isneginf(scores[:, real:]).all())
+            and bool(torch.isfinite(scores[:, :real]).all()),
+            "a pad row's score is not exactly -inf")
+    L = bt.default_bins(SERVE_K)
+    width = bt.padded_width(E + 1)
+    cells = bt.bin_max2_first_round(
+        bt._padded(q_aug, q.shape[0], width),
+        bt._padded(c_aug, -(-per // L) * L, width), L, per)
+    require(not any(bool(torch.isnan(c).any()) for c in cells[::2]),
+            "kernel 1 returned NaN over the bias column")
+    for rows in cells[1::2]:
+        require(not bool(((rows >= real) & (rows < per)).any()),
+                "kernel 1 returned a pad row")
+    return {"shard": s, "rows": per, "pad_rows": per - real, "width": width}
+
+
+def phase_sharded(ctx, repeats, dev, workdir):
+    """Phase 12 (see the module docstring). Returns each kernel's launches
+    over the main path: the three sharded indices at every served B, the
+    (2, 2) mesh at B = 37, the sharded service and evaluation_runner."""
+    from hm_retrieval_tpu_torch.indices import (
+        DistributedBruteForceIndex, DistributedQuantizedIndex,
+        QuantizedIndex, load_distributed_index,
+    )
+    from hm_retrieval_tpu_torch.metrics import IndexRecall
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+    from hm_retrieval_tpu_torch.runners import evaluation_runner
+    from hm_retrieval_tpu_torch.serving import RetrievalService
+
+    settings, model, exact1 = ctx["settings"], ctx["model"], ctx["index"]
+    tc, mc, test_ds = ctx["tc"], ctx["mc"], ctx["test_ds"]
+    n = exact1.num_candidates
+    k = SERVE_K
+    ids = exact1.identifiers[:n].cpu().numpy()
+    emb = exact1.embeddings[:n]
+    first = to_device(next(test_ds.iter_batches(tc.test_batch_size)), dev)
+    with torch.no_grad():
+        q_all = model.query_forward(first)[: max(SERVE_BATCHES)]
+    mesh = make_mesh(1, SHARDS, devices=[dev] * SHARDS)
+    mesh22 = make_mesh(2, 2, devices=[dev] * 4)
+    t0 = time.perf_counter()
+    single = {
+        "exact": exact1,
+        "quantized": ctx["qindex"],
+        "rounds": QuantizedIndex(k, ids, emb, method="pallas",
+                                 pallas_rounds=MAX_ROUNDS, device=dev),
+    }
+    sharded = {
+        "exact": DistributedBruteForceIndex(k, ids, emb, mesh=mesh,
+                                            method="pallas"),
+        "quantized": DistributedQuantizedIndex(k, ids, emb, mesh=mesh,
+                                               method="pallas"),
+        "rounds": DistributedQuantizedIndex(k, ids, emb, mesh=mesh,
+                                            method="pallas",
+                                            pallas_rounds=MAX_ROUNDS),
+    }
+    pad_index = DistributedBruteForceIndex(k, ids, emb, mesh=mesh22,
+                                           method="pallas")
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    require(all(ix._engine == "pallas" for ix in sharded.values()),
+            "a sharded index does not run the kernels")
+    schema_dir = settings.schema_dirpath
+    raw_ids = first["customer_id"][:max(SERVE_BATCHES[:-1])].cpu().tolist()
+    raw = {"customer_id": [f"c{c - 1:07d}" for c in raw_ids]}
+    sharded_dir = str(workdir / "index_sharded")
+
+    # --- the main path: counts from 0 --------------------------------------
+    bt.reset_launches()
+    qt.reset_launches()
+    per_index, answers = {}, {}
+    for name, index in sharded.items():
+        per_index[name], answers[name] = {}, {}
+        for B in SERVE_BATCHES:
+            before = kernel_counts()
+            answers[name][B] = index.topk_from_embeddings(q_all[:B])
+            per_index[name][B] = {kn: v - before[kn]
+                                  for kn, v in kernel_counts().items()
+                                  if v > before[kn]}
+    padded = pad_index.topk_from_embeddings(q_all[:PAD_B])
+    svc_d = RetrievalService.load(schema_dir, settings.model_dirpath,
+                                  settings.index_dirpath, mesh=mesh,
+                                  distributed_index=True, device=dev)
+    served = svc_d.retrieve(raw)
+    res_d = evaluation_runner(
+        dataclasses.replace(settings, index_dirpath=sharded_dir),
+        mesh=mesh, distributed_index=True, device=dev)
+    sync(dev)
+    launches = kernel_counts()
+    # ----------------------------------------------------------------------
+    cuda = dev.type == "cuda"
+    want_kernels = {
+        "exact": ("bin_max2_first_round", "bin_max2_round"),
+        "quantized": SINGLE_PASS_KERNELS[:2],
+        "rounds": ROUNDS_KERNELS,
+    }
+    for name, kernels in want_kernels.items():
+        require(not cuda or all(
+            sum(by_b.get(kn, 0) for by_b in per_index[name].values()) > 0
+            for kn in kernels), f"sharded {name} launched {per_index[name]}")
+    require(launches["bin_max_round"] == 0
+            and launches["bin_max2_raw_fold_pass"] == 0,
+            f"the sharded path launched kernels 5 or 8: {launches}")
+
+    # --- each index against its plain passes and the single-device one ---
+    held = {}
+    for B in SERVE_BATCHES:
+        q = q_all[:B]
+        exact_scores = bt.plain_scores(q.to(torch.bfloat16),
+                                       emb.to(torch.bfloat16))
+        fp32_top = torch.topk(bt.plain_scores(q, emb), k, dim=1).indices + 1
+        got = answers["exact"][B]
+        with plain_exact():
+            want = sharded["exact"].topk_from_embeddings(q)
+        answers_ok(*got, k, n)
+        e_plain = compare_ranked(got[0], got[1] - 1, want[0], want[1] - 1,
+                                 exact_scores, gap=TOL)
+        one = single["exact"].topk_from_embeddings(q)
+        e_single = compare_ranked(got[0], got[1] - 1, one[0], one[1] - 1,
+                                  exact_scores, gap=TOL)
+        held[f"exact_B{B}"] = {"vs_plain": e_plain, "vs_single": e_single}
+        del exact_scores
+        for name, rounds in (("quantized", False), ("rounds", True)):
+            got, st = hold_sharded_quantized(sharded[name], q, rounds)
+            answers_ok(*got, k, n)
+            one = single[name].topk_from_embeddings(q)
+            st["recall_vs_fp32"] = recall_vs(got[1], fp32_top)
+            st["single_recall_vs_fp32"] = recall_vs(one[1], fp32_top)
+            require(st["recall_vs_fp32"] >= st["single_recall_vs_fp32"] - 0.005,
+                    f"sharded {name} at B={B} loses recall: {st}")
+            held[f"{name}_B{B}"] = st
+        del fp32_top
+    pad_rows = check_pad_rows(sharded["exact"], q_all[:128], dev)
+    scores = bt.plain_scores(q_all[:PAD_B].to(torch.bfloat16),
+                             emb.to(torch.bfloat16))
+    wide = sharded["exact"].topk_from_embeddings(q_all[:PAD_B])
+    answers_ok(*padded, k, n)
+    held["mesh_2x2_B37"] = compare_ranked(padded[0], padded[1] - 1, wide[0],
+                                          wide[1] - 1, scores, gap=TOL)
+
+    # --- the service: the sharded catalog against the single-device one ----
+    svc = RetrievalService.load(schema_dir, settings.model_dirpath,
+                                settings.index_dirpath, device=dev)
+    require(isinstance(svc_d.index, DistributedBruteForceIndex)
+            and svc_d.index._engine == "pallas",
+            "the sharded service does not run the kernels")
+    feat = svc.schema.candidate_id_feature
+    want_s = svc.retrieve(raw)
+    q_s = svc.embed(svc.encode_query(raw))
+    scores = bt.plain_scores(q_s.to(torch.bfloat16), emb.to(torch.bfloat16))
+    got_i = torch.from_numpy(feat.encode(np.array(served)).reshape(
+        len(served), k)).to(dev)
+    want_i = torch.from_numpy(feat.encode(np.array(want_s)).reshape(
+        len(want_s), k)).to(dev)
+    require(bool((got_i > 0).all()) and all(len(set(r)) == k for r in served),
+            "the sharded service answered an unknown or repeated article")
+    diff = got_i != want_i
+    rows = diff.nonzero()[:, 0]
+    s_got = scores[rows, (got_i[diff] - 1).long()]
+    s_want = scores[rows, (want_i[diff] - 1).long()]
+    require(bool(((s_got - s_want).abs()
+                  <= TOL * s_want.abs().clamp_min(1.0)).all()),
+            "the sharded service's strings differ between separated scores")
+    held["service"] = {"B": len(served), "id_mismatches": int(diff.sum())}
+
+    # --- evaluation_runner: recall counts equal up to ties ----------------
+    loaded = load_distributed_index(sharded_dir, mesh)
+    files = sorted(p.name for p in Path(sharded_dir).glob("index_shard_*"))
+    require(len(files) == SHARDS and loaded.num_candidates == n,
+            f"the sharded artifact holds {files}")
+    differing = {kk: 0 for kk in mc.ks}
+    hits = {"single": [0] * len(mc.ks), "sharded": [0] * len(mc.ks)}
+    for b in test_ds.iter_batches(tc.test_batch_size):
+        tb = to_device(b, dev)
+        with torch.no_grad():
+            q = model.query_forward(tb)
+        pair = {"single": exact1.topk_from_embeddings(q)[1],
+                "sharded": loaded.topk_from_embeddings(q)[1]}
+        for side, got_ids in pair.items():
+            metric = IndexRecall(mc.ks)
+            metric.update(got_ids, tb["article_id"])
+            hits[side] = [a + int(h) for a, h in
+                          zip(hits[side], metric.hits.tolist())]
+        for kk in mc.ks:
+            a = pair["single"][:, :kk].sort(1).values
+            c = pair["sharded"][:, :kk].sort(1).values
+            differing[kk] += int((a != c).any(1).sum())
+    rows_n = test_ds.num_rows
+    for j, kk in enumerate(mc.ks):
+        require(abs(hits["sharded"][j] - hits["single"][j]) <= differing[kk],
+                f"recall@{kk}: hit counts {hits} differ beyond the "
+                f"{differing[kk]} rows whose top {kk} differ")
+        require(abs(res_d[kk] * rows_n - hits["sharded"][j]) < 0.5
+                and abs(ctx["final"][kk] * rows_n - hits["single"][j]) < 0.5,
+                f"recall@{kk}: runner {res_d[kk]}, counted "
+                f"{hits['sharded'][j]} of {rows_n}")
+
+    # --- times: each sharded index beside its single-device one -----------
+    times = {}
+    for name in sharded:
+        for B in SERVE_BATCHES:
+            q = q_all[:B]
+            times[f"{name}_B{B}"] = {
+                side: timed_ms(lambda ix=ix: ix.topk_from_embeddings(q),
+                               repeats, dev)
+                for side, ix in (("single", single[name]),
+                                 ("sharded", sharded[name]))}
+    emit({"sharded": {
+        "catalog": n, "E": E, "k": k, "shards": SHARDS,
+        "mesh": mesh.shape, "rows_per_shard": sharded["exact"]._emb.per,
+        "build_s": build_s, "launches": launches, "per_index": per_index,
+        "held": held, "pad_rows": pad_rows, "eval_runner": res_d,
+        "eval_runner_single": ctx["final"], "differing_rows": differing,
+        "ms": times, "timing": "cuda events, mean of repeats" if cuda
+        else "wall"}})
+    return launches
 
 
 def main(argv=None):
@@ -2566,16 +3034,30 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
+    seconds = {}
+    t_phase = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[name] = now - t_phase
+        t_phase = now
+
     card = phase_device()
+    lap("1_device")
     stats = phase_kernels(gen, dev)
+    lap("2_kernels")
     build_root = ROOT / "build"
     build_root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke-") as d:
         launches, shared = phase_serving(args.seed, args.repeats, dev, Path(d))
+        lap("3_serving")
         stats.update(phase_quantized_kernels(gen, dev))
+        lap("4_quantized_kernels")
         quantized, recalls = phase_quantized_serving(shared, args.repeats, dev,
                                                      Path(d))
         launches.update(quantized)
+        lap("5_quantized_serving")
         rounds_stats = phase_rounds_kernels(gen, dev)
         # kernel 8's errors over phase 2's shapes and phase 6's
         k8, k8_phase2 = rounds_stats["bin_max_round"], stats["bin_max_round"]
@@ -2584,19 +3066,32 @@ def main(argv=None):
         stats.update(rounds_stats)
         launches["bin_max_round"] = phase_rounds_drivers(gen, dev)[
             "bin_max_round"]
+        lap("6_rounds_kernels")
         rounds = phase_rounds_serving(shared, recalls, args.repeats, dev,
                                       Path(d))
         for name in ROUNDS_KERNELS:
             launches[name] = rounds[name]
+        lap("7_rounds_serving")
     phase_widths(args.seed, dev)
+    lap("8_widths")
     with tempfile.TemporaryDirectory(dir=build_root,
                                      prefix="chip_smoke-train-") as d:
         phase_training(args.seed, dev, Path(d))
+    lap("9_training")
     with tempfile.TemporaryDirectory(dir=build_root,
                                      prefix="chip_smoke-runner-") as d:
-        # phase 10's launches are added to each kernel's count
-        for name, n in phase_runner(args.seed, dev, Path(d)).items():
+        # phases 10 and 12's launches are added to each kernel's count
+        runner_launches, ctx = phase_runner(args.seed, dev, Path(d))
+        for name, n in runner_launches.items():
             launches[name] += n
+        lap("10_runner")
+        phase_baseline(ctx, dev)
+        lap("11_baseline")
+        for name, n in phase_sharded(ctx, args.repeats, dev, Path(d)).items():
+            launches[name] += n
+        lap("12_sharded")
+        del ctx
+    emit({"phase_seconds": seconds})
 
     pallas = "hm_retrieval_tpu/ops/pallas_retrieval.py"
     kernel_files = {

@@ -1,33 +1,40 @@
-"""Retrieval indices. The exact ``BruteForceIndex`` and the int8
-``QuantizedIndex`` are ported; ``_NOT_PORTED`` names the family of the JAX
-package that still waits for its slice of the port (the static popularity
-index, ROADMAP.md Queue 1) and raises ``NotImplementedError``."""
+"""Retrieval indices, as in the JAX package:
+
+- ``BruteForceIndex``: exact top-k (ref: pkg/modelling/indices/brute_force.py)
+- ``QuantizedIndex``: int8 scan and fp32 rescore
+- ``StaticIndex``: the popularity baseline
+  (ref: pkg/modelling/indices/static_index.py)
+- ``DistributedBruteForceIndex`` / ``DistributedQuantizedIndex``: the first
+  two with the catalog row-sharded over a mesh (``indices/distributed.py``)
+"""
 
 import json
 import os
 
 from hm_retrieval_tpu_torch.device import DeviceLike
 from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
+from hm_retrieval_tpu_torch.indices.distributed import (
+    DISTRIBUTED_INDEX_TYPES,
+    DistributedBruteForceIndex,
+    DistributedQuantizedIndex,
+    load_distributed_index,
+)
 from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
+from hm_retrieval_tpu_torch.indices.static_index import StaticIndex
 
-INDEX_TYPES = {"brute_force": BruteForceIndex, "quantized": QuantizedIndex}
-# index types of the JAX package that wait for a later slice
-_NOT_PORTED = {
-    "static": "Queue 1 (the static popularity index)",
+INDEX_TYPES = {
+    "brute_force": BruteForceIndex,
+    "quantized": QuantizedIndex,
+    "static": StaticIndex,
 }
 
 
 def load_index(dirpath: str, device: DeviceLike = None):
-    """Load the index saved at ``dirpath`` (dispatch on meta.json's
-    "type"; artifacts without one are brute_force)."""
+    """Load the index saved at ``dirpath`` on ``device`` (dispatch on
+    meta.json's "type"; artifacts without one are brute_force)."""
     with open(os.path.join(dirpath, "meta.json")) as f:
         meta = json.load(f)
     kind = meta.get("type", "brute_force")
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"index type {kind!r} is not ported yet: ROADMAP.md "
-            f"{_NOT_PORTED[kind]}"
-        )
     if kind not in INDEX_TYPES:
         raise ValueError(
             f"unknown index type {kind!r} at {dirpath} "
@@ -36,4 +43,14 @@ def load_index(dirpath: str, device: DeviceLike = None):
     return INDEX_TYPES[kind].load(dirpath, device=device)
 
 
-__all__ = ["BruteForceIndex", "INDEX_TYPES", "QuantizedIndex", "load_index"]
+__all__ = [
+    "BruteForceIndex",
+    "DISTRIBUTED_INDEX_TYPES",
+    "DistributedBruteForceIndex",
+    "DistributedQuantizedIndex",
+    "INDEX_TYPES",
+    "QuantizedIndex",
+    "StaticIndex",
+    "load_distributed_index",
+    "load_index",
+]

@@ -38,6 +38,10 @@ def shard_paths(dirpath: str) -> List[str]:
     return [p for p, _ in sorted(matched, key=lambda pm: int(pm[1].group(1)))]
 
 
+def shard_file(dirpath: str, s: int) -> str:
+    return os.path.join(dirpath, f"index_shard_{s:05d}.npz")
+
+
 def iter_shard_arrays(dirpath: str) -> Iterator[Dict[str, np.ndarray]]:
     """Each shard file's arrays in catalog row order, one at a time."""
     for p in shard_paths(dirpath):
@@ -45,12 +49,23 @@ def iter_shard_arrays(dirpath: str) -> Iterator[Dict[str, np.ndarray]]:
             yield {k: z[k] for k in z.files}
 
 
-def clear_stale(dirpath: str) -> None:
-    """Remove the shard files a single-file save would leave behind, so
-    a loader cannot mix an old sharded layout with the new ``index.npz``."""
+def clear_stale(dirpath: str, keep_shards: int = None) -> None:
+    """Remove the artifact files a new save will not overwrite, so a loader
+    cannot mix them with the new layout. ``keep_shards=None``: a single-file
+    save follows, so every shard file goes. ``keep_shards=S``: a sharded
+    save of S files follows, so ``index.npz`` and shards numbered >= S go."""
     if not os.path.isdir(dirpath):
         return
-    for p in shard_paths(dirpath):
+    doomed = shard_paths(dirpath)
+    if keep_shards is not None:
+        doomed = [
+            p for p in doomed
+            if int(_SHARD_RE.search(p).group(1)) >= keep_shards
+        ]
+        single = os.path.join(dirpath, INDEX_FILE)
+        if os.path.exists(single):
+            doomed.append(single)
+    for p in doomed:
         try:
             os.unlink(p)
         except FileNotFoundError:

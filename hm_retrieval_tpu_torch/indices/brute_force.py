@@ -39,13 +39,11 @@ from hm_retrieval_tpu_torch.ops.bin_topk import (
     padded_width,
     plain_scores,
 )
-from hm_retrieval_tpu_torch.ops.topk import topk_pair
+from hm_retrieval_tpu_torch.ops.topk import ids_at, topk_pair
 
 logger = logging.getLogger(__name__)
 
 METHODS = ("auto", "full", "partial_reduce", "pallas", "approx")
-# id of a slot the rounds never filled (jnp.take's fill value for int32)
-MISSING_ID = -(2**31)
 
 
 class BruteForceIndex:
@@ -163,13 +161,9 @@ class BruteForceIndex:
         return cls(k, identifiers, embeddings, device=device, **kwargs)
 
     def _ids_of(self, rows: torch.Tensor) -> torch.Tensor:
-        """Catalog rows -> identifiers. Rows outside the real catalog (a
-        never-filled slot holds BIG_IDX) map to MISSING_ID rather than
-        raising in the gather."""
-        n = self.num_candidates
-        valid = (rows >= 0) & (rows < n)
-        ids = self.identifiers[rows.clamp(0, n - 1).long()]
-        return torch.where(valid, ids, torch.full_like(ids, MISSING_ID))
+        """Catalog rows -> identifiers; rows outside the real catalog (a
+        never-filled slot holds BIG_IDX) map to ``MISSING_ID``."""
+        return ids_at(self.identifiers, rows, self.num_candidates)
 
     @torch.no_grad()
     def topk_from_embeddings(self, query_embeddings: torch.Tensor):

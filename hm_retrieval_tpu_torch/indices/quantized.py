@@ -117,6 +117,20 @@ def _int_scores(qq: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return total.to(torch.float32)
 
 
+def rescore_survivors(q, embeddings, bias, top_s, top_i, k: int):
+    """Exact fp32 rescore of the survivors (rows ``top_i`` of
+    ``embeddings``, plus ``bias`` at those rows when given), then the top-k
+    among them. A -inf survivor slot (never filled, or a masked row) stays
+    -inf, and its row is clamped before the gather."""
+    rows_i = top_i.clamp(0, embeddings.shape[0] - 1).long()
+    with full_fp32():
+        exact = torch.bmm(embeddings[rows_i], q.unsqueeze(2)).squeeze(2)
+    if bias is not None:
+        exact = exact + bias[rows_i]
+    exact = torch.where(torch.isneginf(top_s), float("-inf"), exact)
+    return topk_pair(exact, top_i, k)
+
+
 def shrink_survivors(k_floor: int, k_over: int, dim: int) -> int:
     """Largest pallas-feasible survivor count obtained by halving ``k_over``
     toward ``k_floor``; ``k_over`` itself when feasible, ``k_floor`` when
@@ -146,6 +160,17 @@ def _auto_survivors(method: str, k: int, k_over: int, rescore: bool, dim: int):
                 )
                 return "pallas", cand
     return resolved, k_over
+
+
+def quantize_queries(q: torch.Tensor):
+    """Symmetric per-query int8 quantization of the scan engine: (integer-
+    valued fp32 codes (B, E), fp32 scales (B, 1)). The JAX package's
+    max|q| / 127.0 compiles to a multiply by the fp32 reciprocal."""
+    t = q.abs().amax(dim=1, keepdim=True) * torch.tensor(
+        _INV_127, device=q.device
+    )
+    t = torch.clamp_min(t, 1e-30)
+    return torch.round(q / t).clamp_(-127, 127), t
 
 
 def quantize_rows(embeddings: np.ndarray):
@@ -374,26 +399,14 @@ class QuantizedIndex:
     _ids_of = BruteForceIndex._ids_of
 
     def _rescored(self, q, top_s, top_i, bias: bool):
-        """Exact fp32 rescore of the survivors, then the top-k among them.
-        A -inf survivor slot (never filled, or a masked row) stays -inf."""
-        n_pad = self.embeddings.shape[0]
-        rows_i = top_i.clamp(0, n_pad - 1).long()
-        with full_fp32():
-            exact = torch.bmm(self.embeddings[rows_i], q.unsqueeze(2)).squeeze(2)
-        if bias:
-            exact = exact + self._score_bias[rows_i]
-        exact = torch.where(torch.isneginf(top_s), float("-inf"), exact)
-        return topk_pair(exact, top_i, self.k)
+        return rescore_survivors(
+            q, self.embeddings, self._score_bias if bias else None,
+            top_s, top_i, self.k,
+        )
 
     def _topk_scan(self, q: torch.Tensor):
         b = q.shape[0]
-        # symmetric per-query int8 quantization; the JAX package's
-        # max|q| / 127.0 compiles to a multiply by the fp32 reciprocal
-        t = q.abs().amax(dim=1, keepdim=True) * torch.tensor(
-            _INV_127, device=q.device
-        )
-        t = torch.clamp_min(t, 1e-30)
-        qq = torch.round(q / t).clamp_(-127, 127)
+        qq, t = quantize_queries(q)
         n_pad = self.codes.shape[0]
         top_s = torch.full(
             (b, self.k_over), float("-inf"), dtype=torch.float32, device=q.device

@@ -70,13 +70,15 @@ class Tower(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Tables uniform(+-0.05) in feature order, then each dense layer's
-        glorot-uniform weight; zero biases and attention queries."""
+        glorot-uniform weight; zero biases and attention queries. Each draw
+        is made on the generator's device and copied into the parameter, so
+        a CPU generator gives the same weights on every device."""
         for table in self.embeddings.values():
-            table.uniform_(-0.05, 0.05, generator=generator)
+            _draw_uniform(table, 0.05, generator)
         for layer in self.dense:
             d_out, d_in = layer.weight.shape
-            limit = (6.0 / (d_in + d_out)) ** 0.5
-            layer.weight.uniform_(-limit, limit, generator=generator)
+            _draw_uniform(layer.weight, (6.0 / (d_in + d_out)) ** 0.5,
+                          generator)
             layer.bias.zero_()
         for query in self.attention.values():
             query.zero_()
@@ -99,3 +101,10 @@ class Tower(nn.Module):
         for layer in self.dense:
             x = torch.relu(layer(x))
         return x
+
+
+def _draw_uniform(param: torch.Tensor, limit: float,
+                  generator: torch.Generator) -> None:
+    """``param`` <- uniform(-limit, limit) drawn on ``generator``'s device."""
+    draw = torch.empty(param.shape, dtype=param.dtype, device=generator.device)
+    param.copy_(draw.uniform_(-limit, limit, generator=generator))

@@ -109,10 +109,11 @@ class TwoTowerModel(nn.Module):
         )
 
     def init_params(self, seed: int = 0) -> "TwoTowerModel":
-        """Random init from one ``torch.Generator`` on the model's device,
-        seeded with ``seed``: the query tower's draws, then the
-        candidate tower's."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        """Random init from one CPU ``torch.Generator`` seeded with
+        ``seed``: the query tower's draws, then the candidate tower's, each
+        copied to the model's device. One seed gives the same weights on the
+        card as on the CPU."""
+        gen = torch.Generator().manual_seed(seed)
         self.query_tower.reset_parameters(gen)
         self.candidate_tower.reset_parameters(gen)
         return self

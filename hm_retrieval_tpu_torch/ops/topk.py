@@ -16,6 +16,18 @@ from __future__ import annotations
 
 import torch
 
+# id of a slot no row filled (jnp.take's fill value for int32)
+MISSING_ID = -(2**31)
+
+
+def ids_at(identifiers: torch.Tensor, rows: torch.Tensor, n: int):
+    """``identifiers[rows]`` for rows in [0, n); any other row (the
+    ``BIG_IDX`` of a slot no row filled) maps to ``MISSING_ID`` rather than
+    raising in the gather."""
+    valid = (rows >= 0) & (rows < n)
+    ids = identifiers[rows.clamp(0, n - 1).long()]
+    return torch.where(valid, ids, torch.full_like(ids, MISSING_ID))
+
 
 def topk_pair(vals: torch.Tensor, ids: torch.Tensor, k: int):
     """Row-wise top-k over (value, id) pairs, ids carried as payload.

@@ -15,9 +15,15 @@ pkg/modelling/runner.py:18-107), its single-device path:
   (``utils/profiling.py``)
 
 Every entry point takes ``device=None``, which means the card, and raises
-without CUDA unless given ``device="cpu"``. The options that take a mesh or
-a sharded index wait for the distributed slice (ROADMAP.md Queue 1 item 6)
-and the SavedModel export for item 7; each raises ``NotImplementedError``.
+without CUDA unless given ``device="cpu"``. ``build_index``, ``evaluate``
+and ``evaluation_runner`` take a one-process mesh (``parallel/mesh.py``) and
+``distributed`` / ``distributed_index``, which shards the catalog over the
+mesh's model axis (``indices/distributed.py``); the batches and the model's
+weights stay on the mesh's first device, which must be ``device``, where the
+JAX package shards the batches over the data axis and replicates the
+weights. Training over a mesh (``modelling_runner`` with a mesh, row-sharded
+tables) waits for ROADMAP.md Queue 1 item 6.2 and the SavedModel export for
+item 7; each raises ``NotImplementedError`` before any step.
 """
 
 from __future__ import annotations
@@ -43,6 +49,11 @@ from hm_retrieval_tpu_torch.models.train_path import (
     make_single_device_trainer,
 )
 from hm_retrieval_tpu_torch.models.two_tower import TwoTowerModel
+from hm_retrieval_tpu_torch.parallel.mesh import (
+    MULTI_PROCESS,
+    canonical,
+    require_single_process,
+)
 from hm_retrieval_tpu_torch.runners.checkpoint import (
     CheckpointManager,
     export_model,
@@ -54,13 +65,16 @@ from hm_retrieval_tpu_torch.utils.summary import MetricWriter
 
 logger = logging.getLogger(__name__)
 
-_DISTRIBUTED = "ROADMAP.md Queue 1 item 6 (distributed)"
 
-
-def _no_mesh(what: str, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} with a mesh is not ported yet: {_DISTRIBUTED}"
+def _on_mesh(mesh, dev: torch.device) -> None:
+    """A mesh's batches and weights stay on its first device: ``dev``."""
+    if mesh is None:
+        return
+    require_single_process("a mesh")
+    if mesh.first_device != canonical(dev):
+        raise ValueError(
+            f"the mesh's first device {mesh.first_device} is not the "
+            f"model's device {dev}"
         )
 
 
@@ -85,10 +99,15 @@ def _to(batch: Dict[str, np.ndarray], dev: torch.device):
     }
 
 
-def _active_sharded_features(tc) -> None:
+def _active_sharded_features(tc, mesh=None) -> None:
     """Row-sharded tables need a mesh with a model axis; on one device the
     JAX package warns and trains with replicated tables, and so does the
-    port."""
+    port. Over a mesh they wait for item 6.2."""
+    if tc.sharded_embedding_features and mesh is not None:
+        raise NotImplementedError(
+            "sharded_embedding_features with a mesh are not ported yet: "
+            f"{MULTI_PROCESS}"
+        )
     if tc.sharded_embedding_features:
         logger.warning(
             "sharded_embedding_features %s requested but there is no mesh; "
@@ -114,17 +133,15 @@ def build_index(
     ``supports_device_build`` (both do) builds from the catalog where the
     tower put it, so the (N, E) catalog never reaches the host; any other
     is built from ``collect_catalog``'s host arrays, as the JAX package
-    builds it."""
+    builds it. ``distributed=True`` streams the catalog into shards over
+    ``mesh``'s model axis instead (``collect_catalog_sharded``), each shard
+    finished on its device."""
     dev = resolve_device(device)
-    if distributed:
-        raise NotImplementedError(
-            f"the distributed index is not ported yet: {_DISTRIBUTED}"
-        )
-    _no_mesh("build_index", mesh)
-    from hm_retrieval_tpu_torch.indices import INDEX_TYPES
+    from hm_retrieval_tpu_torch.indices import (
+        DISTRIBUTED_INDEX_TYPES,
+        INDEX_TYPES,
+    )
     from hm_retrieval_tpu_torch.indices.builder import collect_catalog
-
-    family = INDEX_TYPES[index_type]
 
     def embed(batch):
         return model.candidate_forward(_to(batch, model.device))
@@ -135,6 +152,19 @@ def build_index(
         candidate_ds.iter_batches(candidate_batch_size),
         candidate_batch_size,
     )
+    if distributed:
+        if mesh is None:
+            raise ValueError(
+                "distributed index requires a mesh (make_mesh with a model "
+                "axis)"
+            )
+        # the manifest's row count and the tower's width let the sharded
+        # build stream without materializing anything catalog-sized
+        return DISTRIBUTED_INDEX_TYPES[index_type].build_from_batches(
+            k, *args, mesh=mesh, num_candidates=candidate_ds.num_rows,
+            dim=model.joint_embedding_size,
+        )
+    family = INDEX_TYPES[index_type]
     if getattr(family, "supports_device_build", False):
         return family.build_from_batches(k, *args, device=dev)
     identifiers, embeddings = collect_catalog(*args)
@@ -157,8 +187,9 @@ def evaluate(
     the padded rows are masked out of the metric. Each batch: the query
     tower, ``index.topk_from_embeddings``, then the metric, which pulls one
     small vector to the host. Ks larger than the catalog are dropped with a
-    warning."""
-    _no_mesh("evaluate", mesh)
+    warning. With a ``mesh`` the batches stay on its first device, the
+    model's."""
+    _on_mesh(mesh, model.device)
     usable_ks = [k for k in ks if k <= index.num_candidates]
     dropped = [k for k in ks if k > index.num_candidates]
     if dropped:
@@ -202,20 +233,21 @@ def evaluation_runner(
 ) -> Dict[int, float]:
     """Eval-only stage: restore the latest checkpoint into the state the
     trainer would create, rebuild the index from the candidate tower,
-    evaluate Recall@K and refresh the index artifact. No training."""
+    evaluate Recall@K and refresh the index artifact. No training.
+    ``distributed_index`` shards the catalog over ``mesh``'s model axis
+    (``indices/distributed.py``), whose first device must be ``device``."""
     dev = resolve_device(device)
-    _no_mesh("evaluation_runner", mesh)
-    if distributed_index:
-        raise NotImplementedError(
-            f"the distributed index is not ported yet: {_DISTRIBUTED}"
-        )
+    require_single_process("evaluation_runner")
+    if distributed_index and mesh is None:
+        raise ValueError("distributed_index=True requires a mesh (make_mesh)")
+    _on_mesh(mesh, dev)
     schema = Schema.load(settings.schema_dirpath)
     tc, mc = schema.training_config, schema.model_config
     test_ds = ShardDataset(settings.test_shards_dirpath)
     cand_ds = ShardDataset(settings.candidate_shards_dirpath)
 
     model = TwoTowerModel.create_from_schema(schema, device=dev)
-    _active_sharded_features(tc)
+    _active_sharded_features(tc, mesh)
     state = create_single_device_state(model, tc)
     ckpt = CheckpointManager(settings.checkpoint_dirpath, device=dev)
     try:
@@ -229,9 +261,12 @@ def evaluation_runner(
         tc.candidate_batch_size,
         min(max(mc.ks), cand_ds.num_rows),
         index_type=mc.index_type,
+        mesh=mesh,
+        distributed=distributed_index,
         device=dev,
     )
-    res = evaluate(model, index, test_ds, tc.test_batch_size, mc.ks)
+    res = evaluate(model, index, test_ds, tc.test_batch_size, mc.ks,
+                   mesh=mesh)
     index.save(settings.index_dirpath)
     return res
 
@@ -272,11 +307,14 @@ def modelling_runner(
     if training_overrides:
         _apply_overrides(schema, training_overrides)
     tc, mc = schema.training_config, schema.model_config
-    _no_mesh("modelling_runner", mesh)
-    if distributed_index:
+    if distributed_index and mesh is None:
+        raise ValueError("distributed_index=True requires a mesh (make_mesh)")
+    if mesh is not None:
+        # the JAX runner trains over the mesh it is given
         raise NotImplementedError(
-            f"the distributed index is not ported yet: {_DISTRIBUTED}"
+            f"modelling_runner with a mesh is not ported yet: {MULTI_PROCESS}"
         )
+    require_single_process("modelling_runner")
     if settings.savedmodel_dirpath:
         # fail before training, as the JAX package's schema check does
         raise NotImplementedError(

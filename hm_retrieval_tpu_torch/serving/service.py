@@ -3,8 +3,8 @@
 Counterpart of ``hm_retrieval_tpu/serving/service.py``. Strings never reach
 the device: the service encodes raw string features to int ids on the host
 with the schema vocabs, runs the query tower and the index's top-k on the
-device (the exact ``BruteForceIndex`` or the int8 ``QuantizedIndex``), and
-decodes int ids back to strings at the edge.
+device (the exact ``BruteForceIndex`` or the int8 ``QuantizedIndex``, or
+their mesh-sharded forms), and decodes int ids back to strings at the edge.
 
 Artifacts consumed (written by either package):
     <schema_dir>/                 schema.json + vocabs.npz (+ logq.npy)
@@ -21,9 +21,7 @@ import numpy as np
 import torch
 
 from hm_retrieval_tpu_torch.device import DeviceLike, resolve_device
-from hm_retrieval_tpu_torch.indices import load_index
-from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
-from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
+from hm_retrieval_tpu_torch.indices import load_distributed_index, load_index
 from hm_retrieval_tpu_torch.models.bridge import tower_from_numpy
 from hm_retrieval_tpu_torch.models.tower import Tower
 from hm_retrieval_tpu_torch.schema.features import FeatureKind
@@ -40,7 +38,7 @@ class RetrievalService:
         self,
         schema: Schema,
         query_tower: Tower,
-        index: Union[BruteForceIndex, QuantizedIndex],
+        index,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -56,24 +54,31 @@ class RetrievalService:
         schema_dirpath: str,
         model_dirpath: str,
         index_dirpath: str,
-        device: DeviceLike = None,
+        mesh=None,
         distributed_index: bool = False,
+        device: DeviceLike = None,
     ) -> "RetrievalService":
-        if distributed_index:
-            raise NotImplementedError(
-                "distributed_index=True (the mesh-sharded catalog) is not "
-                "ported yet: ROADMAP.md slice 4 (parallel/*)"
-            )
+        """The query tower runs on ``device`` (None: the card).
+        ``distributed_index=True`` shards the saved catalog over ``mesh``'s
+        model axis (``load_distributed_index``) and serves through the
+        sharded top-k; the index artifacts of both layouts are
+        interchangeable."""
         dev = resolve_device(device)
         schema = Schema.load(schema_dirpath)
         tree = load_pytree_npz(f"{model_dirpath}/query_tower/params.npz")
+        if distributed_index:
+            if mesh is None:
+                raise ValueError("distributed_index=True requires a mesh")
+            index = load_distributed_index(index_dirpath, mesh)
+        else:
+            index = load_index(index_dirpath, device=dev)
         tower = tower_from_numpy(schema.query_features, tree, dev)
-        index = load_index(index_dirpath, device=dev)
         logger.info(
-            "Loaded retrieval service: %d candidates, k=%d, method=%s",
+            "Loaded retrieval service: %d candidates, k=%d, method=%s%s",
             index.num_candidates,
             index.k,
             index.method,
+            " (mesh-sharded catalog)" if distributed_index else "",
         )
         return cls(schema, tower, index, dev)
 

@@ -24,6 +24,7 @@ from hm_retrieval_tpu_torch.ops import _build
 from hm_retrieval_tpu_torch.ops import bin_topk as bt
 from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 from hm_retrieval_tpu_torch.serving import RetrievalService
+from tests.test_torch_runners import jax_stages  # noqa: F401 (module fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "hm_retrieval_tpu_torch"
@@ -103,7 +104,15 @@ RUNNER_MODULES = {
     "metrics/index_recall.py": {"numpy", "torch"},
     "metrics/__init__.py": set(),
     "ops/topk.py": {"torch"},
-    "indices/builder.py": {"numpy", "torch"},
+    "indices/builder.py": {"itertools", "numpy", "torch"},
+    "indices/distributed.py": {"json", "os", "numpy", "torch"},
+    "indices/static_index.py": {"json", "os", "numpy", "torch"},
+    "etl/transformations.py": {"csv", "re", "numpy", "pyarrow"},
+    "etl/__init__.py": set(),
+    "parallel/mesh.py": {"numpy", "torch"},
+    "parallel/distributed_topk.py": {"numpy", "torch"},
+    "parallel/__init__.py": set(),
+    "runners/baseline.py": set(),
     "runners/checkpoint.py": {"concurrent", "json", "os", "shutil", "uuid"},
     "runners/modelling.py": {"dataclasses", "time", "numpy", "torch"},
     "runners/__init__.py": set(),
@@ -123,6 +132,49 @@ def test_the_runner_modules_import_only_the_port(module):
         m.split(".")[0] for m in _imported_modules(PKG / module)
     } - {"__future__", "logging", "typing", "hm_retrieval_tpu_torch"}
     assert roots <= RUNNER_MODULES[module], roots
+
+
+def test_the_baseline_runs_without_pandas(jax_stages, tmp_path):  # noqa: F811
+    """Where ``import pandas`` fails, as on the card's machine, the port's
+    transformations, static index and baseline runner import, and the
+    baseline runs on the CPU over a CSV of the tiny pipeline."""
+    settings_json = os.path.join(
+        os.path.dirname(jax_stages.schema_dirpath), "settings.json")
+    code = (
+        "import dataclasses, sys\n"
+        "sys.modules['pandas'] = None\n"
+        "import hm_retrieval_tpu_torch.etl.transformations\n"
+        "import hm_retrieval_tpu_torch.indices.static_index\n"
+        "from hm_retrieval_tpu_torch.runners.baseline import (\n"
+        "    baseline_modelling_runner)\n"
+        "from hm_retrieval_tpu_torch.utils import Settings\n"
+        f"s = Settings.from_json({settings_json!r})\n"
+        "s = dataclasses.replace(s, baseline_index_dirpath="
+        f"{str(tmp_path / 'baseline')!r})\n"
+        "res = baseline_modelling_runner(s, device='cpu')\n"
+        "print(sorted(res), 'pandas' in sys.modules and "
+        "sys.modules['pandas'] is not None)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=str(tmp_path), env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[-2] == "[10, 50] False"
+    assert (tmp_path / "baseline" / "identifiers.npy").exists()
+
+
+def test_the_mesh_defaults_to_the_cards(no_card):
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(devices=["cuda:0"])
+    mesh = make_mesh(data=2, model=2, devices=["cpu"] * 4)
+    assert mesh.shape == {"data": 2, "model": 2}
+    assert mesh.first_device == torch.device("cpu")
 
 
 def test_the_writer_survives_without_tensorboardx():

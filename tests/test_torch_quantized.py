@@ -308,9 +308,19 @@ class TestArtifact:
         assert torch.equal(back.codes, idx.codes)
 
     def test_static_index_is_not_ported(self, tmp_path):
-        (tmp_path / "meta.json").write_text(json.dumps({"type": "static"}))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load_index(str(tmp_path), device="cpu")
+        """The static artifact the JAX package writes (identifiers.npy and
+        meta type "static") loads through load_index as a StaticIndex."""
+        from hm_retrieval_tpu.indices.static_index import (
+            StaticIndex as JaxStaticIndex,
+        )
+        from hm_retrieval_tpu_torch.indices import StaticIndex
+
+        ids = np.array([7, 3, 11, 5], np.int32)
+        JaxStaticIndex(ids).save(str(tmp_path))
+        idx = load_index(str(tmp_path), device="cpu")
+        assert isinstance(idx, StaticIndex)
+        np.testing.assert_array_equal(idx.query(2, k=3).numpy(),
+                                      np.tile(ids[:3], (2, 1)))
 
     def test_entry_points_raise_without_a_card(self, rng, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -51,9 +51,9 @@ KS = [10, 50]
 
 
 @pytest.fixture(scope="module")
-def pipeline(tmp_path_factory):
-    """The JAX package's first three stages, then the port's modelling
-    stage on the CPU."""
+def jax_stages(tmp_path_factory):
+    """The JAX package's ETL, schema and shard stages on the tiny data;
+    returns the port's ``Settings`` read from their ``settings.json``."""
     d = str(tmp_path_factory.mktemp("torch_pipeline"))
     raw = generate_hm_like_csvs(
         os.path.join(d, "raw"),
@@ -109,9 +109,14 @@ def pipeline(tmp_path_factory):
     shard_writer_runner(jax_settings)
     # one settings.json drives either package
     jax_settings.to_json(f"{d}/settings.json")
-    settings = Settings.from_json(f"{d}/settings.json")
-    results = modelling_runner(settings, device="cpu")
-    return settings, results
+    return Settings.from_json(f"{d}/settings.json")
+
+
+@pytest.fixture(scope="module")
+def pipeline(jax_stages):
+    """The JAX package's first three stages, then the port's modelling
+    stage on the CPU."""
+    return jax_stages, modelling_runner(jax_stages, device="cpu")
 
 
 def _steps_per_epoch(settings):
@@ -211,6 +216,10 @@ def test_unknown_override_raises(pipeline):
 @pytest.mark.parametrize("option", ["savedmodel", "mesh", "distributed"])
 def test_unported_options_raise_before_any_step(pipeline, tmp_path, monkeypatch,
                                                 option):
+    """The SavedModel export and training over a mesh raise
+    ``NotImplementedError`` naming their ROADMAP.md item; a sharded index
+    without a mesh raises ``ValueError``, as in the JAX package. Each before
+    any step."""
     from hm_retrieval_tpu_torch.runners import modelling
 
     settings, _ = pipeline
@@ -225,8 +234,16 @@ def test_unported_options_raise_before_any_step(pipeline, tmp_path, monkeypatch,
     monkeypatch.setattr(modelling, "make_single_device_trainer", no_trainer)
     kw = {"mesh": object()} if option == "mesh" else (
         {"distributed_index": True} if option == "distributed" else {})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        modelling_runner(settings, device="cpu", **kw)
+    if option == "distributed":
+        with pytest.raises(ValueError, match="requires a mesh"):
+            modelling_runner(settings, device="cpu", **kw)
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item"):
+            modelling_runner(settings, device="cpu", **kw)
+    if option == "mesh":
+        with pytest.raises(NotImplementedError, match="item 6.2"):
+            modelling_runner(settings, device="cpu", **kw)
     assert not (tmp_path / "ckpt").exists()
 
 

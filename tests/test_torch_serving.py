@@ -185,7 +185,7 @@ def test_request_validation(artifacts):
     raw = dict(artifacts["raw"], age=[1.0])
     with pytest.raises(ValueError, match="inconsistent"):
         svc.retrieve(raw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         RetrievalService.load(
             artifacts["schema"], artifacts["model"], artifacts["index"],
             device="cpu", distributed_index=True,

@@ -187,6 +187,21 @@ def test_port_init_follows_the_reference_scheme():
     )
 
 
+def test_init_draws_on_the_cpu_whatever_the_models_device():
+    """init_params draws from a CPU generator and copies the draws to the
+    model's device, so one seed gives the card and the CPU the same weights.
+    On a model moved to the meta device, where no generator exists, it still
+    runs: nothing is drawn there."""
+    (_, _), (tq, tc) = _two_tower_features()
+    model = TwoTowerModel(tq, tc, "article_id", 12, [16], [16], device="cpu")
+    model.to("meta")
+    model.device = torch.device("meta")
+    with pytest.raises(RuntimeError):
+        torch.Generator(device="meta")
+    model.init_params(seed=1)
+    assert all(p.device.type == "meta" for p in model.parameters())
+
+
 def test_export_layout_loads_in_both_packages(tmp_path, rng):
     (jq, jc), (tq, tc) = _two_tower_features()
     model = TwoTowerModel(

@@ -650,6 +650,25 @@ def test_negatives_replay_from_base_seed_and_step(rng):
     assert float(m1["loss"]) == float(m2["loss"])
 
 
+def test_negatives_draw_on_the_catalogs_device(rng, monkeypatch):
+    """Unlike the initial weights (drawn on the CPU whatever the model's
+    device), the uniform negatives' generator lives on the catalog's
+    device: each step draws its rows where they are gathered, so one seed
+    gives other negatives on the card than on the CPU."""
+    _, pm = _models("mean")
+    _, pcat = _catalogs(rng)
+    made, real = [], torch.Generator
+
+    def recording(device="cpu"):
+        made.append(torch.device(device))
+        return real(device=device)
+
+    monkeypatch.setattr(torch, "Generator", recording)
+    opt = OptimizerFactory.get_optimizer("adagrad", {"learning_rate": LR})
+    make_train_step(pm, opt, catalog=pcat, num_uniform_negatives=8)
+    assert made == [pcat.device]
+
+
 def test_uniform_negatives_require_a_catalog():
     _, pm = _models("mean")
     opt = OptimizerFactory.get_optimizer("adagrad", {"learning_rate": LR})
