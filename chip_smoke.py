@@ -209,6 +209,39 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    equal evaluation_runner's and phase 10's. Each index is timed at each B
    beside its single-device counterpart (CUDA events). Its launches are
    added to each kernel's count on the kernels line.
+13. Training over a one-process mesh at full H&M width (phase 9's model,
+   B = 512, lr 0.05; Adam as phase 9's check takes it), meshes of the one
+   card repeated (make_mesh(D, S, devices=[card] * (D * S))); no TPU kernel
+   lies on its training paths. Cut: depth only (5 held steps, 3 + 20 timed
+   a path; one epoch in (c)).
+   (a) each mesh path through make_mesh_trainer, against its single-device
+       counterpart through make_single_device_trainer, both from one seed
+       (initial states equal bit for bit): data-parallel dense Adagrad,
+       dense Adam and 512 uniform negatives (the rows given to both) and
+       sparse Adagrad at (4, 1); customer_id and article_id row-sharded,
+       dense Adagrad at (2, 2), sparse at (2, 2) and (1, 4). Over 5
+       batches, each mesh step starts from the single-device chain's state
+       and must land within rtol 1e-4 / atol 1e-5 of its next state, losses
+       within rtol 1e-5 (a free-running chain is a reading: a ReLU input
+       within rounding of 0 can fall on either side); one step under
+       set_sync_debug_mode("error"); two free-running replays of the 5 steps
+       bit-identical; pad rows and every row no batch touched bit-unchanged;
+       no NaN. make_sharded_lookup's "psum" and "all_to_all" over the
+       sharded customer table equal table[ids] bit for bit, and a capacity
+       of 1 gives NaN;
+   (b) each mesh path's median step ms by CUDA events over 20 steps fed by
+       device_feed(mesh=...), examples/s, device ms, idle share and
+       operations a step under torch.profiler, peak memory, beside phase
+       9's single-device rows of the same call;
+   (c) modelling_runner over a (2, 2) mesh on phase 10's stream and schema
+       with customer_id and article_id row-sharded and distributed_index,
+       counts from 0: recall@10/100/1000 before and after beside phase
+       10's, recall@100 rising, kernels 1-2 launched (per shard) and no
+       other kernel, examples/s of the epoch (trace off), the exported
+       towers in phase 10's unpadded shapes; evaluation_runner over the
+       mesh equal to final; a resumed run continuing the step count from
+       the checkpoint; the checkpoint's bytes, save and restore ms. Its
+       launches are added to each kernel's count on the kernels line.
 
 Output: per-phase JSON lines and each phase's seconds, then the card's name
 and power limit, the
@@ -1719,21 +1752,6 @@ def training_config(fields, check=False):
     return TrainingConfig(**fields)
 
 
-def state_tensors(state):
-    """Every tensor of a training state, by a name."""
-    out = {f"params/{n}": p.detach() for n, p in state.params.items()}
-    opt = getattr(state, "opt_state", None) or state.dense_opt_state
-    for field_name, value in opt._asdict().items():
-        if isinstance(value, torch.Tensor):
-            out[f"opt/{field_name}"] = value
-        else:
-            out.update({f"opt/{field_name}/{n}": t for n, t in value.items()})
-    if hasattr(state, "sparse_state"):
-        out.update({f"acc/{n}": t
-                    for n, t in state.sparse_state.accumulators.items()})
-    return out
-
-
 def to_device(batch, dev):
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in batch.items()}
@@ -2631,7 +2649,8 @@ def phase_runner(seed, dev, workdir, n_customers=N_CUSTOMERS,
                       "launches": q_launches, "vs_plain": q_held}}})
     launches = {name: runner_launches[name] + q_launches[name]
                 for name in runner_launches}
-    return launches, {"settings": settings, "final": results["final"],
+    return launches, {"settings": settings, "initial": results["initial"],
+                      "final": results["final"],
                       "model": model, "index": index, "qindex": qindex,
                       "test_ds": test_ds, "tc": tc, "mc": mc}
 
@@ -3013,6 +3032,523 @@ def phase_sharded(ctx, repeats, dev, workdir):
     return launches
 
 
+# --- phase 13: training over a one-process mesh ------------------------------
+MESH_STEPS = 5  # steps each pair holds against the single-device step
+MESH_WARMUP, MESH_TIMED = 3, 20  # untimed, then timed steps a mesh path
+MESH_SHARDED = ["customer_id", "article_id"]
+# (mesh path, its single-device counterpart in TRAIN_PATHS, (data, model),
+# row-sharded features), grouped by counterpart
+MESH_PATHS = (
+    ("dp_dense_adagrad", "dense_adagrad", (4, 1), []),
+    ("row_sharded_dense_adagrad_2x2", "dense_adagrad", (2, 2), MESH_SHARDED),
+    ("dp_dense_adam", "dense_adam", (4, 1), []),
+    ("dp_mixed_negatives", "mixed_negatives", (4, 1), []),
+    ("dp_sparse_adagrad", "sparse_adagrad", (4, 1), []),
+    ("row_sharded_sparse_2x2", "sparse_adagrad", (2, 2), MESH_SHARDED),
+    ("row_sharded_sparse_1x4", "sparse_adagrad", (1, 4), MESH_SHARDED),
+)
+MESH_RUNNER_SHAPE = (2, 2)
+
+
+def leaf_tensors(x):
+    """The tensors of a state's value: a ``ShardedTable``'s shards, else
+    the tensor itself."""
+    return list(x.shards) if hasattr(x, "shards") else [x]
+
+
+def state_values(state):
+    """Every value of a single-device or mesh training state by a name:
+    tensors, and ``ShardedTable``s of the row-sharded tables and their
+    optimizer state."""
+    out = {f"params/{n}": p for n, p in state.params.items()}
+    opt = getattr(state, "opt_state", None) or state.dense_opt_state
+    for field_name, value in opt._asdict().items():
+        if isinstance(value, torch.Tensor):
+            out[f"opt/{field_name}"] = value
+        else:
+            out.update({f"opt/{field_name}/{n}": t for n, t in value.items()})
+    if hasattr(state, "sparse_state"):
+        out.update({f"acc/{n}": t
+                    for n, t in state.sparse_state.accumulators.items()})
+    return out
+
+
+def state_tensors(state, rows=None):
+    """Every tensor of a training state by a name (``state_values``): a
+    row-sharded value joined on the card and cut to ``rows``, the unpadded
+    row counts by parameter name."""
+    rows = rows or {}
+    out = {}
+    for key, value in state_values(state).items():
+        parts = [p.detach() for p in leaf_tensors(value)]
+        t = parts[0] if len(parts) == 1 else torch.cat(parts)
+        n = rows.get(key.rsplit("/", 1)[-1])
+        out[key] = t[:n] if n is not None else t
+    return out
+
+
+def all_tensors(state):
+    return [t for v in state_values(state).values() for t in leaf_tensors(v)]
+
+
+def snapshot(state):
+    """A copy of every tensor of ``state``, in the order ``restore`` reads
+    it back."""
+    return [t.detach().clone() for t in all_tensors(state)]
+
+
+@torch.no_grad()
+def restore(state, saved, step):
+    for t, s in zip(all_tensors(state), saved):
+        t.copy_(s)
+    return state._replace(step=step)
+
+
+@torch.no_grad()
+def load_values(state, want, step):
+    """Copy a single-device state's tensors (``state_tensors``' names)
+    into ``state``; a row-sharded value shard by shard, its pad rows left
+    as they are."""
+    for key, value in state_values(state).items():
+        src = want[key]
+        if not hasattr(value, "shards"):
+            value.detach().copy_(src)
+            continue
+        r = value.rows_per_shard
+        for s, shard in enumerate(value.shards):
+            lo, hi = s * r, min((s + 1) * r, src.shape[0])
+            if lo < hi:
+                shard[: hi - lo].copy_(src[lo:hi])
+    return state._replace(step=step)
+
+
+def step_under(step, state, batch, kw, sync_check):
+    """One step; under ``set_sync_debug_mode("error")`` when
+    ``sync_check``: a step that reads a value back to the host raises."""
+    if not sync_check:
+        return step(state, batch, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return step(state, batch, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def hold_close(name, got, want, rtol, atol):
+    """Every tensor of ``want`` in ``got`` within rtol / atol; the worst
+    absolute error and its tensor."""
+    require(set(got) == set(want), f"{name}: state layouts differ: "
+            f"{sorted(set(got) ^ set(want))}")
+    worst, worst_name = 0.0, None
+    for key, w in want.items():
+        g = got[key]
+        if not w.is_floating_point():
+            require(torch.equal(g, w), f"{name}: {key} differs")
+            continue
+        require(not g.isnan().any(), f"{name}: NaN in {key}")
+        err = (g - w).abs()
+        require(bool((err <= atol + rtol * w.abs()).all()),
+                f"{name}: {key} outside tolerance, max err "
+                f"{float(err.max())}")
+        if err.numel() and float(err.max()) > worst:
+            worst, worst_name = float(err.max()), key
+    return worst, worst_name
+
+
+def max_err(got, want):
+    return max(float((g.float() - want[k].float()).abs().max())
+               for k, g in got.items() if g.numel())
+
+
+def check_lookups(table, mesh, ids):
+    """``make_sharded_lookup``'s two strategies over a row-sharded table on
+    the card against ``table[ids]`` bit for bit; an overflowing capacity
+    poisons with NaN."""
+    from hm_retrieval_tpu_torch.parallel import make_sharded_lookup
+
+    want = torch.cat(table.shards)[ids.long()]
+    out = {}
+    for strategy in ("psum", "all_to_all"):
+        got = make_sharded_lookup(mesh, strategy)(table, ids)
+        require(torch.equal(got, want), f"{strategy} lookup != table[ids]")
+        out[strategy] = "bitwise"
+    # a capacity of one distinct id an owner, against hundreds
+    over = make_sharded_lookup(mesh, "all_to_all", capacity=1)(table, ids)
+    require(bool(over.isnan().all()), "capacity overflow did not give NaN")
+    out["overflow_nan"] = True
+    return out
+
+
+def time_mesh_path(step, state, host_batches, mesh, negatives_of):
+    """``MESH_WARMUP`` untimed and ``MESH_TIMED`` timed steps through
+    ``device_feed(mesh=mesh)``, CUDA events each; then 3 steps under the
+    profiler."""
+    from hm_retrieval_tpu_torch.data import device_feed
+
+    starts, ends, on_card = [], [], []
+    for i, b in enumerate(device_feed(iter(host_batches), mesh=mesh)):
+        kw = negatives_of(state.step)
+        if i >= MESH_WARMUP:
+            starts.append(torch.cuda.Event(enable_timing=True))
+            ends.append(torch.cuda.Event(enable_timing=True))
+            starts[-1].record()
+        state, _ = step(state, b, **kw)
+        if i >= MESH_WARMUP:
+            ends[-1].record()
+        if len(on_card) < 3:
+            on_card.append(b)
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in zip(starts, ends)]
+    kw = negatives_of(state.step)
+    state, prof = profile_steps(lambda s, b: step(s, b, **kw), state, on_card)
+    return state, ms, prof
+
+
+def phase_mesh_training(seed, dev, n_customers=N_CUSTOMERS,
+                        n_articles=N_ARTICLES):
+    """Phase 13 (a) and (b) (see the module docstring). Returns a row per
+    mesh path."""
+    from hm_retrieval_tpu_torch.models import make_single_device_trainer
+    from hm_retrieval_tpu_torch.models.mixed_negatives import (
+        CandidateCatalog, step_seed,
+    )
+    from hm_retrieval_tpu_torch.models.train_path import make_mesh_trainer
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed + 13)
+    probs, logq = article_popularity(n_articles)
+    n_batches = MESH_STEPS + (MESH_WARMUP + MESH_TIMED if cuda else 0)
+    rows, catalog_cols = train_columns(rng, n_batches * TRAIN_B, n_customers,
+                                       n_articles, probs)
+    rows.pop("purchase_history")
+    host = [{k: v[i * TRAIN_B:(i + 1) * TRAIN_B] for k, v in rows.items()}
+            for i in range(n_batches)]
+    batches = [to_device(b, dev) for b in host[:MESH_STEPS]]
+    fields = {name: f for name, f, _ in TRAIN_PATHS}
+    out, lookups, single = [], None, {}
+    for path, single_name, shape, sharded in MESH_PATHS:
+        tc = training_config(fields[single_name], check=True)
+        if single.get("name") != single_name:
+            # the counterpart: its state at the start of each step, from one
+            # free-running chain over the same batches (and negatives)
+            single.clear()
+            if cuda:
+                torch.cuda.empty_cache()
+            catalog = (CandidateCatalog(catalog_cols, device=dev)
+                       if tc.num_uniform_negatives else None)
+            negatives = []
+            if catalog is not None:  # each step's rows, given to both
+                gen = torch.Generator(device=dev)
+                for i in range(MESH_STEPS):
+                    gen.manual_seed(step_seed(tc.seed, i))
+                    negatives.append(
+                        catalog.sample(gen, tc.num_uniform_negatives))
+            model = train_model(n_customers, n_articles, logq, False, dev)
+            state, step = make_single_device_trainer(model, tc, catalog)
+            rows_of = {n: p.shape[0] for n, p in state.params.items()}
+            chain = [{k: v.clone() for k, v in
+                      state_tensors(state, rows_of).items()}]
+            losses = []
+            for i, b in enumerate(batches):
+                kw = {"negatives": negatives[i]} if negatives else {}
+                state, m = step(state, b, **kw)
+                losses.append(m["loss"])
+                chain.append({k: v.clone() for k, v in
+                              state_tensors(state, rows_of).items()})
+            single = {"name": single_name, "catalog": catalog,
+                      "negatives": negatives, "rows": rows_of,
+                      "chain": chain, "losses": torch.stack(losses)}
+            del model, state, step
+        catalog, negatives = single["catalog"], single["negatives"]
+        rows_of, chain = single["rows"], single["chain"]
+        touched = {f: np.unique(np.concatenate(
+            [b[f].reshape(-1) for b in host[:MESH_STEPS]]
+            + [n[f].cpu().numpy() for n in negatives if f in n]))
+            for f in host[0]}
+
+        t0 = time.perf_counter()
+        mesh = make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+        model = train_model(n_customers, n_articles, logq, False, dev)
+        tc_mesh = dataclasses.replace(tc, sharded_embedding_features=sharded)
+        state, step = make_mesh_trainer(model, tc_mesh, mesh, catalog)
+        sync(dev)
+        setup_s = time.perf_counter() - t0
+        # one seed gives the mesh path the single-device initial state
+        got = state_tensors(state, rows_of)
+        require(all(torch.equal(got[k], v) for k, v in chain[0].items()),
+                f"{path}: the initial state differs from the single "
+                f"device's")
+        saved = snapshot(state)
+        full = {k: torch.cat([t.detach() for t in leaf_tensors(v)])
+                for k, v in state_values(state).items()
+                if hasattr(v, "shards")}
+        pads0 = {k: t[rows_of[k.rsplit("/", 1)[-1]]:].clone()
+                 for k, t in full.items()}
+        del full
+        if sharded and lookups is None:
+            lookups = check_lookups(
+                state.params["query_tower.embeddings.customer_id"], mesh,
+                batches[0]["customer_id"])
+        # --- (a) each step from the single-device chain's state -----------
+        worst, worst_name, losses = 0.0, None, []
+        for i, b in enumerate(batches):
+            state = load_values(state, chain[i], i)
+            kw = {"negatives": negatives[i]} if negatives else {}
+            state, m = step_under(step, state, b, kw, cuda and i == 1)
+            losses.append(m["loss"])
+            got = state_tensors(state, rows_of)
+            err, err_name = hold_close(f"{path} step {i}", got, chain[i + 1],
+                                       TRAIN_RTOL, TRAIN_ATOL)
+            if err >= worst:
+                worst, worst_name = err, f"step {i}: {err_name}"
+        losses = torch.stack(losses)
+        require(bool(torch.isfinite(losses).all()), f"{path}: a loss is NaN")
+        require(bool(torch.allclose(losses, single["losses"], rtol=1e-5,
+                                    atol=0)),
+                f"{path}: losses {losses.tolist()} against the single "
+                f"device's {single['losses'].tolist()}")
+        # --- replays: 5 free-running steps twice from the initial state ---
+        runs = []
+        for _ in range(2):
+            state = restore(state, saved, 0)
+            run_losses = []
+            for i, b in enumerate(batches):
+                kw = {"negatives": negatives[i]} if negatives else {}
+                state, m = step(state, b, **kw)
+                run_losses.append(m["loss"])
+            runs.append((snapshot(state), torch.stack(run_losses)))
+        require(torch.equal(runs[0][1], runs[1][1]),
+                f"{path}: replayed losses differ")
+        require(all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0])),
+                f"{path}: the replays' states differ")
+        # the free-running chain against the single-device one: a reading
+        # (a ReLU whose input is within rounding of 0 can take another side)
+        free = state_tensors(state, rows_of)
+        free_err = max_err({k: v for k, v in free.items()
+                            if k.startswith("params/")}, chain[-1])
+        # pad rows as they started; rows no step touched bit-unchanged
+        init = dict(zip([id(t) for t in all_tensors(state)], saved))
+        for k, pad in pads0.items():
+            now = torch.cat([t.detach() for t in
+                             leaf_tensors(state_values(state)[k])])
+            require(torch.equal(now[rows_of[k.rsplit("/", 1)[-1]]:], pad),
+                    f"{path}: a pad row of {k} changed")
+        untouched = 0
+        for key, value in state_values(state).items():
+            if ".embeddings." not in key or key.startswith("opt/"):
+                continue
+            feature = key.rsplit(".", 1)[-1]
+            for s, t in enumerate(leaf_tensors(value)):
+                ids = touched[feature] - s * t.shape[0]
+                ids = ids[(ids >= 0) & (ids < t.shape[0])]
+                mask = torch.ones(t.shape[0], dtype=torch.bool, device=dev)
+                mask[torch.from_numpy(ids).to(dev).long()] = False
+                require(torch.equal(t.detach()[mask], init[id(t)][mask]),
+                        f"{path}: an untouched row of {key} changed")
+                untouched += int(mask.sum())
+        del runs, init, saved
+        row = {"path": path, "single_device": single_name,
+               "mesh": {"data": shape[0], "model": shape[1]},
+               "sharded": sharded, "B": TRAIN_B, "setup_s": setup_s,
+               "losses": losses.tolist(),
+               "single_losses": single["losses"].tolist(),
+               "max_abs_err_per_step": worst, "worst_tensor": worst_name,
+               "free_running_params_max_abs_err": free_err,
+               "tensors": len(chain[0]), "pad_rows": sum(
+                   v.shape[0] for k, v in pads0.items()
+                   if k.startswith("params/")),
+               "untouched_rows_checked": untouched,
+               "replay_bitwise": True, "sync_free_step": cuda,
+               "rtol": TRAIN_RTOL, "atol": TRAIN_ATOL}
+        # --- (b) time ---------------------------------------------------------
+        if cuda:
+            def negatives_of(step_no, catalog=catalog, tc=tc):
+                if catalog is None:
+                    return {}
+                g = torch.Generator(device=dev)
+                g.manual_seed(step_seed(tc.seed, step_no))
+                return {"negatives": catalog.sample(
+                    g, tc.num_uniform_negatives)}
+
+            # the baseline holds the single-device chain and this path's
+            # state; the peak adds what the steps allocate
+            torch.cuda.reset_peak_memory_stats()
+            base_gb = torch.cuda.memory_allocated() / 1e9
+            state, ms, prof = time_mesh_path(step, state, host[MESH_STEPS:],
+                                             mesh, negatives_of)
+            median = statistics.median(ms)
+            row.update({
+                "timed_steps": len(ms), "median_step_ms": median,
+                "min_step_ms": min(ms), "max_step_ms": max(ms),
+                "examples_per_s": TRAIN_B / median * 1e3, "profile": prof,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "held_before_steps_gb": base_gb})
+        emit({"mesh_training": row})
+        out.append(row)
+        del model, state, step, got, free, pads0
+        if cuda:
+            torch.cuda.empty_cache()
+    single.clear()
+    emit({"mesh_lookups": lookups})
+    return out
+
+
+def phase_mesh_runner(ctx, dev, workdir):
+    """Phase 13 (c) (see the module docstring). Returns each kernel's
+    launches over the runner over the mesh."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+    from hm_retrieval_tpu_torch.runners import (
+        CheckpointManager, evaluation_runner, modelling_runner,
+    )
+    from hm_retrieval_tpu_torch.schema import Schema
+    from hm_retrieval_tpu_torch.utils.pytree_io import load_pytree_npz
+
+    cuda = dev.type == "cuda"
+    settings = ctx["settings"]
+    schema = Schema.load(settings.schema_dirpath)
+    schema.training_config = dataclasses.replace(
+        schema.training_config, sharded_embedding_features=MESH_SHARDED)
+    schema.save(str(workdir / "mesh_schema"))
+    settings = dataclasses.replace(
+        settings, schema_dirpath=str(workdir / "mesh_schema"),
+        checkpoint_dirpath=str(workdir / "mesh_checkpoints"),
+        model_dirpath=str(workdir / "mesh_model"),
+        index_dirpath=str(workdir / "mesh_index"),
+        tensorboard_logs_dir=None, profile_steps=None)
+    D, S = MESH_RUNNER_SHAPE
+    mesh = make_mesh(D, S, devices=[dev] * (D * S))
+    log = Records(logging.INFO)
+    loggers = [logging.getLogger(f"hm_retrieval_tpu_torch.{name}")
+               for name in ("runners.modelling", "models.train_path")]
+    levels = [lg.level for lg in loggers]
+    for lg in loggers:
+        lg.setLevel(logging.INFO)
+        lg.addHandler(log)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    # --- the main path: the runner over the mesh, counts from 0 ------------
+    bt.reset_launches()
+    qt.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results = modelling_runner(settings, mesh=mesh, distributed_index=True,
+                                   device=dev)
+    finally:
+        for lg, level in zip(loggers, levels):
+            lg.removeHandler(log)
+            lg.setLevel(level)
+    runner_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    # ----------------------------------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    tc, mc = schema.training_config, schema.model_config
+    for name in ("initial", "final"):
+        check_runner_recall(name, results[name], mc.ks)
+    require(results["final"][100] > results["initial"][100],
+            f"recall@100 over the mesh did not rise: {results}")
+    require(not cuda or (launches["bin_max2_first_round"] > 0
+                         and launches["bin_max2_round"] > 0),
+            f"the mesh's evaluate did not launch kernels 1-2: {launches}")
+    require(all(v == 0 for k, v in launches.items()
+                if k not in ("bin_max2_first_round", "bin_max2_round")),
+            f"the runner over the mesh launched other kernels: {launches}")
+    throughput = [float(m.split()[2]) for m in log.records
+                  if m.startswith("Training throughput")]
+    require(len(throughput) == 1, f"throughput lines: {throughput}")
+    require(any("row-sharded sparse" in m for m in log.records),
+            "the runner did not take the row-sharded sparse step")
+    steps = RUNNER_TRAIN_ROWS // tc.train_batch_size
+    ckpt = CheckpointManager(settings.checkpoint_dirpath, device=dev)
+    require(ckpt.latest_step() == steps,
+            f"checkpoint at step {ckpt.latest_step()}, not {steps}")
+    # the exported towers: phase 10's unpadded shapes
+    for tower in ("query_tower", "candidate_tower"):
+        got = load_pytree_npz(f"{settings.model_dirpath}/{tower}/params.npz")
+        want = load_pytree_npz(
+            f"{ctx['settings'].model_dirpath}/{tower}/params.npz")
+        shapes = [(np.shape(a), np.shape(b)) for a, b in zip(
+            flatten_tree(got), flatten_tree(want))]
+        require(all(a == b for a, b in shapes) and len(shapes) == len(
+            flatten_tree(want)), f"exported {tower} shapes {shapes}")
+
+    # --- eval only over the mesh, from the checkpoint ----------------------
+    ckpt.close()
+    with checkpoint_times() as ckpt_ms:
+        t0 = time.perf_counter()
+        eval_only = evaluation_runner(
+            dataclasses.replace(settings,
+                                index_dirpath=str(workdir / "mesh_index_eval")),
+            mesh=mesh, distributed_index=True, device=dev)
+        eval_runner_s = time.perf_counter() - t0
+        require(eval_only == results["final"],
+                f"evaluation_runner {eval_only} != final {results['final']}")
+        # --- a resumed run continues the step count -------------------------
+        resumed = modelling_runner(settings, mesh=mesh, resume=True,
+                                   distributed_index=True, device=dev)
+    ckpt = CheckpointManager(settings.checkpoint_dirpath, device=dev)
+    require(ckpt.latest_step() == 2 * steps,
+            f"the resumed run ended at step {ckpt.latest_step()}")
+    require(resumed["initial"] == results["final"],
+            f"the resumed run began at {resumed['initial']}, not "
+            f"{results['final']}")
+    require(len(ckpt_ms["restore"]) == 2 and len(ckpt_ms["write"]) == 1,
+            f"checkpoint operations: {ckpt_ms}")
+    ckpt_bytes = (Path(settings.checkpoint_dirpath) / str(2 * steps)
+                  / "state.npz").stat().st_size
+    emit({"mesh_runner": {
+        "mesh": mesh.shape, "sharded": MESH_SHARDED,
+        "distributed_index": True, "steps": steps, "runner_s": runner_s,
+        "initial": results["initial"], "final": results["final"],
+        "single_device_initial": ctx["initial"],
+        "single_device_final": ctx["final"],
+        "train_examples_per_s": throughput[0], "trace": "off",
+        "launches": launches, "eval_runner_s": eval_runner_s,
+        "eval_runner_equals_final": True, "checkpoint_bytes": ckpt_bytes,
+        "checkpoint_save_copy_ms": ckpt_ms["copy"][0],
+        "checkpoint_save_ms": ckpt_ms["copy"][0] + ckpt_ms["write"][0],
+        "checkpoint_restore_ms": ckpt_ms["restore"],
+        "resumed_final": resumed["final"], "resumed_steps": 2 * steps,
+        "peak_mem_gb": peak_gb}})
+    return launches
+
+
+@contextlib.contextmanager
+def checkpoint_times():
+    """Inside the block, ms of each ``CheckpointManager`` host copy
+    (``save``), background write and ``restore``, synchronised."""
+    from hm_retrieval_tpu_torch.runners.checkpoint import CheckpointManager
+
+    ms = {"copy": [], "write": [], "restore": []}
+    fns = {"copy": CheckpointManager.save, "write": CheckpointManager._write,
+           "restore": CheckpointManager.restore}
+
+    def timed(kind):
+        def run(self, *args, **kwargs):
+            sync(self.device)
+            t0 = time.perf_counter()
+            out = fns[kind](self, *args, **kwargs)
+            sync(self.device)
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    with swapped(CheckpointManager, save=timed("copy"), _write=timed("write"),
+                 restore=timed("restore")):
+        yield ms
+
+
+def flatten_tree(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in flatten_tree(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in flatten_tree(v)]
+    return [tree]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3090,6 +3626,11 @@ def main(argv=None):
         for name, n in phase_sharded(ctx, args.repeats, dev, Path(d)).items():
             launches[name] += n
         lap("12_sharded")
+        # phase 13: training over a mesh; (c)'s launches join the count
+        phase_mesh_training(args.seed, dev)
+        for name, n in phase_mesh_runner(ctx, dev, Path(d)).items():
+            launches[name] += n
+        lap("13_mesh_training")
         del ctx
     emit({"phase_seconds": seconds})
 

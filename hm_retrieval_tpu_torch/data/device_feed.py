@@ -1,11 +1,14 @@
 """Host -> device feeding with background prefetch.
 
-Counterpart of ``hm_retrieval_tpu/data/device_feed.py`` for one device. A
-bounded-queue background thread does the host work (shard reads, shuffle,
-numpy batch assembly) while the device runs the current step. Every device
-interaction stays on the consumer's thread: each column is pinned and copied
-to the card with ``non_blocking=True``, so the copy overlaps the running
-step and the host does not wait for it.
+Counterpart of ``hm_retrieval_tpu/data/device_feed.py``. A bounded-queue
+background thread does the host work (shard reads, shuffle, numpy batch
+assembly) while the device runs the current step. Every device interaction
+stays on the consumer's thread: each column is pinned and copied to the card
+with ``non_blocking=True``, so the copy overlaps the running step and the
+host does not wait for it. With a training ``mesh`` (``parallel/mesh.py``)
+the whole batch goes to the mesh's one device and the mesh's step splits it
+over the data axis, where the JAX package places each data shard's rows on
+its devices.
 """
 
 from __future__ import annotations
@@ -40,15 +43,31 @@ def _feed(batches, dev, prefetch):
         yield _put(b, dev)
 
 
+def _target(device: DeviceLike, mesh) -> torch.device:
+    if mesh is None:
+        return resolve_device(device)
+    from hm_retrieval_tpu_torch.parallel.mesh import (
+        canonical,
+        training_device,
+    )
+
+    dev = training_device(mesh)
+    if device is not None and canonical(resolve_device(device)) != dev:
+        raise ValueError(f"device {device} is not the mesh's device {dev}")
+    return dev
+
+
 def device_feed(
     batches: Iterator[Batch],
     device: DeviceLike = None,
     prefetch: int = 2,
+    mesh=None,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Wrap a host batch iterator into device tensors with ``prefetch``
-    batches of host work in flight. ``device=None`` is the card; the
-    device is resolved here, before the first batch."""
-    return _feed(batches, resolve_device(device), prefetch)
+    batches of host work in flight. ``device=None`` is the card, or the
+    training ``mesh``'s one device; the device is resolved here, before the
+    first batch."""
+    return _feed(batches, _target(device, mesh), prefetch)
 
 
 def chunk_batches(batches: Iterator[Batch], k: int) -> Iterator[Batch]:
@@ -81,10 +100,11 @@ def device_feed_chunked(
     k: int,
     device: DeviceLike = None,
     prefetch: int = 2,
+    mesh=None,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """``device_feed`` over ``chunk_batches``: device-resident ``(k, B,
     ...)`` super-batches, assembled in the prefetch thread."""
-    return device_feed(chunk_batches(batches, k), device, prefetch)
+    return device_feed(chunk_batches(batches, k), device, prefetch, mesh)
 
 
 def _prefetch_host(batches: Iterator[Batch], prefetch: int) -> Iterator[Batch]:

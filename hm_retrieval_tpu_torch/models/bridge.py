@@ -24,6 +24,13 @@ it covers (all of them, or the dense subtree without "embeddings"):
 ``{"sum_of_squares": tree}`` for Adagrad, ``{"count": int32, "mu": tree,
 "nu": tree}`` for Adam. Optimizer state of a weight is transposed as the
 weight is.
+
+The mesh's states (``parallel/``) cross in the same layout: a row-sharded
+table, its accumulator or its dense optimizer state (a ``ShardedTable``) is
+one (S*R, E) array, the shards in order and the pad rows included, as the
+JAX package's sharded global array reads back. Loading one splits the rows
+over the state's shards, so a state of another mesh with the same padded
+rows takes it.
 """
 
 from __future__ import annotations
@@ -46,20 +53,30 @@ from hm_retrieval_tpu_torch.schema.features import Feature
 Module = Union[Tower, TwoTowerModel]
 
 
-def _np(t: torch.Tensor) -> np.ndarray:
+def _np(t) -> np.ndarray:
     """A numpy copy: steps update parameters in place, so a view of a CPU
-    tensor would change under its reader."""
+    tensor would change under its reader. A ``ShardedTable`` gives its
+    shards' rows in order."""
+    shards = getattr(t, "shards", None)
+    if shards is not None:
+        return torch.cat([s.detach().cpu() for s in shards]).numpy()
     return t.detach().to("cpu", copy=True).numpy()
 
 
-def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
+def _copy(dst, src: np.ndarray, name: str) -> None:
     src_t = torch.from_numpy(np.require(src, np.float32, ["C", "W"]))
     if tuple(src_t.shape) != tuple(dst.shape):
         raise ValueError(
             f"{name}: shape {tuple(src_t.shape)} does not match the "
             f"module's {tuple(dst.shape)}"
         )
-    dst.copy_(src_t)
+    shards = getattr(dst, "shards", None)
+    if shards is None:
+        dst.copy_(src_t)
+        return
+    r = shards[0].shape[0]
+    for s, shard in enumerate(shards):
+        shard.copy_(src_t[s * r:(s + 1) * r])
 
 
 @torch.no_grad()

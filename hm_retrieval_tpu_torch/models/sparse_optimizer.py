@@ -135,14 +135,24 @@ def _sparse_adagrad_update(
 ) -> None:
     """Dense-parity Adagrad on the touched rows, in place.
 
-    ``ids``: (M,) int (flattened for sequences); ``g_rows``: (M, E)."""
+    ``ids``: (M,) int (flattened for sequences); ``g_rows``: (M, E). An id
+    below 0 is invalid and changes no row, as in the JAX package (the
+    row-sharded step marks another shard's rows -1; torch would read index
+    -1 as the last row). Invalid ids sort first; each repeats the write of
+    the last position, the largest id's new row, or, when no id is valid,
+    row 0 unchanged. With no invalid id the result is the same bits as
+    without the mask."""
     sorted_ids, order = torch.sort(ids.long(), stable=True)
-    g_sum = _segment_totals(sorted_ids, g_rows[order])
-    new_acc_rows = acc[sorted_ids] + g_sum * g_sum
+    valid = (sorted_ids >= 0)[:, None]
+    target = torch.where(valid[:, 0], sorted_ids, sorted_ids[-1:].clamp_min(0))
+    g_sum = torch.where(valid, _segment_totals(sorted_ids, g_rows[order]), 0.0)
+    new_acc_rows = acc[target] + g_sum * g_sum
     update = lr * g_sum * torch.rsqrt(new_acc_rows + eps)
-    new_rows = table[sorted_ids] - update
-    acc.index_copy_(0, sorted_ids, new_acc_rows)
-    table.index_copy_(0, sorted_ids, new_rows)
+    new_rows = table[target] - update
+    new_acc_rows = torch.where(valid, new_acc_rows, new_acc_rows[-1:])
+    new_rows = torch.where(valid, new_rows, new_rows[-1:])
+    acc.index_copy_(0, target, new_acc_rows)
+    table.index_copy_(0, target, new_rows)
 
 
 def create_sparse_train_state(

@@ -72,7 +72,14 @@ class Tower(nn.Module):
         """Tables uniform(+-0.05) in feature order, then each dense layer's
         glorot-uniform weight; zero biases and attention queries. Each draw
         is made on the generator's device and copied into the parameter, so
-        a CPU generator gives the same weights on every device."""
+        a CPU generator gives the same weights on every device. A table
+        whose rows a row-sharded training state released
+        (``parallel/sharded_training.py``) gets them back first."""
+        for f in self.features:
+            table = self.embeddings[f.name] if f.name in self.embeddings else None
+            if table is not None and table.shape[0] != f.num_embeddings:
+                table.data = table.data.new_empty(
+                    (f.num_embeddings, table.shape[1]))
         for table in self.embeddings.values():
             _draw_uniform(table, 0.05, generator)
         for layer in self.dense:

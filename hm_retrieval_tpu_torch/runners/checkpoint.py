@@ -10,6 +10,11 @@ so a partial write never counts as the latest.
 
 ``export_model`` writes the full model and each tower as plain npz trees in
 the JAX layout, so either package loads the other's towers.
+
+The mesh's states (``parallel/``) save and restore the same way: a
+row-sharded table and its optimizer state are one (S*R, E) array in the
+file, pad rows included (``models/bridge.py``), so a checkpoint restores
+into a mesh of another shape whose tables have the same padded rows.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import List, Optional
 
 from hm_retrieval_tpu_torch.device import DeviceLike, resolve_device
 from hm_retrieval_tpu_torch.models.bridge import (
+    flat_to_tree,
     params_to_numpy,
     train_state_from_numpy,
     train_state_to_numpy,
@@ -135,7 +141,8 @@ class CheckpointManager:
                 f"{type(fresh_state).__name__}"
             )
         want = self.device
-        for p in fresh_state.params.values():
+        for v in fresh_state.params.values():
+            p = v.shards[0] if hasattr(v, "shards") else v
             if p.device.type != want.type or want.index not in (
                 None, p.device.index
             ):
@@ -159,9 +166,19 @@ class CheckpointManager:
                 self._writer = None
 
 
-def export_model(model: TwoTowerModel, dirpath: str) -> None:
-    """Writes <dirpath>/{two_tower,query_tower,candidate_tower}/params.npz."""
-    tree = params_to_numpy(model)
+def export_model(model: TwoTowerModel, dirpath: str, params=None) -> None:
+    """Writes <dirpath>/{two_tower,query_tower,candidate_tower}/params.npz:
+    ``model``'s weights, or a training state's ``params``, whose row-sharded
+    tables are exported unpadded (``unpad_params``), the unsharded layout
+    either package's serving loads."""
+    if params is None:
+        tree = params_to_numpy(model)
+    else:
+        from hm_retrieval_tpu_torch.parallel.sharded_sparse_training import (
+            unpad_params,
+        )
+
+        tree = flat_to_tree(unpad_params(params, model))
     save_pytree_npz(tree, os.path.join(dirpath, "two_tower", "params.npz"))
     for tower in ("query_tower", "candidate_tower"):
         save_pytree_npz(tree[tower], os.path.join(dirpath, tower, "params.npz"))

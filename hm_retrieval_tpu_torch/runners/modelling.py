@@ -1,9 +1,10 @@
-"""Train + eval orchestration: the main pipeline stage, on one device.
+"""Train + eval orchestration: the main pipeline stage.
 
 Counterpart of the JAX package's ``runners/modelling.py`` (ref:
-pkg/modelling/runner.py:18-107), its single-device path:
+pkg/modelling/runner.py:18-107):
 
-- schema + shard datasets in, ``make_single_device_trainer``'s step
+- schema + shard datasets in, ``make_single_device_trainer``'s step, or
+  over a mesh ``make_mesh_trainer``'s (``models/train_path.py``)
 - per epoch: build the index from the candidate tower, evaluate Recall@K at
   the epoch's start (ref: runner.py:85-105), then train one epoch
 - after the final epoch the index is rebuilt and evaluated again (the JAX
@@ -15,15 +16,19 @@ pkg/modelling/runner.py:18-107), its single-device path:
   (``utils/profiling.py``)
 
 Every entry point takes ``device=None``, which means the card, and raises
-without CUDA unless given ``device="cpu"``. ``build_index``, ``evaluate``
-and ``evaluation_runner`` take a one-process mesh (``parallel/mesh.py``) and
-``distributed`` / ``distributed_index``, which shards the catalog over the
-mesh's model axis (``indices/distributed.py``); the batches and the model's
-weights stay on the mesh's first device, which must be ``device``, where the
-JAX package shards the batches over the data axis and replicates the
-weights. Training over a mesh (``modelling_runner`` with a mesh, row-sharded
-tables) waits for ROADMAP.md Queue 1 item 6.2 and the SavedModel export for
-item 7; each raises ``NotImplementedError`` before any step.
+without CUDA unless given ``device="cpu"``. Each takes a one-process mesh
+(``parallel/mesh.py``) and ``distributed`` / ``distributed_index``, which
+shards the catalog over the mesh's model axis (``indices/distributed.py``);
+the eval batches and the replicated weights stay on the mesh's first
+device, which must be ``device``, where the JAX package shards the batches
+over the data axis and replicates the weights. ``modelling_runner`` trains
+over a mesh whose devices are all one device (``["cuda:0"] * 4``), with the
+tables of ``sharded_embedding_features`` row-sharded when the mesh has a
+model axis; ``build_index`` and ``evaluate`` take the training state's
+``params`` and gather a row-sharded table's rows through its shards, so the
+full table is never assembled on the device. A mesh over several devices or
+processes raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 6.3), and
+so does the SavedModel export (item 7), each before any step.
 """
 
 from __future__ import annotations
@@ -45,15 +50,19 @@ from hm_retrieval_tpu_torch.data.device_feed import (
 from hm_retrieval_tpu_torch.device import DeviceLike, resolve_device
 from hm_retrieval_tpu_torch.metrics.index_recall import IndexRecall
 from hm_retrieval_tpu_torch.models.train_path import (
+    active_sharded_features,
+    create_mesh_state,
     create_single_device_state,
+    make_mesh_trainer,
     make_single_device_trainer,
 )
 from hm_retrieval_tpu_torch.models.two_tower import TwoTowerModel
 from hm_retrieval_tpu_torch.parallel.mesh import (
-    MULTI_PROCESS,
     canonical,
     require_single_process,
+    training_device,
 )
+from hm_retrieval_tpu_torch.parallel.data_parallel import sharded_rows
 from hm_retrieval_tpu_torch.runners.checkpoint import (
     CheckpointManager,
     export_model,
@@ -99,21 +108,19 @@ def _to(batch: Dict[str, np.ndarray], dev: torch.device):
     }
 
 
-def _active_sharded_features(tc, mesh=None) -> None:
-    """Row-sharded tables need a mesh with a model axis; on one device the
-    JAX package warns and trains with replicated tables, and so does the
-    port. Over a mesh they wait for item 6.2."""
-    if tc.sharded_embedding_features and mesh is not None:
-        raise NotImplementedError(
-            "sharded_embedding_features with a mesh are not ported yet: "
-            f"{MULTI_PROCESS}"
-        )
-    if tc.sharded_embedding_features:
-        logger.warning(
-            "sharded_embedding_features %s requested but there is no mesh; "
-            "training with replicated tables",
-            list(tc.sharded_embedding_features),
-        )
+def _tower(model: TwoTowerModel, tower: str, params=None):
+    """``batch -> embeddings`` of ``model``'s tower ``tower``; the rows of
+    the row-sharded tables of ``params`` (a training state's) gathered
+    through their shards."""
+    module = getattr(model, tower)
+    if params is None:
+        return module
+
+    def forward(batch):
+        return module(batch,
+                      rows=sharded_rows(model, params, batch, (tower,))[tower])
+
+    return forward
 
 
 def build_index(
@@ -125,6 +132,7 @@ def build_index(
     mesh=None,
     distributed: bool = False,
     device: DeviceLike = None,
+    params=None,
 ):
     """Embed the full catalog with ``model``'s candidate tower in batches of
     ``candidate_batch_size`` (ref: runner.py:88-93 + brute_force.py:31-52)
@@ -135,7 +143,8 @@ def build_index(
     is built from ``collect_catalog``'s host arrays, as the JAX package
     builds it. ``distributed=True`` streams the catalog into shards over
     ``mesh``'s model axis instead (``collect_catalog_sharded``), each shard
-    finished on its device."""
+    finished on its device. ``params``: a training state's, whose row-sharded
+    tables the tower reads through their shards."""
     dev = resolve_device(device)
     from hm_retrieval_tpu_torch.indices import (
         DISTRIBUTED_INDEX_TYPES,
@@ -143,8 +152,10 @@ def build_index(
     )
     from hm_retrieval_tpu_torch.indices.builder import collect_catalog
 
+    tower = _tower(model, "candidate_tower", params)
+
     def embed(batch):
-        return model.candidate_forward(_to(batch, model.device))
+        return tower(_to(batch, model.device))
 
     args = (
         model.candidate_id_col,
@@ -181,6 +192,7 @@ def evaluate(
     epoch: Optional[int] = None,
     writer: Optional[MetricWriter] = None,
     mesh=None,
+    params=None,
 ) -> Dict[int, float]:
     """Streaming Recall@K over the test set (ref: runner.py:95-101), on
     ``model``'s device. Tail batches are padded to the static batch size and
@@ -188,7 +200,8 @@ def evaluate(
     tower, ``index.topk_from_embeddings``, then the metric, which pulls one
     small vector to the host. Ks larger than the catalog are dropped with a
     warning. With a ``mesh`` the batches stay on its first device, the
-    model's."""
+    model's. ``params``: a training state's, whose row-sharded tables the
+    tower reads through their shards."""
     _on_mesh(mesh, model.device)
     usable_ks = [k for k in ks if k <= index.num_candidates]
     dropped = [k for k in ks if k > index.num_candidates]
@@ -197,6 +210,7 @@ def evaluate(
             "Dropping ks %s > catalog size %d", dropped, index.num_candidates
         )
     metric = IndexRecall(usable_ks)
+    query = _tower(model, "query_tower", params)
     cid = model.candidate_id_col
     dev = model.device
     n_batches = -(-test_ds.local_num_rows // test_batch_size)
@@ -211,7 +225,7 @@ def evaluate(
         batch, n = _pad_batch(batch, test_batch_size)
         tbatch = _to(batch, dev)
         mask = torch.arange(test_batch_size, device=dev) < n
-        q = model.query_forward(tbatch)
+        q = query(tbatch)
         _, ids = index.topk_from_embeddings(q)
         metric.update(ids, tbatch[cid], valid_mask=mask)
     if next(batches, None) is not None:
@@ -235,7 +249,11 @@ def evaluation_runner(
     trainer would create, rebuild the index from the candidate tower,
     evaluate Recall@K and refresh the index artifact. No training.
     ``distributed_index`` shards the catalog over ``mesh``'s model axis
-    (``indices/distributed.py``), whose first device must be ``device``."""
+    (``indices/distributed.py``), whose first device must be ``device``.
+    With row-sharded tables active over ``mesh`` the template is the mesh
+    trainer's state (``create_mesh_state``), as the JAX package restores a
+    row-sharded checkpoint; a checkpoint of any other layout restores into
+    the single-device state, which the data-parallel states equal."""
     dev = resolve_device(device)
     require_single_process("evaluation_runner")
     if distributed_index and mesh is None:
@@ -247,8 +265,10 @@ def evaluation_runner(
     cand_ds = ShardDataset(settings.candidate_shards_dirpath)
 
     model = TwoTowerModel.create_from_schema(schema, device=dev)
-    _active_sharded_features(tc, mesh)
-    state = create_single_device_state(model, tc)
+    if active_sharded_features(tc, mesh):
+        state = create_mesh_state(model, tc, mesh)
+    else:
+        state = create_single_device_state(model, tc)
     ckpt = CheckpointManager(settings.checkpoint_dirpath, device=dev)
     try:
         state = ckpt.restore(state)
@@ -264,9 +284,10 @@ def evaluation_runner(
         mesh=mesh,
         distributed=distributed_index,
         device=dev,
+        params=state.params,
     )
     res = evaluate(model, index, test_ds, tc.test_batch_size, mc.ks,
-                   mesh=mesh)
+                   mesh=mesh, params=state.params)
     index.save(settings.index_dirpath)
     return res
 
@@ -294,9 +315,12 @@ def modelling_runner(
     training_overrides: Optional[Dict[str, object]] = None,
     device: DeviceLike = None,
 ) -> Dict[str, Dict[int, float]]:
-    """Full train + eval stage on one device (ref: modelling_runner,
+    """Full train + eval stage (ref: modelling_runner,
     pkg/modelling/runner.py:18-107). Returns {"initial": recalls, "final":
-    recalls}.
+    recalls}. With a ``mesh`` (its devices all ``device``) it trains over
+    the mesh (``make_mesh_trainer``); ``distributed_index`` serves every
+    eval and the saved artifact from a catalog sharded over the mesh's
+    model axis.
 
     ``training_overrides``: TrainingConfig field values that replace the ones
     snapshotted into the schema artifact, logged loudly; an unknown field
@@ -309,12 +333,10 @@ def modelling_runner(
     tc, mc = schema.training_config, schema.model_config
     if distributed_index and mesh is None:
         raise ValueError("distributed_index=True requires a mesh (make_mesh)")
-    if mesh is not None:
-        # the JAX runner trains over the mesh it is given
-        raise NotImplementedError(
-            f"modelling_runner with a mesh is not ported yet: {MULTI_PROCESS}"
-        )
     require_single_process("modelling_runner")
+    if mesh is not None:
+        training_device(mesh)  # one device, one process: else item 6.3
+        _on_mesh(mesh, dev)
     if settings.savedmodel_dirpath:
         # fail before training, as the JAX package's schema check does
         raise NotImplementedError(
@@ -334,8 +356,11 @@ def modelling_runner(
         )
 
         catalog = CandidateCatalog(cand_ds.load_all(), device=dev)
-    _active_sharded_features(tc)
-    state, step_fn = make_single_device_trainer(model, tc, catalog)
+    if mesh is None:
+        active_sharded_features(tc)
+        state, step_fn = make_single_device_trainer(model, tc, catalog)
+    else:
+        state, step_fn = make_mesh_trainer(model, tc, mesh, catalog)
     index_k = min(max(mc.ks), cand_ds.num_rows)
 
     def build_and_evaluate(epoch):
@@ -345,7 +370,10 @@ def modelling_runner(
             tc.candidate_batch_size,
             index_k,
             index_type=mc.index_type,
+            mesh=mesh,
+            distributed=distributed_index,
             device=dev,
+            params=state.params,
         )
         res = evaluate(
             model,
@@ -355,6 +383,8 @@ def modelling_runner(
             mc.ks,
             epoch=epoch,
             writer=writer,
+            mesh=mesh,
+            params=state.params,
         )
         return index, res
 
@@ -389,7 +419,8 @@ def modelling_runner(
             if spd > 1:
                 # K steps a call; a tail of fewer than K batches is dropped
                 # with a warning (device_feed.chunk_batches)
-                for dev_chunk in device_feed_chunked(batches, spd, device=dev):
+                for dev_chunk in device_feed_chunked(batches, spd, device=dev,
+                                                     mesh=mesh):
                     state, metrics = chunk_fn(state, dev_chunk)
                     global_step += spd
                     profiler.on_step(global_step)
@@ -397,7 +428,7 @@ def modelling_runner(
                         _log_loss(writer, metrics, global_step)
                     examples += tc.train_batch_size * spd
             else:
-                for dev_batch in device_feed(batches, device=dev):
+                for dev_batch in device_feed(batches, device=dev, mesh=mesh):
                     state, metrics = step_fn(state, dev_batch)
                     global_step += 1
                     profiler.on_step(global_step)
@@ -409,9 +440,11 @@ def modelling_runner(
             t_train += time.time() - t0
 
             ckpt.save(global_step, state)
-            export_model(model, settings.model_dirpath)
+            # exports keep the unsharded contract: row-sharded tables are
+            # written at their true vocabulary rows
+            export_model(model, settings.model_dirpath, params=state.params)
             # weight histograms per epoch (ref: histogram_freq=1)
-            writer.add_params_histograms(model, epoch + 1)
+            writer.add_params_histograms(model, epoch + 1, params=state.params)
 
         profiler.close()
         if t_train > 0:

@@ -53,13 +53,17 @@ class MetricWriter:
         if self._writer is not None:
             self._writer.add_histogram(tag, np.asarray(values).ravel(), step)
 
-    def add_params_histograms(self, model, step: int) -> None:
-        """One histogram per weight of ``model``, tagged by its path in the
+    def add_params_histograms(self, model, step: int, params=None) -> None:
+        """One histogram per weight of ``model`` (or of a training state's
+        ``params``, row-sharded tables unpadded), tagged by its path in the
         JAX layout (``params/query_tower/dense/0/w``). Copies the weights to
         the host only when a writer is open."""
         if self._writer is None:
             return
-        from hm_retrieval_tpu_torch.models.bridge import params_to_numpy
+        from hm_retrieval_tpu_torch.models.bridge import (
+            flat_to_tree,
+            params_to_numpy,
+        )
 
         def walk(node, path):
             if isinstance(node, dict):
@@ -71,7 +75,15 @@ class MetricWriter:
             else:
                 self.add_histogram(path, node, step)
 
-        walk(params_to_numpy(model), "params")
+        if params is None:
+            tree = params_to_numpy(model)
+        else:
+            from hm_retrieval_tpu_torch.parallel.sharded_sparse_training import (
+                unpad_params,
+            )
+
+            tree = flat_to_tree(unpad_params(params, model))
+        walk(tree, "params")
 
     def flush(self) -> None:
         if self._writer is not None:

@@ -111,6 +111,13 @@ RUNNER_MODULES = {
     "etl/__init__.py": set(),
     "parallel/mesh.py": {"numpy", "torch"},
     "parallel/distributed_topk.py": {"numpy", "torch"},
+    "parallel/collectives.py": {"torch"},
+    "parallel/global_negatives.py": {"numpy", "torch"},
+    "parallel/data_parallel.py": {"torch"},
+    "parallel/sparse_data_parallel.py": {"torch"},
+    "parallel/sharded_embedding.py": {"numpy", "torch"},
+    "parallel/sharded_training.py": set(),
+    "parallel/sharded_sparse_training.py": {"torch"},
     "parallel/__init__.py": set(),
     "runners/baseline.py": set(),
     "runners/checkpoint.py": {"concurrent", "json", "os", "shutil", "uuid"},

@@ -16,6 +16,7 @@ import shutil
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -40,11 +41,13 @@ from hm_retrieval_tpu.utils.pytree_io import load_pytree_npz
 from hm_retrieval_tpu.utils.settings import Settings as JaxSettings
 from hm_retrieval_tpu.utils.synthetic import generate_hm_like_csvs
 
+from hm_retrieval_tpu_torch.parallel import Mesh, make_mesh
 from hm_retrieval_tpu_torch.runners import (
     CheckpointManager,
     evaluation_runner,
     modelling_runner,
 )
+from hm_retrieval_tpu_torch.schema.schema import Schema as PortSchema
 from hm_retrieval_tpu_torch.utils.settings import Settings
 
 KS = [10, 50]
@@ -216,10 +219,11 @@ def test_unknown_override_raises(pipeline):
 @pytest.mark.parametrize("option", ["savedmodel", "mesh", "distributed"])
 def test_unported_options_raise_before_any_step(pipeline, tmp_path, monkeypatch,
                                                 option):
-    """The SavedModel export and training over a mesh raise
-    ``NotImplementedError`` naming their ROADMAP.md item; a sharded index
-    without a mesh raises ``ValueError``, as in the JAX package. Each before
-    any step."""
+    """The SavedModel export, and training over a mesh of several distinct
+    devices or inside a process group of more than one rank, raise
+    ``NotImplementedError`` naming their ROADMAP.md item (7, 6.3); a sharded
+    index without a mesh raises ``ValueError``, as in the JAX package. Each
+    before any step."""
     from hm_retrieval_tpu_torch.runners import modelling
 
     settings, _ = pipeline
@@ -232,18 +236,26 @@ def test_unported_options_raise_before_any_step(pipeline, tmp_path, monkeypatch,
         raise AssertionError("a trainer was built")
 
     monkeypatch.setattr(modelling, "make_single_device_trainer", no_trainer)
-    kw = {"mesh": object()} if option == "mesh" else (
-        {"distributed_index": True} if option == "distributed" else {})
+    monkeypatch.setattr(modelling, "make_mesh_trainer", no_trainer)
     if option == "distributed":
         with pytest.raises(ValueError, match="requires a mesh"):
-            modelling_runner(settings, device="cpu", **kw)
-    else:
+            modelling_runner(settings, device="cpu", distributed_index=True)
+    elif option == "savedmodel":
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item"):
-            modelling_runner(settings, device="cpu", **kw)
-    if option == "mesh":
-        with pytest.raises(NotImplementedError, match="item 6.2"):
-            modelling_runner(settings, device="cpu", **kw)
+                           match="ROADMAP.md Queue 1 item 7"):
+            modelling_runner(settings, device="cpu")
+    else:
+        grid = np.empty((2, 1), dtype=object)
+        grid[0, 0], grid[1, 0] = torch.device("cpu"), torch.device("cuda", 0)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item 6.3"):
+            modelling_runner(settings, device="cpu", mesh=Mesh(grid))
+        one_device = make_mesh(2, 1, devices=["cpu"] * 2)
+        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+        monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item 6.3"):
+            modelling_runner(settings, device="cpu", mesh=one_device)
     assert not (tmp_path / "ckpt").exists()
 
 
@@ -253,3 +265,56 @@ def test_the_runner_raises_without_a_card(pipeline, monkeypatch):
     for fn in (modelling_runner, evaluation_runner):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(settings)
+
+
+# --- training over a one-process mesh ------------------------------------------
+MESH_LAYOUTS = {
+    # (data, model), distributed_index, sharded_embedding_features
+    "dp_8x1": ((8, 1), False, []),
+    "dp_2x4_distributed_index": ((2, 4), True, []),
+    "row_sharded_2x4": ((2, 4), False, ["customer_id", "article_id"]),
+}
+
+
+@pytest.mark.parametrize("sparse", [True, False], ids=["sparse", "dense"])
+@pytest.mark.parametrize("layout", sorted(MESH_LAYOUTS))
+def test_modelling_runner_over_a_mesh(pipeline, tmp_path, layout, sparse):
+    """``modelling_runner(mesh=...)`` on the tiny pipeline's shards, on
+    ``make_mesh(..., devices=["cpu"] * 8)``: data-parallel at (8, 1),
+    data-parallel with the catalog sharded over a (2, 4) mesh, and the
+    customer and article tables row-sharded over a (2, 4) mesh; the sparse
+    step (the schema's default) and the dense one
+    (``use_sparse_embedding_optimizer`` off, in a copy of the schema that
+    ``evaluation_runner`` reads too). Recall rises, ends within 0.15 of the
+    single-device run's (the JAX tests' bound, tests/test_runners.py), the
+    export keeps the unsharded shapes, and ``evaluation_runner`` over the
+    mesh restores the checkpoint and equals ``final``."""
+    settings, single = pipeline
+    shape, distributed, sharded = MESH_LAYOUTS[layout]
+    schema = PortSchema.load(settings.schema_dirpath)
+    schema.training_config = dataclasses.replace(
+        schema.training_config, sharded_embedding_features=sharded,
+        use_sparse_embedding_optimizer=sparse)
+    schema.save(str(tmp_path / "schema"))
+    settings = dataclasses.replace(
+        settings,
+        schema_dirpath=str(tmp_path / "schema"),
+        checkpoint_dirpath=str(tmp_path / "ckpt"),
+        model_dirpath=str(tmp_path / "model"),
+        index_dirpath=str(tmp_path / "index"),
+    )
+    mesh = make_mesh(*shape, devices=["cpu"] * 8)
+    results = modelling_runner(settings, mesh=mesh,
+                               distributed_index=distributed, device="cpu")
+    assert results["final"][50] > results["initial"][50], results
+    assert abs(results["final"][50] - single["final"][50]) < 0.15
+    for tower in ("query_tower", "candidate_tower"):
+        got = load_pytree_npz(f"{settings.model_dirpath}/{tower}/params.npz")
+        want = load_pytree_npz(
+            f"{pipeline[0].model_dirpath}/{tower}/params.npz")
+        assert jax.tree_util.tree_map(np.shape, got) == (
+            jax.tree_util.tree_map(np.shape, want))
+    again = evaluation_runner(
+        dataclasses.replace(settings, index_dirpath=str(tmp_path / "idx2")),
+        mesh=mesh, distributed_index=distributed, device="cpu")
+    assert again == results["final"]
