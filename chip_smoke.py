@@ -242,6 +242,47 @@ Phases, each of which must pass (a failure raises and exits non-zero):
        mesh equal to final; a resumed run continuing the step count from
        the checkpoint; the checkpoint's bytes, save and restore ms. Its
        launches are added to each kernel's count on the kernels line.
+14. Several processes on the one card (phase_processes): two ranks spawned
+   with torch.multiprocessing, each joining a gloo group through
+   initialize_multihost (a file:// rendezvous; NCCL refuses two ranks on one
+   device) on cuda:0, each passing make_mesh its own two cells; the parent
+   waits PROC_TIMEOUT seconds and kills both ranks past it, and a rank that
+   fails or writes no result fails the phase. Phase 10's width and weights.
+   Each rank's launches are counted from 0 around (a) and (b) and added,
+   over both ranks, to the kernels line. Cut: depth only (3 held steps a
+   path; sparse: 3-step replays, 10 timed, 3 profiled; dense: 1-step
+   replays, 2 timed, 1 profiled).
+   (a) phase 12's exact and one-pass sharded indices over a (1, 4) mesh,
+       rank r holding shards 2r and 2r + 1 (kernels 1-2, 3-4 per shard),
+       at B = 1, 16, 128, 1024: values and ids bit-identical to phase 12's
+       one-process S = 4 indices on the same queries, on both ranks; ms a
+       serve by CUDA events beside phase 12's, the exchange's bytes and ms;
+   (b) evaluation_runner over a (2, 2) mesh, data row r on rank r, over
+       phase 10's checkpoint and stream (1024 test rows a rank a batch):
+       recall@10/100/1000 on both ranks equal to phase 10's, and with
+       distributed_index equal to the one-process (2, 2) runner's;
+       to_local() of the collectively saved sharded index gives both ranks
+       the same catalog;
+   (c) phase 13's data-parallel sparse and dense Adagrad at (4, 1) (data
+       rows 0-1 on rank 0, each rank fed its 256 rows) and row-sharded
+       sparse at (1, 4) (the model axis over the ranks, both fed the whole
+       batch): each step from the single-device chain's state within rtol
+       1e-4 / atol 1e-5, losses within 1e-6 relative, the replicated state
+       bit-identical across the ranks after every step, replays
+       bit-identical, untouched and pad rows unchanged; step ms by CUDA
+       events beside phase 13's, 1-3 steps under torch.profiler on rank 0,
+       the bytes each step sends through the group, peak GB per rank.
+   (d) modelling_runner over a (2, 2) mesh, data row r on rank r, both id
+       tables row-sharded and the sharded index, on phase 13's schema and
+       phase 10's stream (one epoch, 512 / 2 rows a rank a step): the same
+       recall on both ranks, before any step phase 13's initial recall
+       exactly, recall@100 rising; its final recall beside phase 13's and
+       beside phase 13's run reshuffled (shuffle_buffer_size 8192), since
+       the ranks' own batch order moves it;
+       the group's checkpoint restored by one process over a (2, 2) mesh
+       gives the group's final recall, and phase 13's one-process checkpoint
+       restored by the group its resumed run's; the group's index loads in
+       one process.
 
 Output: per-phase JSON lines and each phase's seconds, then the card's name
 and power limit, the
@@ -3021,6 +3062,7 @@ def phase_sharded(ctx, repeats, dev, workdir):
                                repeats, dev)
                 for side, ix in (("single", single[name]),
                                  ("sharded", sharded[name]))}
+    ctx["sharded_ms"] = times
     emit({"sharded": {
         "catalog": n, "E": E, "k": k, "shards": SHARDS,
         "mesh": mesh.shape, "rows_per_shard": sharded["exact"]._emb.per,
@@ -3499,6 +3541,8 @@ def phase_mesh_runner(ctx, dev, workdir):
             f"checkpoint operations: {ckpt_ms}")
     ckpt_bytes = (Path(settings.checkpoint_dirpath) / str(2 * steps)
                   / "state.npz").stat().st_size
+    ctx.update(mesh_settings=settings, mesh_initial=results["initial"],
+               mesh_final=results["final"], mesh_resumed=resumed["final"])
     emit({"mesh_runner": {
         "mesh": mesh.shape, "sharded": MESH_SHARDED,
         "distributed_index": True, "steps": steps, "runner_s": runner_s,
@@ -3513,6 +3557,691 @@ def phase_mesh_runner(ctx, dev, workdir):
         "checkpoint_restore_ms": ckpt_ms["restore"],
         "resumed_final": resumed["final"], "resumed_steps": 2 * steps,
         "peak_mem_gb": peak_gb}})
+    return launches
+
+
+# --- phase 14: several processes on the one card ----------------------------
+PROC_RANKS = 2  # ranks of phase 14's gloo group, both on the one card
+PROC_TIMEOUT = 480  # seconds the parent waits for both ranks
+PROC_STEPS = 3  # steps each path holds against the single-device chain
+# timed steps after the held ones, and steps under the profiler on rank 0
+PROC_TIMED = {"sparse": 10, "dense": 2}
+PROC_PROFILED = {"sparse": 3, "dense": 1}
+# (path, its single-device counterpart in TRAIN_PATHS, (data, model),
+# row-sharded features)
+PROC_PATHS = (
+    ("dp_sparse_adagrad", "sparse_adagrad", (4, 1), []),
+    ("row_sharded_sparse_1x4", "sparse_adagrad", (1, 4), MESH_SHARDED),
+    ("dp_dense_adagrad", "dense_adagrad", (4, 1), []),
+)
+
+
+def sync_card():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def exchanged():
+    """Inside the block, the bytes this rank sends through the group's
+    exchanges (``exchange_bytes``, ``broadcast_from``) and their wall ms,
+    synchronised."""
+    from hm_retrieval_tpu_torch.parallel import collectives as co
+
+    rec = {"calls": 0, "bytes": 0, "ms": 0.0}
+    fns = {"exchange_bytes": co.exchange_bytes,
+           "broadcast_from": co.broadcast_from}
+
+    def sent(name, args):
+        if name == "exchange_bytes":
+            return sum(t.numel() * t.element_size() for t in args[0])
+        shape, dtype = args[1], args[2]
+        return int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+
+    def timed(name):
+        def run(*args, **kwargs):
+            sync_card()
+            t0 = time.perf_counter()
+            out = fns[name](*args, **kwargs)
+            sync_card()
+            rec["ms"] += (time.perf_counter() - t0) * 1e3
+            rec["calls"] += 1
+            rec["bytes"] += sent(name, args)
+            return out
+        return run
+
+    with swapped(co, **{name: timed(name) for name in fns}):
+        yield rec
+
+
+def fingerprint(t, chunk=1 << 24):
+    """An exact integer of ``t``'s bits (a weighted sum of its 32-bit
+    words, in chunks), equal on two ranks only if their tensors almost
+    surely are."""
+    words = t.detach().contiguous().reshape(-1).view(torch.int32)
+    total = 0
+    for lo in range(0, words.numel(), chunk):
+        w = words[lo:lo + chunk].long()
+        weights = torch.arange(lo, lo + w.numel(), device=w.device) % 1000003
+        total += int((w * (weights + 1)).sum())
+    return total
+
+
+def local_pieces(state):
+    """Each value of a training state (``state_values``) as this rank's
+    (first row, tensor) pieces: a row-sharded value's held shards."""
+    out = {}
+    for key, value in state_values(state).items():
+        if hasattr(value, "shards"):
+            r = value.rows_per_shard
+            out[key] = [(s * r, t) for s, t in enumerate(value.shards)
+                        if t is not None]
+        else:
+            out[key] = [(0, value)]
+    return out
+
+
+@torch.no_grad()
+def load_pieces(state, want, step):
+    """Copy a single-device state's tensors into this rank's pieces, pad
+    rows left as they are."""
+    for key, pieces in local_pieces(state).items():
+        src = want[key]
+        for lo, t in pieces:
+            n = max(0, min(t.shape[0], src.shape[0] - lo))
+            t[:n].copy_(src[lo:lo + n])
+    return state._replace(step=step)
+
+
+def hold_pieces(name, state, want):
+    """This rank's pieces against a single-device state within rtol / atol;
+    the worst absolute error."""
+    worst = 0.0
+    for key, pieces in local_pieces(state).items():
+        for lo, t in pieces:
+            n = max(0, min(t.shape[0], want[key].shape[0] - lo))
+            g, w = t.detach()[:n], want[key][lo:lo + n]
+            if not w.is_floating_point():
+                require(torch.equal(g, w), f"{name}: {key} differs")
+                continue
+            err = (g - w).abs()
+            require(bool((err <= TRAIN_ATOL + TRAIN_RTOL * w.abs()).all()),
+                    f"{name}: {key} outside tolerance, max err "
+                    f"{float(err.max())}")
+            if err.numel():
+                worst = max(worst, float(err.max()))
+    return worst
+
+
+def replicated_prints(state):
+    """Fingerprints of the state's replicated tensors, in a fixed order:
+    every rank holds them, and they must agree bit for bit."""
+    return [fingerprint(v) for _, v in sorted(state_values(state).items())
+            if not hasattr(v, "shards")]
+
+
+def proc_serve(rank, spec, dev, repeats, workdir):
+    """Phase 14 (a) on one rank: the exact and the one-pass sharded index
+    over (1, 4), shards 2r and 2r + 1 here."""
+    from hm_retrieval_tpu_torch.indices import (
+        DistributedBruteForceIndex, DistributedQuantizedIndex,
+    )
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+
+    with np.load(spec["catalog"]) as z:
+        ids, emb = z["identifiers"], z["embeddings"]
+    q_all = torch.from_numpy(np.load(spec["queries"])).to(dev)
+    mesh = make_mesh(1, SHARDS, devices=[dev] * (SHARDS // PROC_RANKS))
+    mine = [SHARDS // PROC_RANKS * rank + j for j in range(SHARDS // PROC_RANKS)]
+    require(mesh.local_cols() == mine and mesh.process_count == PROC_RANKS,
+            f"rank {rank} holds columns {mesh.local_cols()}")
+    indices = {
+        "exact": DistributedBruteForceIndex(SERVE_K, ids, emb, mesh=mesh,
+                                            method="pallas"),
+        "quantized": DistributedQuantizedIndex(SERVE_K, ids, emb, mesh=mesh,
+                                               method="pallas"),
+    }
+    require(all(ix._engine == "pallas" for ix in indices.values()),
+            "a sharded index does not run the kernels")
+    # --- the main path: counts from 0 --------------------------------------
+    bt.reset_launches()
+    qt.reset_launches()
+    answers = {}
+    with exchanged() as ex:
+        for name, ix in indices.items():
+            for B in SERVE_BATCHES:
+                v, i = ix.topk_from_embeddings(q_all[:B])
+                answers[f"{name}_B{B}_scores"] = v.cpu().numpy()
+                answers[f"{name}_B{B}_ids"] = i.cpu().numpy()
+    sync(dev)
+    launches = kernel_counts()
+    # ----------------------------------------------------------------------
+    np.savez(workdir / f"answers{rank}.npz", **answers)
+    times = {}
+    for name, ix in indices.items():
+        for B in SERVE_BATCHES:
+            q = q_all[:B]
+            ms = timed_ms(lambda ix=ix, q=q: ix.topk_from_embeddings(q),
+                          repeats, dev)
+            with exchanged() as one:
+                ix.topk_from_embeddings(q)
+            times[f"{name}_B{B}"] = {"ms": ms, "exchange_bytes": one["bytes"],
+                                     "exchange_ms": one["ms"]}
+    return {"mesh": [1, SHARDS], "columns": mine, "launches": launches,
+            "exchange": ex, "ms": times}
+
+
+def proc_eval(rank, spec, dev, workdir):
+    """Phase 14 (b) on one rank: ``evaluation_runner`` over (2, 2), data
+    row r here, with and without the sharded index; ``to_local``."""
+    import hashlib
+
+    from hm_retrieval_tpu_torch.indices import DistributedBruteForceIndex
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+    from hm_retrieval_tpu_torch.runners import evaluation_runner
+    from hm_retrieval_tpu_torch.utils.settings import Settings
+
+    settings = Settings.from_json(spec["settings"])
+    mesh = make_mesh(2, 2, devices=[dev] * 2)
+    require(mesh.local_rows() == [rank], f"rank {rank}: rows "
+            f"{mesh.local_rows()}")
+    plain_dir, dist_dir = workdir / "proc_index", workdir / "proc_index_dist"
+    # --- the main path: counts from 0 --------------------------------------
+    bt.reset_launches()
+    qt.reset_launches()
+    with exchanged() as ex:
+        t0 = time.perf_counter()
+        plain = evaluation_runner(
+            dataclasses.replace(settings, index_dirpath=str(plain_dir)),
+            mesh=mesh, device=dev)
+        t1 = time.perf_counter()
+        sharded = evaluation_runner(
+            dataclasses.replace(settings, index_dirpath=str(dist_dir)),
+            mesh=mesh, distributed_index=True, device=dev)
+        t2 = time.perf_counter()
+    launches = kernel_counts()
+    # ----------------------------------------------------------------------
+    index = DistributedBruteForceIndex.load(str(dist_dir), mesh=mesh)
+    with exchanged() as to_local_ex:
+        flat = index.to_local()
+    n = flat.num_candidates
+    digest = hashlib.sha256(
+        flat.embeddings[:n].cpu().numpy().tobytes()
+        + flat.identifiers[:n].cpu().numpy().tobytes()).hexdigest()
+    files = sorted(p.name for p in dist_dir.glob("index_shard_*.npz"))
+    return {"mesh": [2, 2], "row": rank,
+            "recall": {str(k): v for k, v in plain.items()},
+            "recall_sharded": {str(k): v for k, v in sharded.items()},
+            "runner_s": t1 - t0, "runner_sharded_s": t2 - t1,
+            "launches": launches, "exchange": ex, "to_local_digest": digest,
+            "to_local_exchange": to_local_ex, "shard_files": files}
+
+
+def proc_train_path(rank, path, single_name, shape, sharded, host, logq,
+                    dev, sizes):
+    """Phase 14 (c) for one path on one rank (see ``proc_train``)."""
+    from hm_retrieval_tpu_torch.data import device_feed
+    from hm_retrieval_tpu_torch.models import make_single_device_trainer
+    from hm_retrieval_tpu_torch.models.train_path import make_mesh_trainer
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+
+    kind = "sparse" if "sparse" in path else "dense"
+    fields = {name: f for name, f, _ in TRAIN_PATHS}
+    tc = training_config(fields[single_name], check=True)
+    batches = [to_device(b, dev) for b in host[:PROC_STEPS]]
+    # the single-device chain: its state at each step (the same bits on
+    # both ranks: one card, one program)
+    model = train_model(*sizes, logq, False, dev)
+    state, step = make_single_device_trainer(model, tc)
+    rows_of = {n: p.shape[0] for n, p in state.params.items()}
+    chain = [{k: v.clone() for k, v in state_tensors(state, rows_of).items()}]
+    single_losses = []
+    for b in batches:
+        state, m = step(state, b)
+        single_losses.append(m["loss"])
+        chain.append({k: v.clone() for k, v in
+                      state_tensors(state, rows_of).items()})
+    single_losses = torch.stack(single_losses)
+    del model, state, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    D, S = shape
+    mesh = make_mesh(D, S, devices=[dev] * (D * S // PROC_RANKS))
+    rows = mesh.local_rows()
+    b = TRAIN_B // D
+
+    def local(batch):
+        """This rank's rows of a global batch: its data rows'."""
+        return {k: v[rows[0] * b:(rows[-1] + 1) * b] for k, v in
+                batch.items()}
+
+    model = train_model(*sizes, logq, False, dev)
+    state, step = make_mesh_trainer(
+        model, dataclasses.replace(tc, sharded_embedding_features=sharded),
+        mesh)
+    sync(dev)
+    held0 = hold_pieces(f"{path} initial", state, chain[0])
+    require(held0 == 0.0, f"{path}: the initial state differs from the "
+            "single device's")
+    saved = [t.detach().clone() for p in local_pieces(state).values()
+             for _, t in p]
+    # --- (c) each step from the single-device chain's state ---------------
+    worst, losses, prints = 0.0, [], []
+    bytes_a_step = []
+    for i, batch in enumerate(batches):
+        state = load_pieces(state, chain[i], i)
+        with exchanged() as ex:
+            state, m = step(state, local(batch))
+            sync(dev)
+        bytes_a_step.append(ex["bytes"])
+        losses.append(m["loss"])
+        worst = max(worst, hold_pieces(f"{path} step {i}", state,
+                                       chain[i + 1]))
+        prints.append(replicated_prints(state))
+    losses = torch.stack(losses)
+    require(bool(torch.isfinite(losses).all()), f"{path}: a loss is NaN")
+    require(bool(torch.allclose(losses, single_losses, rtol=1e-6, atol=0)),
+            f"{path}: losses {losses.tolist()} against the single device's "
+            f"{single_losses.tolist()}")
+    # --- replays from the initial state, bit-identical --------------------
+    replay_steps = PROC_STEPS if kind == "sparse" else 1
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for t, s0 in zip([t for p in local_pieces(state).values()
+                              for _, t in p], saved):
+                t.copy_(s0)
+        state = state._replace(step=0)
+        run_losses = []
+        for batch in batches[:replay_steps]:
+            state, m = step(state, local(batch))
+            run_losses.append(m["loss"])
+        runs.append(([t.detach().clone() for p in
+                      local_pieces(state).values() for _, t in p],
+                     torch.stack(run_losses)))
+    require(torch.equal(runs[0][1], runs[1][1]),
+            f"{path}: replayed losses differ")
+    require(all(torch.equal(x, y) for x, y in zip(runs[0][0], runs[1][0])),
+            f"{path}: the replays' states differ")
+    # pad rows as they started; table rows no step touched bit-unchanged
+    touched = {f: np.unique(np.concatenate(
+        [h[f].reshape(-1) for h in host[:replay_steps]])) for f in host[0]}
+    init = dict(zip([id(t) for p in local_pieces(state).values()
+                     for _, t in p], saved))
+    untouched = pad_rows = 0
+    for key, pieces in local_pieces(state).items():
+        if ".embeddings." not in key or key.startswith("opt/"):
+            continue
+        feature = key.rsplit(".", 1)[-1]
+        true_rows = chain[0][key].shape[0]
+        for lo, t in pieces:
+            ids = touched[feature] - lo
+            ids = ids[(ids >= 0) & (ids < t.shape[0])]
+            mask = torch.ones(t.shape[0], dtype=torch.bool, device=dev)
+            mask[torch.from_numpy(ids).to(dev).long()] = False
+            require(torch.equal(t.detach()[mask], init[id(t)][mask]),
+                    f"{path}: an untouched or pad row of {key} changed")
+            untouched += int(mask.sum())
+            pad_rows += max(0, lo + t.shape[0] - true_rows)
+    del runs, init, saved
+    # --- time: steps through device_feed, CUDA events on the card ---------
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    timed = PROC_TIMED[kind]
+    marks = []
+    feed = [local(h) for h in host[PROC_STEPS:PROC_STEPS + timed]]
+    with exchanged() as ex_t:
+        for fb in device_feed(iter(feed), mesh=mesh):
+            marks.append([torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)] if cuda else [time.perf_counter()])
+            if cuda:
+                marks[-1][0].record()
+            state, _ = step(state, fb)
+            if cuda:
+                marks[-1][1].record()
+            else:
+                marks[-1].append(time.perf_counter())
+    sync(dev)
+    ms = [x.elapsed_time(y) if cuda else (y - x) * 1e3 for x, y in marks]
+    on_card = [to_device(local(h), dev) for h in
+               host[PROC_STEPS + timed:PROC_STEPS + timed
+                    + PROC_PROFILED[kind]]]
+    if rank == 0 and cuda:
+        state, prof = profile_steps(step, state, on_card)
+    else:  # the same steps, so the collectives pair up
+        for fb in on_card:
+            state, _ = step(state, fb)
+        prof = None
+    sync(dev)
+    return {
+        "path": path, "single_device": single_name,
+        "mesh": {"data": D, "model": S}, "rows": rows,
+        "columns": mesh.local_cols(), "sharded": sharded,
+        "local_B": b * len(rows), "global_B": TRAIN_B,
+        "losses": losses.tolist(), "single_losses": single_losses.tolist(),
+        "max_abs_err_per_step": worst, "rtol": TRAIN_RTOL,
+        "atol": TRAIN_ATOL, "replicated_prints": prints,
+        "replay_bitwise": True, "replay_steps": replay_steps,
+        "untouched_rows_checked": untouched, "pad_rows": pad_rows,
+        "bytes_sent_per_step": bytes_a_step, "timed_steps": len(ms),
+        "median_step_ms": statistics.median(ms), "step_ms": ms,
+        "exchange_ms_per_step": ex_t["ms"] / max(1, len(ms)),
+        "profile": prof,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
+        else None,
+    }
+
+
+def proc_train(rank, seed, dev, sizes):
+    """Phase 14 (c) on one rank: phase 13's stream and model, each path's
+    mesh split over the ranks (data-parallel: this rank's data rows fed its
+    rows; row-sharded (1, 4): both ranks fed the whole batch)."""
+    rng = np.random.default_rng(seed + 13)
+    probs, logq = article_popularity(sizes[1])
+    n_batches = PROC_STEPS + max(PROC_TIMED.values()) + max(
+        PROC_PROFILED.values())
+    cols, _ = train_columns(rng, n_batches * TRAIN_B, *sizes, probs)
+    cols.pop("purchase_history")
+    host = [{k: v[i * TRAIN_B:(i + 1) * TRAIN_B] for k, v in cols.items()}
+            for i in range(n_batches)]
+    out = []
+    for path, single_name, shape, sharded in PROC_PATHS:
+        row = proc_train_path(rank, path, single_name, shape, sharded, host,
+                              logq, dev, sizes)
+        emit({"process_training": {"rank": rank, **{
+            k: v for k, v in row.items() if k != "replicated_prints"}}})
+        out.append(row)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def proc_runner(rank, spec, dev, workdir):
+    """Phase 14 (d) on one rank: phase 13's one-process checkpoint restored
+    by the group, then ``modelling_runner`` over (2, 2), both id tables
+    row-sharded, the sharded index."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+    from hm_retrieval_tpu_torch.runners import (
+        evaluation_runner, modelling_runner,
+    )
+    from hm_retrieval_tpu_torch.utils.settings import Settings
+
+    settings = Settings.from_json(spec["mesh_settings"])
+    mesh = make_mesh(2, 2, devices=[dev] * 2)
+    # --- the main path: counts from 0 --------------------------------------
+    bt.reset_launches()
+    qt.reset_launches()
+    with exchanged() as ex:
+        t0 = time.perf_counter()
+        reverse = evaluation_runner(
+            dataclasses.replace(settings,
+                                index_dirpath=str(workdir / "proc_rev")),
+            mesh=mesh, distributed_index=True, device=dev)
+        t1 = time.perf_counter()
+        res = modelling_runner(proc_runner_settings(settings, workdir),
+                               mesh=mesh, distributed_index=True, device=dev)
+        t2 = time.perf_counter()
+    launches = kernel_counts()
+    # ----------------------------------------------------------------------
+    return {"mesh": [2, 2], "reverse_recall": {str(k): v for k, v in
+                                               reverse.items()},
+            "initial": {str(k): v for k, v in res["initial"].items()},
+            "final": {str(k): v for k, v in res["final"].items()},
+            "eval_runner_s": t1 - t0, "runner_s": t2 - t1,
+            "launches": launches, "exchange": ex}
+
+
+def proc_runner_settings(settings, workdir):
+    """Where phase 14's group runner writes."""
+    return dataclasses.replace(
+        settings, checkpoint_dirpath=str(workdir / "proc_ckpt"),
+        model_dirpath=str(workdir / "proc_model"),
+        index_dirpath=str(workdir / "proc_runner_index"))
+
+
+def process_rank(rank, workdir, seed, repeats):
+    """Phase 14's rank ``rank``: joins the gloo group on the one card, runs
+    (a)-(c) and writes its results to ``workdir/rank{rank}.json``."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from hm_retrieval_tpu_torch.parallel.mesh import initialize_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    workdir = Path(workdir)
+    spec = json.loads((workdir / "spec.json").read_text())
+    want = torch.device(spec["device"])
+    dev = initialize_multihost(f"file://{workdir / 'rdzv'}", PROC_RANKS, rank,
+                               device=None if want.type == "cuda" else want)
+    require(dev == want and dist.get_backend() == "gloo",
+            f"rank {rank} on {dev} over {dist.get_backend()}")
+    t0 = time.perf_counter()
+    out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "world": dist.get_world_size()}
+    out["serve"] = proc_serve(rank, spec, dev, repeats, workdir)
+    out["eval"] = proc_eval(rank, spec, dev, workdir)
+    out["train"] = proc_train(rank, seed, dev, spec["sizes"])
+    out["runner"] = proc_runner(rank, spec, dev, workdir)
+    out["seconds"] = time.perf_counter() - t0
+    out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if dev.type == "cuda" else None)
+    out["foreign_modules"] = sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "hm_retrieval_tpu"))
+    emit({"process_rank": {k: out[k] for k in (
+        "rank", "device", "backend", "world", "seconds", "peak_mem_gb",
+        "foreign_modules")}, "serve": out["serve"],
+        "eval": out["eval"], "runner": out["runner"]})
+    (workdir / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def phase_processes(ctx, seed, repeats, dev, workdir, mesh_rows,
+                    n_customers=N_CUSTOMERS, n_articles=N_ARTICLES):
+    """Phase 14 (see the module docstring). Returns each kernel's launches
+    over both ranks' main paths. On the CPU it rehearses small (phase 10's
+    rehearsal sizes for ``ctx``, ``n_customers`` / ``n_articles`` for (c))."""
+    import torch.multiprocessing as mp
+
+    from hm_retrieval_tpu_torch.indices import (
+        DistributedBruteForceIndex, DistributedQuantizedIndex,
+        load_distributed_index,
+    )
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+    from hm_retrieval_tpu_torch.runners import (
+        evaluation_runner, modelling_runner,
+    )
+
+    settings, exact1, model = ctx["settings"], ctx["index"], ctx["model"]
+    tc = ctx["tc"]
+    n = exact1.num_candidates
+    ids = exact1.identifiers[:n].cpu().numpy()
+    emb = exact1.embeddings[:n]
+    first = to_device(next(ctx["test_ds"].iter_batches(tc.test_batch_size)),
+                      dev)
+    with torch.no_grad():
+        q_all = model.query_forward(first)[: max(SERVE_BATCHES)]
+    np.savez(workdir / "catalog.npz", identifiers=ids,
+             embeddings=emb.cpu().numpy())
+    np.save(workdir / "queries.npy", q_all.cpu().numpy())
+    settings.to_json(str(workdir / "settings.json"))
+    ctx["mesh_settings"].to_json(str(workdir / "mesh_settings.json"))
+    # the references: phase 12's one-process S = 4 indices on the same
+    # queries, and evaluation_runner over a one-process (2, 2) mesh
+    mesh = make_mesh(1, SHARDS, devices=[dev] * SHARDS)
+    ref = {}
+    for name, ix in (
+        ("exact", DistributedBruteForceIndex(SERVE_K, ids, emb, mesh=mesh,
+                                             method="pallas")),
+        ("quantized", DistributedQuantizedIndex(SERVE_K, ids, emb,
+                                                mesh=mesh, method="pallas")),
+    ):
+        for B in SERVE_BATCHES:
+            v, i = ix.topk_from_embeddings(q_all[:B])
+            ref[f"{name}_B{B}_scores"] = v.cpu().numpy()
+            ref[f"{name}_B{B}_ids"] = i.cpu().numpy()
+    ref_sharded = evaluation_runner(
+        dataclasses.replace(settings,
+                            index_dirpath=str(workdir / "ref_index_22")),
+        mesh=make_mesh(2, 2, devices=[dev] * 4), distributed_index=True,
+        device=dev)
+    del mesh
+    (workdir / "spec.json").write_text(json.dumps({
+        "catalog": str(workdir / "catalog.npz"),
+        "queries": str(workdir / "queries.npy"),
+        "settings": str(workdir / "settings.json"),
+        "mesh_settings": str(workdir / "mesh_settings.json"),
+        "device": str(dev), "sizes": [n_customers, n_articles]}))
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # --- the ranks ----------------------------------------------------------
+    t0 = time.perf_counter()
+    procs = mp.start_processes(process_rank,
+                               args=(str(workdir), seed, repeats),
+                               nprocs=PROC_RANKS, join=False,
+                               start_method="spawn")
+    deadline = time.monotonic() + PROC_TIMEOUT
+    try:
+        while not procs.join(timeout=5):
+            require(time.monotonic() < deadline,
+                    f"phase 14's ranks ran past {PROC_TIMEOUT} s")
+    finally:
+        for proc in procs.processes:
+            if proc.is_alive():
+                proc.kill()
+        for proc in procs.processes:
+            proc.join(10)
+    ranks_s = time.perf_counter() - t0
+    results = []
+    for r in range(PROC_RANKS):
+        path = workdir / f"rank{r}.json"
+        require(path.exists(), f"rank {r} printed no result")
+        results.append(json.loads(path.read_text()))
+
+    # --- (a) bit for bit against phase 12's one-process index --------------
+    for r in range(PROC_RANKS):
+        require(results[r]["foreign_modules"] == [],
+                f"rank {r} imported {results[r]['foreign_modules']}")
+        with np.load(workdir / f"answers{r}.npz") as z:
+            for key, want in ref.items():
+                require(z[key].tobytes() == want.tobytes(),
+                        f"rank {r}: {key} differs from the one-process "
+                        "sharded index")
+    # --- (b) the same recall everywhere -------------------------------------
+    final = {str(k): v for k, v in ctx["final"].items()}
+    want_sharded = {str(k): v for k, v in ref_sharded.items()}
+    ev = [x["eval"] for x in results]
+    for r, e in enumerate(ev):
+        require(e["recall"] == final,
+                f"rank {r}: recall {e['recall']} != phase 10's {final}")
+        require(e["recall_sharded"] == want_sharded,
+                f"rank {r}: sharded recall {e['recall_sharded']} != the "
+                f"one-process (2, 2) runner's {want_sharded}")
+        require(e["to_local_digest"] == ev[0]["to_local_digest"],
+                "to_local() assembled another catalog on a rank")
+        require(len(e["shard_files"]) == 2, f"shard files {e['shard_files']}")
+    # --- (c) the ranks' replicated state bit for bit ------------------------
+    for j, (path, *_) in enumerate(PROC_PATHS):
+        rows = [x["train"][j] for x in results]
+        require(all(r["replicated_prints"] == rows[0]["replicated_prints"]
+                    and r["losses"] == rows[0]["losses"] for r in rows),
+                f"{path}: the ranks' replicated state or losses differ")
+    # --- (d) the runner over the group --------------------------------------
+    rn = [x["runner"] for x in results]
+    resumed = {str(k): v for k, v in ctx["mesh_resumed"].items()}
+    for r, x in enumerate(rn):
+        require(x["initial"] == rn[0]["initial"]
+                and x["final"] == rn[0]["final"],
+                f"rank {r}: the runner's recall differs between the ranks")
+        require(x["reverse_recall"] == resumed,
+                f"rank {r}: phase 13's checkpoint restored by the group gave "
+                f"{x['reverse_recall']}, phase 13's run {resumed}")
+    # before any step the group evaluates phase 13's initial model exactly;
+    # after the epoch its recall is a reading: the ranks feed their own
+    # shards in their own order (as JAX's runner does), and the order alone
+    # moves recall@100: phase 13's one-process run reshuffled is printed
+    # beside it
+    mesh_final = {str(k): v for k, v in ctx["mesh_final"].items()}
+    require(rn[0]["initial"] == {str(k): v for k, v in
+                                 ctx["mesh_initial"].items()},
+            f"the group runner began at {rn[0]['initial']}, phase 13's at "
+            f"{ctx['mesh_initial']}")
+    require(rn[0]["final"]["100"] > rn[0]["initial"]["100"],
+            f"recall@100 over the group did not rise: {rn[0]}")
+    other_order = modelling_runner(
+        proc_runner_settings(ctx["mesh_settings"], workdir / "order"),
+        mesh=make_mesh(2, 2, devices=[dev] * 4), distributed_index=True,
+        device=dev, training_overrides={"shuffle_buffer_size": SHARD_ROWS})
+    g = proc_runner_settings(ctx["mesh_settings"], workdir)
+    one = evaluation_runner(
+        dataclasses.replace(g, index_dirpath=str(workdir / "proc_one_index")),
+        mesh=make_mesh(2, 2, devices=[dev] * 4), distributed_index=True,
+        device=dev)
+    require({str(k): v for k, v in one.items()} == rn[0]["final"],
+            f"the group's checkpoint restored in one process gave {one}, "
+            f"the group {rn[0]['final']}")
+    loaded = load_distributed_index(g.index_dirpath,
+                                    make_mesh(2, 2, devices=[dev] * 4))
+    require(loaded.num_candidates == n, "the group's index does not load")
+    del loaded
+    launches = {}
+    for x in results:
+        for part in ("serve", "eval", "runner"):
+            for k, v in x[part]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    for kn in ("bin_max2_first_round", "bin_max2_round",
+               "bin_max2_scaled_single_pass"):
+        require(dev.type != "cuda" or launches.get(kn, 0) > 0,
+                f"phase 14 launched {launches}")
+    phase13 = {row["path"]: row.get("median_step_ms") for row in mesh_rows}
+    sharded_ms = ctx.get("sharded_ms", {})
+    emit({"processes": {
+        "ranks": PROC_RANKS, "backend": results[0]["backend"],
+        "device": results[0]["device"], "ranks_s": ranks_s,
+        "rank_seconds": [x["seconds"] for x in results],
+        "peak_mem_gb": [x["peak_mem_gb"] for x in results],
+        "serve_ms": {k: {"ranks": [x["serve"]["ms"][k] for x in results],
+                         "phase12_one_process": sharded_ms.get(k)}
+                     for k in results[0]["serve"]["ms"]},
+        "serve_bitwise_vs_phase12": True,
+        "recall": final, "recall_sharded": want_sharded,
+        "eval_runner_s": [[x["eval"]["runner_s"], x["eval"]["runner_sharded_s"]]
+                          for x in results],
+        "train": [{"path": path,
+                   "median_step_ms": [x["train"][j]["median_step_ms"]
+                                      for x in results],
+                   "phase13_one_process_ms": phase13.get(path),
+                   "bytes_sent_per_step": [x["train"][j]["bytes_sent_per_step"]
+                                           for x in results],
+                   "exchange_ms_per_step": [
+                       x["train"][j]["exchange_ms_per_step"] for x in results],
+                   "profile_rank0": results[0]["train"][j]["profile"],
+                   "peak_mem_gb": [x["train"][j]["peak_mem_gb"]
+                                   for x in results]}
+                  for j, (path, *_) in enumerate(PROC_PATHS)],
+        "runner": {"initial": rn[0]["initial"], "final": rn[0]["final"],
+                   "phase13_final": mesh_final,
+                   "phase13_other_order_final": {
+                       str(k): v for k, v in other_order["final"].items()},
+                   "other_order": f"shuffle_buffer_size={SHARD_ROWS}",
+                   "reverse_recall": rn[0]["reverse_recall"],
+                   "phase13_resumed_final": resumed,
+                   "one_process_restore": {str(k): v for k, v in one.items()},
+                   "runner_s": [x["runner_s"] for x in rn],
+                   "eval_runner_s": [x["eval_runner_s"] for x in rn],
+                   "exchange": [x["exchange"] for x in rn]},
+        "launches": launches}})
     return launches
 
 
@@ -3627,10 +4356,15 @@ def main(argv=None):
             launches[name] += n
         lap("12_sharded")
         # phase 13: training over a mesh; (c)'s launches join the count
-        phase_mesh_training(args.seed, dev)
+        mesh_rows = phase_mesh_training(args.seed, dev)
         for name, n in phase_mesh_runner(ctx, dev, Path(d)).items():
             launches[name] += n
         lap("13_mesh_training")
+        # phase 14: two ranks on the card; both ranks' launches join
+        for name, n in phase_processes(ctx, args.seed, args.repeats, dev,
+                                       Path(d), mesh_rows).items():
+            launches[name] += n
+        lap("14_processes")
         del ctx
     emit({"phase_seconds": seconds})
 

@@ -6,9 +6,11 @@ assembly) while the device runs the current step. Every device interaction
 stays on the consumer's thread: each column is pinned and copied to the card
 with ``non_blocking=True``, so the copy overlaps the running step and the
 host does not wait for it. With a training ``mesh`` (``parallel/mesh.py``)
-the whole batch goes to the mesh's one device and the mesh's step splits it
-over the data axis, where the JAX package places each data shard's rows on
-its devices.
+the batch goes to this process's one device of the mesh and the mesh's step
+splits it over this process's data rows, where the JAX package places each
+data shard's rows on its devices. In a process group each rank feeds its own
+rows (its ``ShardDataset`` part, ``B / P`` rows a batch), as JAX's
+``make_array_from_process_local_data`` takes them.
 """
 
 from __future__ import annotations

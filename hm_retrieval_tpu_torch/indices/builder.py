@@ -127,7 +127,12 @@ def place_catalog_rows(
     ``embedded_blocks``, ``rows_per_shard``, ``placed_bytes`` (the finished
     shards on the devices) and ``peak_device_bytes`` (the most the build's
     tensors held on the devices at once: finished shards, the buffer and one
-    shard's temporaries), where the JAX package reports its host peak."""
+    shard's temporaries), where the JAX package reports its host peak.
+
+    In a process group every rank streams the whole catalog's ids, embeds
+    only the blocks that overlap its own shards and finishes only those
+    (``None`` in the ``ShardedRows`` for the others), as the JAX build
+    does."""
     from hm_retrieval_tpu_torch.parallel.distributed_topk import (
         ShardedRows,
         finish_shard,
@@ -146,11 +151,17 @@ def place_catalog_rows(
         return t.numel() * t.element_size()
 
     def new_buffer(s):
+        if not mesh.column(s):  # another rank finishes this shard
+            return None
         return torch.zeros((per, dim), dtype=torch.float32,
                            device=mesh.column(s)[0])
 
     def finalize(s, buf, fill):
         nonlocal placed_bytes, peak
+        if buf is None:
+            for name in parts:
+                parts[name].append(None)
+            return
         arrays = finish_shard(buf, fill, quantize, keep_fp32)
         arrays["ids"] = torch.from_numpy(ids_host[s * per : (s + 1) * per].copy())
         made = sum(nbytes(t) for t in arrays.values() if t is not buf)
@@ -158,7 +169,7 @@ def place_catalog_rows(
         copies = len(mesh.column(s))
         placed_bytes += copies * sum(nbytes(t) for t in arrays.values())
         for name, t in arrays.items():
-            parts.setdefault(name, []).append(t)
+            parts.setdefault(name, [None] * s).append(t)
 
     cursor = s_cur = fill = 0
     buf = new_buffer(0)
@@ -170,18 +181,24 @@ def place_catalog_rows(
                 "rows"
             )
         ids_host[cursor : cursor + nb] = ids_block
-        emb = embed_thunk()
-        embedded_blocks += 1
-        if not isinstance(emb, torch.Tensor):
-            emb = torch.from_numpy(np.asarray(emb, np.float32))
-        if tuple(emb.shape) != (nb, dim):
-            raise ValueError(
-                f"embed_fn returned {tuple(emb.shape)}, expected ({nb}, {dim})"
-            )
+        # a block that touches none of this process's shards is not embedded
+        first_s, last_s = cursor // per, min(S - 1, (cursor + nb - 1) // per)
+        emb = None
+        if any(mesh.column(s) for s in range(first_s, last_s + 1)):
+            emb = embed_thunk()
+            embedded_blocks += 1
+            if not isinstance(emb, torch.Tensor):
+                emb = torch.from_numpy(np.asarray(emb, np.float32))
+            if tuple(emb.shape) != (nb, dim):
+                raise ValueError(
+                    f"embed_fn returned {tuple(emb.shape)}, expected "
+                    f"({nb}, {dim})"
+                )
         off = 0
         while off < nb:
             take = min(per - fill, nb - off)
-            buf[fill : fill + take] = emb[off : off + take].to(buf.device)
+            if buf is not None:
+                buf[fill : fill + take] = emb[off : off + take].to(buf.device)
             fill += take
             off += take
             cursor += take

@@ -14,11 +14,21 @@ the int8 index with the catalog row-sharded over a mesh's model axis
   the "pallas" kernels), an exact fp32 rescore before the merge unless
   ``rescore=False``.
 
-The mesh is one process's (``parallel/mesh.py``): its devices are where the
-shards live, so the indices take no ``device``; ``make_mesh`` defaults to the
-cards and raises without CUDA unless given devices. Answers come back on the
-mesh's first device. Query batches whose size does not divide the data axis
-are padded with zero rows and the answers sliced.
+The mesh's devices are where the shards live, so the indices take no
+``device``; ``make_mesh`` defaults to the cards and raises without CUDA
+unless given devices. Answers come back on this process's first device of
+the mesh. Query batches whose size does not divide the data axis are padded
+with zero rows and the answers sliced.
+
+Over a process group (``parallel/mesh.py``) each rank holds and finishes
+only the shards of its model columns, and every call is collective: every
+rank passes the same queries and gets the same answers
+(``parallel/distributed_topk.py``); ``to_local`` broadcasts each shard from
+its owner, one shard in flight; ``save`` is collective
+(``collective_save``): each rank writes the shard files it owns in data row
+0, then, after a barrier, rank 0 writes ``meta.json`` (a single-file save:
+the catalog gathered, rank 0 writes it), and a last barrier lets any rank
+read the artifact back; ``load`` reads every rank's own shards.
 
 ``method="auto"`` resolves by k and width alone, the same on every device:
 the exact index takes "pallas" when k fits the bin counts and E + 1 (the
@@ -69,11 +79,8 @@ from hm_retrieval_tpu_torch.parallel.distributed_topk import (
     shard_candidates,
     shard_candidates_quantized,
 )
-from hm_retrieval_tpu_torch.parallel.mesh import (
-    DATA_AXIS,
-    MODEL_AXIS,
-    require_single_process,
-)
+from hm_retrieval_tpu_torch.parallel.collectives import barrier
+from hm_retrieval_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 
 logger = logging.getLogger(__name__)
 
@@ -107,28 +114,36 @@ def _write_sharded_artifact(
 ) -> None:
     """One npz a model shard, holding that shard's real rows; one shard on
     the host at a time. Concatenated, the files give the single-file
-    artifact's arrays."""
+    artifact's arrays. Collective in a process group: each rank writes the
+    shards it owns in data row 0 (one writer a file), and rank 0 publishes
+    ``meta.json`` only after every shard file is complete."""
     os.makedirs(dirpath, exist_ok=True)
     S = mesh.shape[MODEL_AXIS]
-    clear_stale(dirpath, keep_shards=S)
+    me = mesh.process_index
+    if me == 0:
+        clear_stale(dirpath, keep_shards=S)
     per = next(iter(arrays.values())).per
     for s in range(S):
+        if not mesh.is_local(0, s):
+            continue
         fill = max(0, min(per, num_candidates - s * per))
         np.savez(
             shard_file(dirpath, s),
             **{key: a.shard(s)[:fill].cpu().numpy()
                for key, a in arrays.items()},
         )
-    dim = next(a.shape[1] for a in arrays.values() if len(a.shape) == 2)
-    meta = dict(
-        meta,
-        sharded_artifact=True,
-        num_shards=S,
-        num_candidates=int(num_candidates),
-        dim=int(dim),
-    )
-    with open(os.path.join(dirpath, "meta.json"), "w") as f:
-        json.dump(meta, f)
+    barrier()  # meta.json is the load trigger: every shard first
+    if me == 0:
+        dim = next(a.shape[1] for a in arrays.values() if len(a.shape) == 2)
+        meta = dict(
+            meta,
+            sharded_artifact=True,
+            num_shards=S,
+            num_candidates=int(num_candidates),
+            dim=int(dim),
+        )
+        with open(os.path.join(dirpath, "meta.json"), "w") as f:
+            json.dump(meta, f)
 
 
 def _is_sharded_artifact(dirpath: str, meta: dict) -> bool:
@@ -186,10 +201,15 @@ class _DistributedIndexBase:
     # True for streamed builds and sharded loads: save writes shard files
     saves_sharded = False
 
+    @property
+    def collective_save(self) -> bool:
+        """True when every rank must call ``save`` (a mesh over a process
+        group); otherwise one process writes the artifact."""
+        return self.mesh.process_count > 1
+
     def _check_common(self, k: int, num_candidates: int, mesh) -> None:
         if mesh is None:
             raise ValueError(f"{type(self).__name__} needs a mesh")
-        require_single_process(type(self).__name__)
         if k <= 0:
             raise ValueError("k must be positive")
         if num_candidates < k:
@@ -227,18 +247,20 @@ class _DistributedIndexBase:
         return ids
 
     def _host_identifiers(self) -> np.ndarray:
-        return self._ids.numpy()[: self.num_candidates]
+        """Every rank streamed or read the whole catalog's ids."""
+        return np.asarray(self._ids_host[: self.num_candidates], np.int32)
 
     def _catalog(self) -> torch.Tensor:
-        """The (N, E) fp32 catalog on the mesh's first device, from the fp32
-        shards (or the int8 codes times their scales where there are
-        none)."""
+        """The (N, E) fp32 catalog on this process's first device, from the
+        fp32 shards (or the int8 codes times their scales where there are
+        none). Collective in a process group: each shard is broadcast from
+        its owner, one at a time."""
         first = self.mesh.first_device
         rows = self._fp32_shards()
         return torch.cat([r.to(first) for r in rows])[: self.num_candidates]
 
     def _host_catalog(self) -> np.ndarray:
-        """The (N, E) fp32 catalog on the host."""
+        """The (N, E) fp32 catalog on the host (collective in a group)."""
         return self._catalog().cpu().numpy()
 
     def _save(self, dirpath: str, arrays: Dict[str, ShardedRows], meta):
@@ -247,15 +269,15 @@ class _DistributedIndexBase:
                 dirpath, self.mesh, self.num_candidates, arrays, meta
             )
         else:
-            os.makedirs(dirpath, exist_ok=True)
-            clear_stale(dirpath)
             n = self.num_candidates
-            np.savez(
-                os.path.join(dirpath, INDEX_FILE),
-                **{key: a.numpy()[:n] for key, a in arrays.items()},
-            )
-            with open(os.path.join(dirpath, "meta.json"), "w") as f:
-                json.dump(meta, f)
+            host = {key: a.numpy()[:n] for key, a in arrays.items()}
+            if self.mesh.process_index == 0:
+                os.makedirs(dirpath, exist_ok=True)
+                clear_stale(dirpath)
+                np.savez(os.path.join(dirpath, INDEX_FILE), **host)
+                with open(os.path.join(dirpath, "meta.json"), "w") as f:
+                    json.dump(meta, f)
+        barrier()  # no rank reads the artifact before it is complete
         logger.info(
             "Saved %s (%s) to %s",
             type(self).__name__,
@@ -316,8 +338,9 @@ class DistributedBruteForceIndex(_DistributedIndexBase):
         embeddings = _as_catalog(embeddings)
         _validate(k, identifiers, embeddings)
         self._configure(k, len(identifiers), embeddings.shape[1], mesh, method)
+        self._ids_host = identifiers.astype(np.int32)
         self._emb, self._ids, self._bias = shard_candidates(
-            embeddings, identifiers.astype(np.int32), mesh
+            embeddings, self._ids_host, mesh
         )
 
     @property
@@ -329,12 +352,13 @@ class DistributedBruteForceIndex(_DistributedIndexBase):
 
     @classmethod
     def _from_placed(
-        cls, k, num_candidates, placed, *, mesh, method="auto"
+        cls, k, num_candidates, ids_host, placed, *, mesh, method="auto"
     ) -> "DistributedBruteForceIndex":
         self = cls.__new__(cls)
         self._configure(k, num_candidates, placed["emb"].shape[1], mesh,
                         method)
         self.saves_sharded = True
+        self._ids_host = ids_host
         self._emb, self._ids, self._bias = (
             placed["emb"], placed["ids"], placed["bias"]
         )
@@ -359,12 +383,12 @@ class DistributedBruteForceIndex(_DistributedIndexBase):
         batch -> shard buffer -> shard on its device. Pass
         ``num_candidates`` (the manifest's row count) to stream without
         materializing the feature batches first."""
-        _, placed, n = collect_catalog_sharded(
+        ids_host, placed, n = collect_catalog_sharded(
             candidate_id_col, embed_fn, batches, batch_size, mesh,
             num_candidates=num_candidates, dim=dim, quantize=False,
             stats=build_stats,
         )
-        return cls._from_placed(k, n, placed, mesh=mesh, **kwargs)
+        return cls._from_placed(k, n, ids_host, placed, mesh=mesh, **kwargs)
 
     def to_local(self, method: str = "auto", device: DeviceLike = None):
         """Single-device ``BruteForceIndex`` over the same catalog, on
@@ -401,10 +425,11 @@ class DistributedBruteForceIndex(_DistributedIndexBase):
             meta = json.load(f)
         kwargs.setdefault("method", meta.get("distributed_method", "auto"))
         if _is_sharded_artifact(dirpath, meta):
-            _, placed, n = _load_sharded_placed(
+            ids_host, placed, n = _load_sharded_placed(
                 dirpath, meta, mesh, quantize=False, keep_fp32=True
             )
-            return cls._from_placed(meta["k"], n, placed, mesh=mesh, **kwargs)
+            return cls._from_placed(meta["k"], n, ids_host, placed, mesh=mesh,
+                                    **kwargs)
         with np.load(os.path.join(dirpath, INDEX_FILE)) as z:
             return cls(
                 meta["k"], z["identifiers"], z["embeddings"], mesh=mesh,
@@ -485,9 +510,9 @@ class DistributedQuantizedIndex(_DistributedIndexBase):
             k, len(identifiers), embeddings.shape[1], mesh, oversample,
             rescore, recall_target, method, pallas_rounds, pallas_fold,
         )
+        self._ids_host = identifiers.astype(np.int32)
         self._placed = shard_candidates_quantized(
-            embeddings, identifiers.astype(np.int32), mesh,
-            keep_fp32=self.rescore,
+            embeddings, self._ids_host, mesh, keep_fp32=self.rescore,
         )
 
     @property
@@ -507,8 +532,9 @@ class DistributedQuantizedIndex(_DistributedIndexBase):
 
     @classmethod
     def _from_placed(
-        cls, k, num_candidates, placed, *, mesh, oversample=4, rescore=True,
-        recall_target=0.95, method="auto", pallas_rounds=1, pallas_fold=None,
+        cls, k, num_candidates, ids_host, placed, *, mesh, oversample=4,
+        rescore=True, recall_target=0.95, method="auto", pallas_rounds=1,
+        pallas_fold=None,
     ) -> "DistributedQuantizedIndex":
         self = cls.__new__(cls)
         self._configure(
@@ -516,6 +542,7 @@ class DistributedQuantizedIndex(_DistributedIndexBase):
             rescore, recall_target, method, pallas_rounds, pallas_fold,
         )
         self.saves_sharded = True
+        self._ids_host = ids_host
         self._placed = (
             placed["codes"], placed["scales"], placed.get("emb"),
             placed["ids"], placed["bias"],
@@ -541,12 +568,12 @@ class DistributedQuantizedIndex(_DistributedIndexBase):
         codes (and the fp32 rows only with ``rescore``) on the shard's
         device. With ``rescore=False`` no fp32 copy of the catalog is kept
         anywhere."""
-        _, placed, n = collect_catalog_sharded(
+        ids_host, placed, n = collect_catalog_sharded(
             candidate_id_col, embed_fn, batches, batch_size, mesh,
             num_candidates=num_candidates, dim=dim, quantize=True,
             keep_fp32=kwargs.get("rescore", True), stats=build_stats,
         )
-        return cls._from_placed(k, n, placed, mesh=mesh, **kwargs)
+        return cls._from_placed(k, n, ids_host, placed, mesh=mesh, **kwargs)
 
     def to_local(self, device: DeviceLike = None, **kwargs):
         """Single-device ``QuantizedIndex`` over the same catalog, on
@@ -600,11 +627,12 @@ class DistributedQuantizedIndex(_DistributedIndexBase):
         kwargs.setdefault("method", meta.get("distributed_method", "auto"))
         if _is_sharded_artifact(dirpath, meta):
             kwargs.setdefault("rescore", meta.get("rescore", True))
-            _, placed, n = _load_sharded_placed(
+            ids_host, placed, n = _load_sharded_placed(
                 dirpath, meta, mesh, quantize=True,
                 keep_fp32=kwargs["rescore"],
             )
-            return cls._from_placed(meta["k"], n, placed, mesh=mesh, **kwargs)
+            return cls._from_placed(meta["k"], n, ids_host, placed, mesh=mesh,
+                                    **kwargs)
         with np.load(os.path.join(dirpath, INDEX_FILE)) as z:
             if "embeddings" in z.files:
                 emb = z["embeddings"]

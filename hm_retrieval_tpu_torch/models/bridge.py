@@ -28,9 +28,10 @@ weight is.
 The mesh's states (``parallel/``) cross in the same layout: a row-sharded
 table, its accumulator or its dense optimizer state (a ``ShardedTable``) is
 one (S*R, E) array, the shards in order and the pad rows included, as the
-JAX package's sharded global array reads back. Loading one splits the rows
-over the state's shards, so a state of another mesh with the same padded
-rows takes it.
+JAX package's sharded global array reads back (in a process group, the
+shards gathered from their owners: collective). Loading one splits the rows
+over the state's shards, each rank copying the shards it holds, so a state
+of another mesh with the same padded rows takes it.
 """
 
 from __future__ import annotations
@@ -57,9 +58,8 @@ def _np(t) -> np.ndarray:
     """A numpy copy: steps update parameters in place, so a view of a CPU
     tensor would change under its reader. A ``ShardedTable`` gives its
     shards' rows in order."""
-    shards = getattr(t, "shards", None)
-    if shards is not None:
-        return torch.cat([s.detach().cpu() for s in shards]).numpy()
+    if hasattr(t, "shards"):
+        return t.host().numpy()
     return t.detach().to("cpu", copy=True).numpy()
 
 
@@ -74,9 +74,10 @@ def _copy(dst, src: np.ndarray, name: str) -> None:
     if shards is None:
         dst.copy_(src_t)
         return
-    r = shards[0].shape[0]
+    r = dst.rows_per_shard
     for s, shard in enumerate(shards):
-        shard.copy_(src_t[s * r:(s + 1) * r])
+        if shard is not None:  # another rank's shard: it copies its own
+            shard.copy_(src_t[s * r:(s + 1) * r])
 
 
 @torch.no_grad()

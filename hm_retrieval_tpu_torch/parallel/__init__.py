@@ -1,8 +1,8 @@
-"""The mesh of one process: the catalog-sharded top-k, and training over a
-mesh whose devices are all one device (data-parallel and row-sharded, dense
-and sparse). Several cards and processes wait for ROADMAP.md Queue 1 item
-6.3; ``initialize_multihost`` raises ``NotImplementedError`` and is not
-exported."""
+"""The device mesh, in one process or over a ``torch.distributed`` process
+group (``initialize_multihost``, one process a card): the catalog-sharded
+top-k, and training over a mesh (data-parallel and row-sharded, dense and
+sparse) whose devices are one device a process. One process driving several
+distinct cards for training waits for ROADMAP.md Queue 1 item 6.4."""
 
 from hm_retrieval_tpu_torch.parallel.data_parallel import (
     make_dp_train_step,
@@ -23,6 +23,7 @@ from hm_retrieval_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     Mesh,
     batch_sharding,
+    initialize_multihost,
     make_mesh,
     replicated,
     row_sharded,
@@ -62,6 +63,7 @@ __all__ = [
     "make_distributed_topk",
     "make_dp_sparse_train_step",
     "make_dp_train_step",
+    "initialize_multihost",
     "make_global_negatives_loss",
     "make_mesh",
     "make_sharded_lookup",

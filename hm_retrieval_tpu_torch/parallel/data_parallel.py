@@ -22,11 +22,18 @@ parameters of their own (``expand``), its state kept per shard (``fold``).
 Mixed uniform negatives are drawn once a step, from ``(base_seed, step)`` as
 ``make_train_step`` draws them, and shared by every shard; ``step(state,
 batch, negatives=rows)`` takes rows drawn elsewhere.
+
+In a process group each rank runs the shards of its own data rows on its
+own rows of the batch (``split_batch``), the losses and gradients of the
+others come in through ``psum`` (in shard order: every rank the same bits),
+the candidates through the all-gather, and each rank updates its copy of
+the replicated state, which stays bit-identical across the ranks, and the
+table shards it holds.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -34,7 +41,6 @@ from hm_retrieval_tpu_torch.models.two_tower import TrainState, TwoTowerModel
 from hm_retrieval_tpu_torch.parallel.collectives import psum
 from hm_retrieval_tpu_torch.parallel.global_negatives import step_losses
 from hm_retrieval_tpu_torch.parallel.mesh import (
-    DATA_AXIS,
     replicate_pytree,
     split_batch,
     training_device,
@@ -48,12 +54,13 @@ Params = Dict[str, object]
 
 
 def expand(tree: Dict[str, object]) -> Dict[str, torch.Tensor]:
-    """A dict whose ``ShardedTable`` values become one entry a shard,
-    ``"<name>/<s>"``; the tensors are the same objects."""
+    """A dict whose ``ShardedTable`` values become one entry a shard this
+    process holds, ``"<name>/<s>"``; the tensors are the same objects."""
     out = {}
     for name, v in tree.items():
         if isinstance(v, ShardedTable):
-            out.update({f"{name}/{s}": t for s, t in enumerate(v.shards)})
+            out.update({f"{name}/{s}": t for s, t in enumerate(v.shards)
+                        if t is not None})
         else:
             out[name] = v
     return out
@@ -62,7 +69,7 @@ def expand(tree: Dict[str, object]) -> Dict[str, torch.Tensor]:
 def fold(flat: Dict[str, torch.Tensor], like: Dict[str, object]) -> Dict:
     """Inverse of ``expand``, shaped as ``like``."""
     return {
-        name: ShardedTable([flat[f"{name}/{s}"] for s in range(len(v.shards))])
+        name: v.like([flat.get(f"{name}/{s}") for s in range(len(v.shards))])
         if isinstance(v, ShardedTable) else flat[name]
         for name, v in like.items()
     }
@@ -80,7 +87,8 @@ def replica(params: Params) -> Params:
     """One data shard's replica of ``params``: leaves of their own over the
     same storage (a ``ShardedTable``'s shards each)."""
     return {
-        n: ShardedTable([t.detach().requires_grad_() for t in p.shards])
+        n: p.like([None if t is None else t.detach().requires_grad_()
+                   for t in p.shards])
         if isinstance(p, ShardedTable) else p.detach().requires_grad_()
         for n, p in params.items()
     }
@@ -135,33 +143,37 @@ def make_dp_train_step(
 ):
     """``step(state, batch, negatives=None) -> (state, {"loss": loss})``
     over ``mesh`` (module docstring), for replicated and row-sharded
-    parameters alike: the state updated in place, ``batch`` the global batch
-    or ``shard_batch``'s list. Optional mixed uniform negatives as in
-    ``make_train_step``."""
+    parameters alike: the state updated in place, ``batch`` this process's
+    rows (the global batch in one process) or ``shard_batch``'s list.
+    Optional mixed uniform negatives as in ``make_train_step``."""
     training_device(mesh)
-    D = mesh.shape[DATA_AXIS]
     draw = negative_draw(catalog, num_uniform_negatives, base_seed)
     num_candidates = catalog.num_candidates if catalog is not None else None
 
     def step(state: TrainState, batch, negatives=None):
-        shards = split_batch(batch, D)
+        shards = split_batch(batch, mesh)
+        local = [d for d, b in enumerate(shards) if b is not None]
         negatives = draw(state.step, negatives)
-        replicas = [replica(state.params) for _ in range(D)]
+        replicas = [None if b is None else replica(state.params)
+                    for b in shards]
         losses = step_losses(
             model, replicas, shards,
             rows=lambda d, b: sharded_rows(model, replicas[d], b),
-            negatives=negatives, num_candidates=num_candidates,
+            negatives=negatives, num_candidates=num_candidates, mesh=mesh,
         )
-        loss = psum(losses)
-        leaves: List[Dict[str, torch.Tensor]] = [expand(r) for r in replicas]
-        names = list(leaves[0])
+        loss = psum(losses, mesh)
+        leaves = {d: expand(replicas[d]) for d in local}
+        names = list(leaves[local[0]])
         grads = torch.autograd.grad(
-            loss, [r[n] for r in leaves for n in names],
+            loss, [leaves[d][n] for d in local for n in names],
             allow_unused=True, materialize_grads=True,
         )
         n = len(names)
-        g = psum([dict(zip(names, grads[d * n:(d + 1) * n]))
-                  for d in range(D)])
+        per_shard: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(
+            shards)
+        for i, d in enumerate(local):
+            per_shard[d] = dict(zip(names, grads[i * n:(i + 1) * n]))
+        g = psum(per_shard, mesh)
         optimizer.update_(g, map_opt_state(state.opt_state, expand),
                           expand(state.params))
         return state._replace(step=state.step + 1), {"loss": loss.detach()}
@@ -170,5 +182,5 @@ def make_dp_train_step(
 
 
 def replicate_state(state: TrainState, mesh) -> TrainState:
-    """The state held once on the training mesh's device."""
+    """The state held once a process, on its training device."""
     return replicate_pytree(state, mesh)

@@ -11,8 +11,11 @@ them. The query rows are split over the data axis (the JAX indices'
 ``data_sharded_queries``): data row d scores its share against the shards
 on ``devices[d]``.
 
-One process drives every shard, one after another (``parallel/mesh.py``);
-the merge is the one a mesh of several cards runs.
+In one process every shard runs in turn (``parallel/mesh.py``). In a
+process group each rank runs only its own cells, on the whole query batch,
+which every rank passes (JAX replicates the queries); the cells'
+leaderboards are all-gathered in (d, s) order and every rank runs the same
+shard-major merge, so every rank answers the same bits as one process.
 
 Per-shard engines:
 
@@ -42,46 +45,74 @@ import torch
 from hm_retrieval_tpu_torch.ops import bin_topk as bt
 from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 from hm_retrieval_tpu_torch.ops.topk import ids_at, merge_topk, topk_pair
+from hm_retrieval_tpu_torch.parallel.collectives import fill
 from hm_retrieval_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 
 
 class ShardedRows:
     """Rows of a (total, ...) array split over a mesh's model axis: shard s
     holds rows ``s*per .. (s+1)*per - 1`` and has one copy on each distinct
-    device of the mesh's column s (a repeated device holds one copy)."""
+    device of this process's cells of column s (a repeated device holds one
+    copy); ``None`` in ``shards`` for a column another rank holds."""
 
-    def __init__(self, mesh: Mesh, shards: Sequence[torch.Tensor]):
+    def __init__(self, mesh: Mesh, shards: Sequence[Optional[torch.Tensor]]):
         if len(shards) != mesh.shape[MODEL_AXIS]:
             raise ValueError(
                 f"{len(shards)} shards for a model axis of "
                 f"{mesh.shape[MODEL_AXIS]}"
             )
         self.mesh = mesh
-        self.per = shards[0].shape[0]
-        self._copies: List[Dict[torch.device, torch.Tensor]] = [
-            {dev: t.to(dev) for dev in mesh.column(s)}
+        self._copies: List[Optional[Dict[torch.device, torch.Tensor]]] = [
+            None if t is None else {dev: t.to(dev) for dev in mesh.column(s)}
             for s, t in enumerate(shards)
         ]
+        self._local = [s for s, c in enumerate(self._copies) if c is not None]
+        self.per = self.shard(self._local[0]).shape[0]
 
     @property
     def shape(self) -> Tuple[int, ...]:
-        rest = tuple(self.shard(0).shape[1:])
+        rest = tuple(self.shard(self._local[0]).shape[1:])
         return (self.per * len(self._copies),) + rest
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.shard(0).dtype
+        return self.shard(self._local[0]).dtype
 
     def shard(self, s: int, device: Optional[torch.device] = None):
-        """Shard s on ``device`` (default: its column's first device)."""
+        """Shard s on ``device`` (default: its column's first device); a
+        shard another rank holds raises ``KeyError``."""
         copies = self._copies[s]
+        if copies is None:
+            raise KeyError(f"shard {s} is held by rank "
+                           f"{self.mesh.col_owner(s)}")
         return next(iter(copies.values())) if device is None else copies[device]
 
+    def gathered(self, s: int) -> torch.Tensor:
+        """Shard s on this process's first device; in a process group,
+        collective: every rank calls it, and the shard is broadcast from
+        its owner (one shard in flight, as JAX's ``_gathered_shard``)."""
+        first = self.mesh.first_device
+        if self.mesh.process_count == 1:
+            return self.shard(s).to(first)
+        from hm_retrieval_tpu_torch.parallel.collectives import (
+            broadcast_from,
+        )
+
+        like = self.shard(self._local[0])
+        mine = self.shard(s) if self._copies[s] is not None else None
+        return broadcast_from(mine, like.shape, like.dtype, first,
+                              self.mesh.col_owner(s))
+
     def shards(self) -> List[torch.Tensor]:
-        return [self.shard(s) for s in range(len(self._copies))]
+        """Every shard in order, on this process's first device (collective
+        in a process group: ``gathered``)."""
+        if self.mesh.process_count == 1:
+            return [self.shard(s) for s in range(len(self._copies))]
+        return [self.gathered(s) for s in range(len(self._copies))]
 
     def numpy(self) -> np.ndarray:
-        """The (total, ...) array on the host, shard by shard."""
+        """The (total, ...) array on the host, shard by shard (collective in
+        a process group)."""
         return np.concatenate([t.cpu().numpy() for t in self.shards()])
 
 
@@ -133,6 +164,10 @@ def _place(mesh: Mesh, embeddings, identifiers, quantize, keep_fp32):
     per = -(-n // S)
     parts: Dict[str, List[torch.Tensor]] = {}
     for s in range(S):
+        if not mesh.column(s):  # another rank's shard
+            for name in parts:
+                parts[name].append(None)
+            continue
         lo = s * per
         dev = mesh.column(s)[0]
         fill = max(0, min(per, n - lo))
@@ -141,7 +176,7 @@ def _place(mesh: Mesh, embeddings, identifiers, quantize, keep_fp32):
         )
         arrays["ids"] = _shard_ids(identifiers, lo, per)
         for name, t in arrays.items():
-            parts.setdefault(name, []).append(t)
+            parts.setdefault(name, [None] * s).append(t)
     return {name: ShardedRows(mesh, ts) for name, ts in parts.items()}
 
 
@@ -169,8 +204,9 @@ def shard_candidates_quantized(
 
 def _sharded_call(mesh: Mesh, k: int, local):
     """``fn(queries)``: ``local(q, s, dev)`` -> (scores, ids) per (query
-    share, shard), gathered onto the mesh's first device and merged
-    shard-major. B must divide by the data axis size."""
+    share, shard) of this process's cells, the others' from their ranks,
+    and each share's S leaderboards merged shard-major on this process's
+    first device. B must divide by the data axis size."""
     first = mesh.first_device
     D = mesh.shape[DATA_AXIS]
     S = mesh.shape[MODEL_AXIS]
@@ -180,12 +216,31 @@ def _sharded_call(mesh: Mesh, k: int, local):
         if B % D:
             raise ValueError(f"B={B} must divide by the data axis size {D}")
         shares = queries.split(B // D) if B else [queries] * D
+        boards = [
+            {"scores": v.to(first), "ids": i.to(first)}
+            for v, i in (local(shares[d], s, mesh.devices[d, s])
+                         for d in range(D) for s in range(S)
+                         if mesh.is_local(d, s))
+        ]
+        if mesh.process_count > 1:
+            # every cell's leaderboard, from the rank that owns it
+            cells: List[Optional[dict]] = [None] * (D * S)
+            mine = [d * S + s for d in range(D) for s in range(S)
+                    if mesh.is_local(d, s)]
+            for c, board in zip(mine, boards):
+                cells[c] = board
+
+            def keys_of(r):
+                return [d * S + s for d in range(D) for s in range(S)
+                        if mesh.ranks[d, s] == r]
+
+            boards = fill(cells, keys_of,
+                          lambda c: int(mesh.ranks[c // S, c % S]))
         out_s, out_i = [], []
-        for d, q in enumerate(shares):
-            board = [local(q, s, mesh.devices[d, s]) for s in range(S)]
-            ls = torch.stack([v.to(first) for v, _ in board])
-            li = torch.stack([i.to(first) for _, i in board])
-            v, i = merge_topk(ls, li, k)
+        for d in range(D):
+            row = boards[d * S:(d + 1) * S]
+            v, i = merge_topk(torch.stack([b["scores"] for b in row]),
+                              torch.stack([b["ids"] for b in row]), k)
             out_s.append(v)
             out_i.append(i)
         return torch.cat(out_s), torch.cat(out_i)

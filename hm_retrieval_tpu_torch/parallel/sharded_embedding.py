@@ -21,6 +21,14 @@ Two lookups, both differentiable, run for each data shard on its own ids:
 In one process every model shard of a data shard holds the same ids, so the
 request plan, which JAX computes on each of them, is computed once, and the
 exchange is the owner's gather of its bucket.
+
+In a process group (``parallel/mesh.py``) a rank holds only the shards of
+its model columns (``None`` for the others). When the model axis spans
+ranks, the ranks of a data row look up the same ids: each computes its
+shards' partial rows (or, ``"all_to_all"``, its owners' buckets) and the
+collectives (``parallel/collectives.py``) bring the others' in, summed in
+shard order as in one process, so every rank of the row holds the same
+bits, equal to one process's.
 """
 
 from __future__ import annotations
@@ -31,11 +39,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hm_retrieval_tpu_torch.parallel.collectives import all_gather, psum
+from hm_retrieval_tpu_torch.parallel.collectives import (
+    all_gather,
+    fill,
+    psum,
+)
 from hm_retrieval_tpu_torch.parallel.mesh import (
-    DATA_AXIS,
     MODEL_AXIS,
     Mesh,
+    split_batch,
     split_rows,
 )
 
@@ -48,30 +60,60 @@ def padded_rows(vocab_rows: int, num_shards: int) -> Tuple[int, int]:
 
 class ShardedTable:
     """A (S*R, E) table as S row shards of R rows, shard s owning rows
-    ``[s*R, (s+1)*R)``."""
+    ``[s*R, (s+1)*R)``; in a process group ``None`` for the shards another
+    rank holds, and ``mesh`` the group's mesh."""
 
-    def __init__(self, shards: Sequence[torch.Tensor]):
-        self.shards: List[torch.Tensor] = list(shards)
-        if len({tuple(t.shape) for t in self.shards}) != 1:
+    def __init__(self, shards: Sequence[Optional[torch.Tensor]],
+                 mesh: Optional[Mesh] = None):
+        self.shards: List[Optional[torch.Tensor]] = list(shards)
+        self.mesh = mesh
+        if len({tuple(t.shape) for t in self.local()}) != 1:
             raise ValueError("row shards must share one shape")
+
+    def local(self) -> List[torch.Tensor]:
+        """The shards this process holds, in order."""
+        return [t for t in self.shards if t is not None]
+
+    def like(self, shards) -> "ShardedTable":
+        """Another table over this one's mesh."""
+        return ShardedTable(shards, self.mesh)
+
+    def host(self) -> torch.Tensor:
+        """The (S*R, E) table on the host, shard by shard. Collective in a
+        process group: each shard is broadcast from its owner, one at a
+        time."""
+        if all(t is not None for t in self.shards):
+            return torch.cat([t.detach().cpu() for t in self.shards])
+        from hm_retrieval_tpu_torch.parallel.collectives import (
+            broadcast_from,
+        )
+
+        like = self.local()[0]
+        return torch.cat([
+            broadcast_from(t, like.shape, like.dtype, torch.device("cpu"),
+                           self.mesh.col_owner(s))
+            for s, t in enumerate(self.shards)
+        ])
 
     @property
     def rows_per_shard(self) -> int:
-        return self.shards[0].shape[0]
+        return self.local()[0].shape[0]
 
     @property
     def shape(self) -> Tuple[int, int]:
         """The padded table's shape, (S*R, E)."""
-        return (len(self.shards) * self.rows_per_shard, self.shards[0].shape[1])
+        return (len(self.shards) * self.rows_per_shard,
+                self.local()[0].shape[1])
 
     def __repr__(self) -> str:
-        return f"ShardedTable({len(self.shards)} x {tuple(self.shards[0].shape)})"
+        return (f"ShardedTable({len(self.local())} of {len(self.shards)} x "
+                f"{tuple(self.local()[0].shape)})")
 
 
 def shard_table(table, mesh: Mesh) -> ShardedTable:
     """Pad a (V, E) table (numpy or a tensor) with zero rows to S*ceil(V/S)
     and place it row-sharded over the model axis: shard s a copy on the
-    first device of the mesh's column s."""
+    first device of the mesh's column s, where this process holds it."""
     if not isinstance(table, torch.Tensor):
         table = torch.from_numpy(np.ascontiguousarray(table))
     S = mesh.shape[MODEL_AXIS]
@@ -79,9 +121,9 @@ def shard_table(table, mesh: Mesh) -> ShardedTable:
                               table.shape[1]))
     padded[: table.shape[0]] = table
     return ShardedTable([
-        part.to(mesh.column(s)[0], copy=True)
+        part.to(mesh.column(s)[0], copy=True) if mesh.column(s) else None
         for s, part in enumerate(split_rows(padded, S))
-    ])
+    ], mesh)
 
 
 def _shards(table) -> List[torch.Tensor]:
@@ -91,17 +133,23 @@ def _shards(table) -> List[torch.Tensor]:
 def psum_rows(table, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` for ids of any shape, through the shards: each gathers
     the ids it owns, zeros the rest, and the S partial results are summed in
-    shard order. Differentiable in each shard."""
+    shard order (across ranks, this data row's other shards from their
+    owners). Differentiable in each local shard."""
     shards = _shards(table)
-    R = shards[0].shape[0]
+    local = [t for t in shards if t is not None]
+    R = local[0].shape[0]
     flat = ids.reshape(-1).long()
     parts = []
     for s, shard in enumerate(shards):
-        local = flat - s * R
-        mine = (local >= 0) & (local < R)
-        rows = F.embedding(torch.where(mine, local, 0), shard)
+        if shard is None:
+            parts.append(None)
+            continue
+        local_ids = flat - s * R
+        mine = (local_ids >= 0) & (local_ids < R)
+        rows = F.embedding(torch.where(mine, local_ids, 0), shard)
         parts.append(torch.where(mine[:, None], rows, 0.0))
-    return psum(parts).reshape(*ids.shape, shards[0].shape[1])
+    return psum(parts, getattr(table, "mesh", None), MODEL_AXIS).reshape(
+        *ids.shape, local[0].shape[1])
 
 
 def _unique_fixed(ids: torch.Tensor):
@@ -124,9 +172,10 @@ def all_to_all_rows(table, ids: torch.Tensor, capacity: Optional[int] = None
     exchange (module docstring); NaN in the table's dtype when an owner's
     distinct ids exceed the capacity."""
     shards = _shards(table)
-    S, R = len(shards), shards[0].shape[0]
+    local = [t for t in shards if t is not None]
+    S, R = len(shards), local[0].shape[0]
     B = ids.shape[0]
-    dev = shards[0].device
+    dev = local[0].device
     cap = min(B, R) if capacity is None else min(capacity, B, R)
     uids, inv = _unique_fixed(ids.long())  # fills (-1) sort last
     valid = uids >= 0
@@ -147,12 +196,19 @@ def all_to_all_rows(table, ids: torch.Tensor, capacity: Optional[int] = None
     send_ids = send_ids[: S * cap].view(S, cap)
     send_mask = send_mask[: S * cap].view(S, cap)
     # each owner gathers its bucket and sends the rows back
-    back = torch.stack([
+    back = [
+        None if shards[t] is None else
         torch.where(send_mask[t][:, None],
                     F.embedding(torch.where(send_mask[t], send_ids[t], 0),
                                 shards[t]), 0.0)
         for t in range(S)
-    ]).reshape(S * cap, -1)
+    ]
+    if any(b is None for b in back):
+        # the other owners' buckets, from the ranks of this data row
+        mesh = table.mesh
+        d = mesh.local_rows()[0]
+        back = fill(back, mesh.cols_of, lambda t: int(mesh.ranks[d, t]))
+    back = torch.stack(back).reshape(S * cap, -1)
     gathered = back[torch.where(fits, s_owner * cap + pos, 0)]
     gathered = torch.where(fits[:, None], gathered, 0.0)  # sorted order
     uout = gathered.new_zeros(gathered.shape).index_copy(0, order, gathered)
@@ -168,26 +224,33 @@ def make_sharded_lookup(
     """Returns ``lookup(table, ids) -> (B, E)``.
 
     ``table``: a ``ShardedTable`` (or its S shards) over the model axis.
-    ``ids``: the global (B,) ids, or ``shard_batch``-style list of the D
-    data shards' ids; data shard d looks up its own rows, the model axis
-    cooperates, and the D results are gathered in order. ``capacity``: the
-    ``all_to_all`` exchange's slots per owner after deduplication (default
-    ``min(b, R)``, always exact); demand above it gives NaN."""
+    ``ids``: the (B,) ids of this process's rows (the global ones in one
+    process), or ``shard_batch``-style list of the D data shards' ids
+    (``None`` for another rank's); data shard d looks up its own rows, the
+    model axis cooperates, and the D results are gathered in order.
+    ``capacity``: the ``all_to_all`` exchange's slots per owner after
+    deduplication (default ``min(b, R)``, always exact); demand above it
+    gives NaN."""
     if strategy not in ("psum", "all_to_all"):
         raise ValueError(f"unknown strategy {strategy!r}")
     if capacity is not None and capacity < 1:
         raise ValueError("capacity must be >= 1")
-    D, S = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    S = mesh.shape[MODEL_AXIS]
 
     def lookup(table, ids) -> torch.Tensor:
         shards = _shards(table)
         if len(shards) != S:
             raise ValueError(f"{len(shards)} table shards on a mesh of "
                              f"{S} model shards")
-        parts = ids if isinstance(ids, (list, tuple)) else split_rows(ids, D)
-        if strategy == "psum":
-            return all_gather([psum_rows(shards, p) for p in parts])
-        return all_gather([all_to_all_rows(shards, p, capacity)
-                           for p in parts])
+        if not isinstance(table, ShardedTable):
+            table = ShardedTable(shards, mesh)
+        parts = (ids if isinstance(ids, (list, tuple))
+                 else [b and b["ids"] for b in split_batch({"ids": ids},
+                                                            mesh)])
+        rows = [None if p is None else
+                psum_rows(table, p) if strategy == "psum"
+                else all_to_all_rows(table, p, capacity)
+                for p in parts]
+        return all_gather(rows, mesh=mesh)
 
     return lookup

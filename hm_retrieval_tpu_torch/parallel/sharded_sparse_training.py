@@ -30,8 +30,6 @@ from __future__ import annotations
 
 from typing import Dict, Iterable
 
-import torch
-
 from hm_retrieval_tpu_torch.models.sparse_optimizer import (
     SparseAdagradState,
     SparseTrainState,
@@ -121,14 +119,15 @@ def create_sharded_sparse_state(
 def unpad_params(params: Dict, model: TwoTowerModel) -> Dict:
     """``params`` with every row-sharded table assembled on the host and
     sliced back to its true vocabulary rows (the unsharded layout of exports
-    and serving); the other tensors as they are."""
+    and serving); the other tensors as they are. Collective in a process
+    group (``ShardedTable.host``)."""
     out = dict(params)
     for tower, feats in _table_features(model).items():
         for f in feats:
             name = _table_name(tower, f)
             t = out[name]
             if isinstance(t, ShardedTable):
-                t = torch.cat([s.detach().cpu() for s in t.shards])
+                t = t.host()
             if t.shape[0] != f.num_embeddings:
                 t = t[: f.num_embeddings]
             out[name] = t

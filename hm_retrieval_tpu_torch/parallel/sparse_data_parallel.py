@@ -19,6 +19,11 @@ step on the global batch gives it. ``parallel/sharded_sparse_training.py``
 runs the same step with row-sharded tables (``sharded``): their rows come
 through ``psum_rows``, and each shard applies the global (G, I) to the rows
 it owns, the others' ids marked -1.
+
+In a process group each rank runs its own data rows (``split_batch``); the
+all-gathers of (G, I) and the psums bring in the others', so every rank
+applies the same global update to its copy of the replicated tables and to
+the table shards it holds.
 """
 
 from __future__ import annotations
@@ -39,7 +44,6 @@ from hm_retrieval_tpu_torch.models.two_tower import TwoTowerModel
 from hm_retrieval_tpu_torch.parallel.collectives import all_gather, psum
 from hm_retrieval_tpu_torch.parallel.global_negatives import step_losses
 from hm_retrieval_tpu_torch.parallel.mesh import (
-    DATA_AXIS,
     replicate_pytree,
     split_batch,
     training_device,
@@ -77,6 +81,8 @@ def _update_table(table, acc, ids, g, lr, eps) -> None:
     R = table.rows_per_shard
     ids = ids.long()
     for s, (t, a) in enumerate(zip(table.shards, acc.shards)):
+        if t is None:  # another rank's shard
+            continue
         local = ids - s * R
         owned = (local >= 0) & (local < R)
         _sparse_adagrad_update(t, a, torch.where(owned, local, -1), g, lr,
@@ -93,47 +99,53 @@ def make_dp_sparse_train_step(
     """``step(state, batch) -> (state, {"loss": loss})`` over ``mesh``
     (module docstring): sparse Adagrad for every embedding table, replicated
     or row-sharded, ``dense_optimizer`` for the rest, global-batch in-batch
-    negatives; the state updated in place, ``batch`` the global batch or
-    ``shard_batch``'s list."""
+    negatives; the state updated in place, ``batch`` this process's rows
+    (the global batch in one process) or ``shard_batch``'s list."""
     training_device(mesh)
-    D = mesh.shape[DATA_AXIS]
     tables = _table_features(model)
 
     def step(state: SparseTrainState, batch):
-        shards = split_batch(batch, D)
+        shards = split_batch(batch, mesh)
+        local = [d for d, b in enumerate(shards) if b is not None]
         params = state.params
         dense = split_dense_params(params)
         names = list(dense)
-        replicas = [{n: p.detach().requires_grad_() for n, p in dense.items()}
-                    for _ in range(D)]
-        rows = [_gather_rows(params, model, s) for s in shards]
+        replicas = [None if b is None else
+                    {n: p.detach().requires_grad_() for n, p in dense.items()}
+                    for b in shards]
+        rows = [None if b is None else _gather_rows(params, model, b)
+                for b in shards]
         loss = psum(step_losses(model, replicas, shards,
-                                rows=lambda d, b: rows[d]))
-        row_leaves = [[r for feats in rows[d].values() for r in feats.values()]
-                      for d in range(D)]
+                                rows=lambda d, b: rows[d], mesh=mesh), mesh)
+        row_leaves = {d: [r for feats in rows[d].values()
+                          for r in feats.values()] for d in local}
         grads = torch.autograd.grad(
             loss,
-            [r[n] for r in replicas for n in names]
-            + [x for leaves in row_leaves for x in leaves],
+            [replicas[d][n] for d in local for n in names]
+            + [x for d in local for x in row_leaves[d]],
             allow_unused=True,
             materialize_grads=True,
         )
         n = len(names)
-        g_dense = psum([dict(zip(names, grads[d * n:(d + 1) * n]))
-                        for d in range(D)])
+        per_shard = [None] * len(shards)
+        for j, d in enumerate(local):
+            per_shard[d] = dict(zip(names, grads[j * n:(j + 1) * n]))
+        g_dense = psum(per_shard, mesh)
         dense_optimizer.update_(g_dense, state.dense_opt_state, dense)
-        g_rows = grads[D * n:]
-        per_shard = len(row_leaves[0])
+        g_rows = grads[len(local) * n:]
+        per_row = len(row_leaves[local[0]])
         i = 0
         for tower, feats in tables.items():
             for f in feats:
                 name = _table_name(tower, f)
-                ids = all_gather([s[f.name].reshape(-1) for s in shards])
+                ids = all_gather([b and b[f.name].reshape(-1) for b in shards],
+                                 mesh=mesh)
                 g = all_gather([
-                    g_rows[d * per_shard + i].reshape(
+                    None if shards[d] is None else
+                    g_rows[local.index(d) * per_row + i].reshape(
                         shards[d][f.name].numel(), -1)
-                    for d in range(D)
-                ])
+                    for d in range(len(shards))
+                ], mesh=mesh)
                 _update_table(params[name],
                               state.sparse_state.accumulators[name], ids, g,
                               learning_rate, eps)
@@ -144,5 +156,5 @@ def make_dp_sparse_train_step(
 
 
 def replicate_sparse_state(state: SparseTrainState, mesh) -> SparseTrainState:
-    """The state held once on the training mesh's device."""
+    """The state held once a process, on its training device."""
     return replicate_pytree(state, mesh)

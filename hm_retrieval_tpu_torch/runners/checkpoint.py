@@ -15,6 +15,13 @@ The mesh's states (``parallel/``) save and restore the same way: a
 row-sharded table and its optimizer state are one (S*R, E) array in the
 file, pad rows included (``models/bridge.py``), so a checkpoint restores
 into a mesh of another shape whose tables have the same padded rows.
+
+Over a process group ``save`` is collective: every rank calls it, a
+row-sharded value is gathered from the ranks that hold its shards, rank 0
+alone writes the checkpoint (one writer a file), synchronously, and a
+barrier follows, so no rank can look for it before it is complete. Each rank
+restores the shards it holds from the same file, so a checkpoint written by
+a group restores into one process and the reverse.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from hm_retrieval_tpu_torch.models.bridge import (
     train_state_to_numpy,
 )
 from hm_retrieval_tpu_torch.models.two_tower import TwoTowerModel
+from hm_retrieval_tpu_torch.parallel.collectives import barrier
+from hm_retrieval_tpu_torch.parallel.mesh import process_count, process_index
 from hm_retrieval_tpu_torch.utils.pytree_io import (
     load_pytree_npz,
     save_pytree_npz,
@@ -68,9 +77,15 @@ class CheckpointManager:
         """Copy ``state`` to the host, then write it on a background thread.
         Returns once the copy is taken, so in-place steps after it cannot
         change the checkpoint; ``wait_until_finished``, ``restore`` and
-        ``close`` wait for the write."""
+        ``close`` wait for the write. Over a process group: collective, rank
+        0 writes before it returns, then every rank meets at a barrier."""
         tree = train_state_to_numpy(state)  # host copies, not views
         meta = {"step": int(step), "state": type(state).__name__}
+        if process_count() > 1:
+            if process_index() == 0:
+                self._write(int(step), tree, meta)
+            barrier()
+            return
         if self._writer is None:
             self._writer = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="checkpoint"
@@ -142,7 +157,7 @@ class CheckpointManager:
             )
         want = self.device
         for v in fresh_state.params.values():
-            p = v.shards[0] if hasattr(v, "shards") else v
+            p = v.local()[0] if hasattr(v, "shards") else v
             if p.device.type != want.type or want.index not in (
                 None, p.device.index
             ):

@@ -16,24 +16,41 @@ pkg/modelling/runner.py:18-107):
   (``utils/profiling.py``)
 
 Every entry point takes ``device=None``, which means the card, and raises
-without CUDA unless given ``device="cpu"``. Each takes a one-process mesh
+without CUDA unless given ``device="cpu"``. Each takes a mesh
 (``parallel/mesh.py``) and ``distributed`` / ``distributed_index``, which
 shards the catalog over the mesh's model axis (``indices/distributed.py``);
-the eval batches and the replicated weights stay on the mesh's first
-device, which must be ``device``, where the JAX package shards the batches
-over the data axis and replicates the weights. ``modelling_runner`` trains
-over a mesh whose devices are all one device (``["cuda:0"] * 4``), with the
-tables of ``sharded_embedding_features`` row-sharded when the mesh has a
-model axis; ``build_index`` and ``evaluate`` take the training state's
-``params`` and gather a row-sharded table's rows through its shards, so the
-full table is never assembled on the device. A mesh over several devices or
-processes raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 6.3), and
-so does the SavedModel export (item 7), each before any step.
+the eval batches and the replicated weights stay on this process's first
+device of the mesh, which must be ``device``, where the JAX package shards
+the batches over the data axis and replicates the weights.
+``modelling_runner`` trains over a mesh whose devices are all one device
+(``["cuda:0"] * 4``), with the tables of ``sharded_embedding_features``
+row-sharded when the mesh has a model axis; ``build_index`` and
+``evaluate`` take the training state's ``params`` and gather a row-sharded
+table's rows through its shards, so the full table is never assembled on
+the device.
+
+Over a process group of P ranks (``initialize_multihost``), as in the JAX
+package: each rank reads its own test shards (``ShardDataset``'s
+``process_index``), ``test_batch_size // P`` rows a batch, and every rank
+runs the group's largest count of batches (``_allgather_max``), a drained
+rank feeding padding that the validity mask drops; ``IndexRecall`` sums
+``{hits, seen}`` over the group, so every rank reports the global recall. A
+sharded index over the group answers the whole batch (every rank's query
+rows, gathered) and each rank counts its own rows. ``modelling_runner``
+feeds each rank ``train_batch_size // P`` rows of its own train shards a
+step (its shuffle seeded by epoch and rank, as JAX's), for the group's
+smallest step count (``_allgather_min``). Host writes go through rank 0
+(``_is_coordinator``): the index artifact unless it saves collectively, the
+tower exports and event files; checkpoints are collective (a row-sharded
+table gathered from its owners, rank 0 writing); a barrier follows each
+before any rank reads it back. The SavedModel export (ROADMAP.md Queue 1
+item 7) raises ``NotImplementedError`` before any step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import time
 from typing import Dict, Optional
@@ -57,12 +74,22 @@ from hm_retrieval_tpu_torch.models.train_path import (
     make_single_device_trainer,
 )
 from hm_retrieval_tpu_torch.models.two_tower import TwoTowerModel
+from hm_retrieval_tpu_torch.parallel.collectives import (
+    barrier,
+    gather_processes,
+    reduce_int,
+)
 from hm_retrieval_tpu_torch.parallel.mesh import (
     canonical,
-    require_single_process,
+    data_axis_process_aligned,
+    process_count,
+    process_index,
     training_device,
 )
 from hm_retrieval_tpu_torch.parallel.data_parallel import sharded_rows
+from hm_retrieval_tpu_torch.parallel.sharded_sparse_training import (
+    unpad_params,
+)
 from hm_retrieval_tpu_torch.runners.checkpoint import (
     CheckpointManager,
     export_model,
@@ -76,15 +103,60 @@ logger = logging.getLogger(__name__)
 
 
 def _on_mesh(mesh, dev: torch.device) -> None:
-    """A mesh's batches and weights stay on its first device: ``dev``."""
+    """A mesh's batches and weights stay on this process's first device:
+    ``dev``."""
     if mesh is None:
         return
-    require_single_process("a mesh")
     if mesh.first_device != canonical(dev):
         raise ValueError(
             f"the mesh's first device {mesh.first_device} is not the "
             f"model's device {dev}"
         )
+
+
+def _allgather_max(n: int) -> int:
+    """The largest ``n`` over the process group: every rank runs that many
+    eval batches, a drained one feeding padding."""
+    return reduce_int(n, "max")
+
+
+def _allgather_min(n: int) -> int:
+    """The smallest ``n`` over the process group (train step counts)."""
+    return reduce_int(n, "min")
+
+
+def _is_coordinator() -> bool:
+    """True on the process that writes host-side artifacts (index files
+    that do not save collectively, exports, event files): several ranks
+    writing one path would race."""
+    return process_index() == 0
+
+
+def _check_group(mesh, *batch_sizes: int) -> int:
+    """The process count P; over a group of P > 1 ranks, a mesh whose data
+    rows each live on one rank and batch sizes that divide by P, as the JAX
+    runner requires (``ValueError`` otherwise)."""
+    P = process_count()
+    if P == 1:
+        return P
+    if mesh is None:
+        raise ValueError("a run over a process group requires a mesh")
+    if mesh.process_count != P:
+        raise ValueError(
+            f"the mesh spans {mesh.process_count} process(es), the group "
+            f"{P}: build it with make_mesh after initialize_multihost"
+        )
+    if not data_axis_process_aligned(mesh):
+        raise ValueError(
+            "a run over a process group needs a mesh whose data rows each "
+            "live on ONE process (each rank feeds its own shards); use "
+            "make_mesh(data=P*k, ...) in rank order"
+        )
+    for b in batch_sizes:
+        if b % P:
+            raise ValueError(f"batch size {b} must divide by the process "
+                             f"count {P}")
+    return P
 
 
 def _pad_batch(batch: Dict[str, np.ndarray], size: int):
@@ -199,36 +271,64 @@ def evaluate(
     the padded rows are masked out of the metric. Each batch: the query
     tower, ``index.topk_from_embeddings``, then the metric, which pulls one
     small vector to the host. Ks larger than the catalog are dropped with a
-    warning. With a ``mesh`` the batches stay on its first device, the
-    model's. ``params``: a training state's, whose row-sharded tables the
-    tower reads through their shards."""
+    warning. With a ``mesh`` the batches stay on this process's first
+    device, the model's. ``params``: a training state's, whose row-sharded
+    tables the tower reads through their shards.
+
+    Over a process group of P ranks ``test_ds`` is this rank's part (its
+    ``process_index``) and each batch takes ``test_batch_size // P`` of its
+    rows; every rank runs the group's largest batch count, a drained rank
+    feeding all-padding batches, and the recall is the global one on every
+    rank (module docstring)."""
     _on_mesh(mesh, model.device)
+    P = _check_group(mesh, test_batch_size)
     usable_ks = [k for k in ks if k <= index.num_candidates]
     dropped = [k for k in ks if k > index.num_candidates]
     if dropped:
         logger.warning(
             "Dropping ks %s > catalog size %d", dropped, index.num_candidates
         )
-    metric = IndexRecall(usable_ks)
+    metric = IndexRecall(usable_ks, cross_process=P > 1)
     query = _tower(model, "query_tower", params)
     cid = model.candidate_id_col
     dev = model.device
-    n_batches = -(-test_ds.local_num_rows // test_batch_size)
+    local_bs = test_batch_size // P
+    n_batches = _allgather_max(-(-test_ds.local_num_rows // local_bs))
+    # a sharded index over the group answers every rank's rows at once
+    index_mesh = getattr(index, "mesh", None)
+    gathered = index_mesh is not None and index_mesh.process_count > 1
+    me = process_index()
 
-    batches = test_ds.iter_batches(test_batch_size)
+    batches = test_ds.iter_batches(local_bs)
+    last = None
     for _ in range(n_batches):
         batch = next(batches, None)
-        if batch is None:
+        if batch is not None:
+            batch, n = _pad_batch(batch, local_bs)
+            last = batch
+        elif P > 1 and last is not None:
+            # drained: an all-padding batch keeps the group in lockstep
+            batch, n = {k: np.zeros_like(v) for k, v in last.items()}, 0
+        elif P > 1:
+            raise RuntimeError(
+                "process has no local eval batches; write more shards or "
+                "use fewer processes"
+            )
+        else:
             # the manifest counts more rows than the shards hold; the JAX
             # package feeds all-padding batches here, which count nothing
             break
-        batch, n = _pad_batch(batch, test_batch_size)
         tbatch = _to(batch, dev)
-        mask = torch.arange(test_batch_size, device=dev) < n
+        mask = torch.arange(local_bs, device=dev) < n
         q = query(tbatch)
-        _, ids = index.topk_from_embeddings(q)
+        if gathered:
+            # every rank's rows in rank order: the global batch
+            _, ids = index.topk_from_embeddings(gather_processes(q))
+            ids = ids[me * local_bs:(me + 1) * local_bs]
+        else:
+            _, ids = index.topk_from_embeddings(q)
         metric.update(ids, tbatch[cid], valid_mask=mask)
-    if next(batches, None) is not None:
+    if P == 1 and next(batches, None) is not None:
         # n_batches comes from the manifest's row count; a stale, low count
         # would silently drop eval rows and skew recall
         raise RuntimeError(
@@ -249,19 +349,24 @@ def evaluation_runner(
     trainer would create, rebuild the index from the candidate tower,
     evaluate Recall@K and refresh the index artifact. No training.
     ``distributed_index`` shards the catalog over ``mesh``'s model axis
-    (``indices/distributed.py``), whose first device must be ``device``.
-    With row-sharded tables active over ``mesh`` the template is the mesh
-    trainer's state (``create_mesh_state``), as the JAX package restores a
-    row-sharded checkpoint; a checkpoint of any other layout restores into
-    the single-device state, which the data-parallel states equal."""
+    (``indices/distributed.py``), whose first device (this process's) must
+    be ``device``. With row-sharded tables active over ``mesh`` the template
+    is the mesh trainer's state (``create_mesh_state``), as the JAX package
+    restores a row-sharded checkpoint; a checkpoint of any other layout
+    restores into the single-device state, which the data-parallel states
+    equal. Over a process group every rank evaluates its own test shards
+    and reports the global recall; the artifact is written by rank 0, or
+    collectively by a sharded index, and every rank returns only once it is
+    complete."""
     dev = resolve_device(device)
-    require_single_process("evaluation_runner")
     if distributed_index and mesh is None:
         raise ValueError("distributed_index=True requires a mesh (make_mesh)")
     _on_mesh(mesh, dev)
     schema = Schema.load(settings.schema_dirpath)
     tc, mc = schema.training_config, schema.model_config
-    test_ds = ShardDataset(settings.test_shards_dirpath)
+    P = _check_group(mesh, tc.test_batch_size)
+    test_ds = ShardDataset(settings.test_shards_dirpath,
+                           process_index=process_index(), process_count=P)
     cand_ds = ShardDataset(settings.candidate_shards_dirpath)
 
     model = TwoTowerModel.create_from_schema(schema, device=dev)
@@ -288,8 +393,16 @@ def evaluation_runner(
     )
     res = evaluate(model, index, test_ds, tc.test_batch_size, mc.ks,
                    mesh=mesh, params=state.params)
-    index.save(settings.index_dirpath)
+    _save_index(index, settings.index_dirpath)
     return res
+
+
+def _save_index(index, dirpath: str) -> None:
+    """Rank 0 writes the artifact, or every rank when the index saves
+    collectively; no rank goes on before it is complete."""
+    if getattr(index, "collective_save", False) or _is_coordinator():
+        index.save(dirpath)
+    barrier()
 
 
 def _apply_overrides(schema: Schema, overrides) -> None:
@@ -317,10 +430,11 @@ def modelling_runner(
 ) -> Dict[str, Dict[int, float]]:
     """Full train + eval stage (ref: modelling_runner,
     pkg/modelling/runner.py:18-107). Returns {"initial": recalls, "final":
-    recalls}. With a ``mesh`` (its devices all ``device``) it trains over
-    the mesh (``make_mesh_trainer``); ``distributed_index`` serves every
-    eval and the saved artifact from a catalog sharded over the mesh's
-    model axis.
+    recalls}. With a ``mesh`` (this process's devices all ``device``) it
+    trains over the mesh (``make_mesh_trainer``); ``distributed_index``
+    serves every eval and the saved artifact from a catalog sharded over
+    the mesh's model axis. Over a process group every rank calls it with
+    the same arguments and gets the same results (module docstring).
 
     ``training_overrides``: TrainingConfig field values that replace the ones
     snapshotted into the schema artifact, logged loudly; an unknown field
@@ -333,9 +447,10 @@ def modelling_runner(
     tc, mc = schema.training_config, schema.model_config
     if distributed_index and mesh is None:
         raise ValueError("distributed_index=True requires a mesh (make_mesh)")
-    require_single_process("modelling_runner")
+    P = _check_group(mesh, tc.train_batch_size, tc.test_batch_size)
+    pi = process_index()
     if mesh is not None:
-        training_device(mesh)  # one device, one process: else item 6.3
+        training_device(mesh)  # one device a process: else item 6.4
         _on_mesh(mesh, dev)
     if settings.savedmodel_dirpath:
         # fail before training, as the JAX package's schema check does
@@ -344,8 +459,12 @@ def modelling_runner(
             "item 7 (SavedModel export)"
         )
 
-    train_ds = ShardDataset(settings.train_shards_dirpath)
-    test_ds = ShardDataset(settings.test_shards_dirpath)
+    # each rank feeds its own train and test shards; the candidate catalog
+    # is read whole on every rank
+    train_ds = ShardDataset(settings.train_shards_dirpath, process_index=pi,
+                            process_count=P)
+    test_ds = ShardDataset(settings.test_shards_dirpath, process_index=pi,
+                           process_count=P)
     cand_ds = ShardDataset(settings.candidate_shards_dirpath)
 
     model = TwoTowerModel.create_from_schema(schema, device=dev)
@@ -389,9 +508,12 @@ def modelling_runner(
         return index, res
 
     ckpt = CheckpointManager(settings.checkpoint_dirpath, device=dev)
-    writer = MetricWriter(settings.tensorboard_logs_dir)
+    coordinator = _is_coordinator()
+    writer = MetricWriter(settings.tensorboard_logs_dir if coordinator
+                          else None)
     profiler = StepProfiler(
-        settings.tensorboard_logs_dir, settings.profile_steps
+        settings.tensorboard_logs_dir if coordinator else None,
+        settings.profile_steps if coordinator else None,
     )
     try:
         if resume and ckpt.latest_step() is not None:
@@ -410,12 +532,18 @@ def modelling_runner(
 
             # --- train one epoch (ref: runner.py:103) ---
             t0 = time.time()
+            # over a group each rank feeds B / P rows a step; seeds
+            # epoch * P + rank never repeat across (epoch, rank) pairs
+            local_bs = tc.train_batch_size // P
             batches = train_ds.iter_batches(
-                tc.train_batch_size,
+                local_bs,
                 shuffle_buffer_size=tc.shuffle_buffer_size,
-                seed=tc.seed + epoch,
+                seed=tc.seed + epoch * P + pi,
                 drop_remainder=True,
             )
+            if P > 1:
+                batches = itertools.islice(batches, _allgather_min(
+                    train_ds.local_num_rows // local_bs))
             if spd > 1:
                 # K steps a call; a tail of fewer than K batches is dropped
                 # with a warning (device_feed.chunk_batches)
@@ -441,10 +569,13 @@ def modelling_runner(
 
             ckpt.save(global_step, state)
             # exports keep the unsharded contract: row-sharded tables are
-            # written at their true vocabulary rows
-            export_model(model, settings.model_dirpath, params=state.params)
+            # written at their true vocabulary rows (gathered from their
+            # owners on every rank; rank 0 writes)
+            unpadded = unpad_params(state.params, model)
+            if coordinator:
+                export_model(model, settings.model_dirpath, params=unpadded)
             # weight histograms per epoch (ref: histogram_freq=1)
-            writer.add_params_histograms(model, epoch + 1, params=state.params)
+            writer.add_params_histograms(model, epoch + 1, params=unpadded)
 
         profiler.close()
         if t_train > 0:
@@ -454,7 +585,7 @@ def modelling_runner(
 
         # --- final eval after training (fixes ref: runner.py:107) ---
         index, results["final"] = build_and_evaluate(tc.epochs)
-        index.save(settings.index_dirpath)
+        _save_index(index, settings.index_dirpath)
         return results
     finally:
         # close on every exit path so a mid-run failure cannot lose

@@ -83,6 +83,47 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert out.stdout.strip() == "[]"
 
 
+def test_the_spawned_ranks_import_only_the_port():
+    """The module whose rank function ``tests/test_torch_multiprocess.py``
+    spawns, and ``chip_smoke.py`` whose phase 14 spawns its ranks from
+    itself, leave JAX and the JAX package out of a fresh interpreter's
+    ``sys.modules`` (each spawned rank also reports its own)."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import test_torch_multiprocess, chip_smoke\n"
+        "from hm_retrieval_tpu_torch.parallel import initialize_multihost\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        + repr(FORBIDDEN) + ")\nprint(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True, text=True, cwd=str(ROOT), env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_initialize_multihost_alone_stays_single_process(monkeypatch, caplog):
+    """No arguments and no torchrun environment: a single-process run,
+    logged, and no group formed."""
+    import logging
+
+    from hm_retrieval_tpu_torch.parallel.mesh import (
+        TORCHRUN_ENV,
+        initialize_multihost,
+    )
+
+    for key in TORCHRUN_ENV:
+        monkeypatch.delenv(key, raising=False)
+    with caplog.at_level(logging.INFO,
+                         logger="hm_retrieval_tpu_torch.parallel.mesh"):
+        assert initialize_multihost() is None
+    assert "single-process run" in caplog.text
+    assert not torch.distributed.is_initialized()
+
+
 @pytest.mark.parametrize(
     "module", ["dataset", "device_feed", "shard_writer", "__init__"]
 )
@@ -109,7 +150,7 @@ RUNNER_MODULES = {
     "indices/static_index.py": {"json", "os", "numpy", "torch"},
     "etl/transformations.py": {"csv", "re", "numpy", "pyarrow"},
     "etl/__init__.py": set(),
-    "parallel/mesh.py": {"numpy", "torch"},
+    "parallel/mesh.py": {"numpy", "os", "torch"},
     "parallel/distributed_topk.py": {"numpy", "torch"},
     "parallel/collectives.py": {"torch"},
     "parallel/global_negatives.py": {"numpy", "torch"},
@@ -121,7 +162,8 @@ RUNNER_MODULES = {
     "parallel/__init__.py": set(),
     "runners/baseline.py": set(),
     "runners/checkpoint.py": {"concurrent", "json", "os", "shutil", "uuid"},
-    "runners/modelling.py": {"dataclasses", "time", "numpy", "torch"},
+    "runners/modelling.py": {"dataclasses", "itertools", "time", "numpy",
+                             "torch"},
     "runners/__init__.py": set(),
     "utils/settings.py": {"dataclasses", "json", "os"},
     "utils/summary.py": {"os", "time", "numpy", "tensorboardX"},

@@ -441,27 +441,35 @@ def _two_devices():
 
 
 def test_several_devices_or_processes_raise_item_6_3(monkeypatch):
-    """A training mesh over two distinct devices, and any mesh inside a
-    2-rank process group, raise ``NotImplementedError`` naming item 6.3."""
+    """Item 6.3 (several processes) is ported: ``initialize_multihost()``
+    without a group stays single-process, and a mesh built in one process
+    keeps its one-process steps inside a 2-rank group
+    (``tests/test_torch_multiprocess.py`` runs real groups). One process
+    driving several distinct devices for training still raises
+    ``NotImplementedError``, now naming item 6.4."""
     _, pm = _models("mean")
     _, popt = _opts("adagrad")
-    with pytest.raises(NotImplementedError, match="item 6.3"):
+    with pytest.raises(NotImplementedError, match="item 6.4"):
         training_device(_two_devices())
-    with pytest.raises(NotImplementedError, match="item 6.3"):
+    with pytest.raises(NotImplementedError, match="item 6.4"):
         make_dp_train_step(pm, popt, _two_devices())
-    with pytest.raises(NotImplementedError, match="item 6.3"):
+    with pytest.raises(NotImplementedError, match="item 6.4"):
         make_dp_sparse_train_step(pm, popt, LR, _two_devices())
-    from hm_retrieval_tpu_torch.parallel.mesh import initialize_multihost
+    from hm_retrieval_tpu_torch.parallel.mesh import (
+        TORCHRUN_ENV,
+        data_axis_process_aligned,
+        initialize_multihost,
+    )
 
-    with pytest.raises(NotImplementedError, match="item 6.3"):
-        initialize_multihost()
+    for key in TORCHRUN_ENV:
+        monkeypatch.delenv(key, raising=False)
+    assert initialize_multihost() is None
     pmesh = make_mesh(8, 1, devices=["cpu"] * 8)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="item 6.3"):
-        make_dp_train_step(pm, popt, pmesh)
-    with pytest.raises(NotImplementedError, match="item 6.3"):
-        make_mesh(devices=["cpu"] * 2)
+    assert pmesh.process_count == 1 and data_axis_process_aligned(pmesh)
+    assert training_device(pmesh) == torch.device("cpu")
+    make_dp_train_step(pm, popt, pmesh)
 
 
 def test_a_batch_the_data_axis_does_not_divide_raises(rng):

@@ -57,7 +57,11 @@ KS = [10, 50]
 def jax_stages(tmp_path_factory):
     """The JAX package's ETL, schema and shard stages on the tiny data;
     returns the port's ``Settings`` read from their ``settings.json``."""
-    d = str(tmp_path_factory.mktemp("torch_pipeline"))
+    return run_jax_stages(str(tmp_path_factory.mktemp("torch_pipeline")))
+
+
+def run_jax_stages(d: str) -> Settings:
+    """``jax_stages``' work in directory ``d``."""
     raw = generate_hm_like_csvs(
         os.path.join(d, "raw"),
         n_transactions=6000,
@@ -219,11 +223,12 @@ def test_unknown_override_raises(pipeline):
 @pytest.mark.parametrize("option", ["savedmodel", "mesh", "distributed"])
 def test_unported_options_raise_before_any_step(pipeline, tmp_path, monkeypatch,
                                                 option):
-    """The SavedModel export, and training over a mesh of several distinct
-    devices or inside a process group of more than one rank, raise
-    ``NotImplementedError`` naming their ROADMAP.md item (7, 6.3); a sharded
-    index without a mesh raises ``ValueError``, as in the JAX package. Each
-    before any step."""
+    """The SavedModel export and training over a mesh of several distinct
+    devices in one process raise ``NotImplementedError`` naming their
+    ROADMAP.md item (7, 6.4); a sharded index without a mesh, and inside a
+    process group of 2 ranks a mesh built for one process, raise
+    ``ValueError``, as in the JAX package. Each before any step. (The runner
+    over a process group is ported: ``tests/test_torch_multiprocess.py``.)"""
     from hm_retrieval_tpu_torch.runners import modelling
 
     settings, _ = pipeline
@@ -248,14 +253,15 @@ def test_unported_options_raise_before_any_step(pipeline, tmp_path, monkeypatch,
         grid = np.empty((2, 1), dtype=object)
         grid[0, 0], grid[1, 0] = torch.device("cpu"), torch.device("cuda", 0)
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 6.3"):
+                           match="ROADMAP.md Queue 1 item 6.4"):
             modelling_runner(settings, device="cpu", mesh=Mesh(grid))
         one_device = make_mesh(2, 1, devices=["cpu"] * 2)
         monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
         monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 6.3"):
+        with pytest.raises(ValueError, match="spans 1 process"):
             modelling_runner(settings, device="cpu", mesh=one_device)
+        with pytest.raises(ValueError, match="requires a mesh"):
+            modelling_runner(settings, device="cpu")
     assert not (tmp_path / "ckpt").exists()
 
 
