@@ -283,6 +283,28 @@ Phases, each of which must pass (a failure raises and exits non-zero):
        gives the group's final recall, and phase 13's one-process checkpoint
        restored by the group its resumed run's; the group's index loads in
        one process.
+15. The five stages through the port alone, from raw CSVs (phase_pipeline):
+   the port's generate_hm_like_csvs at H&M width (1,371,980 customers,
+   105,542 articles, 130 product types; 3,000,000 transactions, cut from
+   H&M's 31.8M for time), then etl_runner, build_schema_runner and
+   shard_writer_runner with .npz splits (the card's machine has no
+   pyarrow), a 16-long purchase history, hm_schema's widths with every
+   vocab built by the schema stage, the history (sharing article_id's
+   vocab) and the standardised age as query features, logQ on:
+   (a) pandas and pyarrow absent from sys.modules after the three stages;
+       each manifest's num_rows the split's rows; one candidate row per
+       article seen; exp(logQ) over the present ids summing to 1 within
+       1e-5;
+   (b) the three stages again, streamed (etl_chunk_rows, schema_stream_rows
+       and shard_stream_rows a quarter of the transactions): every npz
+       array of every shard equal by sha256 (dtype and shape included) to
+       the in-memory run's, the vocabs and logQ equal;
+   (c) modelling_runner (one epoch at B = 2048, ks 10, 100, 1000, counts
+       from 0): recall@100 rising, kernels 1-2 launched inside evaluate and
+       no other kernel, then baseline_modelling_runner over the CSV, its
+       recall printed beside the model's. A pipeline line gives each stage's
+       seconds in memory and streamed, rows, vocab sizes, shard bytes, peak
+       host RSS and the recalls. Its launches join the kernels line.
 
 Output: per-phase JSON lines and each phase's seconds, then the card's name
 and power limit, the
@@ -4245,6 +4267,250 @@ def phase_processes(ctx, seed, repeats, dev, workdir, mesh_rows,
     return launches
 
 
+# --- phase 15: the front of the pipeline through the port ---------------------
+
+PIPELINE_TRANSACTIONS = 3_000_000  # H&M's 31.8M, cut for time
+PIPELINE_TRAIN_B = 2048
+PIPELINE_SPLITS = ("train", "test", "candidates")
+FRONT_STAGES = ("etl", "schema", "shards")
+
+
+def pipeline_schema(n_product_types=N_PRODUCT_TYPES):
+    """``hm_schema``'s widths with every vocab left for the schema stage
+    to build, the purchase history and the standardised age as query
+    features, logQ on, one epoch at ``PIPELINE_TRAIN_B``."""
+    from hm_retrieval_tpu_torch.schema import (
+        Feature, ModelConfig, Schema, TrainingConfig,
+    )
+
+    features = [
+        Feature("customer_id", "categorical", "query", embedding_size=E),
+        Feature("purchase_history", "sequence", "query", embedding_size=E,
+                max_len=HISTORY_LEN, shared_vocab_with="article_id",
+                pooling="mean"),
+        Feature("age", "numeric", "query", standardize=True),
+        Feature("article_id", "categorical", "candidate", embedding_size=E),
+        Feature("product_type_name", "categorical", "candidate",
+                embedding_size=16),
+        Feature("colour_group_name", "categorical", "candidate",
+                embedding_size=8),
+    ]
+    config = ModelConfig(E, ks=[10, 100, SERVE_K], query_tower_units=[256],
+                         candidate_tower_units=[256])
+    return Schema(features, config,
+                  TrainingConfig(train_batch_size=PIPELINE_TRAIN_B,
+                                 use_logq_correction=True))
+
+
+def pipeline_settings(raw, workdir, **streaming):
+    from hm_retrieval_tpu_torch.utils import Settings
+
+    return Settings(
+        transactions_filepath=raw["transactions"],
+        articles_filepath=raw["articles"],
+        customers_filepath=raw["customers"],
+        train_start_date=raw["train_start"],
+        train_end_date=raw["train_end"],
+        test_start_date=raw["test_start"],
+        test_end_date=raw["test_end"],
+        train_data_filepath=str(workdir / "processed" / "train.npz"),
+        test_data_filepath=str(workdir / "processed" / "test.npz"),
+        schema_dirpath=str(workdir / "schema"),
+        train_shards_dirpath=str(workdir / "shards" / "train"),
+        test_shards_dirpath=str(workdir / "shards" / "test"),
+        candidate_shards_dirpath=str(workdir / "shards" / "candidates"),
+        model_dirpath=str(workdir / "model"),
+        index_dirpath=str(workdir / "index"),
+        baseline_index_dirpath=str(workdir / "baseline_index"),
+        checkpoint_dirpath=str(workdir / "checkpoints"),
+        tensorboard_logs_dir=None,
+        profile_steps=None,
+        history_max_len=HISTORY_LEN,
+        **streaming,
+    )
+
+
+def peak_rss_gb():
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def run_front_stages(settings):
+    """ETL, schema and shards through the port; each stage's seconds."""
+    from hm_retrieval_tpu_torch.runners import (
+        build_schema_runner, etl_runner, shard_writer_runner,
+    )
+
+    seconds = {}
+    for name, run in (("etl", lambda: etl_runner(settings)),
+                      ("schema", lambda: build_schema_runner(
+                          settings, pipeline_schema())),
+                      ("shards", lambda: shard_writer_runner(settings))):
+        t0 = time.perf_counter()
+        run()
+        seconds[name] = time.perf_counter() - t0
+    return seconds
+
+
+def shard_digests(settings):
+    """{split/file/array: sha256 of the array's bytes, dtype and shape}, and
+    the bytes of every shard file."""
+    import hashlib
+
+    digests, nbytes = {}, 0
+    for split in PIPELINE_SPLITS:
+        d = Path(getattr(settings, f"{split}_shards_dirpath"
+                         if split != "candidates"
+                         else "candidate_shards_dirpath"))
+        for path in sorted(d.glob("*.npz")):
+            nbytes += path.stat().st_size
+            with np.load(path) as z:
+                for key in z.files:
+                    a = z[key]
+                    h = hashlib.sha256(a.tobytes())
+                    h.update(f"{a.dtype.str}{a.shape}".encode())
+                    digests[f"{split}/{path.name}/{key}"] = h.hexdigest()
+    return digests, nbytes
+
+
+def manifest(settings, split):
+    attr = ("candidate_shards_dirpath" if split == "candidates"
+            else f"{split}_shards_dirpath")
+    with open(Path(getattr(settings, attr), "manifest.json")) as f:
+        return json.load(f)
+
+
+def phase_pipeline(seed, dev, workdir, n_customers=N_CUSTOMERS,
+                   n_articles=N_ARTICLES,
+                   n_transactions=PIPELINE_TRANSACTIONS):
+    """Phase 15 (see the module docstring). Returns each kernel's launches
+    in the modelling stage, driven from 0."""
+    from hm_retrieval_tpu_torch.etl.transformations import load_dataframe
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.runners import (
+        baseline_modelling_runner, modelling_runner,
+    )
+    from hm_retrieval_tpu_torch.schema import Schema
+    from hm_retrieval_tpu_torch.utils.synthetic import generate_hm_like_csvs
+
+    rss0 = peak_rss_gb()
+    t0 = time.perf_counter()
+    raw = generate_hm_like_csvs(str(workdir / "raw"),
+                                n_transactions=n_transactions,
+                                n_customers=n_customers,
+                                n_articles=n_articles,
+                                n_product_types=N_PRODUCT_TYPES, seed=seed)
+    generate_s = time.perf_counter() - t0
+
+    # --- the three front stages in memory, then streamed -------------------
+    settings = pipeline_settings(raw, workdir / "memory")
+    memory_s = run_front_stages(settings)
+    rss_memory = peak_rss_gb()
+    front_modules = sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("pandas", "pyarrow"))
+    require(not front_modules, f"the front stages imported {front_modules}")
+    date = settings.date_column
+    rows = {split: len(load_dataframe(
+        getattr(settings, f"{split}_data_filepath"), columns=[date])[date])
+        for split in ("train", "test")}
+    for split in ("train", "test"):
+        got = manifest(settings, split)["num_rows"]
+        require(got == rows[split],
+                f"{split} manifest holds {got} rows, the split {rows[split]}")
+    split_articles = [load_dataframe(
+        getattr(settings, f"{split}_data_filepath"),
+        columns=[settings.article_id_column])[settings.article_id_column]
+        for split in ("train", "test")]
+    seen = len(np.unique(np.concatenate(split_articles)))
+    rows["candidates"] = manifest(settings, "candidates")["num_rows"]
+    require(rows["candidates"] == seen,
+            f"{rows['candidates']} candidate rows for {seen} articles seen")
+    schema = Schema.load(settings.schema_dirpath)
+    present = schema.logq[1:][schema.logq[1:] != 0]
+    logq_sum = float(np.exp(present.astype(np.float64)).sum())
+    require(abs(logq_sum - 1.0) <= 1e-5, f"exp(logQ) sums to {logq_sum}")
+    digests, shard_bytes = shard_digests(settings)
+
+    n_rows = sum(1 for _ in open(raw["transactions"])) - 1
+    quarter = -(-n_rows // 4)
+    streamed = pipeline_settings(raw, workdir / "streamed",
+                                 etl_chunk_rows=quarter,
+                                 schema_stream_rows=quarter,
+                                 shard_stream_rows=quarter)
+    streamed_s = run_front_stages(streamed)
+    rss_streamed = peak_rss_gb()
+    front_modules = sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("pandas", "pyarrow"))
+    require(not front_modules, f"the front stages imported {front_modules}")
+    got, _ = shard_digests(streamed)
+    require(got == digests,
+            f"{sum(got.get(k) != v for k, v in digests.items())} of "
+            f"{len(digests)} shard arrays differ between the streamed and "
+            f"the in-memory runs (or the files differ: "
+            f"{sorted(set(got) ^ set(digests))[:4]})")
+    other = Schema.load(streamed.schema_dirpath)
+    for fa, fb in zip(schema.features, other.features):
+        require(fa.name == fb.name and (not fa.has_vocab
+                                        or np.array_equal(fa.vocab, fb.vocab)),
+                f"the streamed vocab of {fa.name} differs")
+    require(np.array_equal(schema.logq, other.logq),
+            "the streamed logQ differs")
+    stats = {f.name: {"memory": [f.mean, f.std],
+                      "streamed": [g.mean, g.std]}
+             for f, g in zip(schema.features, other.features) if f.standardize}
+    shutil.rmtree(workdir / "streamed")
+
+    # --- the modelling stage and the baseline, counts from 0 ---------------
+    sync(dev)
+    bt.reset_launches()
+    qt.reset_launches()
+    t0 = time.perf_counter()
+    results = modelling_runner(settings, device=dev)
+    sync(dev)
+    modelling_s = time.perf_counter() - t0
+    launches = {**bt.LAUNCHES, **qt.LAUNCHES}
+    # --------------------------------------------------------------------
+    for name in ("initial", "final"):
+        check_runner_recall(name, results[name], schema.model_config.ks)
+    require(results["final"][100] > results["initial"][100],
+            f"recall@100 did not rise: {results}")
+    require(dev.type != "cuda" or (launches["bin_max2_first_round"] > 0
+                                   and launches["bin_max2_round"] > 0),
+            f"evaluate did not launch kernels 1-2: {launches}")
+    require(all(v == 0 for k, v in launches.items()
+                if k not in ("bin_max2_first_round", "bin_max2_round")),
+            f"the runner launched other kernels: {launches}")
+    t0 = time.perf_counter()
+    baseline = baseline_modelling_runner(settings, device=dev)
+    sync(dev)
+    baseline_s = time.perf_counter() - t0
+    check_runner_recall("baseline", baseline, schema.model_config.ks)
+    emit({"pipeline": {
+        "transactions": n_rows, "customers": n_customers,
+        "articles": n_articles, "history": HISTORY_LEN,
+        "train_batch": PIPELINE_TRAIN_B,
+        "generate_s": generate_s,
+        "stage_s": {"memory": memory_s, "streamed": streamed_s},
+        "stream_rows": quarter,
+        "rows": rows,
+        "vocab_sizes": {f.name: len(f.vocab) for f in schema.features
+                        if f.has_vocab and not f.shared_vocab_with},
+        "shard_arrays": len(digests), "shard_bytes": shard_bytes,
+        "streamed_shards_bitwise": True, "streamed_vocabs_and_logq_equal": True,
+        "numeric_stats": stats, "logq_exp_sum": logq_sum,
+        "peak_rss_gb": {"before": rss0, "after_memory": rss_memory,
+                        "after_streamed": rss_streamed,
+                        "after_modelling": peak_rss_gb()},
+        "pandas_or_pyarrow_imported": False,
+        "modelling_s": modelling_s, "baseline_s": baseline_s,
+        "recall": {"initial": results["initial"], "final": results["final"],
+                   "baseline": baseline},
+        "launches": launches}})
+    return launches
+
+
 @contextlib.contextmanager
 def checkpoint_times():
     """Inside the block, ms of each ``CheckpointManager`` host copy
@@ -4366,6 +4632,12 @@ def main(argv=None):
             launches[name] += n
         lap("14_processes")
         del ctx
+    with tempfile.TemporaryDirectory(dir=build_root,
+                                     prefix="chip_smoke-pipeline-") as d:
+        # phase 15: the five stages through the port alone
+        for name, n in phase_pipeline(args.seed, dev, Path(d)).items():
+            launches[name] += n
+    lap("15_pipeline")
     emit({"phase_seconds": seconds})
 
     pallas = "hm_retrieval_tpu/ops/pallas_retrieval.py"

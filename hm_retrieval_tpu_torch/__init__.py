@@ -14,6 +14,11 @@ and training on one device:
     softmax with logQ, optional uniform negatives; sparse row Adagrad for
     the tables, or the hand-written dense Adagrad / Adam)
 
+and the stages in front of it, without pandas:
+
+    raw CSVs -> etl_runner (join, purchase history, date split) ->
+    build_schema_runner (vocabs, stats, logQ) -> shard_writer_runner
+
 Every entry point takes ``device=None``, which means ``"cuda"``, and raises
 when CUDA is absent unless the caller asks for ``device="cpu"``. On the CPU
 each kernel wrapper runs its plain PyTorch version; there is no automatic

@@ -23,19 +23,17 @@ import numpy as np
 import torch
 
 from hm_retrieval_tpu_torch.device import DeviceLike, resolve_device
+from hm_retrieval_tpu_torch.schema.features import value_counts
 from hm_retrieval_tpu_torch.schema.schema import Schema
 
 logger = logging.getLogger(__name__)
 
 
 def popularity_order(values) -> np.ndarray:
-    """Distinct ``str(value)``s, most frequent first, ties in order of first
-    appearance: pandas' ``astype(str).value_counts().index``."""
-    tokens = np.asarray(values).astype(str)
-    uniq, first, counts = np.unique(
-        tokens, return_index=True, return_counts=True
-    )
-    return uniq[np.lexsort((first, -counts))]
+    """Distinct ``str(value)``s of the present values, most frequent first,
+    ties in order of first appearance: pandas'
+    ``astype(str).value_counts().index``."""
+    return value_counts(values)[0]
 
 
 class StaticIndex:

@@ -6,9 +6,10 @@ the same encoding contract and the same ``to_dict``/``from_dict`` payload,
     id 0                -> OOV (and the sequence pad id)
     id i+1 (1..V)       -> vocab[i], vocab frequency-ordered
 
-so a schema saved by either package loads in the other. Vocabulary building
-from dataframes belongs to ETL and is not part of this package; ``encode``
-keeps only the pure-Python dictionary path (no native encoder, no pandas).
+so a schema saved by either package loads in the other. Vocabularies and
+statistics are built from the port's tables (``etl/transformations.py``)
+with numpy; ``encode`` keeps only the pure-Python dictionary path (no
+native encoder, no pandas).
 """
 
 from __future__ import annotations
@@ -19,6 +20,30 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
+
+from hm_retrieval_tpu_torch.etl.transformations import Lookup, factorize
+
+def present_strings(values) -> np.ndarray:
+    """``Series.astype(str)`` of a column's present values: pandas 3 keeps a
+    missing value (NaN, or ``""`` in a str column) missing, and
+    ``value_counts`` drops it. A float reads ``"1.0"``, an int ``"12"``."""
+    values = np.asarray(values)
+    if values.dtype.kind == "f":
+        values = values[~np.isnan(values)]
+    elif values.dtype.kind == "U":
+        values = values[values != ""]
+    return values.astype(str)
+
+
+def value_counts(values):
+    """(tokens, counts) of ``Series.astype(str).value_counts()``: the
+    distinct strings of the present values, count descending, ties in order
+    of first appearance (trap j; ``np.unique`` alone orders ties by
+    value)."""
+    codes, uniq = factorize(present_strings(values))
+    counts = np.bincount(codes, minlength=len(uniq))
+    order = np.argsort(-counts, kind="stable")
+    return uniq[order], counts[order]
 
 
 class FeatureFamily(str, enum.Enum):
@@ -128,6 +153,27 @@ class Feature:
             raise ValueError(f"feature {self.name!r} has no vocab yet")
         return len(self.vocab) + 1
 
+    def build_vocab_from_dataframe(self, table) -> None:
+        """Frequency-ordered vocab of the table's column, truncated to the
+        ``max_vocab_size`` most frequent tokens; missing values are never in
+        it (ref: pkg/schema/features.py:106-127)."""
+        if self.kind != FeatureKind.CATEGORICAL:
+            raise ValueError(f"cannot build vocab for numeric {self.name!r}")
+        tokens, _ = value_counts(table[self.name])
+        if self.max_vocab_size is not None:
+            tokens = tokens[: self.max_vocab_size]
+        self.vocab = tokens
+        self._token_to_id = None
+
+    def build_stats_from_dataframe(self, table) -> None:
+        """Train-split mean/std for numeric standardization: float64
+        ``nanmean`` / ``nanstd`` (a zero std reads 1.0)."""
+        if self.kind != FeatureKind.NUMERIC:
+            raise ValueError(f"{self.name!r} is not numeric")
+        col = np.asarray(table[self.name], dtype=np.float64)
+        self.mean = float(np.nanmean(col))
+        self.std = float(np.nanstd(col)) or 1.0
+
     def transform_numeric(self, values: np.ndarray) -> np.ndarray:
         """float32 passthrough, standardized when configured; NaN -> 0.0
         after standardization."""
@@ -142,20 +188,16 @@ class Feature:
         if self._token_to_id is None:
             if self.vocab is None:
                 raise ValueError(f"feature {self.name!r} has no vocab")
-            self._token_to_id = {
-                tok: i + 1 for i, tok in enumerate(self.vocab)
-            }
+            self._token_to_id = Lookup(
+                ((tok, i + 1) for i, tok in enumerate(self.vocab.tolist())),
+                missing=0)
         return self._token_to_id
 
     def encode(self, values) -> np.ndarray:
         """String tokens -> int32 ids (0 = OOV)."""
         arr = np.asarray(values, dtype=str).ravel()
-        table = self._lookup()
-        return np.fromiter(
-            (table.get(tok, 0) for tok in arr.tolist()),
-            dtype=np.int32,
-            count=arr.size,
-        )
+        return np.fromiter(map(self._lookup().__getitem__, arr.tolist()),
+                           dtype=np.int32, count=arr.size)
 
     def encode_sequence(self, values) -> np.ndarray:
         """Iterable of token lists -> (B, max_len) int32, keeping the LAST
@@ -183,6 +225,28 @@ class Feature:
         starts = np.concatenate(([0], np.cumsum(lens)[:-1]))
         col_idx = np.arange(total) - np.repeat(starts, lens)
         out[row_idx, col_idx] = ids
+        return out
+
+    def encode_sequence_ids(
+        self, flat_ids: np.ndarray, offsets: np.ndarray
+    ) -> np.ndarray:
+        """Pre-encoded flat token ids + (B+1,) row offsets -> (B, max_len)
+        int32 windows: the last ``max_len`` tokens per row, right-padded
+        with 0, as ``encode_sequence`` after a flat ``encode``."""
+        if self.kind != FeatureKind.SEQUENCE:
+            raise ValueError(f"{self.name!r} is not a sequence feature")
+        offsets = np.asarray(offsets, np.int64)
+        n = len(offsets) - 1
+        out = np.zeros((n, self.max_len), np.int32)
+        lens = np.minimum(offsets[1:] - offsets[:-1], self.max_len)
+        total = int(lens.sum())
+        if total == 0:
+            return out
+        row = np.repeat(np.arange(n, dtype=np.int64), lens)
+        starts = np.cumsum(lens) - lens
+        j = np.arange(total, dtype=np.int64) - starts[row]
+        src = offsets[1:][row] - lens[row] + j
+        out[row, j] = np.asarray(flat_ids, np.int32)[src]
         return out
 
     def decode(self, ids: np.ndarray) -> np.ndarray:

@@ -7,8 +7,9 @@ layout (a directory):
     vocabs.npz    -- per-feature string vocab arrays
     logq.npy      -- dense logQ array aligned to the candidate-id vocab
 
-Building vocabularies and logQ from dataframes is ETL and stays with the JAX
-package until that stage is ported.
+Vocabularies, statistics and the logQ table are built from the port's tables
+(``etl/transformations.py``: a dict of numpy columns) with numpy, as the JAX
+package builds them from a DataFrame.
 """
 
 from __future__ import annotations
@@ -17,11 +18,16 @@ import json
 import logging
 import os
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
-from hm_retrieval_tpu_torch.schema.features import Feature, FeatureFamily
+from hm_retrieval_tpu_torch.schema.features import (
+    Feature,
+    FeatureFamily,
+    FeatureKind,
+    value_counts,
+)
 from hm_retrieval_tpu_torch.schema.model_config import ModelConfig
 from hm_retrieval_tpu_torch.schema.training_config import TrainingConfig
 
@@ -91,6 +97,70 @@ class Schema:
             if f.name == name:
                 return f
         raise KeyError(name)
+
+    # ------------------------------------------------------------------
+    # Vocab + logQ building (ref: schema.py:43-55, etl/runner.py:75-78)
+    # ------------------------------------------------------------------
+    def build_features_from_dataframe(self, table) -> None:
+        """Build every missing categorical vocab, standalone sequence vocab
+        (from the tokens of every row's list) and standardization stats from
+        the (train) table, then share vocabs (ref:
+        pkg/schema/schema.py:43-55)."""
+        for f in self.features:
+            if f.kind == FeatureKind.CATEGORICAL and not f.has_vocab:
+                f.build_vocab_from_dataframe(table)
+                logger.info("Feature %s vocab size %d", f.name, len(f.vocab))
+            elif (f.kind == FeatureKind.SEQUENCE and not f.has_vocab
+                  and not f.shared_vocab_with):
+                tokens, _ = value_counts(table[f.name].flat_tokens())
+                if f.max_vocab_size is not None:
+                    tokens = tokens[: f.max_vocab_size]
+                f.vocab = tokens
+                f._token_to_id = None
+            elif f.kind == FeatureKind.NUMERIC and f.standardize:
+                f.build_stats_from_dataframe(table)
+                logger.info("Feature %s stats mean=%.4f std=%.4f", f.name,
+                            f.mean, f.std)
+        self._wire_shared_vocabs()
+
+    def build_logq_from_dataframe(self, table) -> None:
+        """Candidate sampling probs = count / rows over the TRAIN split only
+        (ref: pkg/etl/runner.py:75-78), as a dense log table aligned to the
+        candidate-id vocab; ids absent from train get log(1) = 0."""
+        cid = self.candidate_id_feature
+        if not cid.has_vocab:
+            raise ValueError("candidate id vocab must be built before logQ")
+        col = table[self.candidate_id_col]
+        self.build_logq_from_value_counts(value_counts(col), len(col))
+
+    def build_logq_from_value_counts(self, counts, total_rows: int) -> None:
+        """The same table from precomputed ``(tokens, counts)`` of the
+        candidate ids (the streaming schema stage accumulates them a batch
+        at a time)."""
+        cid = self.candidate_id_feature
+        if not cid.has_vocab:
+            raise ValueError("candidate id vocab must be built before logQ")
+        tokens, n = counts
+        probs = dict(zip(np.asarray(tokens, dtype=str).tolist(),
+                         (np.asarray(n) / total_rows).tolist()))
+        table = np.zeros(cid.num_embeddings, dtype=np.float32)
+        # vocab token i -> id i+1
+        tok_probs = np.array([probs.get(t, np.nan) for t in cid.vocab.tolist()],
+                             dtype=np.float64)
+        present = ~np.isnan(tok_probs)
+        table[1:][present] = np.log(tok_probs[present]).astype(np.float32)
+        self.logq = table
+
+    def set_candidate_probs(self, probs: Dict[str, float]) -> None:
+        """Explicit candidate-id -> prob mapping (the reference's
+        ``candidate_prob_lookup`` dict, training_config.py:39)."""
+        cid = self.candidate_id_feature
+        table = np.zeros(cid.num_embeddings, dtype=np.float32)
+        for tok, p in probs.items():
+            ids = cid.encode(np.array([tok]))
+            if ids[0] != 0:
+                table[ids[0]] = np.log(p)
+        self.logq = table
 
     # ------------------------------------------------------------------
     # Serialization (JSON + npz)

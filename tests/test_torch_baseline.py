@@ -118,20 +118,28 @@ def test_date_filter_matches_pandas(csv_path, start, end):
     ("x,y\n1,a\n,b\n3,c\n", "f"),  # an empty value in integers: NaN
     ("x,y\na,a\n,b\n", None),  # an empty value among strings: NaN
     ("x,y\nTrue,a\nFalse,b\n", "b"),
+    ("x,y\n1,a\nNA,b\n", "f"),  # pandas' NA strings (trap l)
+    ("x,y\na,a\nnull,b\nnan,c\n", None),
+    ("x,y\nN/A,a\n#N/A,b\n", "f"),  # every value missing
 ])
-def test_columns_pandas_would_not_read_as_int_or_str_raise(
-    tmp_path, body, pandas_kind
-):
-    path = tmp_path / "bad.csv"
+def test_columns_read_as_pd_read_csv_reads_them(tmp_path, body, pandas_kind):
+    """Float, bool and missing values read as pandas reads them: float64
+    with NaN, bool, and a missing string as "" where pandas gives NaN."""
+    path = tmp_path / "t.csv"
     path.write_text(body)
     df = pd.read_csv(str(path))
     if pandas_kind is not None:
         assert df["x"].dtype.kind == pandas_kind
     else:
-        assert df["x"].isna().any()
-    with pytest.raises(ValueError, match="'x'"):
-        load_dataframe(str(path))
-    # the other column reads as pandas reads it
+        assert df["x"].isna().any() and df["x"].dtype.kind != "f"
+    port = load_dataframe(str(path))
+    assert list(port) == ["x", "y"]
+    want = df["x"].to_numpy()
+    if pandas_kind in ("f", "b"):
+        assert port["x"].dtype.kind == pandas_kind
+        np.testing.assert_array_equal(port["x"], want)
+    else:
+        assert port["x"].tolist() == ["" if pd.isna(v) else v for v in want]
     _same_columns(load_dataframe(str(path), columns=["y"]), df[["y"]])
 
 

@@ -57,7 +57,7 @@ from test_torch_serving import (
     _raw_queries,
     write_jax_serving_artifacts,
 )
-from tests.test_torch_runners import jax_stages, pipeline  # noqa: F401
+from tests.test_torch_runners import pipeline, port_stages  # noqa: F401
 
 RTOL = ATOL = 1e-5
 

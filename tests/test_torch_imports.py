@@ -1,6 +1,7 @@
 """The port stands alone: no JAX and nothing of the JAX package in
-hm_retrieval_tpu_torch, chip_smoke.py or bin_max_bench.py, nothing the card's machine lacks
-(pandas) on its import path and tensorboardX only behind a guard, and no
+hm_retrieval_tpu_torch, chip_smoke.py, bin_max_bench.py or
+examples/run_synthetic_torch.py, nothing the card's machine lacks (pandas,
+pyarrow) on its import path, tensorboardX only behind a guard, and no
 silent CPU fallback when the card is absent. Serving records no autograd graph, though the towers'
 parameters are trainable."""
 
@@ -33,7 +34,8 @@ FORBIDDEN = ("jax", "jaxlib", "hm_retrieval_tpu", "pandas")
 
 def _port_files():
     return sorted(PKG.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "bin_max_bench.py"
+        ROOT / "chip_smoke.py", ROOT / "bin_max_bench.py",
+        ROOT / "examples" / "run_synthetic_torch.py",
     ]
 
 
@@ -71,7 +73,7 @@ def test_import_leaves_jax_out_of_sys_modules():
             f"import {m.removesuffix('.__init__')}\n" for m in mods
         )
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        + repr(FORBIDDEN)
+        + repr(FORBIDDEN + ("pyarrow",))
         + ")\nprint(bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -148,8 +150,16 @@ RUNNER_MODULES = {
     "indices/builder.py": {"itertools", "numpy", "torch"},
     "indices/distributed.py": {"json", "os", "numpy", "torch"},
     "indices/static_index.py": {"json", "os", "numpy", "torch"},
-    "etl/transformations.py": {"csv", "re", "numpy", "pyarrow"},
+    "etl/transformations.py": {"csv", "dataclasses", "io", "itertools",
+                               "json", "operator", "os", "re", "shutil",
+                               "zipfile", "numpy", "pyarrow"},
+    "etl/runner.py": {"csv", "os", "shutil", "numpy"},
     "etl/__init__.py": set(),
+    "data/runner.py": {"numpy"},
+    "data/shard_writer.py": {"json", "os", "numpy"},
+    "schema/features.py": {"dataclasses", "enum", "itertools", "numpy"},
+    "schema/schema.py": {"dataclasses", "json", "os", "numpy"},
+    "utils/synthetic.py": {"itertools", "os", "numpy"},
     "parallel/mesh.py": {"numpy", "os", "torch"},
     "parallel/distributed_topk.py": {"numpy", "torch"},
     "parallel/collectives.py": {"torch"},
@@ -174,9 +184,11 @@ RUNNER_MODULES = {
 
 @pytest.mark.parametrize("module", sorted(RUNNER_MODULES))
 def test_the_runner_modules_import_only_the_port(module):
-    """The runner's modules import the port, the standard library's
-    listed modules, numpy and torch; tensorboardX only inside a guard
-    (``utils/summary.py`` logs when it is absent)."""
+    """The runners' modules (the ETL, schema and shard stages' too) import
+    the port, the standard library's listed modules, numpy and torch;
+    tensorboardX only inside a guard (``utils/summary.py`` logs when it is
+    absent), pyarrow only inside the functions that read or write
+    ``.parquet``."""
     roots = {
         m.split(".")[0] for m in _imported_modules(PKG / module)
     } - {"__future__", "logging", "typing", "hm_retrieval_tpu_torch"}

@@ -1,9 +1,11 @@
-"""The port's modelling stage on the JAX package's tiny pipeline.
+"""The port's modelling stage on the tiny pipeline, from the port's own stages.
 
-A module fixture runs the JAX package's ETL, schema and shard stages on the
-data of ``tests/test_runners.py`` (6,000 synthetic transactions, 300
-customers, 120 articles, seed 1), then the port's ``modelling_runner`` on
-those shards on the CPU. Recall must rise as the JAX runner's does; the
+A module fixture runs the port's ETL, schema and shard stages on the data
+of ``tests/test_runners.py`` (6,000 synthetic transactions, 300 customers,
+120 articles, seed 1), another the JAX package's on the same CSVs; the
+port's shards must equal the JAX stages' bit for bit. The port's
+``modelling_runner`` then runs on the port's shards on the CPU. Recall must
+rise as the JAX runner's does; the
 port's exported towers, loaded into the JAX model, must give the port's
 final recall through the JAX ``build_index`` + ``evaluate``; the eval-only
 stage must reproduce it exactly; ``resume`` must continue the step count;
@@ -11,6 +13,7 @@ and the options the port does not have must raise before any step.
 """
 
 import dataclasses
+import importlib.util
 import os
 import shutil
 
@@ -44,8 +47,11 @@ from hm_retrieval_tpu.utils.synthetic import generate_hm_like_csvs
 from hm_retrieval_tpu_torch.parallel import Mesh, make_mesh
 from hm_retrieval_tpu_torch.runners import (
     CheckpointManager,
+    build_schema_runner as port_build_schema_runner,
+    etl_runner as port_etl_runner,
     evaluation_runner,
     modelling_runner,
+    shard_writer_runner as port_shard_writer_runner,
 )
 from hm_retrieval_tpu_torch.schema.schema import Schema as PortSchema
 from hm_retrieval_tpu_torch.utils.settings import Settings
@@ -60,8 +66,9 @@ def jax_stages(tmp_path_factory):
     return run_jax_stages(str(tmp_path_factory.mktemp("torch_pipeline")))
 
 
-def run_jax_stages(d: str) -> Settings:
-    """``jax_stages``' work in directory ``d``."""
+def stage_inputs(d: str, split_ext: str):
+    """The tiny pipeline's CSVs, its settings' fields (splits ending in
+    ``split_ext``) and its schema's arguments."""
     raw = generate_hm_like_csvs(
         os.path.join(d, "raw"),
         n_transactions=6000,
@@ -77,8 +84,8 @@ def run_jax_stages(d: str) -> Settings:
         train_end_date=raw["train_end"],
         test_start_date=raw["test_start"],
         test_end_date=raw["test_end"],
-        train_data_filepath=f"{d}/processed/train.parquet",
-        test_data_filepath=f"{d}/processed/test.parquet",
+        train_data_filepath=f"{d}/processed/train.{split_ext}",
+        test_data_filepath=f"{d}/processed/test.{split_ext}",
         schema_dirpath=f"{d}/schema",
         train_shards_dirpath=f"{d}/shards/train",
         test_shards_dirpath=f"{d}/shards/test",
@@ -90,17 +97,16 @@ def run_jax_stages(d: str) -> Settings:
         profile_steps=None,
         max_shard_rows=200,
     )
-    jax_settings = JaxSettings(**fields)
-    schema = JaxSchema(
+    schema = dict(
         features=[
             Feature("customer_id", FeatureKind.CATEGORICAL,
-                    FeatureFamily.QUERY, embedding_size=16),
+                    FeatureFamily.QUERY, embedding_size=16).to_dict(),
             Feature("article_id", FeatureKind.CATEGORICAL,
-                    FeatureFamily.CANDIDATE, embedding_size=16),
+                    FeatureFamily.CANDIDATE, embedding_size=16).to_dict(),
             Feature("product_type_name", FeatureKind.CATEGORICAL,
-                    FeatureFamily.CANDIDATE, embedding_size=4),
+                    FeatureFamily.CANDIDATE, embedding_size=4).to_dict(),
         ],
-        model_config=ModelConfig(joint_embedding_size=16, ks=KS),
+        model_config=ModelConfig(joint_embedding_size=16, ks=KS).to_dict(),
         training_config=TrainingConfig(
             train_batch_size=128,
             test_batch_size=256,
@@ -108,9 +114,30 @@ def run_jax_stages(d: str) -> Settings:
             epochs=2,
             shuffle_buffer_size=4096,
             optimizer_kwargs={"learning_rate": 0.05},
-        ),
+        ).to_dict(),
+    )
+    return fields, schema
+
+
+def _schema(package, args):
+    """``Schema`` of ``package`` from ``stage_inputs``' arguments."""
+    mod = package
+    return mod.Schema(
+        features=[mod.Feature.from_dict(f) for f in args["features"]],
+        model_config=mod.ModelConfig.from_dict(args["model_config"]),
+        training_config=mod.TrainingConfig.from_dict(
+            args["training_config"]),
         candidate_id_col="article_id",
     )
+
+
+def run_jax_stages(d: str) -> Settings:
+    """``jax_stages``' work in directory ``d``."""
+    import hm_retrieval_tpu.schema as jax_schema_pkg
+
+    fields, args = stage_inputs(d, "parquet")
+    jax_settings = JaxSettings(**fields)
+    schema = _schema(jax_schema_pkg, args)
     etl_runner(jax_settings)
     build_schema_runner(jax_settings, schema)
     shard_writer_runner(jax_settings)
@@ -119,11 +146,80 @@ def run_jax_stages(d: str) -> Settings:
     return Settings.from_json(f"{d}/settings.json")
 
 
+def run_port_stages(d: str) -> Settings:
+    """The port's ETL, schema and shard stages on the tiny data, with
+    ``.npz`` splits, in directory ``d``."""
+    import hm_retrieval_tpu_torch.schema as port_schema_pkg
+
+    fields, args = stage_inputs(d, "npz")
+    settings = Settings(**fields)
+    port_etl_runner(settings)
+    port_build_schema_runner(settings, _schema(port_schema_pkg, args))
+    port_shard_writer_runner(settings)
+    settings.to_json(f"{d}/settings.json")
+    return settings
+
+
 @pytest.fixture(scope="module")
-def pipeline(jax_stages):
-    """The JAX package's first three stages, then the port's modelling
-    stage on the CPU."""
-    return jax_stages, modelling_runner(jax_stages, device="cpu")
+def port_stages(tmp_path_factory):
+    return run_port_stages(str(tmp_path_factory.mktemp("port_pipeline")))
+
+
+@pytest.fixture(scope="module")
+def pipeline(port_stages):
+    """The port's first three stages, then its modelling stage on the
+    CPU."""
+    return port_stages, modelling_runner(port_stages, device="cpu")
+
+
+def test_port_stages_write_the_jax_stages_shards(port_stages, jax_stages):
+    """Every shard file, npz array and manifest of the port's stages equals
+    the JAX stages' on the same CSVs; the schemas' vocabs and logQ too."""
+    from tests.test_torch_shards import assert_same_shards
+    from tests.test_torch_etl import assert_same_schema
+
+    assert_same_shards(port_stages, jax_stages)
+    assert_same_schema(port_stages.schema_dirpath, jax_stages.schema_dirpath)
+    assert PortSchema.load(port_stages.schema_dirpath).logq is not None
+
+
+def _example():
+    spec = importlib.util.spec_from_file_location(
+        "run_synthetic_torch",
+        os.path.join(os.path.dirname(__file__), os.pardir, "examples",
+                     "run_synthetic_torch.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("history", [False, True],
+                         ids=["no_history", "history"])
+def test_the_example_runs_the_five_stages_on_the_cpu(tmp_path, history):
+    """``examples/run_synthetic_torch.py --device cpu`` at a tiny size: the
+    five stages through the port, recall rising, the baseline beside it."""
+    argv = ["--workdir", str(tmp_path / "w"), "--device", "cpu",
+            "--transactions", "4000", "--customers", "150",
+            "--articles", "200", "--epochs", "2", "--batch-size", "128"]
+    results, baseline = _example().main(
+        argv + (["--with-history"] if history else []))
+    assert results["final"][100] > results["initial"][100]
+    assert set(baseline) == {10, 100}
+    assert (tmp_path / "w" / "processed" / "train.npz").exists()
+
+
+def test_the_example_raises_before_any_stage(tmp_path, monkeypatch):
+    """Without ``--device`` and no card it raises, and
+    ``--export-savedmodel`` raises naming ROADMAP.md item 7, each before
+    anything is written."""
+    example = _example()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        example.main(["--workdir", str(tmp_path / "w")])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        example.main(["--workdir", str(tmp_path / "w"), "--device", "cpu",
+                      "--export-savedmodel"])
+    assert not (tmp_path / "w").exists()
 
 
 def _steps_per_epoch(settings):
