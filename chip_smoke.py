@@ -306,6 +306,33 @@ Phases, each of which must pass (a failure raises and exits non-zero):
        seconds in memory and streamed, rows, vocab sizes, shard bytes, peak
        host RSS and the recalls. Its launches join the kernels line.
 
+16. The rest of the host surface (phase_host_surface): H&M-shaped CSVs
+   written with numpy (write_hm_csvs: the file names, columns and date window
+   examples/run_hm.py reads; 105,542 articles with zero-padded 10-digit ids,
+   131 product types, 19 groups, 50 colours, 250 departments, 1,371,980
+   64-hex customers, 3,000,000 transactions over 2019-09-20..2020-09-21, cut
+   from H&M's 31.8M for time), then three in-process calls of
+   examples/run_hm_torch.py's main, counts from 0:
+   (a) --stages etl,schema,shards --history 16 --sample 0.5 with the three
+       streaming flags at a quarter of the sampled rows;
+   (b) --stages model,baseline --epochs 1: recall@100 rising, kernels 1-2
+       launched inside evaluate and no other kernel;
+   (c) --stages model --epochs 2 --resume: the epochs override logged, its
+       first evaluation (b)'s last, and its last checkpoint at three times
+       (b)'s step (two epochs after (b)'s one);
+   before (b) and (c), each with --export-savedmodel where tensorflow cannot
+   be imported (the card's machine): ImportError naming it in under 5 s,
+   no step and no checkpoint written. Then (a)'s test split through
+   dataframe_to_tfrecords (100,000 rows a file) and import_tfrecords, every
+   shard array equal to a direct ShardWriter write, and
+   export_shards_to_tfrecords then a second import, equal again (records/s
+   each way, bytes, the CRC's seconds); and the NaN checks on the card: a
+   NaN made in forward and one made only in backward raise
+   FloatingPointError under enable_debug_checks, a sparse step at B = 512
+   and exact_topk at B = 128 run clean with the bits they give without the
+   checks, and after disable_debug_checks the NaN passes. A host_surface
+   line gives the readings. Its launches join the kernels line.
+
 Output: per-phase JSON lines and each phase's seconds, then the card's name
 and power limit, the
 {"kernels": [...]} line, and as the last line
@@ -4511,6 +4538,455 @@ def phase_pipeline(seed, dev, workdir, n_customers=N_CUSTOMERS,
     return launches
 
 
+# --- phase 16: the rest of the host surface through the port ---------------
+
+HOST_TRANSACTIONS = 3_000_000  # H&M's 31.8M, cut for time
+HOST_SAMPLE = 0.5  # --sample: 1,500,000 transactions reach the stages
+HM_WINDOW = ("2019-09-20", "2020-09-21")  # run_hm.py's train + test dates
+HM_PRODUCT_TYPES, HM_GROUPS, HM_COLOURS, HM_DEPARTMENTS = 131, 19, 50, 250
+TFRECORD_ROWS = 100_000  # rows a TFRecord file and a shard
+CSV_CHUNK = 1 << 19  # rows a write of the transactions CSV
+
+
+def hex_ids(rng, n):
+    """n 64-character lowercase hex ids (H&M's customer_id format)."""
+    digits = np.frombuffer(b"0123456789abcdef", np.uint8)
+    raw = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    chars = digits[np.stack([raw >> 4, raw & 15], axis=-1)].reshape(n, 64)
+    return chars.view("S64").reshape(n).astype(str)
+
+
+def csv_fields(values):
+    """A column's CSV fields: numpy's str of each value, a NaN empty."""
+    values = np.asarray(values)
+    out = values.astype(str)
+    if values.dtype.kind == "f":
+        out[np.isnan(values)] = ""
+    return out.tolist()
+
+
+def write_csv(path, names, chunks):
+    """A CSV of plain fields: the header ``names``, then each chunk's rows
+    (a chunk is a list of columns of fields)."""
+    with open(path, "w") as f:
+        f.write(",".join(names) + "\n")
+        for cols in chunks:
+            f.write("\n".join(map(",".join, zip(*cols))) + "\n")
+
+
+def write_hm_csvs(dirpath, n_transactions, n_customers, n_articles, seed):
+    """transactions_train.csv, articles.csv and customers.csv with the file
+    names, columns and date window that ``examples/run_hm.py`` reads (the
+    column sets of ``benchmarks/synthesize_hm_scale.py``, written with
+    numpy): article ids as H&M's zero-padded 10 digits, 64-hex customer
+    ids, FN 1.0 or missing, ages with 1% missing, Zipf customers and
+    articles, 60% of purchases from the customer's two favourite product
+    types, dates uniform over the window. Returns the file paths."""
+    rng = np.random.default_rng(seed)
+    dirpath = Path(dirpath)
+    dirpath.mkdir(parents=True, exist_ok=True)
+    art_ids = np.unique(rng.integers(100_000_000, 1_000_000_000,
+                                     2 * n_articles))
+    art_ids = rng.permutation(art_ids)[:n_articles]
+    art_type = rng.integers(0, HM_PRODUCT_TYPES, n_articles)
+    type_group = rng.integers(0, HM_GROUPS, HM_PRODUCT_TYPES)
+    article_id = np.char.zfill(art_ids.astype(str), 10)
+    paths = {name: dirpath / f"{name}.csv"
+             for name in ("transactions_train", "articles", "customers")}
+    articles = {
+        "article_id": article_id,
+        "product_type_name": np.char.add("Product type ",
+                                         art_type.astype(str)),
+        "product_group_name": np.char.add(
+            "Garment group ", type_group[art_type].astype(str)),
+        "colour_group_name": np.char.add(
+            "Colour ", rng.integers(0, HM_COLOURS, n_articles).astype(str)),
+        "department_name": np.char.add(
+            "Department ",
+            rng.integers(0, HM_DEPARTMENTS, n_articles).astype(str)),
+    }
+    write_csv(paths["articles"], articles,
+              [list(map(csv_fields, articles.values()))])
+    cust_ids = hex_ids(rng, n_customers)
+    age = rng.integers(16, 100, n_customers).astype(np.float64)
+    age[rng.random(n_customers) < 0.01] = np.nan
+    customers = {
+        "customer_id": cust_ids,
+        "FN": np.where(rng.random(n_customers) < 0.35, 1.0, np.nan),
+        "age": age,
+    }
+    write_csv(paths["customers"], customers,
+              [list(map(csv_fields, customers.values()))])
+
+    def zipf(n, s):
+        p = 1.0 / np.arange(1, n + 1, dtype=np.float64) ** s
+        return p / p.sum()
+
+    art_p = zipf(n_articles, 1.05)
+    cust_idx = rng.choice(n_customers, n_transactions, p=zipf(n_customers,
+                                                              0.7))
+    art_idx = rng.choice(n_articles, n_transactions, p=art_p)
+    fav = rng.integers(0, HM_PRODUCT_TYPES, (n_customers, 2))
+    rows = np.flatnonzero(rng.random(n_transactions) < 0.6)
+    target = fav[cust_idx[rows], rng.integers(0, 2, len(rows))]
+    # an inverse-CDF draw inside the favourite type's slice of articles
+    order = np.argsort(art_type, kind="stable")
+    bounds = np.searchsorted(art_type[order], np.arange(HM_PRODUCT_TYPES + 1))
+    cum = np.concatenate(([0.0], np.cumsum(art_p[order])))
+    lo, hi = bounds[target], bounds[target + 1]
+    u = cum[lo] + rng.random(len(rows)) * (cum[hi] - cum[lo])
+    art_idx[rows] = order[np.clip(np.searchsorted(cum, u, side="right") - 1,
+                                  lo, np.maximum(hi - 1, lo))]
+    start, end = (np.datetime64(d, "D") for d in HM_WINDOW)
+    days = (start + np.arange((end - start).astype(int) + 1)).astype(str)
+    day = rng.integers(0, len(days), n_transactions)
+    price = np.round(np.exp(rng.normal(-3.6, 0.7, n_transactions)), 6)
+    channel = rng.integers(1, 3, n_transactions)
+    # the distinct values' fields once, each row indexing them
+    day_f, cust_f, art_f = map(csv_fields, (days, cust_ids, article_id))
+    price_f, channel_f = csv_fields(price), csv_fields(channel)
+
+    def chunks():
+        for a in range(0, n_transactions, CSV_CHUNK):
+            b = slice(a, a + CSV_CHUNK)
+            yield [list(map(f.__getitem__, idx[b].tolist())) for f, idx in (
+                (day_f, day), (cust_f, cust_idx), (art_f, art_idx))] + [
+                    price_f[b], channel_f[b]]
+
+    write_csv(paths["transactions_train"],
+              ["t_dat", "customer_id", "article_id", "price",
+               "sales_channel_id"], chunks())
+    return {k: str(v) for k, v in paths.items()}
+
+
+def run_hm_example():
+    """``examples/run_hm_torch.py`` as a module, for in-process calls."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "run_hm_torch", ROOT / "examples" / "run_hm_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def shard_arrays(dirpath):
+    from hm_retrieval_tpu_torch.data.dataset import ShardDataset
+
+    ds = ShardDataset(str(dirpath))
+    return ds.manifest, ds.load_all()
+
+
+def packed_windows(ids):
+    """Sequence windows with their id-0 cells (pads and OOV tokens) taken
+    out, the rest moved left: what an exported window reads back as."""
+    keep = ids != 0
+    out = np.zeros_like(ids)
+    rows, cols = np.nonzero(keep)
+    out[rows, (np.cumsum(keep, axis=1) - 1)[rows, cols]] = ids[rows, cols]
+    return out
+
+
+def same_shards(a, b, what, expect=None):
+    """The shards at ``a`` equal those at ``b``, with ``expect[name]``
+    applied to ``b``'s array of that name first."""
+    (ma, da), (mb, db) = shard_arrays(a), shard_arrays(b)
+    for name, fn in (expect or {}).items():
+        db[name] = fn(db[name])
+    require(ma == mb, f"{what}: the manifests differ: {ma} / {mb}")
+    require(sorted(p.name for p in Path(a).glob("shard_*.npz"))
+            == sorted(p.name for p in Path(b).glob("shard_*.npz")),
+            f"{what}: other shard files")
+    bad = [k for k in da if da[k].dtype != db[k].dtype
+           or not np.array_equal(da[k], db[k], equal_nan=True)]
+    require(set(da) == set(db) and not bad, f"{what}: arrays differ: {bad}")
+
+
+def phase_tfrecords(settings, workdir):
+    """(a)'s test split through ``dataframe_to_tfrecords`` and
+    ``import_tfrecords``, held array for array against a direct
+    ``ShardWriter`` write of the same table; then
+    ``export_shards_to_tfrecords`` and a second import, equal again: the
+    exported values are the shards' standardized numerics, so the second
+    import does not standardize again, and an export drops a window's id-0
+    cells, an OOV token's too, so its windows read back packed
+    (``packed_windows``), in both packages. Returns the readings."""
+    from hm_retrieval_tpu_torch.data import tfrecord_compat as tfc
+    from hm_retrieval_tpu_torch.data.shard_writer import ShardWriter
+    from hm_retrieval_tpu_torch.etl.transformations import (
+        load_dataframe, table_len,
+    )
+    from hm_retrieval_tpu_torch.schema import Schema
+
+    features = Schema.load(settings.schema_dirpath).features
+    table = load_dataframe(settings.test_data_filepath,
+                           columns=[f.name for f in features])
+    rows = table_len(table)
+    ShardWriter(features, TFRECORD_ROWS).write_shards(
+        table, str(workdir / "direct"))
+    t0 = time.perf_counter()
+    paths = tfc.dataframe_to_tfrecords(table, features,
+                                       str(workdir / "tfr" / "test"),
+                                       max_rows=TFRECORD_ROWS)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tfc.import_tfrecords(str(workdir / "tfr"), features,
+                         str(workdir / "imported"), max_rows=TFRECORD_ROWS)
+    import_s = time.perf_counter() - t0
+    same_shards(workdir / "imported", workdir / "direct",
+                "TFRecord import against the direct write")
+    t0 = time.perf_counter()
+    exported = tfc.export_shards_to_tfrecords(
+        str(workdir / "direct"), features, str(workdir / "out" / "test"),
+        max_rows=TFRECORD_ROWS)
+    export_s = time.perf_counter() - t0
+    # the shards hold standardized numerics: read them back as they are
+    as_stored = [dataclasses.replace(f, standardize=False) for f in features]
+    tfc.import_tfrecords(str(workdir / "out"), as_stored,
+                         str(workdir / "reimported"), max_rows=TFRECORD_ROWS)
+    same_shards(workdir / "reimported", workdir / "direct",
+                "export, then import, against the direct write",
+                expect={f.name: packed_windows for f in features
+                        if f.kind == "sequence"})
+    # the CRC alone, over every record of the written files at once
+    payloads = [r for p in paths for r in tfc.iter_tfrecords(p, False)]
+    lengths = np.fromiter(map(len, payloads), np.int64, count=len(payloads))
+    blob = np.frombuffer(b"".join(payloads), np.uint8)
+    t0 = time.perf_counter()
+    tfc._masked_crcs(blob, np.cumsum(lengths) - lengths, lengths)
+    crc_s = time.perf_counter() - t0
+    nbytes = sum(Path(p).stat().st_size for p in paths)
+    return {"rows": rows, "files": len(paths), "bytes": nbytes,
+            "export_bytes": sum(Path(p).stat().st_size for p in exported),
+            "write_s": write_s, "import_s": import_s, "export_s": export_s,
+            "write_records_per_s": rows / write_s,
+            "import_records_per_s": rows / import_s,
+            "crc_s": crc_s, "crc_mb_per_s": len(blob) / crc_s / 1e6,
+            "import_equals_direct_write": True,
+            "export_reimport_equals": True}
+
+
+def phase_debug_checks(settings, dev):
+    """Under ``enable_debug_checks`` a NaN made on the card in forward and
+    one made only in backward (autograd's device thread) raise; one sparse
+    training step at B = 512 and ``exact_topk`` at B = 128 over the trained
+    catalog run clean and give the bits they give without the checks; after
+    ``disable_debug_checks`` the NaN passes silently. Returns the
+    readings."""
+    from hm_retrieval_tpu_torch.data.dataset import ShardDataset
+    from hm_retrieval_tpu_torch.data.device_feed import device_feed
+    from hm_retrieval_tpu_torch.indices import load_index
+    from hm_retrieval_tpu_torch.models import (
+        TwoTowerModel, make_single_device_trainer, train_state_to_numpy,
+    )
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.schema import Schema
+    from hm_retrieval_tpu_torch.utils.debugging import (
+        disable_debug_checks, enable_debug_checks,
+    )
+
+    schema = Schema.load(settings.schema_dirpath)
+    batch = next(iter(ShardDataset(settings.train_shards_dirpath)
+                      .iter_batches(schema.training_config.train_batch_size)))
+    index = load_index(settings.index_dirpath, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q = torch.randn(128, E, device=dev, generator=gen)
+    catalog = index.embeddings[:index.num_candidates]
+
+    def step_and_topk():
+        model = TwoTowerModel.create_from_schema(schema, device=dev)
+        state, step = make_single_device_trainer(model,
+                                                 schema.training_config)
+        state, metrics = step(state, next(device_feed([batch], device=dev)))
+        v, i, rounds = bt.exact_topk(q, catalog, SERVE_K)
+        sync(dev)
+        return (flatten_tree(train_state_to_numpy(state)),
+                float(metrics["loss"]), v.cpu(), i.cpu())
+
+    def raised(fn):
+        try:
+            fn()
+            sync(dev)
+        except FloatingPointError as exc:
+            return str(exc)
+        return None
+
+    def forward_nan():
+        return torch.ones(4, device=dev) / 0.0 * 0.0
+
+    def backward_nan():
+        x = torch.tensor([0.0, 1.0], device=dev, requires_grad=True)
+        torch.where(x > 0, torch.log(x), 0.0).sum().backward()
+
+    plain = step_and_topk()
+    enable_debug_checks()
+    try:
+        t0 = time.perf_counter()
+        checked = step_and_topk()
+        checked_s = time.perf_counter() - t0
+        forward = raised(forward_nan)
+        backward = raised(backward_nan)
+    finally:
+        disable_debug_checks()
+    require(forward is not None and "aten.mul" in forward,
+            f"a NaN made in forward on the card did not raise: {forward}")
+    require(backward is not None and "aten.div" in backward,
+            f"a NaN made in backward on the card did not raise: {backward}")
+    require(checked[1] == plain[1] and torch.equal(checked[2], plain[2])
+            and torch.equal(checked[3], plain[3])
+            and all(np.array_equal(a, b) for a, b in zip(checked[0],
+                                                         plain[0])),
+            "the step or exact_topk under the checks gave other bits")
+    silent = forward_nan()
+    require(bool(torch.isnan(silent).all()),
+            "after disable_debug_checks the NaN did not pass")
+    return {"forward_raised": forward, "backward_raised": backward,
+            "clean_bits_equal": True, "checked_step_and_topk_s": checked_s,
+            "nan_silent_after_disable": True}
+
+
+def phase_host_surface(seed, dev, workdir, n_customers=N_CUSTOMERS,
+                       n_articles=N_ARTICLES,
+                       n_transactions=HOST_TRANSACTIONS):
+    """Phase 16 (see the module docstring). Returns each kernel's launches
+    in the three ``run_hm_torch.main`` calls, driven from 0."""
+    import importlib.util
+
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.runners import CheckpointManager
+    from hm_retrieval_tpu_torch.schema import Schema
+
+    example = run_hm_example()
+    t0 = time.perf_counter()
+    raw = write_hm_csvs(workdir / "raw", n_transactions, n_customers,
+                        n_articles, seed)
+    generate_s = time.perf_counter() - t0
+    w = workdir / "hm"
+    base = ["--data-dir", str(workdir / "raw"), "--workdir", str(w)]
+    if dev.type == "cpu":
+        base += ["--device", "cpu"]
+    stream = str(-(-round(HOST_SAMPLE * n_transactions) // 4))
+    records = Records()
+    run_log = logging.getLogger("hm_retrieval_tpu_torch.runners.modelling")
+    run_log.addHandler(records)
+    seconds, steps = {}, {}
+    ckpt_dir = w / "artifacts" / "checkpoints"
+    no_tf = importlib.util.find_spec("tensorflow") is None
+
+    def call(name, args):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = example.main(base + args)
+        sync(dev)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def refused_export(args):
+        """The call with --export-savedmodel: ImportError naming
+        tensorflow, in under 5 s, no step and no checkpoint written."""
+        before = (sorted(p.name for p in ckpt_dir.iterdir())
+                  if ckpt_dir.exists() else [])
+        t0 = time.perf_counter()
+        try:
+            example.main(base + args + ["--export-savedmodel"])
+        except ImportError as exc:
+            took = time.perf_counter() - t0
+            require("tensorflow" in str(exc), f"the ImportError: {exc}")
+            require(took < 5.0, f"the refused export took {took:.1f} s")
+            after = (sorted(p.name for p in ckpt_dir.iterdir())
+                     if ckpt_dir.exists() else [])
+            require(after == before, f"checkpoints written: {after}")
+            return took
+        require(False, "--export-savedmodel without tensorflow ran")
+
+    try:
+        sync(dev)
+        bt.reset_launches()
+        qt.reset_launches()
+        # (a) the front stages, sampled and streamed
+        call("a_front", ["--stages", "etl,schema,shards", "--history", "16",
+                         "--sample", str(HOST_SAMPLE),
+                         "--etl-chunk-rows", stream,
+                         "--schema-stream-rows", stream,
+                         "--shard-stream-rows", stream])
+        refused = {}
+        if no_tf:
+            refused["b"] = refused_export(["--stages", "model,baseline",
+                                           "--epochs", "1"])
+        # (b) one epoch and the baseline
+        results_b, baseline = call("b_model_baseline",
+                                   ["--stages", "model,baseline",
+                                    "--epochs", "1"])
+        steps["b"] = CheckpointManager(str(ckpt_dir),
+                                       device=dev).latest_step()
+        launches_b = {**bt.LAUNCHES, **qt.LAUNCHES}
+        if no_tf:
+            refused["c"] = refused_export(["--stages", "model", "--epochs",
+                                           "2", "--resume"])
+        # (c) two more epochs from (b)'s checkpoint, the override logged
+        records.records.clear()
+        results_c, _ = call("c_resume", ["--stages", "model", "--epochs",
+                                          "2", "--resume"])
+        steps["c"] = CheckpointManager(str(ckpt_dir),
+                                       device=dev).latest_step()
+        launches = {**bt.LAUNCHES, **qt.LAUNCHES}
+    finally:
+        run_log.removeHandler(records)
+    # ------------------------------------------------------------------
+    schema = Schema.load(str(w / "schema"))
+    ks = schema.model_config.ks
+    for name, res in (("b initial", results_b["initial"]),
+                      ("b final", results_b["final"]),
+                      ("c final", results_c["final"])):
+        check_runner_recall(name, res, ks)
+    # a small rehearsal's popularity index may hold fewer than 1000 ids
+    check_runner_recall("baseline", baseline,
+                        ks if n_articles == N_ARTICLES else sorted(baseline))
+    require(results_b["final"][100] > results_b["initial"][100],
+            f"recall@100 did not rise in (b): {results_b}")
+    require(results_c["initial"] == results_b["final"],
+            f"(c) did not resume from (b): {results_c['initial']} / "
+            f"{results_b['final']}")
+    override = [m for m in records.records
+                if "Overriding schema TrainingConfig.epochs: 1 -> 2" in m]
+    require(override, "(c) did not log the epochs override")
+    require(steps["c"] == 3 * steps["b"],
+            f"(c) ended at step {steps['c']}, (b) at {steps['b']}: two "
+            "epochs from (b)'s checkpoint end at three times (b)'s")
+    for name, got in (("b", launches_b), ("c", launches)):
+        require(dev.type != "cuda" or (got["bin_max2_first_round"] > 0
+                                       and got["bin_max2_round"] > 0),
+                f"evaluate did not launch kernels 1-2 by ({name}): {got}")
+    require(all(v == 0 for k, v in launches.items()
+                if k not in ("bin_max2_first_round", "bin_max2_round")),
+            f"the runs launched other kernels: {launches}")
+    args, _ = example.parse_args(base)
+    settings = example.make_settings(args, raw["transactions_train"])
+    t0 = time.perf_counter()
+    tfrecords = phase_tfrecords(settings, workdir / "tfrecords")
+    tfrecord_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    debug = phase_debug_checks(settings, dev)
+    debug_s = time.perf_counter() - t0
+    emit({"host_surface": {
+        "transactions": n_transactions, "sample": HOST_SAMPLE,
+        "customers": n_customers, "articles": n_articles,
+        "generate_s": generate_s, "calls_s": seconds,
+        "stream_rows": int(stream), "steps": steps,
+        "recall": {"b_initial": results_b["initial"],
+                   "b_final": results_b["final"],
+                   "c_final": results_c["final"], "baseline": baseline},
+        "epochs_override_logged": True,
+        "export_refused_s": refused if no_tf else "tensorflow present",
+        "tfrecord": tfrecords, "tfrecord_s": tfrecord_s,
+        "debug": debug, "debug_s": debug_s,
+        "vocab_sizes": {f.name: len(f.vocab) for f in schema.features
+                        if f.has_vocab and not f.shared_vocab_with},
+        "launches": launches}})
+    return launches
+
+
 @contextlib.contextmanager
 def checkpoint_times():
     """Inside the block, ms of each ``CheckpointManager`` host copy
@@ -4638,6 +5114,12 @@ def main(argv=None):
         for name, n in phase_pipeline(args.seed, dev, Path(d)).items():
             launches[name] += n
     lap("15_pipeline")
+    with tempfile.TemporaryDirectory(dir=build_root,
+                                     prefix="chip_smoke-host-") as d:
+        # phase 16: run_hm_torch.py's calls, TFRecords, the NaN checks
+        for name, n in phase_host_surface(args.seed, dev, Path(d)).items():
+            launches[name] += n
+    lap("16_host_surface")
     emit({"phase_seconds": seconds})
 
     pallas = "hm_retrieval_tpu/ops/pallas_retrieval.py"

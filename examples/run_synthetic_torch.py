@@ -66,7 +66,8 @@ def parse_args(argv=None):
     ap.add_argument(
         "--export-savedmodel",
         action="store_true",
-        help="not ported (ROADMAP.md Queue 1 item 7): raises",
+        help="also export the TF-Serving SavedModel (needs tensorflow, "
+        "checked before any stage)",
     )
     ap.add_argument(
         "--mesh-data",
@@ -96,10 +97,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.export_savedmodel:
-        raise NotImplementedError(
-            "the SavedModel export is not ported (ROADMAP.md Queue 1 item 7)"
-        )
 
     from hm_retrieval_tpu_torch.device import resolve_device
     from hm_retrieval_tpu_torch.runners import (
@@ -117,10 +114,13 @@ def main(argv=None):
         Schema,
         TrainingConfig,
     )
+    from hm_retrieval_tpu_torch.serving import require_tensorflow
     from hm_retrieval_tpu_torch.utils.settings import Settings
     from hm_retrieval_tpu_torch.utils.synthetic import generate_hm_like_csvs
 
     device = resolve_device(args.device)  # raises before any stage runs
+    if args.export_savedmodel:
+        require_tensorflow()
     d = args.workdir
     raw = generate_hm_like_csvs(
         os.path.join(d, "raw"),
@@ -150,6 +150,8 @@ def main(argv=None):
         tensorboard_logs_dir=f"{d}/logs",
         profile_steps=None,
         history_max_len=16 if args.with_history else None,
+        savedmodel_dirpath=(f"{d}/artifacts/savedmodel"
+                            if args.export_savedmodel else None),
     )
     settings.to_json(f"{d}/settings.json")
 

@@ -20,7 +20,9 @@ template also holds the int8 rounds and the three int8 single passes of
 them is their plain PyTorch version. A wrapper runs the plain version only
 for CPU tensors; for CUDA tensors it launches the kernel or raises (a
 refused cluster launch included), and adds one to ``LAUNCHES[<kernel>]`` per
-launch. The kernels split each cell's chunk walk over the blocks of a
+launch. While ``utils/debugging.py``'s NaN checks are on, each wrapper also
+raises on a NaN in its outputs (the dispatch mode sees no ``ctypes``
+launch). The kernels split each cell's chunk walk over the blocks of a
 cluster, whose size the launcher picks from the card's occupancy, and over
 warps, and merge the parts under the explicit (score desc, index asc)
 order, which gives what one walk in increasing chunk order gives:
@@ -50,6 +52,7 @@ import torch
 
 from hm_retrieval_tpu_torch.ops import _build
 from hm_retrieval_tpu_torch.ops.topk import topk_pair
+from hm_retrieval_tpu_torch.utils.debugging import check_outputs
 
 NEG_INF = float("-inf")
 BIG_IDX = 2**31 - 1  # index of a never-filled slot
@@ -313,7 +316,7 @@ def _launch(name, q, c_padded, L, n_valid, thr=(), keep=2):
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     LAUNCHES[name] += 1
-    return tuple(outs)
+    return check_outputs(name, tuple(outs))
 
 
 def bin_max2_first_round(
@@ -323,7 +326,8 @@ def bin_max2_first_round(
     (m1, a1, m2, a2), each (B, L): fp32 scores, int32 catalog rows."""
     _check(q, c_padded, L, None, None)
     if not q.is_cuda:
-        return bin_max2_plain(q, c_padded, L, n_valid)
+        return check_outputs("bin_max2_first_round",
+                             bin_max2_plain(q, c_padded, L, n_valid))
     return _launch("bin_max2_first_round", q, c_padded, L, n_valid)
 
 
@@ -339,7 +343,9 @@ def bin_max2_round(
     (thr_s, thr_i) under (score desc, index asc)."""
     _check(q, c_padded, L, thr_s, thr_i)
     if not q.is_cuda:
-        return bin_max2_plain(q, c_padded, L, n_valid, thr_s, thr_i)
+        return check_outputs(
+            "bin_max2_round",
+            bin_max2_plain(q, c_padded, L, n_valid, thr_s, thr_i))
     return _launch(
         "bin_max2_round", q, c_padded, L, n_valid, (thr_s, thr_i)
     )
@@ -357,7 +363,9 @@ def bin_max_round(
     (thr_s, thr_i); round 1 passes +inf / -1. Returns (m, a), each (B, L)."""
     _check(q, c_padded, L, thr_s, thr_i)
     if not q.is_cuda:
-        return bin_max_plain(q, c_padded, thr_s, thr_i, L, n_valid)
+        return check_outputs(
+            "bin_max_round",
+            bin_max_plain(q, c_padded, thr_s, thr_i, L, n_valid))
     return _launch(
         "bin_max_round", q, c_padded, L, n_valid, (thr_s, thr_i), keep=1
     )

@@ -31,7 +31,8 @@ template (``csrc/bin_max2.cu``), which splits each cell's walk over whole
 fold chunks. Beside them are their plain PyTorch versions.
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises, and adds one to ``LAUNCHES[<kernel>]`` per
-launch.
+launch; while ``utils/debugging.py``'s NaN checks are on, it also raises on a
+NaN in its outputs.
 
 Widths. The kernels step through E 16 columns at a time, so the drivers pad
 the query and their copies of the codes with zero columns to
@@ -79,6 +80,7 @@ from hm_retrieval_tpu_torch.ops.bin_topk import (
     plain_scores,
 )
 from hm_retrieval_tpu_torch.ops.topk import topk_pair
+from hm_retrieval_tpu_torch.utils.debugging import check_outputs
 
 # Bins per block of the int8 kernels (BN of csrc/bin_max2.cu), which the
 # wrappers check L against, and the widest padded E of the three single
@@ -333,7 +335,7 @@ def _launch(name, q, codes, L, tensors=(), ints=()):
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     LAUNCHES[name] += 1
-    return m1, a1, m2, a2
+    return check_outputs(name, (m1, a1, m2, a2))
 
 
 def bin_max2_scaled_single_pass(
@@ -348,7 +350,9 @@ def bin_max2_scaled_single_pass(
     (m1, a1, m2, a2), each (B, L): fp32 scores, int32 catalog rows."""
     _check(q, codes_padded, L, 1, scales, bias)
     if not q.is_cuda:
-        return single_pass_plain(q, codes_padded, L, 1, scales, bias)
+        return check_outputs(
+            "bin_max2_scaled_single_pass",
+            single_pass_plain(q, codes_padded, L, 1, scales, bias))
     return _launch(
         "bin_max2_scaled_single_pass", q, codes_padded, L, (scales, bias)
     )
@@ -366,7 +370,9 @@ def bin_max2_scaled_fold_pass(
     per bin within each chunk of F*L rows."""
     _check(q, codes_padded, L, F, scales, bias)
     if not q.is_cuda:
-        return single_pass_plain(q, codes_padded, L, F, scales, bias)
+        return check_outputs(
+            "bin_max2_scaled_fold_pass",
+            single_pass_plain(q, codes_padded, L, F, scales, bias))
     return _launch(
         "bin_max2_scaled_fold_pass", q, codes_padded, L, (scales, bias), (F,)
     )
@@ -377,7 +383,8 @@ def bin_max2_raw_fold_pass(q: torch.Tensor, codes: torch.Tensor, L: int, F: int)
     bias, no mask. ``codes`` holds full chunks of real rows only."""
     _check(q, codes, L, F, None, None)
     if not q.is_cuda:
-        return single_pass_plain(q, codes, L, F)
+        return check_outputs("bin_max2_raw_fold_pass",
+                             single_pass_plain(q, codes, L, F))
     return _launch("bin_max2_raw_fold_pass", q, codes, L, (), (F,))
 
 
@@ -403,7 +410,9 @@ def bin_max2_scaled_first_round(
     (m1, a1, m2, a2), each (B, L): fp32 scores, int32 catalog rows."""
     _check_rounds(q, codes_padded, scales, bias, L, n_valid, None, None)
     if not q.is_cuda:
-        return scaled_round_plain(q, codes_padded, scales, bias, L, n_valid)
+        return check_outputs(
+            "bin_max2_scaled_first_round",
+            scaled_round_plain(q, codes_padded, scales, bias, L, n_valid))
     return _launch(
         "bin_max2_scaled_first_round", q, codes_padded, L, (scales, bias),
         (n_valid,),
@@ -424,9 +433,8 @@ def bin_max2_scaled_round(
     strictly below (thr_s, thr_i) under (score desc, index asc)."""
     _check_rounds(q, codes_padded, scales, bias, L, n_valid, thr_s, thr_i)
     if not q.is_cuda:
-        return scaled_round_plain(
-            q, codes_padded, scales, bias, L, n_valid, thr_s, thr_i
-        )
+        return check_outputs("bin_max2_scaled_round", scaled_round_plain(
+            q, codes_padded, scales, bias, L, n_valid, thr_s, thr_i))
     return _launch(
         "bin_max2_scaled_round", q, codes_padded, L,
         (scales, bias, thr_s, thr_i), (n_valid,),

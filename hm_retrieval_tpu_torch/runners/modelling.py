@@ -43,8 +43,15 @@ smallest step count (``_allgather_min``). Host writes go through rank 0
 (``_is_coordinator``): the index artifact unless it saves collectively, the
 tower exports and event files; checkpoints are collective (a row-sharded
 table gathered from its owners, rank 0 writing); a barrier follows each
-before any rank reads it back. The SavedModel export (ROADMAP.md Queue 1
-item 7) raises ``NotImplementedError`` before any step.
+before any rank reads it back.
+
+With ``settings.savedmodel_dirpath`` the runner validates the schema for the
+SavedModel export before any step, as the JAX package does, and also checks
+there that TensorFlow can be imported (a deliberate difference: the JAX
+package finds out at the export, after the last epoch); after the final
+evaluation every rank collapses a sharded index with ``to_local()`` and
+rank 0 writes the SavedModel from the unpadded query tower
+(``serving/savedmodel_export.py``).
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from hm_retrieval_tpu_torch.data.device_feed import (
 )
 from hm_retrieval_tpu_torch.device import DeviceLike, resolve_device
 from hm_retrieval_tpu_torch.metrics.index_recall import IndexRecall
+from hm_retrieval_tpu_torch.models.bridge import flat_to_tree
 from hm_retrieval_tpu_torch.models.train_path import (
     active_sharded_features,
     create_mesh_state,
@@ -95,6 +103,11 @@ from hm_retrieval_tpu_torch.runners.checkpoint import (
     export_model,
 )
 from hm_retrieval_tpu_torch.schema.schema import Schema
+from hm_retrieval_tpu_torch.serving.savedmodel_export import (
+    export_index_savedmodel,
+    require_tensorflow,
+    validate_exportable_schema,
+)
 from hm_retrieval_tpu_torch.utils.profiling import StepProfiler
 from hm_retrieval_tpu_torch.utils.settings import Settings
 from hm_retrieval_tpu_torch.utils.summary import MetricWriter
@@ -453,11 +466,10 @@ def modelling_runner(
         training_device(mesh)  # one device a process: else item 6.4
         _on_mesh(mesh, dev)
     if settings.savedmodel_dirpath:
-        # fail before training, as the JAX package's schema check does
-        raise NotImplementedError(
-            "the SavedModel export is not ported yet: ROADMAP.md Queue 1 "
-            "item 7 (SavedModel export)"
-        )
+        # fail before training: an unexportable schema, or a machine without
+        # TensorFlow, must not surface after the last epoch
+        validate_exportable_schema(schema)
+        require_tensorflow()
 
     # each rank feeds its own train and test shards; the candidate catalog
     # is read whole on every rank
@@ -586,6 +598,9 @@ def modelling_runner(
         # --- final eval after training (fixes ref: runner.py:107) ---
         index, results["final"] = build_and_evaluate(tc.epochs)
         _save_index(index, settings.index_dirpath)
+        if settings.savedmodel_dirpath:
+            _export_savedmodel(settings.savedmodel_dirpath, schema, model,
+                               state.params, index, distributed_index)
         return results
     finally:
         # close on every exit path so a mid-run failure cannot lose
@@ -593,6 +608,20 @@ def modelling_runner(
         profiler.close()
         ckpt.close()
         writer.close()
+
+
+def _export_savedmodel(out_dir, schema, model, params, index,
+                       distributed_index):
+    """The SavedModel of the final query tower and index. Collective over a
+    process group: every rank unpads the row-sharded tables and collapses a
+    sharded index (``to_local()``); rank 0 writes."""
+    tree = flat_to_tree(unpad_params(params, model))["query_tower"]
+    if distributed_index:
+        # TF-Serving's artifact is single-device by contract
+        index = index.to_local()
+    if _is_coordinator():
+        export_index_savedmodel(schema, tree, index, out_dir)
+    barrier()
 
 
 def _log_loss(writer: MetricWriter, metrics, step: int) -> None:

@@ -1,3 +1,15 @@
+from hm_retrieval_tpu_torch.serving.savedmodel_export import (
+    OOV_TOKEN,
+    export_index_savedmodel,
+    require_tensorflow,
+    validate_exportable_schema,
+)
 from hm_retrieval_tpu_torch.serving.service import RetrievalService
 
-__all__ = ["RetrievalService"]
+__all__ = [
+    "OOV_TOKEN",
+    "RetrievalService",
+    "export_index_savedmodel",
+    "require_tensorflow",
+    "validate_exportable_schema",
+]

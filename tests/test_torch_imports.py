@@ -36,6 +36,7 @@ def _port_files():
     return sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "bin_max_bench.py",
         ROOT / "examples" / "run_synthetic_torch.py",
+        ROOT / "examples" / "run_hm_torch.py",
     ]
 
 
@@ -73,7 +74,7 @@ def test_import_leaves_jax_out_of_sys_modules():
             f"import {m.removesuffix('.__init__')}\n" for m in mods
         )
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        + repr(FORBIDDEN + ("pyarrow",))
+        + repr(FORBIDDEN + ("pyarrow", "tensorflow"))
         + ")\nprint(bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -179,16 +180,22 @@ RUNNER_MODULES = {
     "utils/summary.py": {"os", "time", "numpy", "tensorboardX"},
     "utils/profiling.py": {"os", "torch"},
     "utils/__init__.py": set(),
+    # the host surface: TFRecord bridge, NaN checks, SavedModel export
+    # (tensorflow only inside export_index_savedmodel)
+    "data/tfrecord_compat.py": {"glob", "os", "struct", "numpy"},
+    "utils/debugging.py": {"torch"},
+    "serving/savedmodel_export.py": {"importlib", "numpy", "tensorflow"},
+    "serving/__init__.py": set(),
 }
 
 
 @pytest.mark.parametrize("module", sorted(RUNNER_MODULES))
 def test_the_runner_modules_import_only_the_port(module):
-    """The runners' modules (the ETL, schema and shard stages' too) import
-    the port, the standard library's listed modules, numpy and torch;
-    tensorboardX only inside a guard (``utils/summary.py`` logs when it is
-    absent), pyarrow only inside the functions that read or write
-    ``.parquet``."""
+    """The runners' modules (the ETL, schema and shard stages' too, and the
+    host surface's) import the port, the standard library's listed modules,
+    numpy and torch; tensorboardX only inside a guard (``utils/summary.py``
+    logs when it is absent), pyarrow only inside the functions that read or
+    write ``.parquet``, tensorflow only inside the SavedModel export."""
     roots = {
         m.split(".")[0] for m in _imported_modules(PKG / module)
     } - {"__future__", "logging", "typing", "hm_retrieval_tpu_torch"}

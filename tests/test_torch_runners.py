@@ -16,6 +16,7 @@ import dataclasses
 import importlib.util
 import os
 import shutil
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -210,13 +211,14 @@ def test_the_example_runs_the_five_stages_on_the_cpu(tmp_path, history):
 
 def test_the_example_raises_before_any_stage(tmp_path, monkeypatch):
     """Without ``--device`` and no card it raises, and
-    ``--export-savedmodel`` raises naming ROADMAP.md item 7, each before
-    anything is written."""
+    ``--export-savedmodel`` where tensorflow cannot be imported raises
+    ``ImportError`` naming it, each before anything is written."""
     example = _example()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         example.main(["--workdir", str(tmp_path / "w")])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    with pytest.raises(ImportError, match="tensorflow"):
         example.main(["--workdir", str(tmp_path / "w"), "--device", "cpu",
                       "--export-savedmodel"])
     assert not (tmp_path / "w").exists()
@@ -319,12 +321,16 @@ def test_unknown_override_raises(pipeline):
 @pytest.mark.parametrize("option", ["savedmodel", "mesh", "distributed"])
 def test_unported_options_raise_before_any_step(pipeline, tmp_path, monkeypatch,
                                                 option):
-    """The SavedModel export and training over a mesh of several distinct
-    devices in one process raise ``NotImplementedError`` naming their
-    ROADMAP.md item (7, 6.4); a sharded index without a mesh, and inside a
-    process group of 2 ranks a mesh built for one process, raise
-    ``ValueError``, as in the JAX package. Each before any step. (The runner
-    over a process group is ported: ``tests/test_torch_multiprocess.py``.)"""
+    """Training over a mesh of several distinct devices in one process
+    raises ``NotImplementedError`` naming its ROADMAP.md item (6.4); a
+    sharded index without a mesh, and inside a process group of 2 ranks a
+    mesh built for one process, raise ``ValueError``, as in the JAX package;
+    the SavedModel export validates before any step (an unexportable schema
+    raises ``ValueError``, a machine without TensorFlow ``ImportError``),
+    then exports after the final evaluation. Each raise before any step.
+    (The runner over a process group is ported:
+    ``tests/test_torch_multiprocess.py``; the export against JAX's:
+    ``tests/test_torch_savedmodel.py``.)"""
     from hm_retrieval_tpu_torch.runners import modelling
 
     settings, _ = pipeline
@@ -342,9 +348,28 @@ def test_unported_options_raise_before_any_step(pipeline, tmp_path, monkeypatch,
         with pytest.raises(ValueError, match="requires a mesh"):
             modelling_runner(settings, device="cpu", distributed_index=True)
     elif option == "savedmodel":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 7"):
-            modelling_runner(settings, device="cpu")
+        from hm_retrieval_tpu_torch.serving import savedmodel_export
+
+        with monkeypatch.context() as m:
+            m.setitem(sys.modules, "tensorflow", None)
+            with pytest.raises(ImportError, match="tensorflow"):
+                modelling_runner(settings, device="cpu")
+        with monkeypatch.context() as m:
+            def unbuilt(schema):
+                raise ValueError("SavedModel export: no vocab")
+
+            m.setattr(savedmodel_export, "validate_exportable_schema",
+                      unbuilt)
+            m.setattr(modelling, "validate_exportable_schema", unbuilt)
+            with pytest.raises(ValueError, match="SavedModel export"):
+                modelling_runner(settings, device="cpu")
+        assert not (tmp_path / "ckpt").exists()
+        monkeypatch.undo()  # the trainers back: train, evaluate, export
+        pytest.importorskip("tensorflow")
+        modelling_runner(settings, device="cpu",
+                         training_overrides={"epochs": 1})
+        assert (tmp_path / "sm" / "saved_model.pb").exists()
+        return
     else:
         grid = np.empty((2, 1), dtype=object)
         grid[0, 0], grid[1, 0] = torch.device("cpu"), torch.device("cuda", 0)
