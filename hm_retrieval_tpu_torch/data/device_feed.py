@@ -6,10 +6,12 @@ assembly) while the device runs the current step. Every device interaction
 stays on the consumer's thread: each column is pinned and copied to the card
 with ``non_blocking=True``, so the copy overlaps the running step and the
 host does not wait for it. With a training ``mesh`` (``parallel/mesh.py``)
-the batch goes to this process's one device of the mesh and the mesh's step
-splits it over this process's data rows, where the JAX package places each
-data shard's rows on its devices. In a process group each rank feeds its own
-rows (its ``ShardDataset`` part, ``B / P`` rows a batch), as JAX's
+each batch is split over this process's data rows and data shard d's rows
+are copied, pinned, to its own device (``Mesh.data_device``), as the JAX
+package places each data shard's rows on its devices; the feed yields the
+list of shard dicts (``None`` for another rank's rows) that the mesh's steps
+take. In a process group each rank feeds its own rows (its ``ShardDataset``
+part, ``B / P`` rows a batch), as JAX's
 ``make_array_from_process_local_data`` takes them.
 """
 
@@ -18,7 +20,7 @@ from __future__ import annotations
 import logging
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -40,12 +42,28 @@ def _put(b: Batch, dev: torch.device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _feed(batches, dev, prefetch):
+def _put_shards(b: Batch, mesh, axis: int) -> List[Optional[Dict]]:
+    """``b``'s rows along ``axis`` split over this process's data rows of
+    ``mesh``, each part on its data shard's device."""
+    rows = mesh.local_rows()
+    parts = {k: np.split(np.asarray(v), len(rows), axis=axis)
+             for k, v in b.items()}
+    out: List[Optional[Dict]] = [None] * mesh.shape["data"]
+    for i, d in enumerate(rows):
+        out[d] = _put({k: p[i] for k, p in parts.items()},
+                      mesh.data_device(d))
+    return out
+
+
+def _feed(batches, dev, prefetch, mesh=None, axis=0):
     for b in _prefetch_host(batches, prefetch):
-        yield _put(b, dev)
+        yield _put(b, dev) if mesh is None else _put_shards(b, mesh, axis)
 
 
 def _target(device: DeviceLike, mesh) -> torch.device:
+    """The device a batch goes to, or, over a mesh, its first device once
+    the mesh is checked (``training_device``), which ``device`` must name
+    if given."""
     if mesh is None:
         return resolve_device(device)
     from hm_retrieval_tpu_torch.parallel.mesh import (
@@ -55,7 +73,8 @@ def _target(device: DeviceLike, mesh) -> torch.device:
 
     dev = training_device(mesh)
     if device is not None and canonical(resolve_device(device)) != dev:
-        raise ValueError(f"device {device} is not the mesh's device {dev}")
+        raise ValueError(
+            f"device {device} is not the mesh's first device {dev}")
     return dev
 
 
@@ -64,12 +83,13 @@ def device_feed(
     device: DeviceLike = None,
     prefetch: int = 2,
     mesh=None,
-) -> Iterator[Dict[str, torch.Tensor]]:
+) -> Iterator:
     """Wrap a host batch iterator into device tensors with ``prefetch``
-    batches of host work in flight. ``device=None`` is the card, or the
-    training ``mesh``'s one device; the device is resolved here, before the
-    first batch."""
-    return _feed(batches, _target(device, mesh), prefetch)
+    batches of host work in flight: a dict on ``device`` (None: the card),
+    or, with a training ``mesh``, the list of its data shards' dicts, each
+    on its shard's device. Devices are resolved here, before the first
+    batch."""
+    return _feed(batches, _target(device, mesh), prefetch, mesh)
 
 
 def chunk_batches(batches: Iterator[Batch], k: int) -> Iterator[Batch]:
@@ -105,8 +125,10 @@ def device_feed_chunked(
     mesh=None,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """``device_feed`` over ``chunk_batches``: device-resident ``(k, B,
-    ...)`` super-batches, assembled in the prefetch thread."""
-    return device_feed(chunk_batches(batches, k), device, prefetch, mesh)
+    ...)`` super-batches, assembled in the prefetch thread; over a mesh each
+    shard's ``(k, b, ...)`` on its device."""
+    return _feed(chunk_batches(batches, k), _target(device, mesh), prefetch,
+                 mesh, axis=1)
 
 
 def _prefetch_host(batches: Iterator[Batch], prefetch: int) -> Iterator[Batch]:
@@ -143,17 +165,23 @@ def _prefetch_host(batches: Iterator[Batch], prefetch: int) -> Iterator[Batch]:
 def make_chunked_train_step(step_fn):
     """Wrap a ``(state, batch) -> (state, {"loss": ...})`` train step into
     ``(state, stacked) -> (state, metrics)`` that runs ``stacked``'s
-    leading ``k`` steps in order. The numbers equal ``k`` calls of
-    ``step_fn``; the metrics carry the per-step losses and their mean, as
-    the JAX package's scanned step does."""
+    leading ``k`` steps in order; ``stacked`` is a dict of ``(k, B, ...)``
+    tensors, or a mesh feed's list of shard dicts of them. The numbers equal
+    ``k`` calls of ``step_fn``; the metrics carry the per-step losses and
+    their mean, as the JAX package's scanned step does."""
 
-    def chunk_step(state, stacked: Dict[str, torch.Tensor]):
-        k = next(iter(stacked.values())).shape[0]
+    def step_batch(stacked, i):
+        if isinstance(stacked, list):
+            return [None if s is None else step_batch(s, i) for s in stacked]
+        return {name: v[i] for name, v in stacked.items()}
+
+    def chunk_step(state, stacked):
+        first = next(s for s in stacked if s is not None) if isinstance(
+            stacked, list) else stacked
+        k = next(iter(first.values())).shape[0]
         losses = []
         for i in range(k):
-            state, metrics = step_fn(
-                state, {name: v[i] for name, v in stacked.items()}
-            )
+            state, metrics = step_fn(state, step_batch(stacked, i))
             losses.append(metrics["loss"])
         losses = torch.stack(losses)
         return state, {

@@ -23,7 +23,11 @@ it to and from the JAX package's tree):
       u  =  (mu / (1 - b1**t)) / (sqrt(nu / (1 - b2**t) + eps_root) + eps)
       p  <- p + u * (-lr)
 
-No update reads a value back to the host.
+No update reads a value back to the host. Each parameter is updated on its
+own device with its state beside it, so the parameters of one update may
+lie on several devices (a mesh's table shards); Adam's step count and bias
+corrections live on the first parameter's device and are copied to the
+others.
 """
 
 from __future__ import annotations
@@ -107,9 +111,13 @@ class Adam:
         count = state.count
         count.copy_(torch.where(count < _INT32_MAX, count + 1, count))
         t = count.to(torch.float32)
-        correction1 = 1 - torch.pow(self.b1, t)
-        correction2 = 1 - torch.pow(self.b2, t)
+        corrections = {count.device: (1 - torch.pow(self.b1, t),
+                                      1 - torch.pow(self.b2, t))}
         for name, p in params.items():
+            if p.device not in corrections:
+                corrections[p.device] = tuple(
+                    c.to(p.device) for c in corrections[count.device])
+            correction1, correction2 = corrections[p.device]
             g = grads[name]
             mu, nu = state.mu[name], state.nu[name]
             mu.mul_(self.b1).add_((1 - self.b1) * g)

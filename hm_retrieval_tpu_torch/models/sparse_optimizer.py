@@ -133,7 +133,9 @@ def _sparse_adagrad_update(
     lr: float,
     eps: float,
 ) -> None:
-    """Dense-parity Adagrad on the touched rows, in place.
+    """Dense-parity Adagrad on the touched rows, in place, on the table's
+    device (``ids`` and ``g_rows`` are copied there; the accumulator lives
+    beside the table).
 
     ``ids``: (M,) int (flattened for sequences); ``g_rows``: (M, E). An id
     below 0 is invalid and changes no row, as in the JAX package (the
@@ -142,6 +144,7 @@ def _sparse_adagrad_update(
     the last position, the largest id's new row, or, when no id is valid,
     row 0 unchanged. With no invalid id the result is the same bits as
     without the mask."""
+    ids, g_rows = ids.to(table.device), g_rows.to(table.device)
     sorted_ids, order = torch.sort(ids.long(), stable=True)
     valid = (sorted_ids >= 0)[:, None]
     target = torch.where(valid[:, 0], sorted_ids, sorted_ids[-1:].clamp_min(0))

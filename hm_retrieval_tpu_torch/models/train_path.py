@@ -152,6 +152,7 @@ def create_mesh_state(model: TwoTowerModel, training_config: TrainingConfig,
 def make_mesh_trainer(model: TwoTowerModel, training_config: TrainingConfig,
                       mesh, catalog=None):
     """``(state, step_fn)`` over a training ``mesh`` (one device repeated,
+    or several distinct devices, each shard on its cell's device:
     ``parallel/mesh.py``), the parameters initialised from
     ``training_config.seed``: row-sharded sparse, data-parallel sparse,
     row-sharded dense or data-parallel dense, as the JAX runner chooses."""

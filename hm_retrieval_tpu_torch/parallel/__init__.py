@@ -1,8 +1,10 @@
 """The device mesh, in one process or over a ``torch.distributed`` process
 group (``initialize_multihost``, one process a card): the catalog-sharded
 top-k, and training over a mesh (data-parallel and row-sharded, dense and
-sparse) whose devices are one device a process. One process driving several
-distinct cards for training waits for ROADMAP.md Queue 1 item 6.4."""
+sparse), whose cells in one process may be one device repeated or several
+distinct devices (every card, or a card and the host CPU), each shard on
+its cell's device. A rank of a group driving several cards for training
+waits for ROADMAP.md Queue 1 item 6.4 over ranks."""
 
 from hm_retrieval_tpu_torch.parallel.data_parallel import (
     make_dp_train_step,

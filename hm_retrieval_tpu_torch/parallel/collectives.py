@@ -3,15 +3,32 @@
 No file of the JAX package corresponds: there ``jax.lax.all_gather``,
 ``psum`` and ``axis_index`` run inside ``shard_map``, one program a device.
 Here a per-shard value is a list in axis order. In one process every entry
-is present and each collective is a plain tensor operation over the list:
+is present, each on its shard's device (``parallel/mesh.py``), and each
+collective is a plain tensor operation over the list:
 
-- ``all_gather``: ``torch.cat`` of the shards in axis order. Its autograd
-  transpose hands each shard the slice of the gradient that concerns it,
-  summed over every consumer of the gathered tensor, as JAX's all_gather
-  transposes to a reduce-scatter;
-- ``psum``: a sum in fixed shard order (0, 1, ...), so the same inputs give
-  the same bits on every run;
+- ``all_gather``: the shards copied to the consumer's device, then
+  ``torch.cat`` in axis order. Its autograd transpose hands each shard the
+  slice of the gradient that concerns it, copied back to the shard's device
+  and summed over every consumer of the gathered tensor, as JAX's
+  all_gather transposes to a reduce-scatter;
+- ``psum``: every value copied to the first value's device (the first data
+  shard's: the mesh's first device), then summed there in fixed shard order
+  (0, 1, ...), so the same inputs give the same bits on every run, and the
+  bits of the same values on one device;
+- ``broadcast``: a tensor copied to each of several devices as one autograd
+  node, whose backward sums the copies' gradients in a fixed order: the
+  reverse of the devices', the order in which the autograd engine adds the
+  gradients of one tensor's consumers on one device (the last consumer's
+  first). The engine runs each device's backward on a thread of its own,
+  so gradients that several devices send one tensor would otherwise be
+  added in the order the threads finish; a value several devices consume
+  (the gathered candidates) goes through it, so every replay keeps its
+  bits, and one shard a card gives the bits of the card repeated;
 - ``axis_index``: the indices of this process's shards along an axis.
+
+A copy to the device a tensor is on is no copy, so over one device repeated
+the collectives are the same operations as before any device was told
+apart.
 
 In a ``torch.distributed`` group (``parallel/mesh.py``) each rank passes the
 list with its **local** shards and ``None`` for the others, and gets the
@@ -180,13 +197,17 @@ class _GroupAllGather(torch.autograd.Function):
 
 
 def all_gather(shards: Sequence[Optional[torch.Tensor]], dim: int = 0,
-               mesh: Optional[Mesh] = None) -> torch.Tensor:
+               mesh: Optional[Mesh] = None,
+               device: Optional[torch.device] = None) -> torch.Tensor:
     """The data axis' shards concatenated along ``dim`` in axis order
-    (JAX's ``all_gather(..., tiled=True)``); across ranks, ``None`` for
-    another rank's shards (``mesh`` required), differentiable."""
+    (JAX's ``all_gather(..., tiled=True)``) on ``device`` (default: the
+    first shard's); across ranks, ``None`` for another rank's shards
+    (``mesh`` required; a rank's shards share its one device),
+    differentiable."""
     shards = list(shards)
     if all(t is not None for t in shards):
-        return torch.cat(shards, dim=dim)
+        dev = shards[0].device if device is None else device
+        return torch.cat([t.to(dev) for t in shards], dim=dim)
     present = [d for d, t in enumerate(shards) if t is not None]
     local = [shards[d] for d in present]
     if not any(t.requires_grad for t in local):
@@ -194,19 +215,49 @@ def all_gather(shards: Sequence[Optional[torch.Tensor]], dim: int = 0,
     return _GroupAllGather.apply(mesh, dim, present, *local)
 
 
+class _Broadcast(torch.autograd.Function):
+    """``x`` copied to each of ``devices``; the gradients summed on ``x``'s
+    device in the reverse of the devices' order."""
+
+    @staticmethod
+    def forward(ctx, x, *devices):
+        ctx.device = x.device
+        return tuple(x.to(d, copy=True) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = grads[-1].to(ctx.device)
+        for g in reversed(grads[:-1]):
+            total = total + g.to(ctx.device)
+        return (total,) + (None,) * len(grads)
+
+
+def broadcast(x: torch.Tensor, devices: Sequence[torch.device]
+              ) -> List[torch.Tensor]:
+    """``x`` on each of ``devices`` (distinct, in the order of their first
+    consumers), differentiable: ``[x]`` itself for its own device alone,
+    else copies whose gradients come back summed last device first,
+    ``((g[n-1] + g[n-2]) + ...) + g[0]``, as one device adds its consumers'
+    gradients, whatever order the devices' backward passes finish in."""
+    if len(devices) == 1 and torch.device(devices[0]) == x.device:
+        return [x]
+    return list(_Broadcast.apply(x, *devices))
+
+
 def _ordered_sum(values: Sequence):
     if isinstance(values[0], dict):
         return {k: _ordered_sum([v[k] for v in values]) for k in values[0]}
     out = values[0]
     for v in values[1:]:
-        out = out + v
+        out = out + v.to(out.device)
     return out
 
 
 def psum(values: Sequence, mesh: Optional[Mesh] = None,
          axis: str = DATA_AXIS):
     """The sum of ``values`` (tensors, or dicts of tensors with one set of
-    keys) in shard order: ``((v0 + v1) + v2) + ...``. Across ranks, ``None``
+    keys) in shard order, ``((v0 + v1) + v2) + ...``, on the device of
+    ``v0`` (of each of its tensors, for a dict). Across ranks, ``None``
     for another rank's shards: over the data axis, each row's value from
     its owner; over the model axis, column s of this rank's data row from
     the rank owning that cell."""

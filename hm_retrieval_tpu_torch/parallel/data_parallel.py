@@ -1,4 +1,4 @@
-"""Data-parallel dense training over a one-process mesh.
+"""Data-parallel dense training over a mesh.
 
 Counterpart of ``hm_retrieval_tpu/parallel/data_parallel.py``. There GSPMD
 compiles the global-shape step with the batch split over the data axis and
@@ -6,22 +6,28 @@ inserts the candidate all-gather and the gradient psum; here the step spells
 them out, as the JAX package's ``shard_map`` steps do. Per data shard d
 (local batch b = B/D):
 
-    params_d = a replica of the replicated parameters (a leaf of its own)
+    params_d = a replica of the replicated parameters on shard d's device
+               (a leaf of its own)
     loss_d   = global-negative sum-CE of shard d (parallel/global_negatives)
     loss     = psum(loss_d)                   # fixed shard order
     grads_d  = d loss / d params_d            # one autograd.grad for all d
-    grads    = psum(grads_d)                  # fixed shard order
+    grads    = psum(grads_d)                  # on the first device, in order
     optimizer.update_(grads)                  # once, on the one copy
 
-The replicas share the parameters' storage, so the state lives once, on the
-mesh's device. The same step serves ``parallel/sharded_training.py``: a
-``ShardedTable`` parameter's replica is a replica of each of its shards, its
-rows come through ``psum_rows``, and the optimizer runs over the shards as
-parameters of their own (``expand``), its state kept per shard (``fold``).
+The state lives once, on the mesh's first device. Shard d's replica is a
+copy on its own device (``Mesh.data_device``) that autograd differentiates;
+where that is the first device, as over one device repeated, the copy is
+the parameters' own storage. The same step serves
+``parallel/sharded_training.py``: a ``ShardedTable`` parameter's replica is
+a leaf over each of its shards where the shard lives (its column's device),
+its rows come through ``psum_rows``, and the optimizer runs over the shards
+as parameters of their own (``expand``), each on its device with its state
+beside it (``fold``).
 
 Mixed uniform negatives are drawn once a step, from ``(base_seed, step)`` as
-``make_train_step`` draws them, and shared by every shard; ``step(state,
-batch, negatives=rows)`` takes rows drawn elsewhere.
+``make_train_step`` draws them, on the catalog's device, and every shard's
+candidate tower takes a copy of the same rows; ``step(state, batch,
+negatives=rows)`` takes rows drawn elsewhere.
 
 In a process group each rank runs the shards of its own data rows on its
 own rows of the batch (``split_batch``), the losses and gradients of the
@@ -83,13 +89,17 @@ def map_opt_state(opt_state, fn):
     )
 
 
-def replica(params: Params) -> Params:
-    """One data shard's replica of ``params``: leaves of their own over the
-    same storage (a ``ShardedTable``'s shards each)."""
+def replica(params: Params, device: Optional[torch.device] = None
+            ) -> Params:
+    """One data shard's replica of ``params``: leaves of their own, the
+    replicated tensors copied to ``device`` (the same storage where they
+    are there already, or with no ``device``), a ``ShardedTable``'s shards
+    each over its storage, on its own device."""
     return {
         n: p.like([None if t is None else t.detach().requires_grad_()
                    for t in p.shards])
-        if isinstance(p, ShardedTable) else p.detach().requires_grad_()
+        if isinstance(p, ShardedTable)
+        else p.detach().to(device or p.device).requires_grad_()
         for n, p in params.items()
     }
 
@@ -154,8 +164,9 @@ def make_dp_train_step(
         shards = split_batch(batch, mesh)
         local = [d for d, b in enumerate(shards) if b is not None]
         negatives = draw(state.step, negatives)
-        replicas = [None if b is None else replica(state.params)
-                    for b in shards]
+        replicas = [None if b is None else
+                    replica(state.params, mesh.data_device(d))
+                    for d, b in enumerate(shards)]
         losses = step_losses(
             model, replicas, shards,
             rows=lambda d, b: sharded_rows(model, replicas[d], b),
@@ -182,5 +193,5 @@ def make_dp_train_step(
 
 
 def replicate_state(state: TrainState, mesh) -> TrainState:
-    """The state held once a process, on its training device."""
+    """The state held once a process, on its first device."""
     return replicate_pytree(state, mesh)

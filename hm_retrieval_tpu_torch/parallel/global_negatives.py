@@ -1,4 +1,4 @@
-"""Global-batch in-batch negatives over the data axis of a one-process mesh.
+"""Global-batch in-batch negatives over the data axis of a mesh.
 
 Counterpart of ``hm_retrieval_tpu/parallel/global_negatives.py`` (the
 BASELINE north star: "in-batch sampled-softmax with logQ correction computed
@@ -13,10 +13,12 @@ data shard d (data axis of size D, local batch b = B/D):
     row i of shard d is positive at column d*b + i
     loss_d = sum-CE over the local rows; loss = psum(loss_d)
 
-The collectives are ``parallel/collectives.py``'s; in a process group each
-rank computes its own data shards (``None`` in the lists for the others')
-and the all-gather brings in the other ranks' candidates. The mesh's train
-steps
+The collectives are ``parallel/collectives.py``'s. Shard d's towers,
+logits and loss run on its data shard's device (``Mesh.data_device``): the
+gathered candidates, their ids' logQ and the step's negatives are copied
+there. In a process group each rank computes its own data shards (``None``
+in the lists for the others') and the all-gather brings in the other
+ranks' candidates. The mesh's train steps
 (``parallel/data_parallel.py``, ``sparse_data_parallel.py``,
 ``sharded_training.py``, ``sharded_sparse_training.py``) share
 ``shard_losses``; with uniform negatives (``models/mixed_negatives.py``)
@@ -33,8 +35,12 @@ import torch
 from torch.func import functional_call
 
 from hm_retrieval_tpu_torch.models.two_tower import TwoTowerModel
-from hm_retrieval_tpu_torch.parallel.collectives import all_gather, psum
-from hm_retrieval_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, split_batch
+from hm_retrieval_tpu_torch.parallel.collectives import (
+    all_gather,
+    broadcast,
+    psum,
+)
+from hm_retrieval_tpu_torch.parallel.mesh import Mesh, split_batch
 
 Params = Dict[str, torch.Tensor]
 
@@ -67,16 +73,20 @@ def shard_losses(
     mesh: Optional[Mesh] = None,
 ) -> List[Optional[torch.Tensor]]:
     """Each data shard's sum-CE against the gathered candidates, in shard
-    order. ``queries[d]``, ``candidates[d]``: (b, E); ``ids[d]``: (b,)
-    candidate ids; ``None`` for another rank's shards (``mesh`` given), whose
-    loss is ``None`` too. ``negatives[d]``: shard d's (M, E) tower output
-    for the step's uniform negatives, drawn from a catalog of
-    ``num_candidates``."""
-    all_c = all_gather(candidates, mesh=mesh)  # (B, E)
-    all_ids = all_gather(ids, mesh=mesh)  # (B,)
-    B = all_c.shape[0]
+    order, on the shard's own device (its query's). ``queries[d]``,
+    ``candidates[d]``: (b, E); ``ids[d]``: (b,) candidate ids; ``None`` for
+    another rank's shards (``mesh`` given), whose loss is ``None`` too.
+    ``negatives[d]``: shard d's (M, E) tower output for the step's uniform
+    negatives, drawn from a catalog of ``num_candidates``."""
+    # (B, E) gathered once, on the first consuming device, and broadcast to
+    # the others, so its gradients come back summed in device order
+    devices = list(dict.fromkeys(q.device for q in queries if q is not None))
+    all_c = dict(zip(devices, broadcast(
+        all_gather(candidates, mesh=mesh, device=devices[0]), devices)))
     corr = None
     if model.logq is not None:
+        all_ids = all_gather(ids, mesh=mesh, device=model.logq.device)
+        B = all_ids.shape[0]
         corr = model.logq[all_ids.long()]
         if negatives is not None:
             corr = corr + float(np.log(np.float32(B)))
@@ -90,9 +100,9 @@ def shard_losses(
             losses.append(None)
             continue
         b = q.shape[0]
-        logits = q @ all_c.T  # (b, B)
+        logits = q @ all_c[q.device].T  # (b, B)
         if corr is not None:
-            logits = logits - corr[None, :]
+            logits = logits - corr.to(q.device)[None, :]
         if negatives is not None:
             neg = q @ negatives[d].T  # (b, M)
             if corr is not None:
@@ -112,12 +122,19 @@ def make_global_negatives_loss(model: TwoTowerModel, mesh):
     the model's parameters (``dict(model.named_parameters())``, or tensors
     standing in for them); ``batch`` is this process's batch (the global one
     in one process), or ``shard_batch``'s list. Differentiable in
-    ``params``; in a process group every rank gets the same loss."""
-    D = mesh.shape[DATA_AXIS]
+    ``params``, which each data shard takes a copy of on its device; in a
+    process group every rank gets the same loss."""
 
     def loss_fn(params: Params, batch) -> torch.Tensor:
-        return psum(step_losses(model, [params] * D, split_batch(batch, mesh),
-                                mesh=mesh), mesh)
+        shards = split_batch(batch, mesh)
+        homes = [None if b is None else mesh.data_device(d)
+                 for d, b in enumerate(shards)]
+        devices = list(dict.fromkeys(h for h in homes if h is not None))
+        copies = {n: dict(zip(devices, broadcast(p, devices)))
+                  for n, p in params.items()}
+        replicas = [None if h is None else
+                    {n: c[h] for n, c in copies.items()} for h in homes]
+        return psum(step_losses(model, replicas, shards, mesh=mesh), mesh)
 
     return loss_fn
 
@@ -136,7 +153,7 @@ def step_losses(
     parameters, and ``rows(d, batch)`` (``{tower: {feature: rows}}``) in
     place of table gathers; ``None`` for another rank's shards. With uniform
     ``negatives`` (one draw a step, shared by every shard) shard d's
-    candidate tower also runs over them."""
+    candidate tower also runs over a copy of them on its device."""
     cid = model.candidate_id_col
 
     def towers(d, batch, names):
@@ -150,7 +167,9 @@ def step_losses(
     neg = None
     if negatives is not None:
         neg = [None if s is None else
-               towers(d, negatives, ("candidate_tower",))[0]
+               towers(d, {k: v.to(s[cid].device)
+                          for k, v in negatives.items()},
+                      ("candidate_tower",))[0]
                for d, s in enumerate(shards)]
     return shard_losses(model, [x and x[0] for x in qc],
                         [x and x[1] for x in qc],

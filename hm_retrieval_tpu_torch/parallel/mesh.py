@@ -5,16 +5,31 @@ Counterpart of the JAX package's ``parallel/mesh.py``. A JAX mesh is a
 spanning every process of a ``jax.distributed`` group. ``Mesh`` here is the
 same grid of torch devices, and each cell also names the rank that owns it:
 
-- in one process every cell is this process's. A device may repeat
-  (``["cuda:0"] * 4``, ``["cpu"] * 8``): training takes a mesh whose devices
-  are all one device, and the collectives between its shards are
-  in-process (``parallel/collectives.py``);
+- in one process every cell is this process's, and the cells may be
+  several distinct devices (``["cuda:0", "cuda:1"]``, a card and the host
+  CPU ``["cuda:0", "cpu"]``) or one device repeated (``["cuda:0"] * 4``,
+  ``["cpu"] * 8``). The collectives between the shards are in-process
+  (``parallel/collectives.py``): they copy a tensor to the device that
+  consumes it, and a copy to the device a tensor is on is no copy, so the
+  repeated device is the case of the same code in which every copy is a
+  no-op;
 - in a ``torch.distributed`` group of P ranks (``initialize_multihost``)
   each rank passes ``make_mesh`` its **local** devices, by default its one
   card, and the grid is every rank's devices in rank order. A rank computes
   only its own cells; the collectives exchange the shards between ranks.
   PyTorch's layout is one process a card, so a rank's cells must all be one
-  device for training (``training_device``), as the one-process mesh's are.
+  device for training (``training_device``).
+
+Training over the mesh places its work by the per-cell device map:
+
+- data shard d (its rows, its copy of the replicated parameters, its towers,
+  loss and gradients) runs on ``Mesh.data_device(d)``, the device of its
+  first cell in this process;
+- row shard s of a table, and its optimizer state, live on
+  ``Mesh.model_device(s)``, the first device of column s here;
+- replicated state is held once a process, on ``Mesh.first_device``, where
+  the gradients' psum lands and the optimizer updates it once. JAX
+  replicates it on every device.
 
 Each rank's cells are the product of its data rows and its model columns:
 either whole data rows (the data axis split over processes, each feeding
@@ -23,12 +38,9 @@ the ranks of the row feeding the same rows). ``make_mesh`` refuses any other
 layout. A sharding here is a ``Sharding``: a mesh and a spec in JAX's
 ``PartitionSpec`` terms, ``()`` replicated, ``("data",)`` split over the
 data axis, ``("model", None)`` rows split over the model axis. A replicated
-value is held once a process, on its device; a split one is the list of its
-shards in axis order, ``None`` where another rank holds the shard.
-
-One process driving several distinct devices for training, which JAX's
-single controller does, waits for ROADMAP.md Queue 1 item 6.4 and raises
-``NotImplementedError``.
+value is held once a process, on its first device; a split one is the list
+of its shards in axis order, each on its cell's device, ``None`` where
+another rank holds the shard.
 """
 
 from __future__ import annotations
@@ -46,9 +58,9 @@ logger = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-SEVERAL_DEVICES = (
-    "ROADMAP.md Queue 1 item 6.4 (one process driving several cards for "
-    "training)"
+SEVERAL_DEVICES_A_RANK = (
+    "ROADMAP.md Queue 1 item 6.4 over ranks (one rank of a process group "
+    "driving several cards for training)"
 )
 TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 
@@ -218,6 +230,19 @@ class Mesh:
         d, s = next(zip(*np.nonzero(self.ranks == self.process_index)))
         return self.devices[d, s]
 
+    def data_device(self, d: int) -> torch.device:
+        """Where data shard ``d`` runs in this process: the device of its
+        first cell here (its rows, its replica, towers, loss and
+        gradients)."""
+        s = next(s for s in range(self.shape[MODEL_AXIS])
+                 if self.is_local(d, s))
+        return self.devices[d, s]
+
+    def model_device(self, s: int) -> torch.device:
+        """Where row shard ``s`` of a table and its optimizer state live in
+        this process: the first device of column ``s`` here."""
+        return self.column(s)[0]
+
     def column(self, s: int) -> List[torch.device]:
         """The distinct devices of model shard ``s`` that this process
         owns, in data-axis order (empty where another rank holds it)."""
@@ -323,16 +348,24 @@ def make_mesh(
 
 
 def training_device(mesh: Mesh) -> torch.device:
-    """The one device of this process's cells. Training is ported for a
-    process whose cells are all one device (one card a rank, or the card
-    repeated in one process); several distinct devices in one process
-    raise ``NotImplementedError`` (item 6.4)."""
+    """The first device of this process's cells, where the replicated
+    training state lives, once this process is known to be able to train
+    over ``mesh``: a CUDA cell needs CUDA (``RuntimeError``), and in a
+    process group a rank's cells must be one device (several raise
+    ``NotImplementedError``, item 6.4 over ranks)."""
     local = mesh.devices[mesh.ranks == mesh.process_index]
     distinct = sorted({str(d) for d in local})
-    if len(distinct) != 1:
+    for name in distinct:
+        if torch.device(name).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"the mesh's device {name!r} needs a card but CUDA is not "
+                "available; build the mesh on devices=['cpu'] * n"
+            )
+    if mesh.process_count > 1 and len(distinct) != 1:
         raise NotImplementedError(
-            f"training over {len(distinct)} distinct devices {distinct} in "
-            f"one process is not ported yet: {SEVERAL_DEVICES}"
+            f"rank {mesh.process_index} trains over {len(distinct)} distinct "
+            f"devices {distinct}, which is not ported yet: "
+            f"{SEVERAL_DEVICES_A_RANK}"
         )
     return mesh.first_device
 
@@ -381,12 +414,14 @@ def split_rows(x: torch.Tensor, n: int) -> List[torch.Tensor]:
 
 def place_global(x, sharding: Sharding):
     """Place a host (or device) array under ``sharding``: replicated, one
-    tensor on this process's device; split, the list of its shards in axis
-    order, shard i on its first local device and ``None`` where another rank
-    holds it. Split over the data axis, ``x`` is this process's rows (all
-    of them in one process), as JAX's ``make_array_from_process_local_data``
-    takes them; split over the model axis, ``x`` is the whole array on every
-    rank. A split axis must divide the rows (``ValueError``)."""
+    tensor on this process's first device; split, the list of its shards
+    in axis order, shard i on its cell's device (``Mesh.data_device`` over
+    the data axis, ``Mesh.model_device`` over the model axis) and ``None``
+    where another rank holds it. Split over the data axis, ``x`` is this
+    process's rows (all of them in one process), as JAX's
+    ``make_array_from_process_local_data`` takes them; split over the model
+    axis, ``x`` is the whole array on every rank. A split axis must divide
+    the rows (``ValueError``)."""
     mesh, spec = sharding
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
@@ -398,19 +433,17 @@ def place_global(x, sharding: Sharding):
     if axis == DATA_AXIS:
         rows = mesh.local_rows()
         for d, part in zip(rows, split_rows(x, len(rows))):
-            s = next(s for s in range(mesh.shape[MODEL_AXIS])
-                     if mesh.is_local(d, s))
-            out[d] = part.to(mesh.devices[d, s])
+            out[d] = part.to(mesh.data_device(d))
         return out
     for s, part in enumerate(split_rows(x, n)):
         if mesh.column(s):
-            out[s] = part.to(mesh.column(s)[0])
+            out[s] = part.to(mesh.model_device(s))
     return out
 
 
 def replicate_pytree(tree, mesh: Mesh):
     """Every tensor of ``tree`` (dicts, lists, tuples, named tuples) held
-    once a process, on its training device; a tensor already there is
+    once a process, on its first device; a tensor already there is
     returned as it is, so the model's own parameters stay the state's.
     Every rank must hold the same values (a seeded init, a restore)."""
     dev = training_device(mesh)
@@ -431,10 +464,10 @@ def replicate_pytree(tree, mesh: Mesh):
 
 def shard_batch(batch, mesh: Mesh) -> List[Optional[dict]]:
     """A batch dict (numpy arrays or tensors) as D per-shard dicts, shard d
-    holding its rows on its device, ``None`` for another rank's rows. In one
-    process the batch is the global one; in a group, this process's rows.
-    The mesh's train steps take this list, or the batch, which they split
-    the same way."""
+    holding its rows on ``mesh.data_device(d)``, ``None`` for another rank's
+    rows. In one process the batch is the global one; in a group, this
+    process's rows. The mesh's train steps take this list, or the batch,
+    which they split the same way."""
     sharding = batch_sharding(mesh)
     cols = {k: place_global(v, sharding) for k, v in batch.items()}
     return [
@@ -445,10 +478,11 @@ def shard_batch(batch, mesh: Mesh) -> List[Optional[dict]]:
 
 
 def split_batch(batch, mesh: Mesh) -> List[Optional[dict]]:
-    """This process's batch dict as the mesh's D per-shard dicts of row
-    views (``None`` for another rank's rows), or a list of D shard dicts
-    (``shard_batch``'s) as it is. ``ValueError`` unless this process's
-    rows divide the batch."""
+    """This process's batch dict as the mesh's D per-shard dicts, shard d's
+    rows on ``mesh.data_device(d)`` (views where they are there already;
+    ``None`` for another rank's rows), or a list of D shard dicts
+    (``shard_batch``'s, the feed's) as it is. ``ValueError`` unless this
+    process's rows divide the batch."""
     D = mesh.shape[DATA_AXIS]
     if isinstance(batch, (list, tuple)):
         if len(batch) != D:
@@ -458,5 +492,6 @@ def split_batch(batch, mesh: Mesh) -> List[Optional[dict]]:
     cols = {k: split_rows(v, len(rows)) for k, v in batch.items()}
     out: List[Optional[dict]] = [None] * D
     for i, d in enumerate(rows):
-        out[d] = {k: parts[i] for k, parts in cols.items()}
+        dev = mesh.data_device(d)
+        out[d] = {k: parts[i].to(dev) for k, parts in cols.items()}
     return out

@@ -20,7 +20,12 @@ Two lookups, both differentiable, run for each data shard on its own ids:
 
 In one process every model shard of a data shard holds the same ids, so the
 request plan, which JAX computes on each of them, is computed once, and the
-exchange is the owner's gather of its bucket.
+exchange is the owner's gather of its bucket. A shard lives on its column's
+device (``Mesh.model_device``) and the ids on their data shard's: each
+lookup sends the ids, or an owner's bucket, to the shard's device, gathers
+there, and brings the rows back to the ids' device, where they are summed
+or re-expanded. Only the gathered rows cross between devices, never a
+table.
 
 In a process group (``parallel/mesh.py``) a rank holds only the shards of
 its model columns (``None`` for the others). When the model axis spans
@@ -79,9 +84,9 @@ class ShardedTable:
         return ShardedTable(shards, self.mesh)
 
     def host(self) -> torch.Tensor:
-        """The (S*R, E) table on the host, shard by shard. Collective in a
-        process group: each shard is broadcast from its owner, one at a
-        time."""
+        """The (S*R, E) table on the host, shard by shard from its device.
+        Collective in a process group: each shard is broadcast from its
+        owner, one at a time."""
         if all(t is not None for t in self.shards):
             return torch.cat([t.detach().cpu() for t in self.shards])
         from hm_retrieval_tpu_torch.parallel.collectives import (
@@ -112,8 +117,8 @@ class ShardedTable:
 
 def shard_table(table, mesh: Mesh) -> ShardedTable:
     """Pad a (V, E) table (numpy or a tensor) with zero rows to S*ceil(V/S)
-    and place it row-sharded over the model axis: shard s a copy on the
-    first device of the mesh's column s, where this process holds it."""
+    and place it row-sharded over the model axis: shard s a copy on
+    ``mesh.model_device(s)``, where this process holds it."""
     if not isinstance(table, torch.Tensor):
         table = torch.from_numpy(np.ascontiguousarray(table))
     S = mesh.shape[MODEL_AXIS]
@@ -121,7 +126,7 @@ def shard_table(table, mesh: Mesh) -> ShardedTable:
                               table.shape[1]))
     padded[: table.shape[0]] = table
     return ShardedTable([
-        part.to(mesh.column(s)[0], copy=True) if mesh.column(s) else None
+        part.to(mesh.model_device(s), copy=True) if mesh.column(s) else None
         for s, part in enumerate(split_rows(padded, S))
     ], mesh)
 
@@ -131,10 +136,11 @@ def _shards(table) -> List[torch.Tensor]:
 
 
 def psum_rows(table, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` for ids of any shape, through the shards: each gathers
-    the ids it owns, zeros the rest, and the S partial results are summed in
-    shard order (across ranks, this data row's other shards from their
-    owners). Differentiable in each local shard."""
+    """``table[ids]`` for ids of any shape, on the ids' device, through the
+    shards: each gathers the ids it owns on its own device, zeros the rest,
+    and the S partial results are summed in shard order on the ids' device
+    (across ranks, this data row's other shards from their owners).
+    Differentiable in each local shard."""
     shards = _shards(table)
     local = [t for t in shards if t is not None]
     R = local[0].shape[0]
@@ -144,10 +150,10 @@ def psum_rows(table, ids: torch.Tensor) -> torch.Tensor:
         if shard is None:
             parts.append(None)
             continue
-        local_ids = flat - s * R
+        local_ids = flat.to(shard.device) - s * R
         mine = (local_ids >= 0) & (local_ids < R)
         rows = F.embedding(torch.where(mine, local_ids, 0), shard)
-        parts.append(torch.where(mine[:, None], rows, 0.0))
+        parts.append(torch.where(mine[:, None], rows, 0.0).to(ids.device))
     return psum(parts, getattr(table, "mesh", None), MODEL_AXIS).reshape(
         *ids.shape, local[0].shape[1])
 
@@ -168,14 +174,14 @@ def _unique_fixed(ids: torch.Tensor):
 
 def all_to_all_rows(table, ids: torch.Tensor, capacity: Optional[int] = None
                     ) -> torch.Tensor:
-    """``table[ids]`` for (B,) ids through the deduplicated, bucketed
-    exchange (module docstring); NaN in the table's dtype when an owner's
-    distinct ids exceed the capacity."""
+    """``table[ids]`` for (B,) ids, on the ids' device, through the
+    deduplicated, bucketed exchange (module docstring); NaN in the table's
+    dtype when an owner's distinct ids exceed the capacity."""
     shards = _shards(table)
     local = [t for t in shards if t is not None]
     S, R = len(shards), local[0].shape[0]
     B = ids.shape[0]
-    dev = local[0].device
+    dev = ids.device
     cap = min(B, R) if capacity is None else min(capacity, B, R)
     uids, inv = _unique_fixed(ids.long())  # fills (-1) sort last
     valid = uids >= 0
@@ -195,14 +201,15 @@ def all_to_all_rows(table, ids: torch.Tensor, capacity: Optional[int] = None
     send_mask.scatter_(0, slot, fits)
     send_ids = send_ids[: S * cap].view(S, cap)
     send_mask = send_mask[: S * cap].view(S, cap)
-    # each owner gathers its bucket and sends the rows back
-    back = [
-        None if shards[t] is None else
-        torch.where(send_mask[t][:, None],
-                    F.embedding(torch.where(send_mask[t], send_ids[t], 0),
-                                shards[t]), 0.0)
-        for t in range(S)
-    ]
+    # each owner gathers its bucket on its device and sends the rows back
+    back = [None] * S
+    for t, shard in enumerate(shards):
+        if shard is None:
+            continue
+        mask = send_mask[t].to(shard.device)
+        rows = F.embedding(
+            torch.where(mask, send_ids[t].to(shard.device), 0), shard)
+        back[t] = torch.where(mask[:, None], rows, 0.0).to(dev)
     if any(b is None for b in back):
         # the other owners' buckets, from the ranks of this data row
         mesh = table.mesh

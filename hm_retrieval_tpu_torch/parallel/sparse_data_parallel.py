@@ -1,10 +1,11 @@
-"""Data-parallel sparse-embedding training over a one-process mesh.
+"""Data-parallel sparse-embedding training over a mesh.
 
 Counterpart of ``hm_retrieval_tpu/parallel/sparse_data_parallel.py``: the
 data-parallel step with the sparse Adagrad of ``models/sparse_optimizer.py``
 for every embedding table. Per data shard d (local batch b = B/D):
 
-    rows_d   = tables[batch_d]                    # leaves of their own
+    rows_d   = tables[batch_d]                    # leaves of their own,
+                                                  # on shard d's device
     loss_d   = global-negative sum-CE of shard d  # (parallel/global_negatives)
     loss     = psum(loss_d)
     g_rows_d = d loss / d rows_d    # the all_gather's transpose: already the
@@ -15,7 +16,11 @@ for every embedding table. Per data shard d (local batch b = B/D):
 
 The update runs once over the global id vector, so an id that several
 shards touch gets one update from its summed gradient, as the single-device
-step on the global batch gives it. ``parallel/sharded_sparse_training.py``
+step on the global batch gives it. Shard d's dense replica, rows, towers
+and gradients are on its device (``Mesh.data_device``); a table stays
+where it is, on the first device or, row-sharded, each shard on its
+column's, and only the gathered rows and their (G, I) cross: the ids go to
+the table, the rows come back. ``parallel/sharded_sparse_training.py``
 runs the same step with row-sharded tables (``sharded``): their rows come
 through ``psum_rows``, and each shard applies the global (G, I) to the rows
 it owns, the others' ids marked -1.
@@ -56,9 +61,9 @@ from hm_retrieval_tpu_torch.parallel.sharded_embedding import (
 
 @torch.no_grad()
 def _gather_rows(params, model: TwoTowerModel, batch) -> Dict:
-    """{tower: {feature: rows}}, (b, E) or (b, L, E), each a leaf that
-    autograd differentiates; a ``ShardedTable``'s rows through
-    ``psum_rows``."""
+    """{tower: {feature: rows}}, (b, E) or (b, L, E) on the batch's device,
+    each a leaf that autograd differentiates: gathered where the table is,
+    a ``ShardedTable``'s through ``psum_rows``."""
     out = {}
     for tower, feats in _table_features(model).items():
         out[tower] = {}
@@ -66,15 +71,17 @@ def _gather_rows(params, model: TwoTowerModel, batch) -> Dict:
             table = params[_table_name(tower, f)]
             ids = batch[f.name]
             rows = (psum_rows(table, ids) if isinstance(table, ShardedTable)
-                    else F.embedding(ids.long(), table))
+                    else F.embedding(ids.long().to(table.device),
+                                     table).to(ids.device))
             out[tower][f.name] = rows.requires_grad_()
     return out
 
 
 def _update_table(table, acc, ids, g, lr, eps) -> None:
-    """Sparse Adagrad of the global (G, I) on a table; a ``ShardedTable``
-    shard by shard, each keeping the ids it owns (local rows) and marking
-    the rest -1, which the update drops."""
+    """Sparse Adagrad of the global (G, I) on a table, on its device; a
+    ``ShardedTable`` shard by shard on each shard's device, each keeping the
+    ids it owns (local rows) and marking the rest -1, which the update
+    drops."""
     if not isinstance(table, ShardedTable):
         _sparse_adagrad_update(table, acc, ids, g, lr, eps)
         return
@@ -111,8 +118,9 @@ def make_dp_sparse_train_step(
         dense = split_dense_params(params)
         names = list(dense)
         replicas = [None if b is None else
-                    {n: p.detach().requires_grad_() for n, p in dense.items()}
-                    for b in shards]
+                    {n: p.detach().to(mesh.data_device(d)).requires_grad_()
+                     for n, p in dense.items()}
+                    for d, b in enumerate(shards)]
         rows = [None if b is None else _gather_rows(params, model, b)
                 for b in shards]
         loss = psum(step_losses(model, replicas, shards,
@@ -156,5 +164,5 @@ def make_dp_sparse_train_step(
 
 
 def replicate_sparse_state(state: SparseTrainState, mesh) -> SparseTrainState:
-    """The state held once a process, on its training device."""
+    """The state held once a process, on its first device."""
     return replicate_pytree(state, mesh)

@@ -13,8 +13,10 @@ the JAX layout, so either package loads the other's towers.
 
 The mesh's states (``parallel/``) save and restore the same way: a
 row-sharded table and its optimizer state are one (S*R, E) array in the
-file, pad rows included (``models/bridge.py``), so a checkpoint restores
-into a mesh of another shape whose tables have the same padded rows.
+file, pad rows included (``models/bridge.py``), gathered to the host from
+the shards' devices on save and copied back into each shard where it lives
+on restore, so a checkpoint restores into a mesh of another shape, or of
+other devices, whose tables have the same padded rows.
 
 Over a process group ``save`` is collective: every rank calls it, a
 row-sharded value is gathered from the ranks that hold its shards, rank 0
@@ -141,8 +143,10 @@ class CheckpointManager:
 
     def restore(self, fresh_state):
         """Copy the latest checkpoint into ``fresh_state``'s tensors (a
-        state of the same kind and shapes, on this manager's device) and
-        return it with the checkpoint's step."""
+        state of the same kind and shapes whose replicated tensors are on
+        this manager's device and whose row shards are on their mesh's
+        devices, ``Mesh.model_device``) and return it with the
+        checkpoint's step."""
         self.wait_until_finished()
         step = self.latest_step()
         if step is None:
@@ -155,16 +159,20 @@ class CheckpointManager:
                 f"checkpoint step={step} holds a {meta['state']}, not a "
                 f"{type(fresh_state).__name__}"
             )
-        want = self.device
         for v in fresh_state.params.values():
-            p = v.local()[0] if hasattr(v, "shards") else v
-            if p.device.type != want.type or want.index not in (
-                None, p.device.index
-            ):
-                raise ValueError(
-                    f"the state lives on {p.device}, the manager restores "
-                    f"onto {want}"
-                )
+            if hasattr(v, "shards"):
+                placed = [(t, v.mesh.model_device(s))
+                          for s, t in enumerate(v.shards) if t is not None]
+            else:
+                placed = [(v, self.device)]
+            for t, want in placed:
+                if t.device.type != want.type or want.index not in (
+                    None, t.device.index
+                ):
+                    raise ValueError(
+                        f"the state lives on {t.device}, the manager "
+                        f"restores onto {want}"
+                    )
         tree = load_pytree_npz(os.path.join(path, STATE_FILE))
         state = train_state_from_numpy(fresh_state, tree)
         logger.info("Restored checkpoint step=%d", step)

@@ -22,12 +22,14 @@ shards the catalog over the mesh's model axis (``indices/distributed.py``);
 the eval batches and the replicated weights stay on this process's first
 device of the mesh, which must be ``device``, where the JAX package shards
 the batches over the data axis and replicates the weights.
-``modelling_runner`` trains over a mesh whose devices are all one device
-(``["cuda:0"] * 4``), with the tables of ``sharded_embedding_features``
-row-sharded when the mesh has a model axis; ``build_index`` and
-``evaluate`` take the training state's ``params`` and gather a row-sharded
-table's rows through its shards, so the full table is never assembled on
-the device.
+``modelling_runner`` trains over a mesh of one device repeated
+(``["cuda:0"] * 4``) or of several distinct devices (every card, or a card
+and the host CPU, ``["cuda:0", "cpu"]``), each data shard and each table
+shard on its cell's device (``parallel/mesh.py``), with the tables of
+``sharded_embedding_features`` row-sharded when the mesh has a model axis;
+``build_index`` and ``evaluate`` take the training state's ``params`` and
+gather a row-sharded table's rows through its shards, wherever they live,
+so the full table is never assembled on the device.
 
 Over a process group of P ranks (``initialize_multihost``), as in the JAX
 package: each rank reads its own test shards (``ShardDataset``'s
@@ -443,8 +445,9 @@ def modelling_runner(
 ) -> Dict[str, Dict[int, float]]:
     """Full train + eval stage (ref: modelling_runner,
     pkg/modelling/runner.py:18-107). Returns {"initial": recalls, "final":
-    recalls}. With a ``mesh`` (this process's devices all ``device``) it
-    trains over the mesh (``make_mesh_trainer``); ``distributed_index``
+    recalls}. With a ``mesh`` (whose first device here is ``device``) it
+    trains over the mesh (``make_mesh_trainer``), each data and table shard
+    on its cell's device; ``distributed_index``
     serves every eval and the saved artifact from a catalog sharded over
     the mesh's model axis. Over a process group every rank calls it with
     the same arguments and gets the same results (module docstring).
@@ -463,7 +466,9 @@ def modelling_runner(
     P = _check_group(mesh, tc.train_batch_size, tc.test_batch_size)
     pi = process_index()
     if mesh is not None:
-        training_device(mesh)  # one device a process: else item 6.4
+        # a CUDA cell without CUDA, or a rank over several devices, raises
+        # before any step
+        training_device(mesh)
         _on_mesh(mesh, dev)
     if settings.savedmodel_dirpath:
         # fail before training: an unexportable schema, or a machine without

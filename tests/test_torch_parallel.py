@@ -444,17 +444,32 @@ def test_several_devices_or_processes_raise_item_6_3(monkeypatch):
     """Item 6.3 (several processes) is ported: ``initialize_multihost()``
     without a group stays single-process, and a mesh built in one process
     keeps its one-process steps inside a 2-rank group
-    (``tests/test_torch_multiprocess.py`` runs real groups). One process
-    driving several distinct devices for training still raises
-    ``NotImplementedError``, now naming item 6.4."""
+    (``tests/test_torch_multiprocess.py`` runs real groups). Item 6.4 is
+    ported too: one process driving several distinct devices no longer
+    raises ``NotImplementedError``; a grid naming a card raises
+    ``RuntimeError`` naming CUDA before any step where there is none, and
+    with CUDA reported present it is accepted, its first device returned.
+    A rank of a group whose cells are several distinct devices still
+    raises ``NotImplementedError``, naming item 6.4 over ranks."""
     _, pm = _models("mean")
     _, popt = _opts("adagrad")
-    with pytest.raises(NotImplementedError, match="item 6.4"):
-        training_device(_two_devices())
-    with pytest.raises(NotImplementedError, match="item 6.4"):
-        make_dp_train_step(pm, popt, _two_devices())
-    with pytest.raises(NotImplementedError, match="item 6.4"):
-        make_dp_sparse_train_step(pm, popt, LR, _two_devices())
+    for build in (training_device,
+                  lambda m: make_dp_train_step(pm, popt, m),
+                  lambda m: make_dp_sparse_train_step(pm, popt, LR, m)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build(_two_devices())
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        assert training_device(_two_devices()) == torch.device("cuda", 0)
+        grid = np.empty((2, 1), dtype=object)
+        grid[0, 0], grid[1, 0] = torch.device("cpu"), torch.device("cuda", 0)
+        assert training_device(Mesh(grid)) == torch.device("cpu")
+        # rank 0 of two holding cpu and cuda:0: several devices a rank
+        group = np.empty((2, 2), dtype=object)
+        group[0, 0], group[0, 1] = torch.device("cpu"), torch.device("cuda", 0)
+        group[1, 0] = group[1, 1] = torch.device("cpu")
+        with pytest.raises(NotImplementedError, match="item 6.4 over ranks"):
+            training_device(Mesh(group, np.array([[0, 0], [1, 1]])))
     from hm_retrieval_tpu_torch.parallel.mesh import (
         TORCHRUN_ENV,
         data_axis_process_aligned,

@@ -321,9 +321,10 @@ def test_unknown_override_raises(pipeline):
 @pytest.mark.parametrize("option", ["savedmodel", "mesh", "distributed"])
 def test_unported_options_raise_before_any_step(pipeline, tmp_path, monkeypatch,
                                                 option):
-    """Training over a mesh of several distinct devices in one process
-    raises ``NotImplementedError`` naming its ROADMAP.md item (6.4); a
-    sharded index without a mesh, and inside a process group of 2 ranks a
+    """Training over a mesh of several distinct devices in one process is
+    ported (ROADMAP.md item 6.4): no ``NotImplementedError``, but a grid
+    naming ``cuda:0`` where there is no CUDA raises ``RuntimeError`` naming
+    CUDA before any step; a sharded index without a mesh, and inside a process group of 2 ranks a
     mesh built for one process, raise ``ValueError``, as in the JAX package;
     the SavedModel export validates before any step (an unexportable schema
     raises ``ValueError``, a machine without TensorFlow ``ImportError``),
@@ -373,8 +374,7 @@ def test_unported_options_raise_before_any_step(pipeline, tmp_path, monkeypatch,
     else:
         grid = np.empty((2, 1), dtype=object)
         grid[0, 0], grid[1, 0] = torch.device("cpu"), torch.device("cuda", 0)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 6.4"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
             modelling_runner(settings, device="cpu", mesh=Mesh(grid))
         one_device = make_mesh(2, 1, devices=["cpu"] * 2)
         monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
