@@ -250,8 +250,9 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    fails or writes no result fails the phase. Phase 10's width and weights.
    Each rank's launches are counted from 0 around (a) and (b) and added,
    over both ranks, to the kernels line. Cut: depth only (3 held steps a
-   path; sparse: 3-step replays, 10 timed, 3 profiled; dense: 1-step
-   replays, 2 timed, 1 profiled).
+   path; sparse: 3-step replays, 5 timed, 2 profiled; dense: 1-step
+   replays, 1 timed, none profiled: cut from 10 / 3 and 2 / 1 for phase
+   18's time).
    (a) phase 12's exact and one-pass sharded indices over a (1, 4) mesh,
        rank r holding shards 2r and 2r + 1 (kernels 1-2, 3-4 per shard),
        at B = 1, 16, 128, 1024: values and ids bit-identical to phase 12's
@@ -340,7 +341,7 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    and the host CPU, make_mesh(..., devices=[card, "cpu"]), the card first,
    so every replica, row shard, gradient and row that crosses between them
    is a real copy (autograd's included). Phase 13's widths (B = 512). Cut:
-   depth only (5 held steps; replays of 2 steps on the dense paths, 5 on
+   depth only (5 held steps; replays of 1 step on the dense paths, 5 on
    the sparse ones; one test batch of 2048 rows in (b)).
    (a) through make_mesh_trainer, each step from the single-device chain's
        state within rtol 1e-4 / atol 1e-5, replays bit-identical, pad and
@@ -379,6 +380,54 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    card) with the peak GB a card, and replayed on the card repeated to say
    whether the bits equal the same-device mesh's; (b) and (c) over (1, n).
    Its launches join the kernels line.
+
+18. Ranks of a process group, each over several distinct devices
+   (phase_ranks_several_devices; run after phase 17, on phase 10's data):
+   two ranks spawned as phase 14's (torch.multiprocessing, a file://
+   rendezvous, killed past 480 s; a rank that fails or writes nothing
+   fails the phase), gloo on the one card, each calling make_mesh(...,
+   devices=[card, "cpu"]), so the grid in rank order is card, host, card,
+   host and every exchange crosses a device boundary inside a rank as well
+   as between ranks. Phase 13's widths, B = 512. The references run in
+   this process over the same grid (make_mesh(D, S, devices=[card, "cpu"]
+   * 2); on four cards each rank's first card, cuda:0 and cuda:2), on the
+   ranks' host thread count. Cut: depth only (held steps: 3
+   sparse, 1 dense, each replayed twice; 5 host-clock steps on the sparse
+   paths, none on the dense ones; one test batch of 2048 rows in (b)).
+   (a) through make_mesh_trainer: (2, 2) row-sharded sparse and dense
+       Adagrad (data row r on rank r, the model axis across the card and
+       the host), (4, 1) data-parallel sparse and dense Adagrad (rank r
+       rows 2r on the card, 2r + 1 on the host) and (1, 4) row-sharded
+       sparse (rank r columns 2r and 2r + 1, one data row over both ranks).
+       Each held step from the single-device chain's state within rtol
+       1e-4 / atol 1e-5, the replicated state bit-identical across the
+       ranks after every step, replays bit-identical, pad and untouched
+       rows unchanged, each state tensor and table shard on its cell, and
+       every tensor after every held step bit-identical to the one-process
+       mesh's; each path prints the bytes the group exchanges and the bytes
+       copied between devices in a step and the median host-clock step ms
+       (not a speed figure: the host cells set the pace);
+   (b) modelling_runner over (2, 2), data row r on rank r, both id tables
+       row-sharded, distributed_index, on phase 13 (c)'s schema and phase
+       10's stream (one epoch; the first 2048 test rows), counts from 0:
+       the same recall on both ranks, recall@100 rising, kernels 1-2
+       launched (the card's shards) and no other kernel; the group's
+       checkpoint restored by this process over the same grid gives the
+       group's final recall, and a step from it, on the ranks' first rows,
+       every tensor bit-identical to the ranks' step from it;
+   (c) the exact, one-pass and 8-round sharded indices over (1, 4), rank r
+       holding shards 2r (card) and 2r + 1 (host), on phase 10's trained
+       catalog at B = 1 and 1024 (the one-pass kernel 3 runs only past
+       B = 128), counts from 0: kernels 1-4 and 6-7 launched on each rank
+       (its card's shard), the answers bit-identical to this process's
+       index over the same grid, which phase 17 (c)'s code holds to phase
+       12's rule.
+   Where the machine shows four cards (a call given four chips): the same
+   over two NCCL ranks of two cards each (initialize_multihost() then
+   make_mesh()), (a) also timed over 20 steps by CUDA events with the peak
+   GB a card, the references over the four cards; then phase 14's (a) and
+   (c) over four NCCL ranks, a card each, with the exchange's bytes and ms.
+   Both ranks' (b) and (c) launches join the kernels line.
 
 Output: per-phase JSON lines and each phase's seconds, then the card's name
 and power limit, the
@@ -1864,18 +1913,19 @@ def train_columns(rng, n_rows, n_customers, n_articles, probs):
     return rows, catalog
 
 
-def write_shards(dirpath, rows):
-    """``shard_*.npz`` plus the manifest ``ShardDataset`` reads."""
+def write_shards(dirpath, rows, shard_rows=SHARD_ROWS):
+    """``shard_*.npz`` of ``shard_rows`` rows plus the manifest
+    ``ShardDataset`` reads."""
     from hm_retrieval_tpu_torch.data import MANIFEST_NAME
 
     dirpath.mkdir(parents=True)
     n = len(next(iter(rows.values())))
-    for s, lo in enumerate(range(0, n, SHARD_ROWS)):
+    for s, lo in enumerate(range(0, n, shard_rows)):
         np.savez(dirpath / f"shard_{s:05d}.npz",
-                 **{k: v[lo:lo + SHARD_ROWS] for k, v in rows.items()})
+                 **{k: v[lo:lo + shard_rows] for k, v in rows.items()})
     (dirpath / MANIFEST_NAME).write_text(json.dumps({
-        "num_rows": n, "num_shards": -(-n // SHARD_ROWS),
-        "max_rows": SHARD_ROWS,
+        "num_rows": n, "num_shards": -(-n // shard_rows),
+        "max_rows": shard_rows,
         "features": {k: str(v.dtype) for k, v in rows.items()}}))
 
 
@@ -3314,13 +3364,15 @@ class CrossDeviceBytes:
 def check_placement(path, state, mesh):
     """Every tensor of a mesh state where the mesh's device map puts it:
     a row shard, and its optimizer state, on ``mesh.model_device(s)``, the
-    rest on ``mesh.first_device``. Returns each row-sharded value's shard
-    devices."""
+    rest on ``mesh.first_device``; in a process group, exactly the shards
+    of this rank's columns (``None`` for another rank's). Returns each
+    row-sharded value's shard devices."""
     shards = {}
     for key, value in state_values(state).items():
         if hasattr(value, "shards"):
-            got = [str(t.device) for t in value.shards]
-            want = [str(mesh.model_device(s)) for s in range(len(got))]
+            got = [None if t is None else str(t.device) for t in value.shards]
+            want = [str(mesh.model_device(s)) if mesh.column(s) else None
+                    for s in range(len(got))]
             require(got == want, f"{path}: {key}'s shards lie on {got}, "
                     f"their cells are {want}")
             shards[key] = got
@@ -3803,8 +3855,8 @@ PROC_RANKS = 2  # ranks of phase 14's gloo group, both on the one card
 PROC_TIMEOUT = 480  # seconds the parent waits for both ranks
 PROC_STEPS = 3  # steps each path holds against the single-device chain
 # timed steps after the held ones, and steps under the profiler on rank 0
-PROC_TIMED = {"sparse": 10, "dense": 2}
-PROC_PROFILED = {"sparse": 3, "dense": 1}
+PROC_TIMED = {"sparse": 5, "dense": 1}
+PROC_PROFILED = {"sparse": 2, "dense": 0}
 # (path, its single-device counterpart in TRAIN_PATHS, (data, model),
 # row-sharded features)
 PROC_PATHS = (
@@ -3898,7 +3950,8 @@ def hold_pieces(name, state, want):
     for key, pieces in local_pieces(state).items():
         for lo, t in pieces:
             n = max(0, min(t.shape[0], want[key].shape[0] - lo))
-            g, w = t.detach()[:n], want[key][lo:lo + n]
+            w = want[key][lo:lo + n]
+            g = t.detach()[:n].to(w.device)
             if not w.is_floating_point():
                 require(torch.equal(g, w), f"{name}: {key} differs")
                 continue
@@ -3909,6 +3962,34 @@ def hold_pieces(name, state, want):
             if err.numel():
                 worst = max(worst, float(err.max()))
     return worst
+
+
+def check_untouched(path, state, saved, initial, batches):
+    """Pad rows as they started and table rows no step of ``batches``
+    touched bit-unchanged, in this rank's pieces (``local_pieces``) against
+    ``saved``, their copies in the same order; ``initial`` gives each
+    table's unpadded rows. Returns (untouched rows, pad rows) checked."""
+    touched = {f: np.unique(np.concatenate([h[f].reshape(-1)
+                                            for h in batches]))
+               for f in batches[0]}
+    init = dict(zip([id(t) for p in local_pieces(state).values()
+                     for _, t in p], saved))
+    untouched = pad_rows = 0
+    for key, pieces in local_pieces(state).items():
+        if ".embeddings." not in key or key.startswith("opt/"):
+            continue
+        feature = key.rsplit(".", 1)[-1]
+        true_rows = initial[key].shape[0]
+        for lo, t in pieces:
+            ids = touched[feature] - lo
+            ids = ids[(ids >= 0) & (ids < t.shape[0])]
+            mask = torch.ones(t.shape[0], dtype=torch.bool, device=t.device)
+            mask[torch.from_numpy(ids).to(t.device).long()] = False
+            require(torch.equal(t.detach()[mask], init[id(t)][mask]),
+                    f"{path}: an untouched or pad row of {key} changed")
+            untouched += int(mask.sum())
+            pad_rows += max(0, lo + t.shape[0] - true_rows)
+    return untouched, pad_rows
 
 
 def replicated_prints(state):
@@ -3931,9 +4012,10 @@ def proc_serve(rank, spec, dev, repeats, workdir):
     with np.load(spec["catalog"]) as z:
         ids, emb = z["identifiers"], z["embeddings"]
     q_all = torch.from_numpy(np.load(spec["queries"])).to(dev)
-    mesh = make_mesh(1, SHARDS, devices=[dev] * (SHARDS // PROC_RANKS))
-    mine = [SHARDS // PROC_RANKS * rank + j for j in range(SHARDS // PROC_RANKS)]
-    require(mesh.local_cols() == mine and mesh.process_count == PROC_RANKS,
+    P = spec.get("ranks", PROC_RANKS)
+    mesh = make_mesh(1, SHARDS, devices=[dev] * (SHARDS // P))
+    mine = [SHARDS // P * rank + j for j in range(SHARDS // P)]
+    require(mesh.local_cols() == mine and mesh.process_count == P,
             f"rank {rank} holds columns {mesh.local_cols()}")
     indices = {
         "exact": DistributedBruteForceIndex(SERVE_K, ids, emb, mesh=mesh,
@@ -4020,7 +4102,7 @@ def proc_eval(rank, spec, dev, workdir):
 
 
 def proc_train_path(rank, path, single_name, shape, sharded, host, logq,
-                    dev, sizes):
+                    dev, sizes, ranks=PROC_RANKS):
     """Phase 14 (c) for one path on one rank (see ``proc_train``)."""
     from hm_retrieval_tpu_torch.data import device_feed
     from hm_retrieval_tpu_torch.models import make_single_device_trainer
@@ -4049,7 +4131,7 @@ def proc_train_path(rank, path, single_name, shape, sharded, host, logq,
         torch.cuda.empty_cache()
 
     D, S = shape
-    mesh = make_mesh(D, S, devices=[dev] * (D * S // PROC_RANKS))
+    mesh = make_mesh(D, S, devices=[dev] * (D * S // ranks))
     rows = mesh.local_rows()
     b = TRAIN_B // D
 
@@ -4106,27 +4188,9 @@ def proc_train_path(rank, path, single_name, shape, sharded, host, logq,
             f"{path}: replayed losses differ")
     require(all(torch.equal(x, y) for x, y in zip(runs[0][0], runs[1][0])),
             f"{path}: the replays' states differ")
-    # pad rows as they started; table rows no step touched bit-unchanged
-    touched = {f: np.unique(np.concatenate(
-        [h[f].reshape(-1) for h in host[:replay_steps]])) for f in host[0]}
-    init = dict(zip([id(t) for p in local_pieces(state).values()
-                     for _, t in p], saved))
-    untouched = pad_rows = 0
-    for key, pieces in local_pieces(state).items():
-        if ".embeddings." not in key or key.startswith("opt/"):
-            continue
-        feature = key.rsplit(".", 1)[-1]
-        true_rows = chain[0][key].shape[0]
-        for lo, t in pieces:
-            ids = touched[feature] - lo
-            ids = ids[(ids >= 0) & (ids < t.shape[0])]
-            mask = torch.ones(t.shape[0], dtype=torch.bool, device=dev)
-            mask[torch.from_numpy(ids).to(dev).long()] = False
-            require(torch.equal(t.detach()[mask], init[id(t)][mask]),
-                    f"{path}: an untouched or pad row of {key} changed")
-            untouched += int(mask.sum())
-            pad_rows += max(0, lo + t.shape[0] - true_rows)
-    del runs, init, saved
+    untouched, pad_rows = check_untouched(path, state, saved, chain[0],
+                                          host[:replay_steps])
+    del runs, saved
     # --- time: steps through device_feed, CUDA events on the card ---------
     cuda = dev.type == "cuda"
     if cuda:
@@ -4150,7 +4214,7 @@ def proc_train_path(rank, path, single_name, shape, sharded, host, logq,
     on_card = [to_device(local(h), dev) for h in
                host[PROC_STEPS + timed:PROC_STEPS + timed
                     + PROC_PROFILED[kind]]]
-    if rank == 0 and cuda:
+    if rank == 0 and cuda and on_card:
         state, prof = profile_steps(step, state, on_card)
     else:  # the same steps, so the collectives pair up
         for fb in on_card:
@@ -4176,7 +4240,7 @@ def proc_train_path(rank, path, single_name, shape, sharded, host, logq,
     }
 
 
-def proc_train(rank, seed, dev, sizes):
+def proc_train(rank, seed, dev, sizes, ranks=PROC_RANKS):
     """Phase 14 (c) on one rank: phase 13's stream and model, each path's
     mesh split over the ranks (data-parallel: this rank's data rows fed its
     rows; row-sharded (1, 4): both ranks fed the whole batch)."""
@@ -4191,7 +4255,7 @@ def proc_train(rank, seed, dev, sizes):
     out = []
     for path, single_name, shape, sharded in PROC_PATHS:
         row = proc_train_path(rank, path, single_name, shape, sharded, host,
-                              logq, dev, sizes)
+                              logq, dev, sizes, ranks)
         emit({"process_training": {"rank": rank, **{
             k: v for k, v in row.items() if k != "replicated_prints"}}})
         out.append(row)
@@ -4257,18 +4321,27 @@ def process_rank(rank, workdir, seed, repeats):
     torch.backends.cudnn.allow_tf32 = False
     workdir = Path(workdir)
     spec = json.loads((workdir / "spec.json").read_text())
-    want = torch.device(spec["device"])
-    dev = initialize_multihost(f"file://{workdir / 'rdzv'}", PROC_RANKS, rank,
+    # phase 14: two gloo ranks sharing the card; phase 18's four-card
+    # branch: a card a rank over NCCL
+    P, backend = spec.get("ranks", PROC_RANKS), spec.get("backend", "gloo")
+    want = (torch.device("cuda", rank) if backend == "nccl"
+            else torch.device(spec["device"]))
+    dev = initialize_multihost(f"file://{workdir / 'rdzv'}", P, rank,
                                device=None if want.type == "cuda" else want)
-    require(dev == want and dist.get_backend() == "gloo",
+    require(dev == want and dist.get_backend() == backend,
             f"rank {rank} on {dev} over {dist.get_backend()}")
+    parts = spec.get("parts", ["serve", "eval", "train", "runner"])
     t0 = time.perf_counter()
     out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
            "world": dist.get_world_size()}
-    out["serve"] = proc_serve(rank, spec, dev, repeats, workdir)
-    out["eval"] = proc_eval(rank, spec, dev, workdir)
-    out["train"] = proc_train(rank, seed, dev, spec["sizes"])
-    out["runner"] = proc_runner(rank, spec, dev, workdir)
+    if "serve" in parts:
+        out["serve"] = proc_serve(rank, spec, dev, repeats, workdir)
+    if "eval" in parts:
+        out["eval"] = proc_eval(rank, spec, dev, workdir)
+    if "train" in parts:
+        out["train"] = proc_train(rank, seed, dev, spec["sizes"], P)
+    if "runner" in parts:
+        out["runner"] = proc_runner(rank, spec, dev, workdir)
     out["seconds"] = time.perf_counter() - t0
     out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                           if dev.type == "cuda" else None)
@@ -4277,10 +4350,31 @@ def process_rank(rank, workdir, seed, repeats):
         if m.split(".")[0] in ("jax", "jaxlib", "hm_retrieval_tpu"))
     emit({"process_rank": {k: out[k] for k in (
         "rank", "device", "backend", "world", "seconds", "peak_mem_gb",
-        "foreign_modules")}, "serve": out["serve"],
-        "eval": out["eval"], "runner": out["runner"]})
+        "foreign_modules")}, **{k: out[k] for k in ("serve", "eval", "runner")
+                                if k in out}})
     (workdir / f"rank{rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
+
+
+def spawn_ranks(fn, args, nprocs, timeout, what):
+    """``fn(rank, *args)`` on ``nprocs`` spawned ranks; a rank that fails,
+    or the group running past ``timeout``, fails the phase, every rank
+    killed first."""
+    import torch.multiprocessing as mp
+
+    procs = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                               start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not procs.join(timeout=5):
+            require(time.monotonic() < deadline,
+                    f"{what}'s ranks ran past {timeout} s")
+    finally:
+        for proc in procs.processes:
+            if proc.is_alive():
+                proc.kill()
+        for proc in procs.processes:
+            proc.join(10)
 
 
 def phase_processes(ctx, seed, repeats, dev, workdir, mesh_rows,
@@ -4288,8 +4382,6 @@ def phase_processes(ctx, seed, repeats, dev, workdir, mesh_rows,
     """Phase 14 (see the module docstring). Returns each kernel's launches
     over both ranks' main paths. On the CPU it rehearses small (phase 10's
     rehearsal sizes for ``ctx``, ``n_customers`` / ``n_articles`` for (c))."""
-    import torch.multiprocessing as mp
-
     from hm_retrieval_tpu_torch.indices import (
         DistributedBruteForceIndex, DistributedQuantizedIndex,
         load_distributed_index,
@@ -4345,21 +4437,8 @@ def phase_processes(ctx, seed, repeats, dev, workdir, mesh_rows,
 
     # --- the ranks ----------------------------------------------------------
     t0 = time.perf_counter()
-    procs = mp.start_processes(process_rank,
-                               args=(str(workdir), seed, repeats),
-                               nprocs=PROC_RANKS, join=False,
-                               start_method="spawn")
-    deadline = time.monotonic() + PROC_TIMEOUT
-    try:
-        while not procs.join(timeout=5):
-            require(time.monotonic() < deadline,
-                    f"phase 14's ranks ran past {PROC_TIMEOUT} s")
-    finally:
-        for proc in procs.processes:
-            if proc.is_alive():
-                proc.kill()
-        for proc in procs.processes:
-            proc.join(10)
+    spawn_ranks(process_rank, (str(workdir), seed, repeats), PROC_RANKS,
+                PROC_TIMEOUT, "phase 14")
     ranks_s = time.perf_counter() - t0
     results = []
     for r in range(PROC_RANKS):
@@ -4495,9 +4574,10 @@ CARD_HOST_PATHS = (
     ("row_sharded_sparse_1x2", "sparse_adagrad", (1, 2), MESH_SHARDED),
 )
 # the dense paths copy the 702 MB customer table, or update half of it on
-# the host, each step: replays of 2 steps, not MESH_STEPS
-CARD_HOST_REPLAYS = {"dp_dense_adagrad": 2,
-                     "row_sharded_dense_adagrad_1x2": 2}
+# the host, each step: replays of 1 step (2 until phase 18 needed the time),
+# not MESH_STEPS
+CARD_HOST_REPLAYS = {"dp_dense_adagrad": 1,
+                     "row_sharded_dense_adagrad_1x2": 1}
 SEVERAL_EVAL_ROWS = 2048  # the card + host runner's test rows: one batch
 SEVERAL_SERVE_BATCHES = (1, 1024)
 
@@ -4520,11 +4600,13 @@ def card_paths(n):
     return tuple(paths)
 
 
-def first_rows(src, dst, n):
-    """The first ``n`` rows of the shards in ``src`` as shards in ``dst``."""
+def first_rows(src, dst, n, shard_rows=SHARD_ROWS):
+    """The first ``n`` rows of the shards in ``src`` as shards of
+    ``shard_rows`` rows in ``dst``."""
     from hm_retrieval_tpu_torch.data import ShardDataset
 
-    write_shards(dst, next(ShardDataset(str(src)).iter_batches(n)))
+    write_shards(dst, next(ShardDataset(str(src)).iter_batches(n)),
+                 shard_rows)
 
 
 def several_devices_runner(ctx, mesh, dev, workdir, name):
@@ -4636,7 +4718,8 @@ def several_devices_runner(ctx, mesh, dev, workdir, name):
 
 def several_devices_index(ctx, mesh, dev, name):
     """Phase 17 (c) over ``mesh`` (see the module docstring). Returns the
-    kernels' launches of the sharded indices' serves."""
+    kernels' launches of the sharded indices' serves, the answers
+    (``{index: {B: (scores, ids)}}``) and the queries."""
     from hm_retrieval_tpu_torch.indices import (
         DistributedBruteForceIndex, DistributedQuantizedIndex,
         QuantizedIndex,
@@ -4739,7 +4822,7 @@ def several_devices_index(ctx, mesh, dev, name):
         "name": name, "catalog": n, "k": k, "mesh": mesh.shape,
         "shard_devices": homes, "build_s": build_s, "launches": launches,
         "per_index": per_index, "held": held, "serve_wall_ms": serve_ms}})
-    return launches
+    return launches, answers, q_all
 
 
 def phase_several_devices(ctx, seed, dev, workdir, n_customers=N_CUSTOMERS,
@@ -4769,7 +4852,8 @@ def phase_several_devices(ctx, seed, dev, workdir, n_customers=N_CUSTOMERS,
     pair = make_mesh(1, 2, devices=[dev, HOST])
     launches = several_devices_runner(ctx, pair, dev, workdir, "card_host")
     lap("b_card_host")
-    for kn, v in several_devices_index(ctx, pair, dev, "card_host").items():
+    for kn, v in several_devices_index(ctx, pair, dev,
+                                       "card_host")[0].items():
         launches[kn] += v
     lap("c_card_host")
     # a power of two of the cards, so that each mesh axis divides B
@@ -4788,11 +4872,745 @@ def phase_several_devices(ctx, seed, dev, workdir, n_customers=N_CUSTOMERS,
                                             "cards").items():
             launches[kn] += v
         lap("b_cards")
-        for kn, v in several_devices_index(ctx, row, dev, "cards").items():
+        for kn, v in several_devices_index(ctx, row, dev,
+                                           "cards")[0].items():
             launches[kn] += v
         lap("c_cards")
     emit({"several_devices": {"visible_cards": visible, "cards": cards,
                               "seconds": laps}})
+    return launches
+
+
+# --- phase 18: ranks of a process group, each over several devices ----------
+
+RANKS18 = 2  # ranks of phase 18's group
+RANKS18_TIMEOUT = 480  # seconds the parent waits for them
+# held steps a path (each from the single-device chain's state), replayed
+# twice; then host-clock steps through the feed (card + host), or CUDA-event
+# steps where every cell is a card
+R18_STEPS = {"sparse": 3, "dense": 1}
+R18_TIMED = {"sparse": 5, "dense": 0}
+R18_CARDS_TIMED = 20
+# batches of the stream, the same in every process: the held steps' first
+R18_BATCHES = max(R18_STEPS.values()) + R18_CARDS_TIMED
+# (path, its single-device counterpart in TRAIN_PATHS, (data, model),
+# row-sharded features), grouped by counterpart: over 2 ranks, (2, 2) is a
+# data row a rank, (4, 1) two data rows a rank, (1, 4) two columns a rank
+R18_PATHS = (
+    ("row_sharded_sparse_2x2", "sparse_adagrad", (2, 2), MESH_SHARDED),
+    ("dp_sparse_adagrad", "sparse_adagrad", (4, 1), []),
+    ("row_sharded_sparse_1x4", "sparse_adagrad", (1, 4), MESH_SHARDED),
+    ("row_sharded_dense_2x2", "dense_adagrad", (2, 2), MESH_SHARDED),
+    ("dp_dense_adagrad", "dense_adagrad", (4, 1), []),
+)
+
+
+def r18_prints(state, dev):
+    """The fingerprint of each of this process's pieces of a training state
+    (``local_pieces``), ``<key>@<first row>``, computed on ``dev``."""
+    return {f"{k}@{lo}": fingerprint(t.detach().to(dev))
+            for k, pieces in local_pieces(state).items() for lo, t in pieces}
+
+
+def r18_batches(seed, sizes):
+    """Phase 13's stream: ``R18_BATCHES`` host batches of TRAIN_B rows."""
+    rng = np.random.default_rng(seed + 13)
+    probs, logq = article_popularity(sizes[1])
+    cols, _ = train_columns(rng, R18_BATCHES * TRAIN_B, *sizes, probs)
+    cols.pop("purchase_history")
+    host = [{k: v[i * TRAIN_B:(i + 1) * TRAIN_B] for k, v in cols.items()}
+            for i in range(R18_BATCHES)]
+    return host, logq
+
+
+def r18_chain(single_name, host, n, logq, dev, sizes):
+    """The single-device chain on the card: its state before each of ``n``
+    steps and after the last (unpadded rows), and its losses."""
+    from hm_retrieval_tpu_torch.models import make_single_device_trainer
+
+    fields = {name: f for name, f, _ in TRAIN_PATHS}
+    tc = training_config(fields[single_name], check=True)
+    model = train_model(*sizes, logq, False, dev)
+    state, step = make_single_device_trainer(model, tc)
+    rows_of = {n_: p.shape[0] for n_, p in state.params.items()}
+    chain = [{k: v.clone() for k, v in state_tensors(state, rows_of).items()}]
+    losses = []
+    for b in host[:n]:
+        state, m = step(state, to_device(b, dev))
+        losses.append(m["loss"])
+        chain.append({k: v.clone() for k, v in
+                      state_tensors(state, rows_of).items()})
+    del model, state, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return tc, chain, torch.stack(losses)
+
+
+def r18_reference(paths, seed, dev, sizes, cells):
+    """Phase 18 (a)'s reference in the parent: each path over ONE process's
+    mesh of the group's grid (``cells``), each held step from the
+    single-device chain's state, and the fingerprint of every tensor after
+    it."""
+    from hm_retrieval_tpu_torch.models.train_path import make_mesh_trainer
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+
+    host, logq = r18_batches(seed, sizes)
+    out, chains = {}, {}
+    for path, single_name, (D, S), sharded in paths:
+        n = R18_STEPS["sparse" if "sparse" in path else "dense"]
+        if single_name not in chains:
+            chains.clear()
+            chains[single_name] = r18_chain(single_name, host, n, logq, dev,
+                                            sizes)
+        tc, chain, _ = chains[single_name]
+        mesh = make_mesh(D, S, devices=cells[:D * S])
+        model = train_model(*sizes, logq, False, dev)
+        state, step = make_mesh_trainer(
+            model, dataclasses.replace(tc, sharded_embedding_features=sharded),
+            mesh)
+        prints, losses = [], []
+        for i in range(n):
+            state = load_values(state, chain[i], i)
+            state, m = step(state, to_device(host[i], dev))
+            losses.append(float(m["loss"]))
+            prints.append(r18_prints(state, dev))
+        out[path] = {"prints": prints, "losses": losses,
+                     "chain_print": [fingerprint(v) for _, v in
+                                     sorted(chain[n].items())]}
+        del model, state, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def r18_train_path(path, single_name, shape, sharded, host, logq, dev,
+                   sizes, cells, chains, events):
+    """Phase 18 (a) for one path on this rank: ``cells`` its devices (None:
+    its block of cards); ``chains`` caches the single-device chain by
+    counterpart. ``events``: time with CUDA events (every cell a card),
+    else on the host clock."""
+    from hm_retrieval_tpu_torch.data import device_feed
+    from hm_retrieval_tpu_torch.models.train_path import make_mesh_trainer
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+
+    kind = "sparse" if "sparse" in path else "dense"
+    n = R18_STEPS[kind]
+    if single_name not in chains:
+        chains.clear()
+        chains[single_name] = r18_chain(single_name, host, n, logq, dev,
+                                        sizes)
+    tc, chain, single_losses = chains[single_name]
+    D, S = shape
+    mesh = (make_mesh(D, S) if cells is None
+            else make_mesh(D, S, devices=cells))
+    rows = mesh.local_rows()
+    b = TRAIN_B // D
+
+    def local(batch):
+        """This rank's rows of a global batch: its data rows'."""
+        return {k: v[rows[0] * b:(rows[-1] + 1) * b] for k, v in
+                batch.items()}
+
+    model = train_model(*sizes, logq, False, dev)
+    state, step = make_mesh_trainer(
+        model, dataclasses.replace(tc, sharded_embedding_features=sharded),
+        mesh)
+    sync_all()
+    placed = check_placement(path, state, mesh)
+    row_sharded = sorted(k for k, v in state_values(state).items()
+                         if hasattr(v, "shards"))
+    require(hold_pieces(f"{path} initial", state, chain[0]) == 0.0,
+            f"{path}: the initial state differs from the single device's")
+    saved = [t.detach().clone() for p in local_pieces(state).values()
+             for _, t in p]
+    # --- each held step from the single-device chain's state ---------------
+    worst, losses, prints, sent, crossed, step_ms = 0.0, [], [], [], [], []
+    for i in range(n):
+        state = load_pieces(state, chain[i], i)
+        batch = to_device(local(host[i]), dev)
+        sync_all()
+        t0 = time.perf_counter()
+        with exchanged() as ex, CrossDeviceBytes() as cx:
+            state, m = step(state, batch)
+            sync_all()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        sent.append(ex["bytes"])
+        crossed.append(cx.bytes)
+        losses.append(float(m["loss"]))
+        worst = max(worst, hold_pieces(f"{path} step {i}", state,
+                                       chain[i + 1]))
+        prints.append(r18_prints(state, dev))
+    require(all(np.isfinite(losses)), f"{path}: a loss is NaN")
+    require(np.allclose(losses, single_losses.tolist(), rtol=1e-5, atol=0),
+            f"{path}: losses {losses} against the single device's "
+            f"{single_losses.tolist()}")
+    # --- replays from the initial state, bit-identical --------------------
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for t, s0 in zip([t for p in local_pieces(state).values()
+                              for _, t in p], saved):
+                t.copy_(s0)
+        state = state._replace(step=0)
+        run_losses = []
+        for h in host[:n]:
+            state, m = step(state, to_device(local(h), dev))
+            run_losses.append(float(m["loss"]))
+        runs.append((r18_prints(state, dev), run_losses))
+    require(runs[0] == runs[1], f"{path}: the replays differ")
+    untouched, pad_rows = check_untouched(path, state, saved, chain[0],
+                                          host[:n])
+    del runs, saved
+    # --- time through the feed --------------------------------------------
+    timed = R18_CARDS_TIMED if events else R18_TIMED[kind]
+    ms, peak = [], None
+    if timed:
+        cards = sorted({d.index for d in mesh.devices[
+            mesh.ranks == mesh.process_index] if d.type == "cuda"})
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        feed = [local(host[n + (i % (len(host) - n))]) for i in range(timed)]
+        for fb in device_feed(iter(feed), mesh=mesh):
+            if events:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                state, _ = step(state, fb)
+                ev[1].record()
+                ms.append(ev)
+            else:
+                sync_all()
+                t0 = time.perf_counter()
+                state, _ = step(state, fb)
+                sync_all()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        sync_all()
+        if events:
+            ms = [x.elapsed_time(y) for x, y in ms]
+        peak = {c: torch.cuda.max_memory_allocated(c) / 1e9 for c in cards}
+    del model, state, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {
+        "path": path, "single_device": single_name,
+        "mesh": {"data": D, "model": S}, "rows": rows,
+        "columns": mesh.local_cols(),
+        "cells": [str(mesh.devices[d, s]) for d in rows
+                  for s in mesh.local_cols()],
+        "sharded": sharded, "local_B": b * len(rows), "global_B": TRAIN_B,
+        "losses": losses, "single_losses": single_losses.tolist(),
+        "max_abs_err_per_step": worst, "rtol": TRAIN_RTOL,
+        "atol": TRAIN_ATOL, "prints": prints, "replay_bitwise": True,
+        "replay_steps": n, "untouched_rows_checked": untouched,
+        "pad_rows": pad_rows, "placement": placed,
+        "row_sharded": row_sharded, "exchange_bytes_per_step": sent,
+        "cross_device_bytes_per_step": crossed,
+        "held_step_ms": step_ms,
+        "median_held_step_ms": statistics.median(step_ms),
+        "timed_steps": len(ms),
+        ("median_step_ms" if events else "median_host_clock_step_ms"):
+            statistics.median(ms) if ms else None,
+        "peak_gb_by_card": peak,
+        "chain_print": [fingerprint(v) for _, v in sorted(chain[n].items())],
+    }
+
+
+def r18_runner(rank, spec, dev, cells):
+    """Phase 18 (b) on one rank: ``modelling_runner`` over (2, 2), data row
+    r here, then one step from the group's checkpoint."""
+    from hm_retrieval_tpu_torch.data import ShardDataset
+    from hm_retrieval_tpu_torch.models import TwoTowerModel
+    from hm_retrieval_tpu_torch.models.train_path import make_mesh_trainer
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+    from hm_retrieval_tpu_torch.runners import (
+        CheckpointManager, modelling_runner,
+    )
+    from hm_retrieval_tpu_torch.schema import Schema
+    from hm_retrieval_tpu_torch.utils.settings import Settings
+
+    settings = Settings.from_json(spec["runner_settings"])
+    mesh = (make_mesh(2, 2) if cells is None
+            else make_mesh(2, 2, devices=cells))
+    require(mesh.local_rows() == [rank], f"rank {rank}: rows "
+            f"{mesh.local_rows()}")
+    # --- the main path: counts from 0 --------------------------------------
+    sync_all()
+    bt.reset_launches()
+    qt.reset_launches()
+    with exchanged() as ex:
+        t0 = time.perf_counter()
+        res = modelling_runner(settings, mesh=mesh, distributed_index=True,
+                               device=dev)
+        sync_all()
+        runner_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    # ----------------------------------------------------------------------
+    schema = Schema.load(settings.schema_dirpath)
+    tc = schema.training_config
+    model = TwoTowerModel.create_from_schema(schema, device=dev)
+    state, step = make_mesh_trainer(model, tc, mesh)
+    state = CheckpointManager(settings.checkpoint_dirpath,
+                              device=dev).restore(state)
+    placed = check_placement("runner restored", state, mesh)
+    batch = next(ShardDataset(settings.train_shards_dirpath,
+                              process_index=rank, process_count=RANKS18)
+                 .iter_batches(tc.train_batch_size // RANKS18))
+    state, m = step(state, to_device(batch, dev))
+    prints = r18_prints(state, dev)
+    return {"mesh": [2, 2], "row": rank,
+            "initial": {str(k): v for k, v in res["initial"].items()},
+            "final": {str(k): v for k, v in res["final"].items()},
+            "runner_s": runner_s, "launches": launches, "exchange": ex,
+            "restored_step": state.step, "restored_loss": float(m["loss"]),
+            "restored_prints": prints, "placement": placed}
+
+
+def r18_index(rank, spec, dev, cells):
+    """Phase 18 (c) on one rank: the exact, one-pass and 8-round sharded
+    indices over (1, 4), shards 2r and 2r + 1 here."""
+    from hm_retrieval_tpu_torch.indices import (
+        DistributedBruteForceIndex, DistributedQuantizedIndex,
+    )
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+
+    with np.load(spec["catalog"]) as z:
+        ids, emb = z["identifiers"], z["embeddings"]
+    q_all = torch.from_numpy(np.load(spec["queries"])).to(dev)
+    mesh = (make_mesh(1, SHARDS) if cells is None
+            else make_mesh(1, SHARDS, devices=cells))
+    mine = [2 * rank, 2 * rank + 1]
+    require(mesh.local_cols() == mine, f"rank {rank} holds columns "
+            f"{mesh.local_cols()}")
+    t0 = time.perf_counter()
+    indices = {
+        "exact": DistributedBruteForceIndex(SERVE_K, ids, emb, mesh=mesh,
+                                            method="pallas"),
+        "quantized": DistributedQuantizedIndex(SERVE_K, ids, emb, mesh=mesh,
+                                               method="pallas"),
+        "rounds": DistributedQuantizedIndex(SERVE_K, ids, emb, mesh=mesh,
+                                            method="pallas",
+                                            pallas_rounds=MAX_ROUNDS),
+    }
+    sync_all()
+    build_s = time.perf_counter() - t0
+    # --- the main path: counts from 0 --------------------------------------
+    bt.reset_launches()
+    qt.reset_launches()
+    answers, per_index, ms = {}, {}, {}
+    with exchanged() as ex:
+        for name, ix in indices.items():
+            before = kernel_counts()
+            for B in SEVERAL_SERVE_BATCHES:
+                sync_all()
+                t1 = time.perf_counter()
+                v, i = ix.topk_from_embeddings(q_all[:B])
+                sync_all()
+                ms[f"{name}_B{B}"] = (time.perf_counter() - t1) * 1e3
+                answers[f"{name}_B{B}_scores"] = v.cpu().numpy()
+                answers[f"{name}_B{B}_ids"] = i.cpu().numpy()
+            per_index[name] = {kn: c - before[kn]
+                               for kn, c in kernel_counts().items()
+                               if c > before[kn]}
+    launches = kernel_counts()
+    # ----------------------------------------------------------------------
+    np.savez(Path(spec["workdir"]) / f"answers18_{rank}.npz", **answers)
+    return {"mesh": [1, SHARDS], "columns": mine, "build_s": build_s,
+            "launches": launches, "per_index": per_index,
+            "serve_wall_ms": ms, "exchange": ex}
+
+
+def ranks_rank(rank, workdir):
+    """Phase 18's rank ``rank``: joins the group, runs (a)-(c) over its
+    cells and writes its results to ``workdir/rank18_{rank}.json``."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from hm_retrieval_tpu_torch.parallel.mesh import (
+        initialize_multihost, local_devices,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    workdir = Path(workdir)
+    spec = json.loads((workdir / "spec18.json").read_text())
+    torch.set_num_threads(spec["threads"])
+    on_card = torch.device(spec["device"]).type == "cuda"
+    dev = initialize_multihost(f"file://{workdir / 'rdzv18'}", RANKS18, rank,
+                               device=None if on_card else "cpu")
+    require(dist.get_backend() == spec["backend"],
+            f"rank {rank} over {dist.get_backend()}, not {spec['backend']}")
+    # the card and the host, or (None) make_mesh()'s default: the block
+    cells = [dev, HOST] if spec["cells"] == "card_host" else None
+    events = spec["cells"] == "cards"
+    t0 = time.perf_counter()
+    out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "local_devices": [str(d) for d in local_devices()],
+           "world": dist.get_world_size(), "train": [], "seconds": {}}
+    sizes = spec["sizes"]
+    host, logq = r18_batches(spec["seed"], sizes)
+    chains = {}
+    for path, single_name, shape, sharded in R18_PATHS:
+        row = r18_train_path(path, single_name, shape, sharded, host, logq,
+                             dev, sizes, cells, chains, events)
+        emit({"rank_training": {"rank": rank, **{
+            k: v for k, v in row.items() if k != "prints"}}})
+        out["train"].append(row)
+    chains.clear()
+    out["seconds"]["a"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["runner"] = r18_runner(rank, spec, dev, cells)
+    out["seconds"]["b"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["index"] = r18_index(rank, spec, dev, cells)
+    out["seconds"]["c"] = time.perf_counter() - t1
+    out["seconds"]["all"] = time.perf_counter() - t0
+    out["foreign_modules"] = sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "hm_retrieval_tpu"))
+    emit({"rank_several_devices": {
+        k: out[k] for k in ("rank", "device", "backend", "local_devices",
+                            "world", "seconds", "foreign_modules")},
+        "runner": {k: v for k, v in out["runner"].items()
+                   if k != "restored_prints"},
+        "index": out["index"]})
+    (workdir / f"rank18_{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def ranks_over_cells(ctx, seed, dev, workdir, variant, n_customers,
+                     n_articles):
+    """Phase 18 for one ``variant``: "card_host" (each rank over the card
+    and the host CPU) or "cards" (each rank over its block of two cards).
+    Returns each kernel's launches over both ranks' (b) and (c)."""
+    mine = torch.get_num_threads()
+    threads = max(1, mine // RANKS18)
+    # every reference runs on the ranks' thread count, for the host's bits
+    torch.set_num_threads(threads)
+    try:
+        return ranks_over_grid(ctx, seed, dev, workdir, variant, n_customers,
+                               n_articles, threads)
+    finally:
+        torch.set_num_threads(mine)
+
+
+def ranks_over_grid(ctx, seed, dev, workdir, variant, n_customers,
+                    n_articles, threads):
+    """``ranks_over_cells``' work, the references run on ``threads``."""
+    from hm_retrieval_tpu_torch.data import ShardDataset
+    from hm_retrieval_tpu_torch.models import TwoTowerModel
+    from hm_retrieval_tpu_torch.models.train_path import make_mesh_trainer
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+    from hm_retrieval_tpu_torch.parallel.mesh import (
+        choose_backend, rank_devices,
+    )
+    from hm_retrieval_tpu_torch.runners import (
+        CheckpointManager, evaluation_runner,
+    )
+    from hm_retrieval_tpu_torch.schema import Schema
+
+    w = workdir / f"ranks18_{variant}"
+    w.mkdir()
+    cards = variant == "cards"
+    visible = torch.cuda.device_count() if dev.type == "cuda" else 0
+    # the group's grid in rank order: each rank's first card (the one card,
+    # or cuda:0 and cuda:2 on four) and the host, or every card
+    firsts = [rank_devices(r, RANKS18)[0] if visible else dev
+              for r in range(RANKS18)]
+    cells = (list(make_mesh().devices.reshape(-1))[:4] if cards
+             else [c for first in firsts for c in (first, HOST)])
+    backend = choose_backend(dev.type, RANKS18, visible)
+    sizes = [n_customers, n_articles]
+    laps = {}
+    t0 = time.perf_counter()
+    # --- the references, in this process over the same grid ---------------
+    ref_train = r18_reference(R18_PATHS, seed, dev, sizes, cells)
+    laps["a_reference"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ref_launches, ref_answers, q_all = several_devices_index(
+        ctx, make_mesh(1, SHARDS, devices=cells), dev,
+        f"ranks_reference_{variant}")
+    laps["c_reference"] = time.perf_counter() - t1
+    exact1 = ctx["index"]
+    n = exact1.num_candidates
+    np.savez(w / "catalog.npz", identifiers=exact1.identifiers[:n].cpu()
+             .numpy(), embeddings=exact1.embeddings[:n].cpu().numpy())
+    np.save(w / "queries.npy", q_all.cpu().numpy())
+    base = ctx["mesh_settings"]  # phase 13 (c)'s: both id tables sharded
+    # a shard a rank
+    first_rows(base.test_shards_dirpath, w / "test", SEVERAL_EVAL_ROWS,
+               SEVERAL_EVAL_ROWS // RANKS18)
+    settings = dataclasses.replace(
+        base, test_shards_dirpath=str(w / "test"),
+        checkpoint_dirpath=str(w / "checkpoints"),
+        model_dirpath=str(w / "model"), index_dirpath=str(w / "index"),
+        tensorboard_logs_dir=None, profile_steps=None)
+    settings.to_json(str(w / "runner_settings.json"))
+    (w / "spec18.json").write_text(json.dumps({
+        "workdir": str(w), "seed": seed, "sizes": sizes, "threads": threads,
+        "cells": variant, "backend": backend, "device": str(dev),
+        "catalog": str(w / "catalog.npz"), "queries": str(w / "queries.npy"),
+        "runner_settings": str(w / "runner_settings.json")}))
+    sync_all()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # --- the ranks ----------------------------------------------------------
+    t1 = time.perf_counter()
+    spawn_ranks(ranks_rank, (str(w),), RANKS18, RANKS18_TIMEOUT, "phase 18")
+    laps["ranks"] = time.perf_counter() - t1
+    results = []
+    for r in range(RANKS18):
+        path = w / f"rank18_{r}.json"
+        require(path.exists(), f"phase 18: rank {r} printed no result")
+        results.append(json.loads(path.read_text()))
+        require(results[r]["foreign_modules"] == [],
+                f"rank {r} imported {results[r]['foreign_modules']}")
+    # --- (a) the one-process mesh's bits, every tensor after every step ---
+    train_rows = []
+    for j, (path, *_) in enumerate(R18_PATHS):
+        rows = [x["train"][j] for x in results]
+        want = ref_train[path]
+        for r, row in enumerate(rows):
+            require(row["chain_print"] == want["chain_print"],
+                    f"{path}: rank {r}'s single-device chain differs from "
+                    "this process's")
+            for i, got in enumerate(row["prints"]):
+                differ = sorted(k for k, v in got.items()
+                                if want["prints"][i].get(k) != v)
+                require(not differ, f"{path} step {i}: rank {r}'s {differ} "
+                        "differ from the one-process mesh's")
+            require(row["losses"] == want["losses"],
+                    f"{path}: rank {r}'s losses {row['losses']} are not the "
+                    f"one-process mesh's {want['losses']}")
+        for i in range(len(want["prints"])):
+            shared = [{k: v for k, v in x["prints"][i].items()
+                       if k.split("@")[0] not in x["row_sharded"]}
+                      for x in rows]
+            require(all(p == shared[0] for p in shared),
+                    f"{path} step {i}: the ranks' replicated state differs")
+        train_rows.append({
+            "path": path, "mesh": rows[0]["mesh"],
+            "cells": [x["cells"] for x in rows],
+            "max_abs_err_per_step": [x["max_abs_err_per_step"] for x in rows],
+            "exchange_bytes_per_step": [x["exchange_bytes_per_step"]
+                                        for x in rows],
+            "cross_device_bytes_per_step": [
+                x["cross_device_bytes_per_step"] for x in rows],
+            "median_held_step_ms": [x["median_held_step_ms"] for x in rows],
+            ("median_step_ms" if cards else "median_host_clock_step_ms"): [
+                x.get("median_step_ms", x.get("median_host_clock_step_ms"))
+                for x in rows],
+            "peak_gb_by_card": [x["peak_gb_by_card"] for x in rows],
+            "bits_equal_one_process": True,
+            "tensors_compared": sum(len(p) for x in rows
+                                    for p in x["prints"])})
+    # --- (b) the runner over (2, 2) ---------------------------------------
+    rn = [x["runner"] for x in results]
+    for r, x in enumerate(rn):
+        require(x["initial"] == rn[0]["initial"] and x["final"] ==
+                rn[0]["final"], f"rank {r}: the runner's recall differs "
+                "between the ranks")
+    require(rn[0]["final"]["100"] > rn[0]["initial"]["100"],
+            f"recall@100 over the group did not rise: {rn[0]}")
+    b_launches = {}
+    for x in rn:
+        for k, v in x["launches"].items():
+            b_launches[k] = b_launches.get(k, 0) + v
+    require(dev.type != "cuda" or (b_launches["bin_max2_first_round"] > 0
+                                   and b_launches["bin_max2_round"] > 0),
+            f"(b): evaluate did not launch kernels 1-2: {b_launches}")
+    require(all(v == 0 for k, v in b_launches.items()
+                if k not in ("bin_max2_first_round", "bin_max2_round")),
+            f"(b): the runner launched other kernels: {b_launches}")
+    grid = make_mesh(2, 2, devices=cells)
+    t1 = time.perf_counter()
+    one = evaluation_runner(
+        dataclasses.replace(settings, index_dirpath=str(w / "one_index")),
+        mesh=grid, distributed_index=True, device=dev)
+    laps["b_reference"] = time.perf_counter() - t1
+    one = {str(k): v for k, v in one.items()}
+    require(one == rn[0]["final"], f"the group's checkpoint restored in one "
+            f"process gave {one}, the group {rn[0]['final']}")
+    schema = Schema.load(settings.schema_dirpath)
+    tc = schema.training_config
+    model = TwoTowerModel.create_from_schema(schema, device=dev)
+    state, step = make_mesh_trainer(model, tc, grid)
+    state = CheckpointManager(settings.checkpoint_dirpath,
+                              device=dev).restore(state)
+    local_b = tc.train_batch_size // RANKS18
+    parts = [next(ShardDataset(settings.train_shards_dirpath,
+                               process_index=r, process_count=RANKS18)
+                  .iter_batches(local_b)) for r in range(RANKS18)]
+    batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    state, m = step(state, to_device(batch, dev))
+    ref_prints = r18_prints(state, dev)
+    for r, x in enumerate(rn):
+        differ = sorted(k for k, v in x["restored_prints"].items()
+                        if ref_prints.get(k) != v)
+        require(not differ, f"(b): rank {r}'s step from the checkpoint "
+                f"differs from one process's in {differ}")
+        require(x["restored_loss"] == float(m["loss"]),
+                f"(b): rank {r}'s loss from the checkpoint "
+                f"{x['restored_loss']}, one process's {float(m['loss'])}")
+    del model, state, step
+    # --- (c) the sharded indices over (1, 4) --------------------------------
+    ix = [x["index"] for x in results]
+    for r in range(RANKS18):
+        with np.load(w / f"answers18_{r}.npz") as z:
+            for name, by_b in ref_answers.items():
+                for B, (v, i) in by_b.items():
+                    require(z[f"{name}_B{B}_scores"].tobytes()
+                            == v.cpu().numpy().tobytes()
+                            and z[f"{name}_B{B}_ids"].tobytes()
+                            == i.cpu().numpy().tobytes(),
+                            f"(c): rank {r}'s {name} at B={B} differs from "
+                            "the one-process index over the same grid")
+    c_launches = {}
+    for x in ix:
+        for k, v in x["launches"].items():
+            c_launches[k] = c_launches.get(k, 0) + v
+    for kn in ("bin_max2_first_round", "bin_max2_round") + \
+            SINGLE_PASS_KERNELS[:2] + ROUNDS_KERNELS:
+        require(dev.type != "cuda" or all(
+            x["launches"].get(kn, 0) > 0 for x in ix),
+            f"(c): {kn} was not launched on every rank: "
+            f"{[x['launches'] for x in ix]}")
+    launches = {k: b_launches.get(k, 0) + c_launches.get(k, 0)
+                for k in set(b_launches) | set(c_launches)}
+    laps["all"] = time.perf_counter() - t0
+    emit({"ranks_several_devices": {
+        "variant": variant, "ranks": RANKS18,
+        "backend": results[0]["backend"],
+        "cells": [str(c) for c in cells],
+        "local_devices": [x["local_devices"] for x in results],
+        "threads_a_rank": threads, "seconds": laps,
+        "rank_seconds": [x["seconds"] for x in results],
+        "train": train_rows,
+        "runner": {"initial": rn[0]["initial"], "final": rn[0]["final"],
+                   "one_process_restore": one,
+                   "restored_step_bitwise": True,
+                   "runner_s": [x["runner_s"] for x in rn],
+                   "exchange": [x["exchange"] for x in rn],
+                   "launches": b_launches},
+        "index": {"bitwise_vs_one_process": True,
+                  "reference_launches": ref_launches,
+                  "per_index": [x["per_index"] for x in ix],
+                  "serve_wall_ms": [x["serve_wall_ms"] for x in ix],
+                  "exchange": [x["exchange"] for x in ix],
+                  "build_s": [x["build_s"] for x in ix],
+                  "launches": c_launches}}})
+    return launches
+
+
+def phase_processes_nccl(ctx, seed, repeats, dev, workdir, sizes):
+    """Phase 18's four-card branch, last part: phase 14's (a) and (c) over
+    four NCCL ranks, a card each (phase 14's layout over NCCL). Returns each
+    kernel's launches over the ranks' (a)."""
+    from hm_retrieval_tpu_torch.indices import (
+        DistributedBruteForceIndex, DistributedQuantizedIndex,
+    )
+    from hm_retrieval_tpu_torch.parallel import make_mesh
+
+    ranks = 4
+    w = workdir / "processes_nccl"
+    w.mkdir()
+    exact1, model, tc = ctx["index"], ctx["model"], ctx["tc"]
+    n = exact1.num_candidates
+    ids = exact1.identifiers[:n].cpu().numpy()
+    emb = exact1.embeddings[:n]
+    first = to_device(next(ctx["test_ds"].iter_batches(tc.test_batch_size)),
+                      dev)
+    with torch.no_grad():
+        q_all = model.query_forward(first)[: max(SERVE_BATCHES)]
+    np.savez(w / "catalog.npz", identifiers=ids, embeddings=emb.cpu().numpy())
+    np.save(w / "queries.npy", q_all.cpu().numpy())
+    # the reference: phase 12's one-process S = 4 indices on the one card
+    mesh = make_mesh(1, SHARDS, devices=[dev] * SHARDS)
+    ref = {}
+    for name, ix in (
+        ("exact", DistributedBruteForceIndex(SERVE_K, ids, emb, mesh=mesh,
+                                             method="pallas")),
+        ("quantized", DistributedQuantizedIndex(SERVE_K, ids, emb,
+                                                mesh=mesh, method="pallas")),
+    ):
+        for B in SERVE_BATCHES:
+            v, i = ix.topk_from_embeddings(q_all[:B])
+            ref[f"{name}_B{B}_scores"] = v.cpu().numpy()
+            ref[f"{name}_B{B}_ids"] = i.cpu().numpy()
+    del mesh
+    (w / "spec.json").write_text(json.dumps({
+        "catalog": str(w / "catalog.npz"), "queries": str(w / "queries.npy"),
+        "device": str(dev), "sizes": sizes, "ranks": ranks,
+        # gloo on the CPU, where this rehearses
+        "backend": "nccl" if dev.type == "cuda" else "gloo",
+        "parts": ["serve", "train"]}))
+    sync_all()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn_ranks(process_rank, (str(w), seed, repeats), ranks, PROC_TIMEOUT,
+                "phase 18's four NCCL ranks")
+    ranks_s = time.perf_counter() - t0
+    results = []
+    for r in range(ranks):
+        path = w / f"rank{r}.json"
+        require(path.exists(), f"NCCL rank {r} printed no result")
+        results.append(json.loads(path.read_text()))
+        with np.load(w / f"answers{r}.npz") as z:
+            for key, want in ref.items():
+                require(z[key].tobytes() == want.tobytes(),
+                        f"NCCL rank {r}: {key} differs from the one-process "
+                        "sharded index")
+    for j, (path, *_) in enumerate(PROC_PATHS):
+        rows = [x["train"][j] for x in results]
+        require(all(r["replicated_prints"] == rows[0]["replicated_prints"]
+                    and r["losses"] == rows[0]["losses"] for r in rows),
+                f"{path}: the NCCL ranks' replicated state or losses differ")
+    launches = {}
+    for x in results:
+        for k, v in x["serve"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    emit({"processes_nccl": {
+        "ranks": ranks, "backend": results[0]["backend"],
+        "devices": [x["device"] for x in results], "ranks_s": ranks_s,
+        "serve_bitwise_vs_phase12": True,
+        "serve_ms": {k: [x["serve"]["ms"][k] for x in results]
+                     for k in results[0]["serve"]["ms"]},
+        "serve_exchange": [x["serve"]["exchange"] for x in results],
+        "gloo_exchange_ms_phase14": 3.5,
+        "train": [{"path": path,
+                   "median_step_ms": [x["train"][j]["median_step_ms"]
+                                      for x in results],
+                   "bytes_sent_per_step": [x["train"][j]["bytes_sent_per_step"]
+                                           for x in results],
+                   "exchange_ms_per_step": [
+                       x["train"][j]["exchange_ms_per_step"] for x in results],
+                   "peak_mem_gb": [x["train"][j]["peak_mem_gb"]
+                                   for x in results]}
+                  for j, (path, *_) in enumerate(PROC_PATHS)],
+        "launches": launches}})
+    return launches
+
+
+def phase_ranks_several_devices(ctx, seed, repeats, dev, workdir,
+                                n_customers=N_CUSTOMERS,
+                                n_articles=N_ARTICLES):
+    """Phase 18 (see the module docstring). Returns each kernel's launches
+    over both ranks' (b) and (c), and over the four-card branch's where
+    the machine shows four cards."""
+    launches = ranks_over_cells(ctx, seed, dev, workdir, "card_host",
+                                n_customers, n_articles)
+    visible = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if visible >= 4:
+        for kn, v in ranks_over_cells(ctx, seed, dev, workdir, "cards",
+                                      n_customers, n_articles).items():
+            launches[kn] = launches.get(kn, 0) + v
+        for kn, v in phase_processes_nccl(ctx, seed, repeats, dev, workdir,
+                                          [n_customers, n_articles]).items():
+            launches[kn] = launches.get(kn, 0) + v
     return launches
 
 
@@ -5616,6 +6434,14 @@ def main(argv=None):
                                              Path(d)).items():
             launches[name] += n
         lap("17_several_devices")
+        # phase 18: two ranks of a group, each over the card and the host
+        # CPU (and over two cards each where there are four), on phase 10's
+        # data; both ranks' (b) and (c) launches join
+        for name, n in phase_ranks_several_devices(ctx, args.seed,
+                                                   args.repeats, dev,
+                                                   Path(d)).items():
+            launches[name] += n
+        lap("18_ranks_several_devices")
         del ctx
     with tempfile.TemporaryDirectory(dir=build_root,
                                      prefix="chip_smoke-pipeline-") as d:

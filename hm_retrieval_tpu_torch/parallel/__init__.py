@@ -1,10 +1,9 @@
 """The device mesh, in one process or over a ``torch.distributed`` process
-group (``initialize_multihost``, one process a card): the catalog-sharded
-top-k, and training over a mesh (data-parallel and row-sharded, dense and
-sparse), whose cells in one process may be one device repeated or several
-distinct devices (every card, or a card and the host CPU), each shard on
-its cell's device. A rank of a group driving several cards for training
-waits for ROADMAP.md Queue 1 item 6.4 over ranks."""
+group (``initialize_multihost``: a card, or a block of cards, a rank): the
+catalog-sharded top-k, and training over a mesh (data-parallel and
+row-sharded, dense and sparse), whose cells in one process or in one rank
+may be one device repeated or several distinct devices (several cards, or
+a card and the host CPU), each shard on its cell's device."""
 
 from hm_retrieval_tpu_torch.parallel.data_parallel import (
     make_dp_train_step,

@@ -35,8 +35,12 @@ list with its **local** shards and ``None`` for the others, and gets the
 global result:
 
 - the missing entries are exchanged (``fill``): every rank sends its local
-  entries in one all-gather, and each missing entry is taken from its owner
-  (the lowest rank holding it: the ranks of a data row hold the same bits);
+  entries in one all-gather, each from the device it lies on, and each
+  missing entry is taken from its owner (the lowest rank holding it: the
+  ranks of a data row hold the same bits) and delivered to the device that
+  consumes it (the gathering device, the first local value's for a sum, a
+  data shard's for the lookup's buckets). A rank's cells may be several
+  distinct devices, as in one process;
 - ``psum`` is that exchange, then the same left-to-right sum in global
   shard order as the one-process ``psum``, over the local tensors as they
   are and the others' values. So every rank holds the same bits, equal to
@@ -46,14 +50,21 @@ global result:
 - ``all_gather`` across ranks is a ``torch.autograd.Function``. Its backward
   all-gathers every rank's gradient of the gathered tensor, sums, in rank
   order, those of one rank of each data row (the row's ranks run the same
-  consumers), and hands each local shard its slice: the reduce-scatter of
-  JAX's transpose. Every rank runs forward and backward in the same order,
-  so the collectives pair up.
+  consumers), and hands each local shard its slice on the shard's device:
+  the reduce-scatter of JAX's transpose. ``gather_to_shards``, the
+  candidates of the global-negative loss, gives each local data shard its
+  own copy instead and sums the shards' gradients in the order one process
+  over the same grid of devices sums them (``broadcast``'s), so the
+  group's training steps keep that process's bits. Every rank runs forward
+  and backward in the same order, so the collectives pair up.
 
 A rank exchanges the bytes of its tensors, in pieces of at most ``CHUNK``.
 Over ``gloo`` it sends and receives host copies, by the backend's rule (the
-pattern of ``metrics/index_recall.py``); over ``nccl`` the tensors stay on
-the card. Every rank must pass tensors of one shape and dtype an entry.
+pattern of ``metrics/index_recall.py``); over ``nccl`` through the rank's
+own card (``mesh.rank_card``: PyTorch's NCCL group takes one card a rank),
+a tensor on another card or on the host staged to it first (a peer copy
+over NVLink between cards that have it), never quietly sent over the host.
+Every rank must pass tensors of one shape and dtype an entry.
 """
 
 from __future__ import annotations
@@ -62,7 +73,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
-from hm_retrieval_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from hm_retrieval_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, rank_card
 
 CHUNK = 1 << 28  # bytes a rank sends in one all-gather
 _ALIGN = 16  # each tensor's bytes start at a multiple of this
@@ -72,10 +83,11 @@ def _dist():
     return torch.distributed
 
 
-def _wire_device(like: torch.device) -> torch.device:
-    """Where a tensor travels: the card under nccl, the host under gloo."""
+def _wire_device() -> torch.device:
+    """Where a tensor travels: the rank's own card under nccl, whatever
+    device the tensor lies on; the host under gloo."""
     if _dist().get_backend() == "nccl":
-        return like
+        return rank_card()
     return torch.device("cpu")
 
 
@@ -95,15 +107,19 @@ def _rebuild(like, leaves: List[torch.Tensor]):
     return leaves[0]
 
 
-def exchange_bytes(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
-    """Every rank passes tensors of the same count, shapes and dtypes; each
-    gets every rank's, in rank order, on the first tensor's device (its own
-    as they are, detached)."""
+def exchange_bytes(tensors: Sequence[torch.Tensor],
+                   devices: Optional[Sequence[torch.device]] = None
+                   ) -> List[List[torch.Tensor]]:
+    """Every rank passes tensors of the same count, shapes and dtypes, each
+    staged from its own device; each gets every rank's, in rank order: its
+    own as they are (detached), another rank's tensor i on ``devices[i]``
+    (default: the device of this rank's tensor i)."""
     dist = _dist()
     P = dist.get_world_size()
     tensors = [t.detach() for t in tensors]
-    dev = tensors[0].device
-    wire_dev = _wire_device(dev)
+    dests = ([t.device for t in tensors] if devices is None
+             else [torch.device(d) for d in devices])
+    wire_dev = _wire_device()
     sizes = [t.numel() * t.element_size() for t in tensors]
     total = sum(_padded(n) for n in sizes)
     send = torch.zeros(total, dtype=torch.uint8, device=wire_dev)
@@ -123,77 +139,125 @@ def exchange_bytes(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
             out.append(list(tensors))
             continue
         got, off = [], 0
-        for t, n in zip(tensors, sizes):
-            got.append(buf[off:off + n].view(t.dtype).reshape(t.shape).to(dev))
+        for t, n, dest in zip(tensors, sizes, dests):
+            got.append(buf[off:off + n].view(t.dtype).reshape(t.shape).to(
+                dest))
             off += _padded(n)
         out.append(got)
     return out
 
 
 def fill(values: Sequence, keys_of: Callable[[int], List[int]],
-         source: Callable[[int], int]) -> list:
+         source: Callable[[int], int],
+         device: Optional[torch.device] = None) -> list:
     """``values`` (tensors, or dicts of tensors with one set of keys) by
     global index, ``None`` where this rank lacks the entry, with every entry
     present: a rank ``r`` holds the indices ``keys_of(r)`` and missing index
-    i comes from rank ``source(i)``. A list without ``None`` is returned as
-    it is, with no collective."""
+    i comes from rank ``source(i)``, onto ``device`` (default: each tensor
+    where the same tensor of this rank's first entry lies). A list without
+    ``None`` is returned as it is, with no collective."""
     values = list(values)
     if all(v is not None for v in values):
         return values
     dist = _dist()
     me = dist.get_rank()
     mine = keys_of(me)
-    like = values[mine[0]]
+    like = _leaves(values[mine[0]])
+    width = len(like)
     leaves = [t for i in mine for t in _leaves(values[i])]
-    per_rank = exchange_bytes(leaves)
-    width = len(_leaves(like))
+    dests = [like[p % width].device if device is None else device
+             for p in range(len(leaves))]
+    per_rank = exchange_bytes(leaves, dests)
     for i, v in enumerate(values):
         if v is not None:
             continue
         src = source(i)
         pos = keys_of(src).index(i)
         got = per_rank[src][pos * width:(pos + 1) * width]
-        values[i] = _rebuild(like, got)
+        values[i] = _rebuild(values[mine[0]], got)
     return values
 
 
-def _data_fill(values: Sequence, mesh: Optional[Mesh]) -> list:
+def _data_fill(values: Sequence, mesh: Optional[Mesh],
+               device: Optional[torch.device] = None) -> list:
     """Over the data axis: row d from the rank of row d that holds this
     rank's first model column, whose values (a row-sharded table's
-    gradients among them) have this rank's layout."""
+    gradients among them) have this rank's layout; onto ``device`` (see
+    ``fill``)."""
     if all(v is not None for v in values):
         return list(values)
     if mesh is None:
         raise ValueError("another rank's shards need the mesh")
     col = mesh.local_cols()[0]
-    return fill(values, mesh.rows_of, lambda d: int(mesh.ranks[d, col]))
+    return fill(values, mesh.rows_of, lambda d: int(mesh.ranks[d, col]),
+                device)
+
+
+def one_process_order(mesh: Mesh) -> List[List[int]]:
+    """The data shards grouped by the device their row starts on, in the
+    order one process over ``mesh``'s grid adds their gradients of a value
+    they all consume (``shard_losses``' gathered candidates): the groups
+    last first (``broadcast``), and in each group the shards last first
+    (the autograd engine on one device), ``[[...], ...]`` in that order."""
+    D = mesh.shape[DATA_AXIS]
+    homes = [mesh.devices[d, 0] for d in range(D)]
+    devices = list(dict.fromkeys(homes))
+    return [[d for d in reversed(range(D)) if homes[d] == dev]
+            for dev in reversed(devices)]
 
 
 class _GroupAllGather(torch.autograd.Function):
-    """The data axis' all-gather across ranks, with its reduce-scatter."""
+    """The data axis' all-gather across ranks, with its reduce-scatter: one
+    output on ``device`` or, with ``consumers`` (one device for each local
+    shard), a copy for each local shard on its consumer's device."""
 
     @staticmethod
-    def forward(ctx, mesh: Mesh, dim: int, present: List[int], *local):
+    def forward(ctx, mesh: Mesh, dim: int, device: torch.device,
+                present: List[int], consumers, *local):
         values: List[Optional[torch.Tensor]] = [None] * mesh.shape[DATA_AXIS]
         for d, t in zip(present, local):
             values[d] = t.detach()
-        full = _data_fill(values, mesh)
+        full = _data_fill(values, mesh, device)
         ctx.mesh, ctx.dim, ctx.present = mesh, dim, present
+        ctx.device, ctx.consumers = device, consumers
+        ctx.homes = [t.device for t in local]
         ctx.sizes = [t.shape[dim] for t in full]
-        return torch.cat(full, dim=dim)
+        out = torch.cat([t.to(device) for t in full], dim=dim)
+        if consumers is None:
+            return (out,)
+        return tuple(out.to(c, copy=True) for c in consumers)
 
     @staticmethod
-    def backward(ctx, grad):
-        mesh = ctx.mesh
-        per_rank = exchange_bytes([grad.contiguous()])
-        # one rank a data row: the row's ranks ran the same consumers
-        leaders = sorted({mesh.row_owner(d)
-                          for d in range(mesh.shape[DATA_AXIS])})
-        total = per_rank[leaders[0]][0]
-        for r in leaders[1:]:
-            total = total + per_rank[r][0]
+    def backward(ctx, *grads):
+        mesh, dev = ctx.mesh, ctx.device
+        if ctx.consumers is None:
+            per_rank = exchange_bytes([grads[0].contiguous()], [dev])
+            # one rank a data row: the row's ranks ran the same consumers
+            leaders = sorted({mesh.row_owner(d)
+                              for d in range(mesh.shape[DATA_AXIS])})
+            total = per_rank[leaders[0]][0].to(dev)
+            for r in leaders[1:]:
+                total = total + per_rank[r][0].to(dev)
+        else:
+            per_rank = exchange_bytes([g.contiguous() for g in grads],
+                                      [dev] * len(grads))
+            # each data shard's gradient from its row's owner, summed as one
+            # process over the same grid sums them
+            g = {d: per_rank[mesh.row_owner(d)][
+                mesh.rows_of(mesh.row_owner(d)).index(d)].to(dev)
+                for d in range(mesh.shape[DATA_AXIS])}
+            sums = []
+            for group in one_process_order(mesh):
+                part = g[group[0]]
+                for d in group[1:]:
+                    part = part + g[d]
+                sums.append(part)
+            total = sums[0]
+            for part in sums[1:]:
+                total = total + part
         parts = torch.split(total, ctx.sizes, dim=ctx.dim)
-        return (None, None, None) + tuple(parts[d] for d in ctx.present)
+        return (None,) * 5 + tuple(parts[d].to(h) for d, h in
+                                   zip(ctx.present, ctx.homes))
 
 
 def all_gather(shards: Sequence[Optional[torch.Tensor]], dim: int = 0,
@@ -201,18 +265,39 @@ def all_gather(shards: Sequence[Optional[torch.Tensor]], dim: int = 0,
                device: Optional[torch.device] = None) -> torch.Tensor:
     """The data axis' shards concatenated along ``dim`` in axis order
     (JAX's ``all_gather(..., tiled=True)``) on ``device`` (default: the
-    first shard's); across ranks, ``None`` for another rank's shards
-    (``mesh`` required; a rank's shards share its one device),
-    differentiable."""
+    first shard's, across ranks the first local one's); across ranks,
+    ``None`` for another rank's shards (``mesh`` required), differentiable,
+    each local shard's gradient on its own device."""
     shards = list(shards)
     if all(t is not None for t in shards):
         dev = shards[0].device if device is None else device
         return torch.cat([t.to(dev) for t in shards], dim=dim)
     present = [d for d, t in enumerate(shards) if t is not None]
     local = [shards[d] for d in present]
+    dev = local[0].device if device is None else torch.device(device)
     if not any(t.requires_grad for t in local):
-        return torch.cat(_data_fill(shards, mesh), dim=dim)
-    return _GroupAllGather.apply(mesh, dim, present, *local)
+        return torch.cat([t.to(dev) for t in _data_fill(shards, mesh, dev)],
+                         dim=dim)
+    return _GroupAllGather.apply(mesh, dim, dev, present, None, *local)[0]
+
+
+def gather_to_shards(shards: Sequence[Optional[torch.Tensor]], mesh: Mesh,
+                     device: torch.device) -> List[Optional[torch.Tensor]]:
+    """Across ranks: the data axis' shards (``None`` for another rank's)
+    gathered along dim 0 on ``device``, then one copy for each local shard,
+    on that shard's device (its tensor's), ``None`` for the others;
+    differentiable. The copies' gradients are summed over every rank's
+    shards in ``one_process_order``, so the bits are those of one process
+    over the same grid that gathers the shards and ``broadcast``s the
+    result to the devices of its shards."""
+    present = [d for d, t in enumerate(shards) if t is not None]
+    local = [shards[d] for d in present]
+    copies = _GroupAllGather.apply(mesh, 0, torch.device(device), present,
+                                   [t.device for t in local], *local)
+    out: List[Optional[torch.Tensor]] = [None] * len(shards)
+    for d, c in zip(present, copies):
+        out[d] = c
+    return out
 
 
 class _Broadcast(torch.autograd.Function):
@@ -283,7 +368,7 @@ def broadcast_from(t: Optional[torch.Tensor], shape, dtype,
     """Rank ``src``'s tensor on every rank (``t`` there, ``None``
     elsewhere), on ``device``: one copy on the wire."""
     dist = _dist()
-    wire_dev = _wire_device(device)
+    wire_dev = _wire_device()
     if dist.get_rank() == src:
         buf = t.detach().contiguous().to(wire_dev)
     else:
@@ -308,9 +393,7 @@ def reduce_int(n: int, op: str) -> int:
         dist.get_world_size() == 1
     ):
         return int(n)
-    dev = (torch.device("cuda", torch.cuda.current_device())
-           if dist.get_backend() == "nccl" else torch.device("cpu"))
-    x = torch.tensor([int(n)], dtype=torch.int64, device=dev)
+    x = torch.tensor([int(n)], dtype=torch.int64, device=_wire_device())
     dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
                     else dist.ReduceOp.MIN)
     return int(x.item())

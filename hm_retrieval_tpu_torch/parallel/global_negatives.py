@@ -17,8 +17,10 @@ The collectives are ``parallel/collectives.py``'s. Shard d's towers,
 logits and loss run on its data shard's device (``Mesh.data_device``): the
 gathered candidates, their ids' logQ and the step's negatives are copied
 there. In a process group each rank computes its own data shards (``None``
-in the lists for the others') and the all-gather brings in the other
-ranks' candidates. The mesh's train steps
+in the lists for the others'), on each shard's own device, and the
+all-gather brings in the other ranks' candidates, one copy for each local
+shard (``gather_to_shards``), whose gradients come back summed as one
+process over the same grid sums them. The mesh's train steps
 (``parallel/data_parallel.py``, ``sparse_data_parallel.py``,
 ``sharded_training.py``, ``sharded_sparse_training.py``) share
 ``shard_losses``; with uniform negatives (``models/mixed_negatives.py``)
@@ -38,6 +40,7 @@ from hm_retrieval_tpu_torch.models.two_tower import TwoTowerModel
 from hm_retrieval_tpu_torch.parallel.collectives import (
     all_gather,
     broadcast,
+    gather_to_shards,
     psum,
 )
 from hm_retrieval_tpu_torch.parallel.mesh import Mesh, split_batch
@@ -79,10 +82,15 @@ def shard_losses(
     ``negatives[d]``: shard d's (M, E) tower output for the step's uniform
     negatives, drawn from a catalog of ``num_candidates``."""
     # (B, E) gathered once, on the first consuming device, and broadcast to
-    # the others, so its gradients come back summed in device order
+    # the others, so its gradients come back summed in device order; across
+    # ranks a copy a shard, summed in that order over every rank's shards
     devices = list(dict.fromkeys(q.device for q in queries if q is not None))
-    all_c = dict(zip(devices, broadcast(
-        all_gather(candidates, mesh=mesh, device=devices[0]), devices)))
+    if any(c is None for c in candidates):
+        all_c = gather_to_shards(candidates, mesh, devices[0])
+    else:
+        by_device = dict(zip(devices, broadcast(
+            all_gather(candidates, device=devices[0]), devices)))
+        all_c = [q if q is None else by_device[q.device] for q in queries]
     corr = None
     if model.logq is not None:
         all_ids = all_gather(ids, mesh=mesh, device=model.logq.device)
@@ -100,7 +108,7 @@ def shard_losses(
             losses.append(None)
             continue
         b = q.shape[0]
-        logits = q @ all_c[q.device].T  # (b, B)
+        logits = q @ all_c[d].T  # (b, B)
         if corr is not None:
             logits = logits - corr.to(q.device)[None, :]
         if negatives is not None:

@@ -14,11 +14,15 @@ same grid of torch devices, and each cell also names the rank that owns it:
   repeated device is the case of the same code in which every copy is a
   no-op;
 - in a ``torch.distributed`` group of P ranks (``initialize_multihost``)
-  each rank passes ``make_mesh`` its **local** devices, by default its one
-  card, and the grid is every rank's devices in rank order. A rank computes
-  only its own cells; the collectives exchange the shards between ranks.
-  PyTorch's layout is one process a card, so a rank's cells must all be one
-  device for training (``training_device``).
+  each rank passes ``make_mesh`` its **local** devices, by default its
+  block of the host's cards (``rank_devices``: all of them split evenly
+  over the host's ranks, as ``jax.local_devices()`` gives them, or one card
+  a rank where the ranks are at least as many), and the grid is every
+  rank's devices in rank order. A rank's cells may be one device repeated
+  or several distinct devices (several cards, or a card and the host CPU,
+  ``["cuda:0", "cpu"]``), as in one process. A rank computes only its own
+  cells; the collectives exchange the shards between ranks, each from its
+  own device and onto the device that consumes it.
 
 Training over the mesh places its work by the per-cell device map:
 
@@ -58,14 +62,11 @@ logger = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-SEVERAL_DEVICES_A_RANK = (
-    "ROADMAP.md Queue 1 item 6.4 over ranks (one rank of a process group "
-    "driving several cards for training)"
-)
 TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 
-# the device ``initialize_multihost`` chose for this rank
-_rank_device: Optional[torch.device] = None
+# the devices ``initialize_multihost`` chose for this rank, its first card
+# first: the one ``torch.cuda.set_device`` names and NCCL sends from
+_rank_devices: List[torch.device] = []
 
 
 def process_index() -> int:
@@ -86,27 +87,49 @@ def process_count() -> int:
 
 def choose_backend(device_type: str, ranks_on_host: int,
                    cards_on_host: int) -> str:
-    """``"nccl"`` only when each rank has a card of its own; ``"gloo"`` on
-    the CPU and when ranks share a card (NCCL refuses two ranks on one
-    device)."""
+    """``"nccl"`` only when each rank has cards of its own (one or a block
+    of them); ``"gloo"`` on the CPU and when ranks share a card (NCCL
+    refuses two ranks on one device)."""
     if device_type == "cuda" and 0 < ranks_on_host <= cards_on_host:
         return "nccl"
     return "gloo"
 
 
-def rank_device(local_rank: int, device: DeviceLike = None) -> torch.device:
-    """A rank's device: ``cuda:{local_rank % cards}`` by default, raising
-    without a card; ``device="cpu"`` runs the rank on the CPU."""
+def rank_devices(local_rank: int, ranks_on_host: Optional[int] = None,
+                 device: DeviceLike = None) -> List[torch.device]:
+    """A rank's devices, by default its block of the host's cards:
+
+    - fewer ranks than cards, the ranks dividing them: rank i of n on c
+      cards takes ``cuda:{i*c/n} .. cuda:{(i+1)*c/n - 1}`` (2 ranks on 4
+      cards: ``[cuda:0, cuda:1]`` and ``[cuda:2, cuda:3]``), as
+      ``jax.local_devices()`` gives each process its chips;
+    - at least as many ranks as cards (or ``ranks_on_host`` None): the one
+      card ``cuda:{local_rank % cards}``, ranks sharing it over gloo;
+    - any other split raises ``ValueError``: no rank gets fewer cards than
+      another without saying so.
+
+    Without a card it raises ``RuntimeError``; ``device="cpu"`` runs the
+    rank on the CPU, ``device="cuda:i"`` on that one card."""
     if device is not None and torch.device(device).type == "cpu":
-        return torch.device("cpu")
+        return [torch.device("cpu")]
     if not torch.cuda.is_available():
         raise RuntimeError(
             "a rank needs a card but CUDA is not available; pass "
             "device='cpu' to run the rank on the CPU"
         )
     if device is not None and torch.device(device).index is not None:
-        return torch.device(device)
-    return torch.device("cuda", local_rank % torch.cuda.device_count())
+        return [torch.device(device)]
+    cards = torch.cuda.device_count()
+    if ranks_on_host is None or ranks_on_host >= cards:
+        return [torch.device("cuda", local_rank % cards)]
+    if cards % ranks_on_host:
+        raise ValueError(
+            f"{ranks_on_host} ranks on a host of {cards} cards: the ranks "
+            "must divide the cards (each takes an equal block) or be at "
+            "least as many; pass device='cuda:i' to pin a rank to one card"
+        )
+    per = cards // ranks_on_host
+    return [torch.device("cuda", local_rank * per + j) for j in range(per)]
 
 
 def initialize_multihost(
@@ -115,8 +138,9 @@ def initialize_multihost(
     process_id: Optional[int] = None,
     device: DeviceLike = None,
 ) -> Optional[torch.device]:
-    """Join the default process group; returns this rank's device, or None
-    for a single-process run.
+    """Join the default process group; returns this rank's first device
+    (its NCCL card; the whole list is ``local_devices()``), or None for a
+    single-process run.
 
     - explicit arguments: all three, ``coordinator_address`` as
       ``host:port`` (``tcp://``), or a URL such as ``file:///path`` used as
@@ -128,11 +152,14 @@ def initialize_multihost(
       single-process without a cluster environment.
 
     Partial arguments raise ``ValueError``. A second call, with the group
-    already formed, is logged and returns the rank's device. The backend is
-    ``choose_backend``'s: NCCL only when each rank of the host has a card of
-    its own. ``device``: None, the rank's card (``rank_device``); "cpu",
-    the CPU."""
-    global _rank_device
+    already formed, is logged and returns the rank's first device. The
+    backend is ``choose_backend``'s: NCCL only when each rank of the host
+    has cards of its own. ``device``: None, the rank's block of cards
+    (``rank_devices``, ``ValueError`` before the group forms when the
+    host's ranks neither divide its cards nor are at least as many), the
+    first of them set as this process's ``torch.cuda`` device; "cpu", the
+    CPU; "cuda:i", that one card."""
+    global _rank_devices
     dist = torch.distributed
     given = [a is not None for a in
              (coordinator_address, num_processes, process_id)]
@@ -144,7 +171,7 @@ def initialize_multihost(
     if dist.is_initialized():
         logger.info("torch.distributed already initialized: process %d of "
                     "%d", dist.get_rank(), dist.get_world_size())
-        return _rank_device
+        return _rank_devices[0] if _rank_devices else None
     if all(given):
         url = (coordinator_address if "://" in coordinator_address
                else f"tcp://{coordinator_address}")
@@ -159,16 +186,36 @@ def initialize_multihost(
         logger.info("single-process run (no process group arguments and no "
                     "torchrun environment)")
         return None
-    dev = rank_device(local_rank, device)
+    devs = rank_devices(local_rank, on_host, device)
+    dev = devs[0]
     cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     backend = choose_backend(dev.type, on_host, cards)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=url, rank=rank,
                             world_size=world)
-    _rank_device = dev
-    logger.info("process %d of %d on %s (%s)", rank, world, dev, backend)
+    _rank_devices = devs
+    logger.info("process %d of %d on %s (%s)", rank, world,
+                [str(d) for d in devs], backend)
     return dev
+
+
+def local_devices() -> List[torch.device]:
+    """The devices ``initialize_multihost`` gave this rank, its first card
+    first (empty before it or in a single-process run)."""
+    return list(_rank_devices)
+
+
+def rank_card() -> torch.device:
+    """The card this rank's NCCL communicator uses: its first card, the one
+    ``initialize_multihost`` set as its ``torch.cuda`` device (the current
+    card where it did not run). A thread of the autograd engine runs with
+    another current card, so the collectives ask this, not
+    ``torch.cuda.current_device()``."""
+    for d in _rank_devices:
+        if d.type == "cuda":
+            return d
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def canonical(device) -> torch.device:
@@ -294,14 +341,15 @@ def make_mesh(
     visible card once; a device appears more than once only when the list
     repeats it, as ``["cuda:0"] * 4`` (four shards on one card) or
     ``["cpu"] * 8``. In a process group of P ranks, collective: each rank
-    passes its own devices (by default its card from
-    ``initialize_multihost``), every rank the same number, and the grid is
-    every rank's devices in rank order. ``data=None`` uses every device not
+    passes its own devices (by default its block of cards from
+    ``initialize_multihost``; explicitly, e.g. ``["cuda:0", "cpu"]``, a
+    card and the host), every rank the same number, and the grid is every
+    rank's devices in rank order. ``data=None`` uses every device not
     claimed by ``model``."""
     P = process_count()
     if devices is None:
-        if P > 1 and _rank_device is not None:
-            devices = [_rank_device]
+        if P > 1 and _rank_devices:
+            devices = list(_rank_devices)
         elif not torch.cuda.is_available():
             raise RuntimeError(
                 "make_mesh needs a card but CUDA is not available; pass "
@@ -350,23 +398,15 @@ def make_mesh(
 def training_device(mesh: Mesh) -> torch.device:
     """The first device of this process's cells, where the replicated
     training state lives, once this process is known to be able to train
-    over ``mesh``: a CUDA cell needs CUDA (``RuntimeError``), and in a
-    process group a rank's cells must be one device (several raise
-    ``NotImplementedError``, item 6.4 over ranks)."""
+    over ``mesh``: a CUDA cell needs CUDA (``RuntimeError``). A rank's
+    cells may be several distinct devices, in one process or in a group."""
     local = mesh.devices[mesh.ranks == mesh.process_index]
-    distinct = sorted({str(d) for d in local})
-    for name in distinct:
+    for name in sorted({str(d) for d in local}):
         if torch.device(name).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"the mesh's device {name!r} needs a card but CUDA is not "
                 "available; build the mesh on devices=['cpu'] * n"
             )
-    if mesh.process_count > 1 and len(distinct) != 1:
-        raise NotImplementedError(
-            f"rank {mesh.process_index} trains over {len(distinct)} distinct "
-            f"devices {distinct}, which is not ported yet: "
-            f"{SEVERAL_DEVICES_A_RANK}"
-        )
     return mesh.first_device
 
 

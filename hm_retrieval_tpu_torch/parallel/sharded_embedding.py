@@ -28,12 +28,13 @@ or re-expanded. Only the gathered rows cross between devices, never a
 table.
 
 In a process group (``parallel/mesh.py``) a rank holds only the shards of
-its model columns (``None`` for the others). When the model axis spans
-ranks, the ranks of a data row look up the same ids: each computes its
-shards' partial rows (or, ``"all_to_all"``, its owners' buckets) and the
-collectives (``parallel/collectives.py``) bring the others' in, summed in
-shard order as in one process, so every rank of the row holds the same
-bits, equal to one process's.
+its model columns (``None`` for the others), each on its cell's device.
+When the model axis spans ranks, the ranks of a data row look up the same
+ids: each computes its shards' partial rows (or, ``"all_to_all"``, its
+owners' buckets) and the collectives (``parallel/collectives.py``) bring
+the others' in, onto the requesting data shard's device, summed in shard
+order as in one process, so every rank of the row holds the same bits,
+equal to one process's.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ class ShardedTable:
     def host(self) -> torch.Tensor:
         """The (S*R, E) table on the host, shard by shard from its device.
         Collective in a process group: each shard is broadcast from its
-        owner, one at a time."""
+        owner's cell, one at a time."""
         if all(t is not None for t in self.shards):
             return torch.cat([t.detach().cpu() for t in self.shards])
         from hm_retrieval_tpu_torch.parallel.collectives import (
@@ -211,10 +212,12 @@ def all_to_all_rows(table, ids: torch.Tensor, capacity: Optional[int] = None
             torch.where(mask, send_ids[t].to(shard.device), 0), shard)
         back[t] = torch.where(mask[:, None], rows, 0.0).to(dev)
     if any(b is None for b in back):
-        # the other owners' buckets, from the ranks of this data row
+        # the other owners' buckets, from the ranks of this data row, onto
+        # the requesting data shard's device
         mesh = table.mesh
         d = mesh.local_rows()[0]
-        back = fill(back, mesh.cols_of, lambda t: int(mesh.ranks[d, t]))
+        back = fill(back, mesh.cols_of, lambda t: int(mesh.ranks[d, t]),
+                    dev)
     back = torch.stack(back).reshape(S * cap, -1)
     gathered = back[torch.where(fits, s_owner * cap + pos, 0)]
     gathered = torch.where(fits[:, None], gathered, 0.0)  # sorted order

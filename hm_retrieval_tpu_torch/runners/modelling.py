@@ -466,8 +466,7 @@ def modelling_runner(
     P = _check_group(mesh, tc.train_batch_size, tc.test_batch_size)
     pi = process_index()
     if mesh is not None:
-        # a CUDA cell without CUDA, or a rank over several devices, raises
-        # before any step
+        # a CUDA cell without CUDA raises before any step
         training_device(mesh)
         _on_mesh(mesh, dev)
     if settings.savedmodel_dirpath:

@@ -42,7 +42,7 @@ from hm_retrieval_tpu_torch.parallel.mesh import (
     choose_backend,
     data_axis_process_aligned,
     initialize_multihost,
-    rank_device,
+    rank_devices,
 )
 
 SPAWN_TIMEOUT = 300  # seconds for one group to run every scenario
@@ -525,15 +525,17 @@ def test_backend_choice(device_type, on_host, cards, want):
 
 
 def test_rank_device(monkeypatch):
-    assert rank_device(3, "cpu") == torch.device("cpu")
+    """A rank's devices (``rank_devices``): one card a rank where the ranks
+    are at least as many as the cards (or their count is not given)."""
+    assert rank_devices(3, device="cpu") == [torch.device("cpu")]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        rank_device(0)
+        rank_devices(0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert rank_device(3) == torch.device("cuda", 1)
-    assert rank_device(2) == torch.device("cuda", 0)
-    assert rank_device(0, "cuda:1") == torch.device("cuda", 1)
+    assert rank_devices(3) == [torch.device("cuda", 1)]
+    assert rank_devices(2, 4) == [torch.device("cuda", 0)]
+    assert rank_devices(0, device="cuda:1") == [torch.device("cuda", 1)]
 
 
 def _recorded_init(monkeypatch):

@@ -445,12 +445,14 @@ def test_several_devices_or_processes_raise_item_6_3(monkeypatch):
     without a group stays single-process, and a mesh built in one process
     keeps its one-process steps inside a 2-rank group
     (``tests/test_torch_multiprocess.py`` runs real groups). Item 6.4 is
-    ported too: one process driving several distinct devices no longer
-    raises ``NotImplementedError``; a grid naming a card raises
+    ported too: one process driving several distinct devices does not
+    raise ``NotImplementedError``; a grid naming a card raises
     ``RuntimeError`` naming CUDA before any step where there is none, and
     with CUDA reported present it is accepted, its first device returned.
-    A rank of a group whose cells are several distinct devices still
-    raises ``NotImplementedError``, naming item 6.4 over ranks."""
+    So is a rank of a group whose cells are several distinct devices
+    (item 6.4 over ranks): ``training_device`` returns the rank's first
+    device (``tests/test_torch_ranks_several_devices.py`` trains over
+    such ranks)."""
     _, pm = _models("mean")
     _, popt = _opts("adagrad")
     for build in (training_device,
@@ -468,8 +470,8 @@ def test_several_devices_or_processes_raise_item_6_3(monkeypatch):
         group = np.empty((2, 2), dtype=object)
         group[0, 0], group[0, 1] = torch.device("cpu"), torch.device("cuda", 0)
         group[1, 0] = group[1, 1] = torch.device("cpu")
-        with pytest.raises(NotImplementedError, match="item 6.4 over ranks"):
-            training_device(Mesh(group, np.array([[0, 0], [1, 1]])))
+        assert training_device(Mesh(group, np.array([[0, 0], [1, 1]]))) == (
+            torch.device("cpu"))
     from hm_retrieval_tpu_torch.parallel.mesh import (
         TORCHRUN_ENV,
         data_axis_process_aligned,

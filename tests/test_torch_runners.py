@@ -321,8 +321,9 @@ def test_unknown_override_raises(pipeline):
 @pytest.mark.parametrize("option", ["savedmodel", "mesh", "distributed"])
 def test_unported_options_raise_before_any_step(pipeline, tmp_path, monkeypatch,
                                                 option):
-    """Training over a mesh of several distinct devices in one process is
-    ported (ROADMAP.md item 6.4): no ``NotImplementedError``, but a grid
+    """Training over a mesh of several distinct devices, in one process or
+    in a rank of a group, is ported (ROADMAP.md item 6.4, and 6.4 over
+    ranks): no ``NotImplementedError``, but a grid
     naming ``cuda:0`` where there is no CUDA raises ``RuntimeError`` naming
     CUDA before any step; a sharded index without a mesh, and inside a process group of 2 ranks a
     mesh built for one process, raise ``ValueError``, as in the JAX package;
