@@ -6,7 +6,8 @@
 Phases, each of which must pass (a failure raises and exits non-zero):
 
 1. Device: print the card's name and power limit (nvidia-smi), build the
-   CUDA kernels from csrc/ with nvcc, print the build time.
+   CUDA kernels from csrc/*.cu with nvcc and, at the same time, the host
+   library from csrc/*.cpp with g++ (phase 19), print both build times.
 2. The exact passes' kernels 1, 2 and 8 against their plain PyTorch
    versions on the card, over the 105,542-row H&M catalog padded to L,
    E=128, bf16, at B = 1, 16, 37, 128 query rows and L=2048 (k=1000) and
@@ -249,10 +250,11 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    waits PROC_TIMEOUT seconds and kills both ranks past it, and a rank that
    fails or writes no result fails the phase. Phase 10's width and weights.
    Each rank's launches are counted from 0 around (a) and (b) and added,
-   over both ranks, to the kernels line. Cut: depth only (3 held steps a
-   path; sparse: 3-step replays, 5 timed, 2 profiled; dense: 1-step
-   replays, 1 timed, none profiled: cut from 10 / 3 and 2 / 1 for phase
-   18's time).
+   over both ranks, to the kernels line. Cut: depth only (sparse: 3 held
+   steps, 3-step replays, 5 timed, 2 profiled; dense: 1 held step, which
+   is also the first of its two 1-step runs from the initial state, 1
+   timed, none profiled: cut from 10 / 3 and 2 / 1 for phase 18's time,
+   and from 3 held steps and two replays for phase 19's).
    (a) phase 12's exact and one-pass sharded indices over a (1, 4) mesh,
        rank r holding shards 2r and 2r + 1 (kernels 1-2, 3-4 per shard),
        at B = 1, 16, 128, 1024: values and ids bit-identical to phase 12's
@@ -329,7 +331,7 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    dataframe_to_tfrecords (100,000 rows a file) and import_tfrecords, every
    shard array equal to a direct ShardWriter write, and
    export_shards_to_tfrecords then a second import, equal again (records/s
-   each way, bytes, the CRC's seconds); and the NaN checks on the card: a
+   each way, bytes); and the NaN checks on the card: a
    NaN made in forward and one made only in backward raise
    FloatingPointError under enable_debug_checks, a sparse step at B = 512
    and exact_topk at B = 128 run clean with the bits they give without the
@@ -392,8 +394,10 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    this process over the same grid (make_mesh(D, S, devices=[card, "cpu"]
    * 2); on four cards each rank's first card, cuda:0 and cuda:2), on the
    ranks' host thread count. Cut: depth only (held steps: 3
-   sparse, 1 dense, each replayed twice; 5 host-clock steps on the sparse
-   paths, none on the dense ones; one test batch of 2048 rows in (b)).
+   sparse, each replayed twice, and 1 dense, which is also the first of its
+   two runs from the initial state (replayed once: cut from twice for
+   phase 19's time); 5 host-clock steps on the sparse paths, none on the
+   dense ones; one test batch of 2048 rows in (b)).
    (a) through make_mesh_trainer: (2, 2) row-sharded sparse and dense
        Adagrad (data row r on rank r, the model axis across the card and
        the host), (4, 1) data-parallel sparse and dense Adagrad (rank r
@@ -428,6 +432,29 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    GB a card, the references over the four cards; then phase 14's (a) and
    (c) over four NCCL ranks, a card each, with the exchange's bytes and ms.
    Both ranks' (b) and (c) launches join the kernels line.
+
+19. The host's native library (phase_native_host; run after phase 16, on
+   its TFRecord files; 30 s at most): the port's C++ for the card's host CPU
+   (csrc/shardio.cpp, csrc/seqencode.cpp through native_ext.py), which
+   phases 15-16 reach through Feature.encode, encode_sequence,
+   iter_tfrecords and write_tfrecords alone (each of encode_tokens,
+   tfrecord_frame and tfrecord_scan called at least once there, counted
+   from 0 before phase 15). Against the plain versions, equal in every
+   comparison, each side's seconds on the host clock:
+   (a) phase 15's customer column: 1,371,980 64-hex ids, 3,000,000 draws
+       (1% OOV), Feature.encode against encode_plain, the encoder and the
+       dict built apart; then, for U and S input, the extension over
+       tolist() (Feature.encode's) against the fixed-width NativeVocab on
+       the first 1,000,000 draws;
+   (b) a 16-long history column of 100,000 rows of 0-32 article ids
+       (10-digit, 105,542 of them), encode_sequence against
+       encode_sequence_plain;
+   (c) phase 16's TFRecord files: tfrecord_scan against _scan (offsets and
+       lengths), the library's framing against _frame (bytes, equal to the
+       files'), tfrecord_masked_crc a record against _masked_crcs over all
+       at once, MB/s each.
+   A native_host line gives the readings, phase 1's build seconds and the
+   calls of phases 15-16.
 
 Output: per-phase JSON lines and each phase's seconds, then the card's name
 and power limit, the
@@ -573,11 +600,20 @@ def phase_device():
     )
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    from concurrent.futures import ThreadPoolExecutor
+
     from hm_retrieval_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    _build.build_all()
-    seconds = time.perf_counter() - t0
+    def timed_build(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    # g++ for the host library while nvcc builds the kernels
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(timed_build, _build.build_host)
+        seconds = timed_build(_build.build_all)
+        host_seconds = host.result()
     ptxas = [
         line.strip()
         for log in _build.build_logs.values()
@@ -585,8 +621,10 @@ def phase_device():
         if "entry function" in line or "registers" in line or "spill" in line
     ]
     emit({"build": {"seconds": seconds, "sources": _build.sources(),
+                    "host_seconds": host_seconds,
+                    "host_sources": _build.host_sources(),
                     "ptxas": ptxas}})
-    return card
+    return card, host_seconds
 
 
 def phase_kernels(gen, dev):
@@ -3853,7 +3891,10 @@ def phase_mesh_runner(ctx, dev, workdir):
 # --- phase 14: several processes on the one card ----------------------------
 PROC_RANKS = 2  # ranks of phase 14's gloo group, both on the one card
 PROC_TIMEOUT = 480  # seconds the parent waits for both ranks
-PROC_STEPS = 3  # steps each path holds against the single-device chain
+# steps each path holds against the single-device chain (dense: 1, cut from
+# 3 for phase 19's time; that step, from the initial state, is also its
+# first replay)
+PROC_STEPS = {"sparse": 3, "dense": 1}
 # timed steps after the held ones, and steps under the profiler on rank 0
 PROC_TIMED = {"sparse": 5, "dense": 1}
 PROC_PROFILED = {"sparse": 2, "dense": 0}
@@ -4112,7 +4153,8 @@ def proc_train_path(rank, path, single_name, shape, sharded, host, logq,
     kind = "sparse" if "sparse" in path else "dense"
     fields = {name: f for name, f, _ in TRAIN_PATHS}
     tc = training_config(fields[single_name], check=True)
-    batches = [to_device(b, dev) for b in host[:PROC_STEPS]]
+    n = PROC_STEPS[kind]
+    batches = [to_device(b, dev) for b in host[:n]]
     # the single-device chain: its state at each step (the same bits on
     # both ranks: one card, one program)
     model = train_model(*sizes, logq, False, dev)
@@ -4169,9 +4211,12 @@ def proc_train_path(rank, path, single_name, shape, sharded, host, logq,
             f"{path}: losses {losses.tolist()} against the single device's "
             f"{single_losses.tolist()}")
     # --- replays from the initial state, bit-identical --------------------
-    replay_steps = PROC_STEPS if kind == "sparse" else 1
-    runs = []
-    for _ in range(2):
+    # one held step starts from the chain's first state, the initial state:
+    # it is the first run, and one replay the second
+    replay_steps = n
+    runs = [([t.detach().clone() for p in local_pieces(state).values()
+              for _, t in p], losses)] if n == 1 else []
+    while len(runs) < 2:
         with torch.no_grad():
             for t, s0 in zip([t for p in local_pieces(state).values()
                               for _, t in p], saved):
@@ -4197,7 +4242,7 @@ def proc_train_path(rank, path, single_name, shape, sharded, host, logq,
         torch.cuda.reset_peak_memory_stats()
     timed = PROC_TIMED[kind]
     marks = []
-    feed = [local(h) for h in host[PROC_STEPS:PROC_STEPS + timed]]
+    feed = [local(h) for h in host[n:n + timed]]
     with exchanged() as ex_t:
         for fb in device_feed(iter(feed), mesh=mesh):
             marks.append([torch.cuda.Event(enable_timing=True)
@@ -4212,8 +4257,7 @@ def proc_train_path(rank, path, single_name, shape, sharded, host, logq,
     sync(dev)
     ms = [x.elapsed_time(y) if cuda else (y - x) * 1e3 for x, y in marks]
     on_card = [to_device(local(h), dev) for h in
-               host[PROC_STEPS + timed:PROC_STEPS + timed
-                    + PROC_PROFILED[kind]]]
+               host[n + timed:n + timed + PROC_PROFILED[kind]]]
     if rank == 0 and cuda and on_card:
         state, prof = profile_steps(step, state, on_card)
     else:  # the same steps, so the collectives pair up
@@ -4246,7 +4290,7 @@ def proc_train(rank, seed, dev, sizes, ranks=PROC_RANKS):
     rows; row-sharded (1, 4): both ranks fed the whole batch)."""
     rng = np.random.default_rng(seed + 13)
     probs, logq = article_popularity(sizes[1])
-    n_batches = PROC_STEPS + max(PROC_TIMED.values()) + max(
+    n_batches = max(PROC_STEPS.values()) + max(PROC_TIMED.values()) + max(
         PROC_PROFILED.values())
     cols, _ = train_columns(rng, n_batches * TRAIN_B, *sizes, probs)
     cols.pop("purchase_history")
@@ -5045,8 +5089,10 @@ def r18_train_path(path, single_name, shape, sharded, host, logq, dev,
             f"{path}: losses {losses} against the single device's "
             f"{single_losses.tolist()}")
     # --- replays from the initial state, bit-identical --------------------
-    runs = []
-    for _ in range(2):
+    # one held step (a dense path) starts from the chain's first state, the
+    # initial state: it is the first run, and one replay the second
+    runs = [(prints[0], losses)] if n == 1 else []
+    while len(runs) < 2:
         with torch.no_grad():
             for t, s0 in zip([t for p in local_pieces(state).values()
                               for _, t in p], saved):
@@ -6068,20 +6114,12 @@ def phase_tfrecords(settings, workdir):
                 "export, then import, against the direct write",
                 expect={f.name: packed_windows for f in features
                         if f.kind == "sequence"})
-    # the CRC alone, over every record of the written files at once
-    payloads = [r for p in paths for r in tfc.iter_tfrecords(p, False)]
-    lengths = np.fromiter(map(len, payloads), np.int64, count=len(payloads))
-    blob = np.frombuffer(b"".join(payloads), np.uint8)
-    t0 = time.perf_counter()
-    tfc._masked_crcs(blob, np.cumsum(lengths) - lengths, lengths)
-    crc_s = time.perf_counter() - t0
     nbytes = sum(Path(p).stat().st_size for p in paths)
     return {"rows": rows, "files": len(paths), "bytes": nbytes,
             "export_bytes": sum(Path(p).stat().st_size for p in exported),
             "write_s": write_s, "import_s": import_s, "export_s": export_s,
             "write_records_per_s": rows / write_s,
             "import_records_per_s": rows / import_s,
-            "crc_s": crc_s, "crc_mb_per_s": len(blob) / crc_s / 1e6,
             "import_equals_direct_write": True,
             "export_reimport_equals": True}
 
@@ -6307,6 +6345,163 @@ def phase_host_surface(seed, dev, workdir, n_customers=N_CUSTOMERS,
     return launches
 
 
+# --- phase 19: the host's native library --------------------------------------
+
+NATIVE_DRAWS = 3_000_000  # phase 15's transactions: its customer column
+NATIVE_CHOICE_DRAWS = 1_000_000  # the draws the U / S encoder choice reads
+NATIVE_OOV = 0.01  # share of the draws that no vocab holds
+NATIVE_HISTORY_ROWS = 100_000  # rows of the history column, 0-32 tokens each
+NATIVE_BUDGET_S = 30.0
+
+
+def timed_s(fn):
+    """(fn(), its seconds on the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_native_host(seed, tfrecord_dir, build_s=None, calls=None,
+                      n_customers=N_CUSTOMERS, n_articles=N_ARTICLES,
+                      n_draws=NATIVE_DRAWS, n_choice=NATIVE_CHOICE_DRAWS,
+                      n_history=NATIVE_HISTORY_ROWS):
+    """Phase 19 (see the module docstring): ``tfrecord_dir`` holds phase
+    16's TFRecord files, ``build_s`` is phase 1's build of the library (None:
+    build here), ``calls`` the library's calls in phases 15-16 (None: not
+    checked). Returns the readings."""
+    from hm_retrieval_tpu_torch import native_ext
+    from hm_retrieval_tpu_torch.data import tfrecord_compat as tfc
+    from hm_retrieval_tpu_torch.ops import _build
+    from hm_retrieval_tpu_torch.schema import Feature
+
+    t_phase = time.perf_counter()
+    if build_s is None:
+        _, build_s = timed_s(_build.build_host)
+    if calls is not None:
+        for name in ("encode_tokens", "tfrecord_frame", "tfrecord_scan"):
+            require(calls[name] > 0, f"phases 15-16 never called the "
+                    f"library's {name}: {calls}")
+    rng = np.random.default_rng(seed + 19)
+
+    # --- the customer column: 64-hex ids, draws with some OOV --------------
+    vocab = hex_ids(rng, n_customers)
+    draws = vocab[rng.integers(0, n_customers, n_draws)]
+    oov = rng.random(n_draws) < NATIVE_OOV
+    draws[oov] = hex_ids(rng, int(oov.sum()))
+    cust = Feature("customer_id", "categorical", "query", embedding_size=E,
+                   vocab=vocab)
+    _, native_build = timed_s(cust._native_encoder)
+    ids, native_s = timed_s(lambda: cust.encode(draws))
+    _, plain_build = timed_s(cust._lookup)
+    want, plain_s = timed_s(lambda: cust.encode_plain(draws))
+    require(np.array_equal(ids, want), f"{int((ids != want).sum())} of "
+            f"{n_draws} customer ids differ from the plain path's")
+    require(int((want == 0).sum()) >= int(oov.sum()), "the OOV draws")
+    # the choice for U and S input, on the first n_choice draws: the
+    # extension on tolist() (Feature's encode) against the fixed-width
+    # library, each over the same vocab
+    fixed, fixed_build = timed_s(lambda: native_ext.NativeVocab(vocab))
+    choice = {}
+    for kind, tokens in (("U", draws[:n_choice]),
+                         ("S", draws[:n_choice].astype(np.bytes_))):
+        got, ext_s = timed_s(lambda: cust.encode(tokens))
+        got_fixed, fixed_s = timed_s(lambda: fixed.encode(tokens))
+        require(np.array_equal(got, want[:n_choice])
+                and np.array_equal(got_fixed, want[:n_choice]),
+                f"a {kind} encode of the choice differs")
+        choice[kind] = {"extension_tolist_s": ext_s, "fixed_width_s": fixed_s}
+    del fixed, tokens
+
+    # --- a 16-long history column: lists of article ids -------------------
+    articles = np.char.zfill(rng.permutation(np.unique(rng.integers(
+        100_000_000, 1_000_000_000, 2 * n_articles)))[:n_articles]
+        .astype(str), 10)
+    hist = Feature("purchase_history", "sequence", "query", embedding_size=E,
+                   vocab=articles, max_len=HISTORY_LEN)
+    lens = rng.integers(0, 2 * HISTORY_LEN + 1, n_history)
+    flat = articles[rng.integers(0, n_articles, int(lens.sum()))].tolist()
+    ends = np.cumsum(lens).tolist()
+    rows = [flat[e - n:e] for e, n in zip(ends, lens.tolist())]
+    hist._native_encoder()
+    hist._lookup()
+    h_ids, h_native_s = timed_s(lambda: hist.encode_sequence(rows))
+    h_want, h_plain_s = timed_s(lambda: hist.encode_sequence_plain(rows))
+    require(np.array_equal(h_ids, h_want), "the history windows differ "
+            "from the plain path's")
+    del rows, flat
+
+    # --- phase 16's TFRecord files: scan, frame, CRC both ways --------------
+    paths = sorted(Path(tfrecord_dir).rglob("*.tfrecord"))
+    require(paths, f"no TFRecord files under {tfrecord_dir}")
+    files = [p.read_bytes() for p in paths]
+    nbytes = sum(map(len, files))
+    scans, scan_s = timed_s(lambda: [native_ext.tfrecord_scan(b)
+                                     for b in files])
+    plain_scans, plain_scan_s = timed_s(lambda: [
+        tfc._scan(str(p), b, True) for p, b in zip(paths, files)])
+    payloads = []
+    for p, b, (off, ln), (start, length, error) in zip(
+            paths, files, scans, plain_scans):
+        require(error is None, f"{p}: {error}")
+        require(np.array_equal(off.astype(np.int64), start)
+                and np.array_equal(ln.astype(np.int64), length),
+                f"{p}: the scans' offsets or lengths differ")
+        payloads.append([b[o:o + n] for o, n in zip(off.tolist(),
+                                                    ln.tolist())])
+    framed, frame_s = timed_s(lambda: [tfc._frame_native(r)
+                                       for r in payloads])
+    plain_framed, plain_frame_s = timed_s(lambda: [tfc._frame(r)
+                                                   for r in payloads])
+    require(framed == plain_framed == files,
+            "the framed bytes differ between the library, the plain "
+            "version and the files")
+    records = [r for rs in payloads for r in rs]
+    lengths = np.fromiter(map(len, records), np.int64, count=len(records))
+    blob = np.frombuffer(b"".join(records), np.uint8)
+    crcs, crc_s = timed_s(lambda: [native_ext.tfrecord_masked_crc(r)
+                                   for r in records])
+    plain_crcs, plain_crc_s = timed_s(lambda: tfc._masked_crcs(
+        blob, np.cumsum(lengths) - lengths, lengths))
+    require(crcs == plain_crcs.tolist(), "the CRCs differ")
+    del files, framed, plain_framed, payloads, records
+
+    mb = nbytes / 1e6
+    phase_s = time.perf_counter() - t_phase
+    out = {
+        "build_s": build_s, "sources": _build.host_sources(),
+        "customer_column": {
+            "vocab": n_customers, "draws": n_draws, "oov": int(oov.sum()),
+            "ids_equal": True, "native_build_s": native_build,
+            "native_s": native_s, "plain_build_s": plain_build,
+            "plain_s": plain_s},
+        "encoder_choice": {
+            "draws": n_choice, **choice,
+            "fixed_width_build_s": fixed_build, "ids_equal": True},
+        "history": {"rows": n_history, "tokens": int(lens.sum()),
+                    "max_len": HISTORY_LEN, "ids_equal": True,
+                    "native_s": h_native_s, "plain_s": h_plain_s},
+        "tfrecord": {
+            "files": len(paths), "bytes": nbytes,
+            "records": int(len(lengths)), "payload_bytes": int(len(blob)),
+            "scan_s": scan_s, "plain_scan_s": plain_scan_s,
+            "scan_mb_per_s": mb / scan_s,
+            "plain_scan_mb_per_s": mb / plain_scan_s,
+            "frame_s": frame_s, "plain_frame_s": plain_frame_s,
+            "frame_mb_per_s": mb / frame_s,
+            "plain_frame_mb_per_s": mb / plain_frame_s,
+            "crc_s": crc_s, "plain_crc_s": plain_crc_s,
+            "crc_mb_per_s": len(blob) / 1e6 / crc_s,
+            "plain_crc_mb_per_s": len(blob) / 1e6 / plain_crc_s,
+            "offsets_bytes_and_crcs_equal": True},
+        "calls_in_phases_15_16": calls,
+        "phase_s": phase_s, "budget_s": NATIVE_BUDGET_S,
+    }
+    emit({"native_host": out})
+    require(phase_s <= NATIVE_BUDGET_S,
+            f"phase 19 took {phase_s:.1f} s of its {NATIVE_BUDGET_S} s")
+    return out
+
+
 @contextlib.contextmanager
 def checkpoint_times():
     """Inside the block, ms of each ``CheckpointManager`` host copy
@@ -6370,7 +6565,7 @@ def main(argv=None):
         seconds[name] = now - t_phase
         t_phase = now
 
-    card = phase_device()
+    card, host_build_s = phase_device()
     lap("1_device")
     stats = phase_kernels(gen, dev)
     lap("2_kernels")
@@ -6443,6 +6638,10 @@ def main(argv=None):
             launches[name] += n
         lap("18_ranks_several_devices")
         del ctx
+    # phases 15-16 reach the host library through its callers alone
+    from hm_retrieval_tpu_torch import native_ext
+
+    native_ext.reset_calls()
     with tempfile.TemporaryDirectory(dir=build_root,
                                      prefix="chip_smoke-pipeline-") as d:
         # phase 15: the five stages through the port alone
@@ -6454,7 +6653,12 @@ def main(argv=None):
         # phase 16: run_hm_torch.py's calls, TFRecords, the NaN checks
         for name, n in phase_host_surface(args.seed, dev, Path(d)).items():
             launches[name] += n
-    lap("16_host_surface")
+        lap("16_host_surface")
+        # phase 19: the host library against its plain versions, on phase
+        # 16's TFRecord files
+        phase_native_host(args.seed, Path(d) / "tfrecords", host_build_s,
+                          dict(native_ext.CALLS))
+    lap("19_native_host")
     emit({"phase_seconds": seconds})
 
     pallas = "hm_retrieval_tpu/ops/pallas_retrieval.py"

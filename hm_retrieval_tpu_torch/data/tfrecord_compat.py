@@ -1,7 +1,7 @@
 """TFRecord / tf.train.Example interop: the reference's on-disk format.
 
-Own copy of the JAX package's ``data/tfrecord_compat.py``, with numpy and
-the standard library only (no TensorFlow, pandas or native code). The
+Own copy of the JAX package's ``data/tfrecord_compat.py``, with numpy, the
+standard library and the port's host library (no TensorFlow or pandas). The
 reference serializes datasets as TFRecord shards of ``tf.train.Example``
 protos (ref: pkg/tfrecord_writer/tfrecord_writer.py:44-126) and reads them
 back with ``tf.data.TFRecordDataset`` (ref:
@@ -25,13 +25,19 @@ JAX package writes the NaN that pandas 3's ``astype(str)`` keeps:
 read in the JAX package's order, ``sorted(glob(...))``, so ``train_10``
 comes before ``train_2``.
 
-CRC32C runs over many records at once, four bytes a step through two
-64Ki-entry tables: records are cut into segments of at most 1 KiB, the
-segments whose words share an alignment are copied as rows of words,
+The record framing, its scan and the CRC32C run in C++
+(``native_ext.tfrecord_frame``, ``tfrecord_scan``, ``tfrecord_masked_crc``;
+``csrc/shardio.cpp``), as the JAX package's native path runs them: a
+corrupt or truncated file raises ``ValueError("corrupt TFRecord data at
+byte N")`` before any record is yielded. Their plain versions stay here in
+numpy: ``_masked_crcs`` runs the CRC over many records at once, four bytes
+a step through two 64Ki-entry tables (records cut into segments of at most
+1 KiB, the segments whose words share an alignment copied as rows of words,
 longest first, so the segments still running at a step are a prefix of a
-column, and each record's segments are chained through one table of the
-register's step over 1 KiB of zeros. Framing is written by one scatter and scanned by one loop over
-records; no loop in Python runs over bytes.
+column, and each record's segments chained through one table of the
+register's step over 1 KiB of zeros); ``_frame`` writes the framing by one
+scatter and ``_scan`` reads it by one loop over records, and finds faults
+in the order and with the messages of the JAX package's Python reader.
 
 Wire format (tensorflow/core/example/{example,feature}.proto):
     Example.features = field 1; Features.feature map entries = field 1
@@ -55,6 +61,7 @@ from typing import Dict, Iterator, List, Sequence, Tuple, Union
 import numpy as np
 from numpy.lib.stride_tricks import sliding_window_view
 
+from hm_retrieval_tpu_torch import native_ext
 from hm_retrieval_tpu_torch.data.dataset import ShardDataset
 from hm_retrieval_tpu_torch.data.shard_writer import ShardWriter
 from hm_retrieval_tpu_torch.etl.transformations import (
@@ -71,7 +78,7 @@ logger = logging.getLogger(__name__)
 FeatureValue = Union[List[bytes], List[float], List[int]]
 
 # ---------------------------------------------------------------------------
-# CRC32C over many records at once
+# CRC32C over many records at once (the plain version)
 # ---------------------------------------------------------------------------
 
 _POLY = 0x82F63B78  # CRC32C (Castagnoli), reflected
@@ -159,6 +166,8 @@ def _masked_crcs(buf: np.ndarray, starts, lengths) -> np.ndarray:
     skip = _crc_tables()["skip"]
     starts = np.asarray(starts, np.int64)
     lengths = np.asarray(lengths, np.int64)
+    if not len(lengths):
+        return np.zeros(0, np.uint32)
     n_seg = np.maximum(1, -(-lengths // _SEGMENT))
     head = lengths - _SEGMENT * (n_seg - 1)  # the first segment's bytes
     seg0 = np.cumsum(n_seg) - n_seg  # each record's first segment
@@ -182,9 +191,8 @@ def _masked_crcs(buf: np.ndarray, starts, lengths) -> np.ndarray:
 
 
 def masked_crc32c(data: bytes) -> int:
-    """Masked CRC32C as used by the TFRecord container."""
-    buf = np.frombuffer(data, np.uint8)
-    return int(_masked_crcs(buf, [0], [len(buf)])[0])
+    """Masked CRC32C as used by the TFRecord container (C++)."""
+    return native_ext.tfrecord_masked_crc(data)
 
 
 # ---------------------------------------------------------------------------
@@ -198,8 +206,9 @@ def _u32_at(buf: np.ndarray, pos) -> np.ndarray:
 
 
 def _scan(path: str, data: bytes, verify_crc: bool):
-    """(record starts, record lengths, error): the records before the first
-    fault, and the fault's ``ValueError`` (None if the file is whole),
+    """``tfrecord_scan``'s plain version. (record starts, record lengths,
+    error): the records before the first fault, and the fault's
+    ``ValueError`` (None if the file is whole),
     found in the JAX reader's order within a record: truncated header,
     length CRC, truncated body, data CRC."""
     n = len(data)
@@ -240,21 +249,21 @@ def _scan(path: str, data: bytes, verify_crc: bool):
 
 
 def iter_tfrecords(path: str, verify_crc: bool = True) -> Iterator[bytes]:
-    """Yield raw record payloads from one TFRecord file; a truncated or
-    (with ``verify_crc``) corrupt record raises ``ValueError`` after the
-    records before it."""
+    """Yield raw record payloads from one TFRecord file. The whole file is
+    scanned first: a truncated or (with ``verify_crc``) corrupt record
+    raises ``ValueError("corrupt TFRecord data at byte N")`` before any
+    record is yielded, as the JAX package's native reader does."""
     with open(path, "rb") as f:
         data = f.read()
-    starts, lengths, error = _scan(path, data, verify_crc)
+    starts, lengths = native_ext.tfrecord_scan(data, verify=verify_crc)
     for s, ln in zip(starts.tolist(), lengths.tolist()):
         yield data[s:s + ln]
-    if error is not None:
-        raise error
 
 
 def _frame(payloads: Sequence[bytes]) -> bytes:
-    """The TFRecord bytes of ``payloads``: each record's 12-byte header and
-    4-byte trailer scattered around the payloads in one pass."""
+    """``tfrecord_frame``'s plain version: the TFRecord bytes of
+    ``payloads``, each record's 12-byte header and 4-byte trailer scattered
+    around the payloads in one pass."""
     lengths = np.fromiter(map(len, payloads), np.int64, count=len(payloads))
     if not len(lengths):
         return b""
@@ -278,9 +287,18 @@ def _frame(payloads: Sequence[bytes]) -> bytes:
     return out.tobytes()
 
 
+def _frame_native(payloads: Sequence[bytes]) -> bytes:
+    """The TFRecord bytes of ``payloads``, framed in C++."""
+    offsets = np.zeros(len(payloads) + 1, np.uint64)
+    np.cumsum(np.fromiter(map(len, payloads), np.uint64,
+                          count=len(payloads)), out=offsets[1:])
+    return native_ext.tfrecord_frame(b"".join(payloads), offsets)
+
+
 def write_tfrecords(path: str, payloads: Sequence[bytes]) -> None:
-    """Write raw payloads as one TFRecord file (tf.io-compatible)."""
-    framed = _frame(payloads)
+    """Write raw payloads as one TFRecord file (tf.io-compatible), framed
+    in C++."""
+    framed = _frame_native(payloads)
     with open(path, "wb") as f:
         f.write(framed)
 

@@ -8,8 +8,10 @@ the same encoding contract and the same ``to_dict``/``from_dict`` payload,
 
 so a schema saved by either package loads in the other. Vocabularies and
 statistics are built from the port's tables (``etl/transformations.py``)
-with numpy; ``encode`` keeps only the pure-Python dictionary path (no
-native encoder, no pandas).
+with numpy. ``encode`` and ``encode_sequence`` run the host library's C++
+encoder (``native_ext.NativeSeqVocab``, one a vocab object); the
+pure-Python dictionary paths stay as their plain versions,
+``encode_plain`` and ``encode_sequence_plain``, which give the same ids.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from hm_retrieval_tpu_torch import native_ext
 from hm_retrieval_tpu_torch.etl.transformations import Lookup, factorize
 
 def present_strings(values) -> np.ndarray:
@@ -92,6 +95,9 @@ class Feature:
     _decode_table_for: object = field(
         default=None, repr=False, compare=False
     )
+    # the native encoder and the vocab object it was built from
+    _native: object = field(default=None, repr=False, compare=False)
+    _native_for: object = field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
         self.kind = FeatureKind(self.kind)
@@ -193,16 +199,50 @@ class Feature:
                 missing=0)
         return self._token_to_id
 
+    def _native_encoder(self) -> "native_ext.NativeSeqVocab":
+        """The C++ encoder of this vocab object, built once (a new vocab
+        array, a new encoder)."""
+        if self.vocab is None:
+            raise ValueError(f"feature {self.name!r} has no vocab")
+        if self._native is None or self._native_for is not self.vocab:
+            self._native = native_ext.NativeSeqVocab(self.vocab)
+            self._native_for = self.vocab
+        return self._native
+
+    def __getstate__(self):
+        # the encoder holds a C pointer: a copy or a pickle builds its own
+        return {**self.__dict__, "_native": None, "_native_for": None}
+
     def encode(self, values) -> np.ndarray:
-        """String tokens -> int32 ids (0 = OOV)."""
+        """String tokens -> int32 ids (0 = OOV), through the C++ encoder.
+        An object array's tokens are read in place (a token that is not a
+        ``str`` as ``str(tok)``); any other input is first taken as a str
+        array and its ``tolist()`` read, the faster of the library's two
+        encoders on the card's host for U and S input (``PERF.md``)."""
+        raw = np.asarray(values)
+        if raw.dtype.kind == "O":
+            return self._native_encoder().encode_tokens(raw.ravel())
+        arr = np.asarray(values, dtype=str).ravel()
+        return self._native_encoder().encode_tokens(arr.tolist())
+
+    def encode_plain(self, values) -> np.ndarray:
+        """``encode``'s plain version: one dictionary lookup a token."""
         arr = np.asarray(values, dtype=str).ravel()
         return np.fromiter(map(self._lookup().__getitem__, arr.tolist()),
                            dtype=np.int32, count=arr.size)
 
     def encode_sequence(self, values) -> np.ndarray:
         """Iterable of token lists -> (B, max_len) int32, keeping the LAST
-        ``max_len`` tokens, right-padded with 0. Missing cells (None or
-        float NaN) encode as all-pad rows."""
+        ``max_len`` tokens, right-padded with 0, through the C++ encoder.
+        Missing cells (None or float NaN) encode as all-pad rows; a bare
+        ``str`` cell is read as its characters."""
+        if self.kind != FeatureKind.SEQUENCE:
+            raise ValueError(f"{self.name!r} is not a sequence feature")
+        return self._native_encoder().encode_sequences(values, self.max_len)
+
+    def encode_sequence_plain(self, values) -> np.ndarray:
+        """``encode_sequence``'s plain version: rows cut in Python, then one
+        ``encode_plain`` of every token."""
         if self.kind != FeatureKind.SEQUENCE:
             raise ValueError(f"{self.name!r} is not a sequence feature")
         n = len(values)
@@ -220,7 +260,7 @@ class Feature:
         flat = np.fromiter(
             itertools.chain.from_iterable(trunc), dtype=object, count=total
         )
-        ids = self.encode(flat)
+        ids = self.encode_plain(flat)
         row_idx = np.repeat(np.arange(n), lens)
         starts = np.concatenate(([0], np.cumsum(lens)[:-1]))
         col_idx = np.arange(total) - np.repeat(starts, lens)

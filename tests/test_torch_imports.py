@@ -1,8 +1,9 @@
 """The port stands alone: no JAX and nothing of the JAX package in
 hm_retrieval_tpu_torch, chip_smoke.py, bin_max_bench.py or
 examples/run_synthetic_torch.py, nothing the card's machine lacks (pandas,
-pyarrow) on its import path, tensorboardX only behind a guard, and no
-silent CPU fallback when the card is absent. Serving records no autograd graph, though the towers'
+pyarrow) on its import path, tensorboardX only behind a guard, no silent
+CPU fallback when the card is absent, and no plain fallback when the host
+library cannot be built (its build reads only the port's csrc/). Serving records no autograd graph, though the towers'
 parameters are trainable."""
 
 import ast
@@ -350,6 +351,115 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="build failed"):
         _build.build_all()
     assert list((tmp_path / "build").glob("*.so")) == []
+
+
+def test_the_host_library_imports_only_the_port():
+    """``native_ext.py`` imports neither JAX nor the JAX package, and a fresh
+    interpreter that encodes, frames and scans through it has neither in
+    ``sys.modules``."""
+    path = PKG / "native_ext.py"
+    assert not [m for m in _imported_modules(path)
+                if m.split(".")[0] in ("jax", "jaxlib", "hm_retrieval_tpu")]
+    code = (
+        "import sys\n"
+        "from hm_retrieval_tpu_torch import native_ext as ne\n"
+        "ne.NativeSeqVocab(['a']).encode_tokens(['a'])\n"
+        "ne.NativeVocab(['a']).encode(['a'])\n"
+        "ne.tfrecord_scan(ne.tfrecord_frame(b'ab', [0, 1, 2]))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        + repr(FORBIDDEN) + ")\nprint(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True, text=True, cwd=str(ROOT), env=env, timeout=240,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_the_host_build_reads_only_the_ports_csrc(monkeypatch, tmp_path):
+    """``build_host`` hands ``g++`` only ``hm_retrieval_tpu_torch/csrc/*.cpp``
+    (never ``native/``, never a ``.cu``), writes only into the build
+    directory, and ``nvcc``'s sources stay the ``.cu`` files."""
+    assert _build.CSRC_DIR == PKG / "csrc"
+    assert _build.host_sources() == ["seqencode", "shardio"]
+    assert _build.sources() == ["bin_max2"]
+    commands = []
+
+    class Recorder:
+        def __init__(self, cmd, **kwargs):
+            commands.append(cmd)
+            self.returncode = 1
+
+        def communicate(self):
+            return "recorded, not built", None
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: "/bin/g++")
+    monkeypatch.setattr(_build.subprocess, "Popen", Recorder)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="recorded, not built"):
+        _build.build_host()
+    assert len(commands) == 2
+    for cmd in commands:
+        assert cmd[0] == "/bin/g++"
+        assert cmd[1:6] == ["-O3", "-std=c++17", "-fPIC", "-pthread",
+                            "-shared"]
+        sources = [a for a in cmd if a.endswith((".cpp", ".cu", ".cc"))]
+        assert len(sources) == 1
+        assert Path(sources[0]).parent == PKG / "csrc"
+        assert sources[0].endswith(".cpp")
+        out = Path(cmd[cmd.index("-o") + 1])
+        assert out.parent == tmp_path / "build"
+    assert not [c for c in commands if any("native" + os.sep in a
+                                           for a in c)]
+
+
+def test_missing_gxx_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    """Without ``g++`` (and nothing built), every encoder and every TFRecord
+    function raises ``RuntimeError``: none returns the plain result."""
+    from hm_retrieval_tpu_torch import native_ext
+    from hm_retrieval_tpu_torch.data import tfrecord_compat as tfc
+    from hm_retrieval_tpu_torch.schema.features import Feature
+
+    path = tmp_path / "t.tfrecord"
+    path.write_bytes(tfc._frame([b"ab", b"c"]))
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    cat = Feature("c", "categorical", "query", embedding_size=4,
+                  vocab=["a", "b"])
+    seq = Feature("s", "sequence", "query", embedding_size=4,
+                  vocab=["a", "b"], max_len=2)
+    calls = [
+        lambda: cat.encode(np.array(["a", "b"])),
+        lambda: cat.encode(np.array(["a", None], dtype=object)),
+        lambda: seq.encode_sequence([["a"], ["b", "a"]]),
+        lambda: list(tfc.iter_tfrecords(str(path))),
+        lambda: tfc.write_tfrecords(str(tmp_path / "w.tfrecord"), [b"x"]),
+        lambda: tfc.masked_crc32c(b"x"),
+        lambda: native_ext.gather_rows(np.arange(3), np.array([0])),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+            call()
+    assert not (tmp_path / "build").exists()
+    assert not (tmp_path / "w.tfrecord").exists()
+    # the plain versions need no library
+    assert cat.encode_plain(np.array(["b"])).tolist() == [2]
+
+
+def test_failed_host_build_raises_with_the_compilers_output(monkeypatch,
+                                                            tmp_path):
+    fake = tmp_path / "g++"
+    fake.write_text("#!/bin/sh\necho 'error: no compiler here' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="no compiler here"):
+        _build.load_host("shardio")
+    assert list((tmp_path / "build").iterdir()) == []
 
 
 def test_sources_and_launch_counters():

@@ -6,10 +6,12 @@ tables, read from the same CSV): the files must be byte-identical, including
 a missing categorical written as ``FloatList [nan]`` (trap q); both read the
 other's files and TensorFlow's own; ``parse_example`` decodes packed,
 unpacked, unknown-field and negative-int64 payloads as JAX's does (trap s);
-the vectorized CRC equals the per-byte form and JAX's; the three corruption
-errors carry JAX's messages; twelve files are read in JAX's lexicographic
-order (trap r); import and export equal JAX's array for array; and the
-module runs with pandas, pyarrow and TensorFlow blocked.
+the C++ CRC and the plain vectorized one equal the per-byte form and JAX's;
+the port's reader (C++) raises on corruption as JAX's native reader does,
+before any record, and its plain version (``_scan``) carries the JAX Python
+reader's messages after the records before the fault; twelve files are read
+in JAX's lexicographic order (trap r); import and export equal JAX's array
+for array; and the module runs with pandas, pyarrow and TensorFlow blocked.
 """
 
 import os
@@ -120,6 +122,8 @@ def test_crc_equals_the_per_byte_form_and_jax():
     for p in payloads:
         want = crc_per_byte(p)
         assert tfc.masked_crc32c(p) == want == jtfc.masked_crc32c(p)
+        plain = tfc._masked_crcs(np.frombuffer(p, np.uint8), [0], [len(p)])
+        assert int(plain[0]) == want
     # every record of a buffer at once, at every alignment and length, those
     # past 1 KiB as chained segments
     blob = b"".join(payloads)
@@ -145,7 +149,10 @@ def test_framing_bytes_equal_jax(tmp_path, sizes):
     jtfc.write_tfrecords(str(tmp_path / "jax.tfrecord"), payloads)
     port = (tmp_path / "port.tfrecord").read_bytes()
     assert port == (tmp_path / "jax.tfrecord").read_bytes()
+    assert tfc._frame(payloads) == port
     assert list(tfc.iter_tfrecords(str(tmp_path / "jax.tfrecord"))) == payloads
+    assert plain_records(str(tmp_path / "jax.tfrecord"), True) == (payloads,
+                                                                  None)
 
 
 def corrupt(raw: bytes, what: str) -> bytes:
@@ -170,35 +177,72 @@ def corrupt(raw: bytes, what: str) -> bytes:
     return bytes(raw)
 
 
-@pytest.mark.parametrize("what", ["length_crc", "length", "data_crc",
-                                  "trailer", "truncated_body",
-                                  "truncated_header", "truncated_trailer"])
-@pytest.mark.parametrize("verify", [True, False])
-def test_corruption_errors_match_jax(tmp_path, monkeypatch, what, verify):
-    """The records before the fault, then the ``ValueError`` message of the
-    JAX package's Python reader (bad length CRC, bad data CRC, truncated
-    header or body, each at the record's offset); without ``verify_crc``
-    only the truncations raise."""
-    no_native(monkeypatch)
+def plain_records(path, verify):
+    """The port's plain reader: the records ``_scan`` finds before the
+    first fault, and the fault's message (None if the file is whole)."""
+    data = Path(path).read_bytes()
+    starts, lengths, error = tfc._scan(path, data, verify)
+    got = [data[s:s + ln] for s, ln in zip(starts.tolist(), lengths.tolist())]
+    return got, None if error is None else str(error)
+
+
+def read_all(module, path, verify):
+    """The records ``module.iter_tfrecords`` yields before it raises, and
+    its ``ValueError``'s message (None if it does not raise)."""
+    got = []
+    try:
+        for rec in module.iter_tfrecords(str(path), verify_crc=verify):
+            got.append(rec)
+    except ValueError as exc:
+        return got, str(exc)
+    return got, None
+
+
+CORRUPTIONS = ["length_crc", "length", "data_crc", "trailer",
+               "truncated_body", "truncated_header", "truncated_trailer"]
+
+
+def corrupt_file(tmp_path, what):
     payloads = [b"a" * 13, bytes(range(7)), b"\xfe" * 20]
     path = tmp_path / "t.tfrecord"
     tfc.write_tfrecords(str(path), payloads)
     path.write_bytes(corrupt(path.read_bytes(), what))
+    return path
 
-    def run(module):
-        got = []
-        try:
-            for rec in module.iter_tfrecords(str(path), verify_crc=verify):
-                got.append(rec)
-        except ValueError as exc:
-            return got, str(exc)
-        return got, None
 
-    got, err = run(tfc)
-    want, want_err = run(jtfc)
+@pytest.mark.parametrize("what", CORRUPTIONS)
+@pytest.mark.parametrize("verify", [True, False])
+def test_corruption_errors_match_jax(tmp_path, monkeypatch, what, verify):
+    """The port's plain reader (``_scan``) against the JAX package's Python
+    reader: the records before the fault, then the same ``ValueError``
+    message (bad length CRC, bad data CRC, truncated header or body, each
+    at the record's offset); without ``verify_crc`` only the truncations
+    raise."""
+    no_native(monkeypatch)
+    path = corrupt_file(tmp_path, what)
+    got, err = plain_records(str(path), verify)
+    want, want_err = read_all(jtfc, path, verify)
     assert (got, err) == (want, want_err)
     if verify or what.startswith("truncated") or what == "length":
         assert err is not None and err.startswith(f"{path}: ")
+    if not verify and what in ("length_crc", "data_crc", "trailer"):
+        assert err is None and len(got) == 3
+
+
+@pytest.mark.parametrize("what", CORRUPTIONS)
+@pytest.mark.parametrize("verify", [True, False])
+def test_native_corruption_errors_match_jax_native(tmp_path, what, verify):
+    """The port's reader (C++) against the JAX package's native reader: the
+    whole file is scanned first, so a fault raises ``corrupt TFRecord data
+    at byte N`` (N the faulty record's offset: the second record's, 29, or
+    the third's, 52, for a cut trailer) before any record; without
+    ``verify_crc`` only the truncations raise."""
+    path = corrupt_file(tmp_path, what)
+    got, err = read_all(tfc, path, verify)
+    assert (got, err) == read_all(jtfc, path, verify)
+    at = 52 if what == "truncated_trailer" else 29
+    if verify or what.startswith("truncated") or what == "length":
+        assert got == [] and err == f"corrupt TFRecord data at byte {at}"
     if not verify and what in ("length_crc", "data_crc", "trailer"):
         assert err is None and len(got) == 3
 
