@@ -95,6 +95,36 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    rescore included) wherever the survivors agree. Rounds per batch and
    recall against the exact fp32 top-1000, beside phase 5's single-pass
    recall, are printed, not held to a limit.
+20. The PartialReduce engines (phase_partial_reduce; run after phase 7, on
+   phase 3's catalog and model): the hand-written kernel of
+   csrc/partial_reduce.cu, which replaces the TPU's PartialReduce under
+   lax.approx_max_k (hm_retrieval_tpu/ops/exact_topk.py:63).
+   (a) the kernel against partial_reduce_plain, values and columns bit for
+       bit, at B = 1, 16, 128, 1024 and the (n, L, r) the engines give it
+       over the H&M catalog: "approx" over the 105,542 real rows at k = 10,
+       100, 1000 ((256, 9), (3328, 5), (26496, 2)) and "partial_reduce" over
+       the 106,496 padded rows at k = 1000 ((26624, 2)), on random normal
+       scores and on integer-valued ones in [-3, 3] with -inf entries and
+       whole -inf rows; each shape timed by graph ("ms") and by events
+       ("events_ms") beside its plain version, its bound (B*n*4 + B*L*8
+       bytes over 3.35 TB/s) and the library call torch.max over the
+       padded (B, 2^r, L) view ("library_ms"); the kernel's registers and
+       spilled bytes printed (none may spill);
+   (b) BruteForceIndex(method="partial_reduce") and ("approx") over phase
+       3's catalog (k = 1000), each saved and loaded back through
+       RetrievalService.load(device="cuda"), answering string requests of
+       B = 1, 16, 128, 1024, counts from 0: the kernel must launch and no
+       bin-max kernel. "partial_reduce" must answer the exact fp32 top-1000
+       (values within TOL, ids swapped only between scores within 2*TOL;
+       the "pallas" index works on bf16 operands, so its overlap is printed
+       beside, not held); its rounds printed. "approx" answers real
+       (score, id) pairs best first, its recall against the exact fp32
+       top-1000 held >= 0.95 at B >= 128 and printed at every B beside
+       XLA's model (1 - 1/L)^(k - 1) = 0.963 and the pair model
+       1 - (k - 1) / (2L) = 0.981. Retrieve ms (host clock), device ms
+       (CUDA events, tower and top-k) and launches a batch are printed; at
+       B = 16 a save and load_index answers bit for bit. Its launches are
+       the kernel's count on the kernels line.
 8. Widths the kernels do not take as they are (phase_widths): over 20,000
    rows of integer-valued embeddings, BruteForceIndex("auto") (k=1000) and
    QuantizedIndex (k=100) with one pass and with 8 rounds at E = 8 and 100
@@ -288,7 +318,7 @@ Phases, each of which must pass (a failure raises and exits non-zero):
        one process.
 15. The five stages through the port alone, from raw CSVs (phase_pipeline):
    the port's generate_hm_like_csvs at H&M width (1,371,980 customers,
-   105,542 articles, 130 product types; 3,000,000 transactions, cut from
+   105,542 articles, 130 product types; 1,500,000 transactions, cut from
    H&M's 31.8M for time), then etl_runner, build_schema_runner and
    shard_writer_runner with .npz splits (the card's machine has no
    pyarrow), a 16-long purchase history, hm_schema's widths with every
@@ -313,7 +343,7 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    written with numpy (write_hm_csvs: the file names, columns and date window
    examples/run_hm.py reads; 105,542 articles with zero-padded 10-digit ids,
    131 product types, 19 groups, 50 colours, 250 departments, 1,371,980
-   64-hex customers, 3,000,000 transactions over 2019-09-20..2020-09-21, cut
+   64-hex customers, 1,500,000 transactions over 2019-09-20..2020-09-21, cut
    from H&M's 31.8M for time), then three in-process calls of
    examples/run_hm_torch.py's main, counts from 0:
    (a) --stages etl,schema,shards --history 16 --sample 0.5 --epochs 2
@@ -441,8 +471,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    tfrecord_frame and tfrecord_scan called at least once there, counted
    from 0 before phase 15). Against the plain versions, equal in every
    comparison, each side's seconds on the host clock:
-   (a) phase 15's customer column: 1,371,980 64-hex ids, 3,000,000 draws
-       (1% OOV), Feature.encode against encode_plain, the encoder and the
+   (a) a customer column at phase 15's width: 1,371,980 64-hex ids,
+       3,000,000 draws (1% OOV), Feature.encode against encode_plain, the encoder and the
        dict built apart; then, for U and S input, the extension over
        tolist() (Feature.encode's) against the fixed-width NativeVocab on
        the first 1,000,000 draws;
@@ -1767,6 +1797,208 @@ class Records(logging.Handler):
 
     def emit(self, record):
         self.records.append(record.getMessage())
+
+
+# --- phase 20: the PartialReduce engines ------------------------------------
+
+PR_HEADLINE = (N_ARTICLES, SERVE_K, 1024)  # (n, k, B) of the kernels line
+PR_RECALL_MIN_B = 128  # "approx" recall is held at B >= this
+
+
+def partial_reduce_shapes():
+    """(n, k, L, r) the engines give the kernel over the H&M catalog:
+    "approx" over the real rows at k = 10, 100, 1000, and "partial_reduce"
+    over the catalog padded to a multiple of 1024 at k = 1000."""
+    from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
+    from hm_retrieval_tpu_torch.ops import partial_reduce as pr
+
+    n_pad = -(-N_ARTICLES // BruteForceIndex.PAD_MULTIPLE) * (
+        BruteForceIndex.PAD_MULTIPLE)
+    return [(n, k, *pr.reduction_size(n, k, 0.95))
+            for n, k in ((N_ARTICLES, 10), (N_ARTICLES, 100),
+                         (N_ARTICLES, SERVE_K), (n_pad, SERVE_K))]
+
+
+def partial_reduce_inputs(gen, dev, kind, B, n):
+    """(B, n) fp32 scores: random normal, or integer-valued in [-3, 3] (ties
+    in every bin) with -inf entries and whole -inf rows."""
+    if kind == "normal":
+        return torch.randn(B, n, generator=gen, device=dev)
+    x = torch.randint(-3, 4, (B, n), generator=gen, device=dev).float()
+    x[torch.rand(B, n, generator=gen, device=dev) < 0.05] = float("-inf")
+    x[::7] = float("-inf")
+    return x
+
+
+def phase_partial_reduce_kernel(gen, dev):
+    """(a): the kernel against its plain version, bit for bit, at every
+    (n, k) of partial_reduce_shapes() and B of SERVE_BATCHES, on normal and
+    tie-heavy scores; timed on the normal ones beside its bound and the
+    library call torch.max over the padded (B, 2^r, L) view."""
+    from hm_retrieval_tpu_torch.ops import partial_reduce as pr
+
+    info = pr.launch_info(dev)
+    emit({"partial_reduce_launch": info})
+    require(info["local_bytes"] == 0, f"partial_reduce spills: {info}")
+    stats = {"max_abs_err": 0.0, "id_mismatches": 0, "shapes": []}
+    for n, k, L, r in partial_reduce_shapes():
+        for B in SERVE_BATCHES:
+            for kind in ("ties", "normal"):
+                x = partial_reduce_inputs(gen, dev, kind, B, n)
+                got = pr.partial_reduce(x, L, r)
+                want = pr.partial_reduce_plain(x, L, r)
+                torch.cuda.synchronize()
+                require(torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1]),
+                        f"partial_reduce n={n} L={L} r={r} B={B} {kind}: "
+                        "differs from its plain version")
+            x_pad = torch.full((B, L << r), float("-inf"), device=dev)
+            x_pad[:, :n] = x
+            bound, by = roofline_ms(B * n * 4 + B * L * 8, 0)
+            row = {
+                "n": n, "k": k, "L": L, "r": r, "B": B,
+                "ms": graph_ms(lambda: pr.partial_reduce(x, L, r), 50),
+                "events_ms": cuda_ms(lambda: pr.partial_reduce(x, L, r), 50),
+                "plain_ms": cuda_ms(
+                    lambda: pr.partial_reduce_plain(x, L, r), 3),
+                "library_ms": cuda_ms(
+                    lambda: torch.max(x_pad.view(B, 1 << r, L), dim=1), 50),
+                "bound_ms": bound, "bound_by": by,
+            }
+            row["share"] = bound / row["ms"]
+            stats["shapes"].append(row)
+            emit({"partial_reduce_kernel": row})
+            if (n, k, B) == PR_HEADLINE:
+                stats.update({key: row[key] for key in (
+                    "ms", "events_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")})
+            del x, x_pad
+    stats["library"] = "torch.max(x_pad.view(B, 2**r, L), dim=1)"
+    stats.update(registers=info["registers"], local_bytes=info["local_bytes"])
+    return stats
+
+
+def phase_partial_reduce(gen, shared, repeats, dev, workdir):
+    """Phase 20 (see the module docstring). Returns (the kernel's stats,
+    its launches on the main path)."""
+    from hm_retrieval_tpu_torch.indices import load_index
+    from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import partial_reduce as pr
+    from hm_retrieval_tpu_torch.ops.exact_topk import exact_topk_scores
+    from hm_retrieval_tpu_torch.serving import RetrievalService
+
+    t_phase = time.perf_counter()
+    stats = phase_partial_reduce_kernel(gen, dev)
+    kernel_s = time.perf_counter() - t_phase
+
+    # --- (b) the served engines over phase 3's catalog ------------------
+    ids, emb, requests = shared["ids"], shared["emb"], shared["requests"]
+    require(np.array_equal(np.asarray(ids), np.arange(1, N_ARTICLES + 1)),
+            "phase 3's catalog: article id i + 1 at row i")
+    services = {}
+    for method in ("partial_reduce", "approx"):
+        index = BruteForceIndex(SERVE_K, ids, emb, method=method, device=dev)
+        require(index._engine == method, f"{method} runs {index._engine}")
+        index.save(str(workdir / f"index_{method}"))
+        services[method] = RetrievalService.load(
+            str(shared["schema_dir"]), str(shared["model_dir"]),
+            str(workdir / f"index_{method}"), device=dev)
+        require(services[method].index._engine == method,
+                f"the loaded {method} index runs "
+                f"{services[method].index._engine}")
+
+    # --- the main path: counts from 0, served string requests only --------
+    pr.reset_launches()
+    bt.reset_launches()
+    rows, answers = [], {}
+    for method, svc in services.items():
+        for B in SERVE_BATCHES:
+            before = pr.LAUNCHES["partial_reduce"]
+            svc.retrieve(requests[B])  # warm-up
+            times = []
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                answers[method, B] = svc.retrieve(requests[B])
+                times.append((time.perf_counter() - t0) * 1e3)
+            rows.append({"method": method, "B": B,
+                         "retrieve_ms": statistics.median(times),
+                         "launches_per_batch": (pr.LAUNCHES["partial_reduce"]
+                                                - before) / (repeats + 1)})
+    launches = dict(pr.LAUNCHES)
+    other = dict(bt.LAUNCHES)
+    # ---------------------------------------------------------------------
+    require(launches["partial_reduce"] > 0 and not any(other.values()),
+            f"the PartialReduce engines launched {launches}, {other}")
+
+    exact_index = BruteForceIndex(SERVE_K, ids, emb, method="pallas",
+                                  device=dev)
+    for row in rows:
+        method, B = row["method"], row["B"]
+        svc = services[method]
+        got = answers[method, B]
+        require(len(got) == B and all(
+            len(a) == SERVE_K and len(set(a)) == SERVE_K
+            and set(a) <= shared["article_vocab"] for a in got),
+            f"{method} B={B}: an answer is not {SERVE_K} distinct articles")
+        with torch.no_grad():
+            q = svc.embed(svc.encode_query(requests[B]))
+        v, got_ids = svc.index.topk_from_embeddings(q)
+        require(svc.schema.candidate_id_feature.decode(
+            got_ids.cpu().numpy()).tolist() == got,
+            f"{method} B={B}: served answers differ from a rerun")
+        got_rows = got_ids.long() - 1
+        scores = bt.plain_scores(q, emb)  # the exact fp32 reference
+        want_v, want_rows = torch.sort(scores, dim=1, descending=True,
+                                       stable=True)
+        want_v, want_rows = want_v[:, :SERVE_K], want_rows[:, :SERVE_K]
+        hit = torch.zeros_like(scores, dtype=torch.bool)
+        hit.scatter_(1, want_rows, True)
+        recall = float(torch.gather(hit, 1, got_rows).float().mean())
+        _, pallas_ids = exact_index.topk_from_embeddings(q)
+        pallas_hit = torch.zeros_like(hit)
+        pallas_hit.scatter_(1, pallas_ids.long() - 1, True)
+        row["overlap_with_pallas"] = float(
+            torch.gather(pallas_hit, 1, got_rows).float().mean())
+        if method == "partial_reduce":
+            err, mism = compare_ranked(v, got_rows, want_v, want_rows, scores)
+            _, _, rounds = exact_topk_scores(
+                bt.plain_scores(q, svc.index.embeddings)
+                + svc.index._score_bias, SERVE_K)
+            row.update(max_abs_err_vs_exact=err, id_mismatches=mism,
+                       rounds=rounds)
+        else:
+            # real (score, id) pairs, best first
+            real = torch.gather(scores, 1, got_rows)
+            require(bool(((v - real).abs()
+                          <= TOL * real.abs().clamp_min(1.0)).all())
+                    and bool((v[:, 1:] <= v[:, :-1]).all()),
+                    f"approx B={B}: scores are not its ids' scores, "
+                    "best first")
+            L, _ = pr.reduction_size(N_ARTICLES, SERVE_K,
+                                     svc.index.recall_target)
+            row.update(recall_vs_exact=recall, L=L,
+                       model_recall=(1 - 1 / L) ** (SERVE_K - 1),
+                       pair_model_recall=1 - (SERVE_K - 1) / (2 * L))
+            require(B < PR_RECALL_MIN_B or recall >= 0.95,
+                    f"approx B={B}: recall {recall} < 0.95")
+        del scores, hit, pallas_hit
+        row.update(serve_breakdown(svc, requests[B], repeats))
+        if B == 16:
+            # a save / load_index round trip answers bit for bit
+            path = workdir / f"again_{method}"
+            svc.index.save(str(path))
+            again = load_index(str(path), device=dev)
+            v2, ids2 = again.topk_from_embeddings(q)
+            require(again.method == method and torch.equal(v2, v)
+                    and torch.equal(ids2, got_ids),
+                    f"{method}: a save and load_index answer otherwise")
+            row["reload_bit_identical"] = True
+        emit({"partial_reduce_serve": row})
+    emit({"partial_reduce_phase": {
+        "seconds": time.perf_counter() - t_phase, "kernel_s": kernel_s,
+        "launches": launches}})
+    return stats, launches
 
 
 def phase_widths(seed, dev):
@@ -5662,7 +5894,7 @@ def phase_ranks_several_devices(ctx, seed, repeats, dev, workdir,
 
 # --- phase 15: the front of the pipeline through the port ---------------------
 
-PIPELINE_TRANSACTIONS = 3_000_000  # H&M's 31.8M, cut for time
+PIPELINE_TRANSACTIONS = 1_500_000  # H&M's 31.8M, cut for time
 PIPELINE_TRAIN_B = 2048
 PIPELINE_SPLITS = ("train", "test", "candidates")
 FRONT_STAGES = ("etl", "schema", "shards")
@@ -5906,8 +6138,8 @@ def phase_pipeline(seed, dev, workdir, n_customers=N_CUSTOMERS,
 
 # --- phase 16: the rest of the host surface through the port ---------------
 
-HOST_TRANSACTIONS = 3_000_000  # H&M's 31.8M, cut for time
-HOST_SAMPLE = 0.5  # --sample: 1,500,000 transactions reach the stages
+HOST_TRANSACTIONS = 1_500_000  # H&M's 31.8M, cut for time
+HOST_SAMPLE = 0.5  # --sample: 750,000 transactions reach the stages
 HM_WINDOW = ("2019-09-20", "2020-09-21")  # run_hm.py's train + test dates
 HM_PRODUCT_TYPES, HM_GROUPS, HM_COLOURS, HM_DEPARTMENTS = 131, 19, 50, 250
 TFRECORD_ROWS = 100_000  # rows a TFRecord file and a shard
@@ -6347,7 +6579,7 @@ def phase_host_surface(seed, dev, workdir, n_customers=N_CUSTOMERS,
 
 # --- phase 19: the host's native library --------------------------------------
 
-NATIVE_DRAWS = 3_000_000  # phase 15's transactions: its customer column
+NATIVE_DRAWS = 3_000_000  # a customer column of 3,000,000 transactions
 NATIVE_CHOICE_DRAWS = 1_000_000  # the draws the U / S encoder choice reads
 NATIVE_OOV = 0.01  # share of the draws that no vocab holds
 NATIVE_HISTORY_ROWS = 100_000  # rows of the history column, 0-32 tokens each
@@ -6594,6 +6826,11 @@ def main(argv=None):
         for name in ROUNDS_KERNELS:
             launches[name] = rounds[name]
         lap("7_rounds_serving")
+        # phase 20: the PartialReduce engines on phase 3's catalog
+        stats["partial_reduce"], pr_launches = phase_partial_reduce(
+            gen, shared, args.repeats, dev, Path(d))
+        launches.update(pr_launches)
+        lap("20_partial_reduce")
     phase_widths(args.seed, dev)
     lap("8_widths")
     with tempfile.TemporaryDirectory(dir=build_root,
@@ -6672,15 +6909,20 @@ def main(argv=None):
         "bin_max2_scaled_round": ("bin_max2.cu", 701),
         "bin_max_round": ("bin_max2.cu", 158),
     }
+    kernel_files["partial_reduce"] = ("partial_reduce.cu", None)
+    replaces = {name: f"{pallas}:{line}"
+                for name, (_, line) in kernel_files.items()}
+    replaces["partial_reduce"] = (
+        "hm_retrieval_tpu/ops/exact_topk.py:63 (lax.approx_max_k)")
     kernels = [
         {
             "name": name,
             "route": "cuda",
             "source": f"hm_retrieval_tpu_torch/csrc/{kernel_files[name][0]}",
-            "replaces": f"{pallas}:{kernel_files[name][1]}",
+            "replaces": replaces[name],
             "launches": launches[name],
+            "library_ms": None,  # no PyTorch call computes a bin-max pass
             **st,  # max_abs_err, id_mismatches, ms, plain_ms, bound_ms, ...
-            "library_ms": None,
         }
         for name, st in stats.items()
     ]

@@ -16,8 +16,16 @@ an index saved by either package loads in the other.
 - ``"full"``: one fp32 product plus the bias, then a stable top-k.
 - ``"auto"``: ``"pallas"`` when the padded catalog exceeds 16384 rows, else
   ``"full"``, decided by size alone on every device.
-- ``"partial_reduce"`` and ``"approx"`` rest on a TPU-only operation
-  (``lax.approx_max_k``); they load and run as the exact ``"full"`` path.
+- ``"partial_reduce"``: one fp32 product plus the bias, then the exact
+  iterative PartialReduce refinement (``ops/exact_topk.py``) at the JAX
+  package's default ``recall_target`` of 0.95.
+- ``"approx"``: one fp32 product over the real rows only (no pad row takes
+  a bin), then ``approx_max_k`` at the index's ``recall_target``
+  (``ops/partial_reduce.py``): APPROXIMATE, the only non-exact method.
+
+The last two run the PartialReduce kernel (``csrc/partial_reduce.cu``) on the
+card and its plain version on the CPU, so they give on the CPU what they give
+on the card, where the JAX package off a TPU gives the exact top-k.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ from hm_retrieval_tpu_torch.ops.bin_topk import (
     padded_width,
     plain_scores,
 )
+from hm_retrieval_tpu_torch.ops.exact_topk import exact_topk_scores
+from hm_retrieval_tpu_torch.ops.partial_reduce import approx_max_k
 from hm_retrieval_tpu_torch.ops.topk import ids_at, topk_pair
 
 logger = logging.getLogger(__name__)
@@ -102,14 +112,7 @@ class BruteForceIndex:
             method = "pallas" if n_pad > self.PALLAS_MIN_ROWS else "full"
         self.method = method
         self._engine = method
-        if method in ("partial_reduce", "approx"):
-            logger.warning(
-                "method=%r rests on a TPU-only operation; running the exact "
-                "'full' path instead",
-                method,
-            )
-            self._engine = "full"
-        elif method == "pallas" and self.k > BIN_CHOICES[-1]:
+        if method == "pallas" and self.k > BIN_CHOICES[-1]:
             logger.warning(
                 "k=%d exceeds the largest bin count %d; running the exact "
                 "'full' path instead of the kernels",
@@ -175,7 +178,16 @@ class BruteForceIndex:
                 q, self.embeddings[: self.num_candidates], self.k
             )
             return scores, self._ids_of(rows)
+        if self._engine == "approx":
+            # only the real rows: -inf pad rows would take bins and lower
+            # the recall below recall_target on a pad-heavy catalog
+            scores = plain_scores(q, self.embeddings[: self.num_candidates])
+            top_scores, rows = approx_max_k(scores, self.k, self.recall_target)
+            return top_scores, self._ids_of(rows)
         scores = plain_scores(q, self.embeddings) + self._score_bias
+        if self._engine == "partial_reduce":
+            top_scores, rows, _ = exact_topk_scores(scores, self.k)
+            return top_scores, self._ids_of(rows)
         rows = torch.arange(
             scores.shape[1], dtype=torch.int32, device=self.device
         ).expand_as(scores)

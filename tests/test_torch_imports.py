@@ -24,7 +24,9 @@ from hm_retrieval_tpu_torch.indices import load_index
 from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
 from hm_retrieval_tpu_torch.ops import _build
 from hm_retrieval_tpu_torch.ops import bin_topk as bt
+from hm_retrieval_tpu_torch.ops import partial_reduce as pr
 from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+from hm_retrieval_tpu_torch.ops.exact_topk import exact_topk_scores
 from hm_retrieval_tpu_torch.serving import RetrievalService
 from tests.test_torch_runners import jax_stages  # noqa: F401 (module fixture)
 
@@ -328,6 +330,11 @@ def test_cuda_tensors_never_take_the_plain_path():
     c = torch.zeros(1024, 16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         bt.exact_topk(q, c, 10, L=256)
+    scores = torch.zeros(4, 4096, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pr.partial_reduce(scores, 1024, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        exact_topk_scores(scores, 32)
 
 
 def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
@@ -384,7 +391,7 @@ def test_the_host_build_reads_only_the_ports_csrc(monkeypatch, tmp_path):
     directory, and ``nvcc``'s sources stay the ``.cu`` files."""
     assert _build.CSRC_DIR == PKG / "csrc"
     assert _build.host_sources() == ["seqencode", "shardio"]
-    assert _build.sources() == ["bin_max2"]
+    assert _build.sources() == ["bin_max2", "partial_reduce"]
     commands = []
 
     class Recorder:
@@ -463,7 +470,7 @@ def test_failed_host_build_raises_with_the_compilers_output(monkeypatch,
 
 
 def test_sources_and_launch_counters():
-    assert _build.sources() == ["bin_max2"]
+    assert _build.sources() == ["bin_max2", "partial_reduce"]
     assert set(bt.LAUNCHES) == {
         "bin_max2_first_round",
         "bin_max2_round",
@@ -476,12 +483,16 @@ def test_sources_and_launch_counters():
         "bin_max2_scaled_first_round",
         "bin_max2_scaled_round",
     }
+    assert set(pr.LAUNCHES) == {"partial_reduce"}
     bt.LAUNCHES["bin_max2_round"] += 3
     qt.LAUNCHES["bin_max2_raw_fold_pass"] += 2
+    pr.LAUNCHES["partial_reduce"] += 1
     bt.reset_launches()
     qt.reset_launches()
+    pr.reset_launches()
     assert set(bt.LAUNCHES.values()) == {0}
     assert set(qt.LAUNCHES.values()) == {0}
+    assert set(pr.LAUNCHES.values()) == {0}
     # the plain CPU path does not count as a kernel launch
     bt.exact_topk(torch.randn(3, 16), torch.randn(700, 16), 5, L=256)
     bt.exact_topk(torch.randn(3, 16), torch.randn(700, 16), 5, L=256,
@@ -493,8 +504,10 @@ def test_sources_and_launch_counters():
                       max_rounds=1)
     qt.quantized_topk(torch.randn(3, 16), codes, torch.rand(1024), 5, L=256)
     qt.quantized_topk_global(torch.randn(3, 16), codes, 0.1, 5, L=256)
+    exact_topk_scores(torch.randn(3, 4096), 32)
     assert set(bt.LAUNCHES.values()) == {0}
     assert set(qt.LAUNCHES.values()) == {0}
+    assert set(pr.LAUNCHES.values()) == {0}
     assert hm_retrieval_tpu_torch.__version__
 
 
@@ -512,18 +525,21 @@ def _launchers():
 
 
 def test_each_wrapper_binds_a_launcher_of_its_source():
-    """Every wrapper loads its C launcher from the one source, bin_max2.cu,
-    whose template holds all eight kernels (the raw pass of the
-    global-scale index included), with one ctypes type per parameter: a
-    pointer (or the stream) as c_void_p, an int as c_int."""
+    """Every wrapper loads its C launcher from its source: bin_max2.cu,
+    whose template holds all eight bin-max kernels (the raw pass of the
+    global-scale index included), or partial_reduce.cu, with one ctypes
+    type per parameter: a pointer (or the stream) as c_void_p, an int as
+    c_int."""
     launchers = _launchers()
-    assert set(launchers) == {"bin_max2"}
-    argtypes = {**bt._ARGTYPES, **qt._ARGTYPES}
-    assert set(launchers["bin_max2"]) == set(argtypes)
-    for fn, params in launchers["bin_max2"].items():
-        want = [ctypes.c_int if p == "int" else ctypes.c_void_p
-                for p in params]
-        assert argtypes[fn] == want, fn
+    assert set(launchers) == {"bin_max2", "partial_reduce"}
+    wrappers = {"bin_max2": {**bt._ARGTYPES, **qt._ARGTYPES},
+                "partial_reduce": pr._ARGTYPES}
+    for source, argtypes in wrappers.items():
+        assert set(launchers[source]) == set(argtypes)
+        for fn, params in launchers[source].items():
+            want = [ctypes.c_int if p == "int" else ctypes.c_void_p
+                    for p in params]
+            assert argtypes[fn] == want, fn
     # the raw pass is the template's raw kind, launched with no scales
     text = (_build.CSRC_DIR / "bin_max2.cu").read_text()
     raw = text[text.index('extern "C" int bin_max2_raw_fold_pass'):]

@@ -231,8 +231,8 @@ def test_port_index_loads_in_jax(artifacts, tmp_path):
         (16_384, "auto", "full"),
         (16_385, "auto", "pallas"),
         (500, "pallas", "pallas"),
-        (500, "partial_reduce", "full"),
-        (500, "approx", "full"),
+        (500, "partial_reduce", "partial_reduce"),
+        (500, "approx", "approx"),
     ],
 )
 def test_method_resolution(n, method, engine):
