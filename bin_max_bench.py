@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Time the kernels of csrc/bin_max2.cu (the exact passes, kernels 1, 2, 8,
-the int8 single passes, kernels 3-5, and the int8 rounds, kernels 6-7) on
-one card: two trees side by side, or ablated builds of this tree's
+the int8 single passes, kernels 3-5, and the int8 rounds, kernels 6-7) and
+of csrc/partial_reduce.cu (kernel 9) on one card: two trees side by side, or ablated builds of this tree's
 bin_max2.cu. An earlier tree may keep some of them in other sources (its
 own csrc/), which ``ab`` builds and times alike.
 
     python3 bin_max_bench.py ab --tree OLD --tree NEW [--seed 0]
+        [--only partial_reduce]
     python3 bin_max_bench.py serve --tree OLD --tree NEW [--pairs 5]
     python3 bin_max_bench.py ablate [--seed 0]
+    python3 bin_max_bench.py splits [--seed 0]
 
-``ab`` times kernels 1-8, ``exact_topk``, ``quantized_topk`` (8 rounds
-and one pass) and ``quantized_topk_global`` from each tree's own
+``ab`` times kernels 1-9, ``exact_topk``, ``quantized_topk`` (8 rounds
+and one pass) and ``quantized_topk_global`` (with ``--only
+partial_reduce``, kernel 9 alone) from each tree's own
 ``hm_retrieval_tpu_torch`` (for example a ``git archive`` of an earlier
 commit unpacked under ``build/``), one process per tree in the order OLD,
 NEW, NEW, OLD, so that a drift of the card or host shows as a difference
@@ -21,6 +24,11 @@ as int8 codes with per-row scales. Each process saves every output it
 timed, and ``ab`` then prints whether each is bit-identical across the two
 trees (``bitwise``).
 
+- kernel 9 (``partial_reduce``, csrc/partial_reduce.cu, called as the
+  tree's own wrapper calls it: an earlier tree walks each bin unsplit) at
+  every (n, L, r) of ``chip_smoke.partial_reduce_shapes()`` (phase 20's)
+  and B = 1, 16, 128, 1024, on normal scores, timed alike, beside its bound
+  (B*n*4 + B*L*8 bytes over 3.35 TB/s).
 - kernel 1 (``bin_max2_first_round``) and kernel 2 (``bin_max2_round``, on
   the thresholds of its own round 1) at B = 1, 16, 128, L=2048; kernel 8
   (``bin_max_round`` on the thresholds of its own +inf round) at B=128,
@@ -80,6 +88,9 @@ Variants:
   sub-tile goes to the cascade);
 - ``c1`` .. ``c8``: the cluster size forced to 1, 2, 4, 8;
 - ``g1``, ``g2``: at most 1 or 2 warp groups a block.
+
+``splits`` times this tree's kernel 9 at every split it takes, at every
+shape of phase 20, beside ``split_plan``'s choice (``split_sweep``).
 
 Each line printed is one JSON object; needs a card, exits 2 without one.
 """
@@ -196,18 +207,71 @@ def single_pass_rows(qt, gen, dev, plans=cs.QUANT_PLANS, kernels=(3, 4, 5)):
                    "bound_ms": bound, "bound_by": by}, launch()
 
 
+def partial_reduce_rows(pr, gen, dev):
+    """Timings of kernel 9 (``partial_reduce``, at the tree's own split) at
+    every (n, L, r) of ``chip_smoke.partial_reduce_shapes()`` and B of
+    ``chip_smoke.SERVE_BATCHES``, on normal scores, with their bounds, each
+    with the outputs of one launch."""
+    for site, n, k, L, r in cs.partial_reduce_shapes():
+        for B in cs.SERVE_BATCHES:
+            x = torch.randn(B, n, generator=gen, device=dev)
+
+            def launch():
+                return pr.partial_reduce(x, L, r)
+
+            bound, by = cs.roofline_ms(B * n * 4 + B * L * 8, 0)
+            yield {"kernel": 9, "site": site, "n": n, "k": k, "L": L, "r": r,
+                   "B": B, **time_launch(launch), "bound_ms": bound,
+                   "bound_by": by}, launch()
+
+
+def split_sweep(seed):
+    """Kernel 9 of this tree at every split it takes (1, 2, 4, ...,
+    min(2^r, 32)) at every shape of phase 20 and B = 1, 16, 128, 1024, on
+    normal scores: graph ms of each beside ``split_plan``'s choice, every
+    split's outputs bit for bit equal to the unsplit walk's."""
+    _, _, pr = import_tree(ROOT)
+    from hm_retrieval_tpu_torch.ops import _build
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for site, n, k, L, r in cs.partial_reduce_shapes():
+        for B in cs.SERVE_BATCHES:
+            x = torch.randn(B, n, generator=gen, device=dev)
+            one = pr.partial_reduce(x, L, r, split=1)
+            ms, same = {}, True
+            for e in range(min(r, 5) + 1):
+                got = pr.partial_reduce(x, L, r, split=1 << e)
+                same &= cs.same_bits(got, one)
+                ms[1 << e] = cs.graph_ms(
+                    lambda e=e: pr.partial_reduce(x, L, r, split=1 << e), 50)
+            bound, by = cs.roofline_ms(B * n * 4 + B * L * 8, 0)
+            emit({"split_sweep": {
+                "site": site, "n": n, "k": k, "L": L, "r": r, "B": B,
+                "plan": pr.split_plan(B, L, r, sms),
+                "fastest": min(ms, key=ms.get), "ms": ms,
+                "bound_ms": bound, "bound_by": by,
+                "bitwise_equal_to_unsplit": bool(same)}})
+            if not same:
+                raise SystemExit(f"kernel 9 at n={n} L={L} r={r} B={B}: a "
+                                 "split answers otherwise")
+
+
 def import_tree(tree):
-    """(``bin_topk``, ``quantized_topk``) of the hm_retrieval_tpu_torch under
-    ``tree``."""
+    """(``bin_topk``, ``quantized_topk``, ``partial_reduce``) of the
+    hm_retrieval_tpu_torch under ``tree``."""
     sys.path.insert(0, str(Path(tree).resolve()))
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import partial_reduce as pr
     from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 
-    for module in (bt, qt):
+    for module in (bt, qt, pr):
         where = Path(module.__file__).resolve()
         if Path(tree).resolve() not in where.parents:
             raise RuntimeError(f"imported {where}, not the tree {tree}")
-    return bt, qt
+    return bt, qt, pr
 
 
 def timed_calls(fn, calls=10):
@@ -226,10 +290,11 @@ def timed_calls(fn, calls=10):
     return times, out
 
 
-def time_tree(tree, seed, out):
+def time_tree(tree, seed, out, only=None):
     """Kernels, exact_topk and quantized_topk of the hm_retrieval_tpu_torch
-    under ``tree``; every output timed is saved to ``out``."""
-    bt, qt = import_tree(tree)
+    under ``tree`` (with ``only="partial_reduce"``, kernel 9 alone); every
+    output timed is saved to ``out``."""
+    bt, qt, pr = import_tree(tree)
     from hm_retrieval_tpu_torch.ops import _build
 
     _build.build_all()
@@ -240,6 +305,13 @@ def time_tree(tree, seed, out):
     def keep(key, outs):
         saved[key] = [t.cpu() if torch.is_tensor(t) else t for t in outs]
 
+    for row, outs in partial_reduce_rows(pr, gen, dev):
+        emit({"tree": tree, **row})
+        keep(f"kernel 9 n={row['n']} L={row['L']} r={row['r']} "
+             f"B={row['B']}", outs)
+    if only == "partial_reduce":
+        torch.save(saved, out)
+        return
     rows = [*kernel_rows(bt, gen, dev, kernels=(1, 2)),
             *kernel_rows(bt, gen, dev, batches=(cs.Q_BLOCK,),
                          bins=(2048, 512), kernels=(8,)),
@@ -318,7 +390,7 @@ def serve_tree(tree, seed):
         cs.phase_serving(seed, 5, torch.device("cuda", 0), Path(d))
 
 
-def alternate(mode, trees, seed, pairs):
+def alternate(mode, trees, seed, pairs, only=None):
     """``mode`` on each tree in a process of its own, ``pairs`` pairs,
     alternating which tree runs first: OLD, NEW, NEW, OLD, ... Returns the
     (tree, output file) of each run."""
@@ -331,7 +403,8 @@ def alternate(mode, trees, seed, pairs):
             out = out_dir / f"{mode}-{pair}-{len(runs)}.pt"
             proc = subprocess.run(
                 [sys.executable, __file__, mode, "--tree", tree, "--seed",
-                 str(seed), "--out", str(out)], capture_output=True,
+                 str(seed), "--out", str(out)]
+                + (["--only", only] if only else []), capture_output=True,
                 text=True, timeout=900,
             )
             sys.stdout.write(proc.stdout)
@@ -539,12 +612,14 @@ def ablate(seed):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("mode", choices=("ab", "serve", "ablate", "time",
-                                     "serve-one"))
+    ap.add_argument("mode", choices=("ab", "serve", "ablate", "splits",
+                                     "time", "serve-one"))
     ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pairs", type=int, default=5)
     ap.add_argument("--out", help="time: where to save the outputs timed")
+    ap.add_argument("--only", choices=("partial_reduce",),
+                    help="ab / time: kernel 9 alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bin_max_bench: CUDA is not available", file=sys.stderr)
@@ -553,13 +628,16 @@ def main(argv=None):
         if len(args.tree) != 2:
             ap.error(f"{args.mode} takes two --tree")
         if args.mode == "ab":
-            compare_runs(alternate("time", args.tree, args.seed, 2))
+            compare_runs(alternate("time", args.tree, args.seed, 2,
+                                   args.only))
         else:
             alternate("serve-one", args.tree, args.seed, args.pairs)
     elif args.mode == "time":
-        time_tree(args.tree[0], args.seed, args.out)
+        time_tree(args.tree[0], args.seed, args.out, args.only)
     elif args.mode == "serve-one":
         serve_tree(args.tree[0], args.seed)
+    elif args.mode == "splits":
+        split_sweep(args.seed)
     else:
         ablate(args.seed)
     return 0

@@ -98,18 +98,26 @@ Phases, each of which must pass (a failure raises and exits non-zero):
 20. The PartialReduce engines (phase_partial_reduce; run after phase 7, on
    phase 3's catalog and model): the hand-written kernel of
    csrc/partial_reduce.cu, which replaces the TPU's PartialReduce under
-   lax.approx_max_k (hm_retrieval_tpu/ops/exact_topk.py:63).
-   (a) the kernel against partial_reduce_plain, values and columns bit for
-       bit, at B = 1, 16, 128, 1024 and the (n, L, r) the engines give it
-       over the H&M catalog: "approx" over the 105,542 real rows at k = 10,
-       100, 1000 ((256, 9), (3328, 5), (26496, 2)) and "partial_reduce" over
-       the 106,496 padded rows at k = 1000 ((26624, 2)), on random normal
-       scores and on integer-valued ones in [-3, 3] with -inf entries and
-       whole -inf rows; each shape timed by graph ("ms") and by events
-       ("events_ms") beside its plain version, its bound (B*n*4 + B*L*8
-       bytes over 3.35 TB/s) and the library call torch.max over the
-       padded (B, 2^r, L) view ("library_ms"); the kernel's registers and
-       spilled bytes printed (none may spill);
+   every lax.approx_max_k of the JAX package (ops/exact_topk.py:63,
+   indices/brute_force.py:238, indices/quantized.py:473,
+   parallel/distributed_topk.py:283), each bin's walk split into the
+   segments split_plan gives.
+   (a) the kernel against partial_reduce_plain, values by their bits and
+       columns exactly, at B = 1, 16, 128, 1024 and each (n, L, r) the port
+       gives it: "approx" over the 105,542 real rows at k = 10, 100, 1000
+       ((256, 9), (3328, 5), (26496, 2)), "partial_reduce" over the 106,496
+       padded rows at k = 1000 ((26624, 2)), the quantized scan's
+       65,536-row chunk at k = 10 and 100 ((1024, 6), (8192, 3)), phase
+       12's 26,386-row shards at k = 10 and 100 ((896, 5), (13312, 1)) and
+       phase 8's 20,480-row chunk at k = 100 ((10240, 1)); at the plan's
+       split, at 1 and at the largest (min(2^r, 32)); on random normal
+       scores and on integer-valued ones in [-3, 3] with both signs of zero,
+       -inf and NaN entries and whole -inf rows; each shape timed by graph
+       at the plan's split ("ms") and unsplit ("ms_unsplit"), and by
+       events ("events_ms"), beside its plain version, its bound
+       (B*n*4 + B*L*8 bytes over 3.35 TB/s) and the library call torch.max
+       over the padded (B, 2^r, L) view ("library_ms"); the kernel's
+       registers and spilled bytes printed (none may spill);
    (b) BruteForceIndex(method="partial_reduce") and ("approx") over phase
        3's catalog (k = 1000), each saved and loaded back through
        RetrievalService.load(device="cuda"), answering string requests of
@@ -124,16 +132,19 @@ Phases, each of which must pass (a failure raises and exits non-zero):
        1 - (k - 1) / (2L) = 0.981. Retrieve ms (host clock), device ms
        (CUDA events, tower and top-k) and launches a batch are printed; at
        B = 16 a save and load_index answers bit for bit. Its launches are
-       the kernel's count on the kernels line.
+       the kernel's count on the kernels line, with phases 8 and 12's.
 8. Widths the kernels do not take as they are (phase_widths): over 20,000
    rows of integer-valued embeddings, BruteForceIndex("auto") (k=1000) and
    QuantizedIndex (k=100) with one pass and with 8 rounds at E = 8 and 100
    run the kernels on E padded to 16 and 112 and answer bit-identically to
    the same indices on the CPU; at E = 520 the exact index routes to
-   "full" and the rounds to "scan", the one pass runs its kernels at 528,
+   "partial_reduce" (nothing reduces at k = 1000 over 20,480 rows: no
+   launch) and the rounds to "scan", the one pass runs its kernels at 528,
    and at E = 600 the one pass routes to "scan", each route with a log
-   line. The one pass's launch shapes at padded E = 528 and 576 are
-   printed.
+   line. Each scan reduces its 20,480-row chunk to (10240, 1) at k_over
+   400 and launches the PartialReduce kernel once (bit for bit against its
+   plain version, so the answers stay bit-identical to the CPU's). The one
+   pass's launch shapes at padded E = 528 and 576 are printed.
 9. Training at full H&M width (bench.py's model from the port's classes:
    customer_id 1,371,980 x 128, article_id 105,542 x 128, product types
    130 x 16, colours 50 x 8, towers [256], joint 128, logQ from a
@@ -221,8 +232,14 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    kernels must launch; DistributedBruteForceIndex on a (2, 2) mesh at
    B = 37 (the query padding); RetrievalService.load(mesh,
    distributed_index=True) over phase 10's artifact answering 128
-   customers; evaluation_runner(mesh, distributed_index=True). Then, at each
-   B: the exact index against the same index on kernels 1-2's plain
+   customers; evaluation_runner(mesh, distributed_index=True); the sharded
+   quantized "scan" at k = 100 and 10 (k_over 400 and 40: each shard
+   reduces to (13312, 1) and (896, 5), one PartialReduce launch a shard) at
+   B = 1 and 1024. The scan's recall against its exact twin
+   (recall_target 1.0: the exact top k_over of each shard's dequantized
+   scores, then the same rescore) must reach its recall_target 0.95 at
+   B = 1024 and is printed at B = 1 beside its recall against the fp32
+   top k and XLA's model. Then, at each B: the exact index against the same index on kernels 1-2's plain
    versions and against the single-device index (values within
    TOL*max(1,|s|), ids differing only between scores within TOL); each
    quantized index's per-shard survivors against the plain passes' (within
@@ -1801,63 +1818,96 @@ class Records(logging.Handler):
 
 # --- phase 20: the PartialReduce engines ------------------------------------
 
-PR_HEADLINE = (N_ARTICLES, SERVE_K, 1024)  # (n, k, B) of the kernels line
+# (site, n, k, B) of the kernels line
+PR_HEADLINE = ("approx", N_ARTICLES, SERVE_K, 1024)
+SCAN_CHUNK = 65_536  # QuantizedIndex's default chunk
 PR_RECALL_MIN_B = 128  # "approx" recall is held at B >= this
 
 
 def partial_reduce_shapes():
-    """(n, k, L, r) the engines give the kernel over the H&M catalog:
-    "approx" over the real rows at k = 10, 100, 1000, and "partial_reduce"
-    over the catalog padded to a multiple of 1024 at k = 1000."""
+    """(site, n, k, L, r) the port gives the kernel: "approx" over the H&M
+    catalog's real rows at k = 10, 100, 1000 and "partial_reduce" over its
+    rows padded to a multiple of 1024 at k = 1000 (phase 20); the quantized
+    scan's 65,536-row chunk at k = 10 and 100 (k_over 40, 400); the sharded
+    quantized scan's shards of phase 12 (105,542 rows over 4) at k = 10 and
+    100; phase 8's scan chunk of 20,480 rows at k = 100."""
     from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
     from hm_retrieval_tpu_torch.ops import partial_reduce as pr
 
     n_pad = -(-N_ARTICLES // BruteForceIndex.PAD_MULTIPLE) * (
         BruteForceIndex.PAD_MULTIPLE)
-    return [(n, k, *pr.reduction_size(n, k, 0.95))
-            for n, k in ((N_ARTICLES, 10), (N_ARTICLES, 100),
-                         (N_ARTICLES, SERVE_K), (n_pad, SERVE_K))]
+    shard = -(-N_ARTICLES // SHARDS)
+    width_chunk = -(-WIDTH_ROWS // BruteForceIndex.PAD_MULTIPLE) * (
+        BruteForceIndex.PAD_MULTIPLE)
+    sites = (("approx", N_ARTICLES, 10), ("approx", N_ARTICLES, 100),
+             ("approx", N_ARTICLES, SERVE_K), ("partial_reduce", n_pad, SERVE_K),
+             ("scan_chunk", SCAN_CHUNK, 4 * 10),
+             ("scan_chunk", SCAN_CHUNK, 4 * 100),
+             ("sharded_scan", shard, 4 * 10), ("sharded_scan", shard, 4 * 100),
+             ("width_scan", width_chunk, 4 * WIDTH_K))
+    return [(site, n, k, *pr.reduction_size(n, k, 0.95))
+            for site, n, k in sites]
 
 
 def partial_reduce_inputs(gen, dev, kind, B, n):
     """(B, n) fp32 scores: random normal, or integer-valued in [-3, 3] (ties
-    in every bin) with -inf entries and whole -inf rows."""
+    in every bin) with both signs of zero, -inf and NaN entries and whole
+    -inf rows."""
     if kind == "normal":
         return torch.randn(B, n, generator=gen, device=dev)
     x = torch.randint(-3, 4, (B, n), generator=gen, device=dev).float()
+    x[(x == 0) & (torch.rand(B, n, generator=gen, device=dev) < 0.5)] = -0.0
     x[torch.rand(B, n, generator=gen, device=dev) < 0.05] = float("-inf")
+    x[torch.rand(B, n, generator=gen, device=dev) < 0.01] = float("nan")
     x[::7] = float("-inf")
     return x
 
 
+def same_bits(got, want):
+    """Values by their bits (the sign of a zero, NaN's payload) and columns
+    exactly."""
+    return (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1]))
+
+
 def phase_partial_reduce_kernel(gen, dev):
     """(a): the kernel against its plain version, bit for bit, at every
-    (n, k) of partial_reduce_shapes() and B of SERVE_BATCHES, on normal and
-    tie-heavy scores; timed on the normal ones beside its bound and the
-    library call torch.max over the padded (B, 2^r, L) view."""
+    shape of partial_reduce_shapes() and B of SERVE_BATCHES, on normal and
+    tie-heavy scores, at the plan's split, at 1 and at the largest; timed
+    on the normal ones at the plan's split ("ms", "events_ms") and unsplit
+    ("ms_unsplit") beside its bound and the library call torch.max over
+    the padded (B, 2^r, L) view."""
     from hm_retrieval_tpu_torch.ops import partial_reduce as pr
 
     info = pr.launch_info(dev)
     emit({"partial_reduce_launch": info})
     require(info["local_bytes"] == 0, f"partial_reduce spills: {info}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stats = {"max_abs_err": 0.0, "id_mismatches": 0, "shapes": []}
-    for n, k, L, r in partial_reduce_shapes():
+    for site, n, k, L, r in partial_reduce_shapes():
         for B in SERVE_BATCHES:
+            plan = pr.split_plan(B, L, r, sms)
+            splits = sorted({plan, 1, min(1 << r, pr.MAX_SPLIT)})
             for kind in ("ties", "normal"):
                 x = partial_reduce_inputs(gen, dev, kind, B, n)
-                got = pr.partial_reduce(x, L, r)
                 want = pr.partial_reduce_plain(x, L, r)
-                torch.cuda.synchronize()
-                require(torch.equal(got[0], want[0])
-                        and torch.equal(got[1], want[1]),
-                        f"partial_reduce n={n} L={L} r={r} B={B} {kind}: "
-                        "differs from its plain version")
+                for split in splits:
+                    got = pr.partial_reduce(x, L, r, split=split)
+                    torch.cuda.synchronize()
+                    require(same_bits(got, want),
+                            f"partial_reduce n={n} L={L} r={r} B={B} "
+                            f"split={split} {kind}: differs from its plain "
+                            "version")
+                del got, want
             x_pad = torch.full((B, L << r), float("-inf"), device=dev)
             x_pad[:, :n] = x
             bound, by = roofline_ms(B * n * 4 + B * L * 8, 0)
             row = {
-                "n": n, "k": k, "L": L, "r": r, "B": B,
+                "site": site, "n": n, "k": k, "L": L, "r": r, "B": B,
+                "split": plan, "splits_held": splits,
                 "ms": graph_ms(lambda: pr.partial_reduce(x, L, r), 50),
+                "ms_unsplit": graph_ms(
+                    lambda: pr.partial_reduce(x, L, r, split=1), 50),
                 "events_ms": cuda_ms(lambda: pr.partial_reduce(x, L, r), 50),
                 "plain_ms": cuda_ms(
                     lambda: pr.partial_reduce_plain(x, L, r), 3),
@@ -1866,12 +1916,13 @@ def phase_partial_reduce_kernel(gen, dev):
                 "bound_ms": bound, "bound_by": by,
             }
             row["share"] = bound / row["ms"]
+            row["share_unsplit"] = bound / row["ms_unsplit"]
             stats["shapes"].append(row)
             emit({"partial_reduce_kernel": row})
-            if (n, k, B) == PR_HEADLINE:
+            if (site, n, k, B) == PR_HEADLINE:
                 stats.update({key: row[key] for key in (
-                    "ms", "events_ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by")})
+                    "ms", "ms_unsplit", "events_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "split")})
             del x, x_pad
     stats["library"] = "torch.max(x_pad.view(B, 2**r, L), dim=1)"
     stats.update(registers=info["registers"], local_bytes=info["local_bytes"])
@@ -2007,13 +2058,17 @@ def phase_widths(seed, dev):
     embeddings (exact in bf16 and in fp32 sums, so the answers must be
     bit-identical): BruteForceIndex("auto") and QuantizedIndex one pass and
     with 8 rounds at E = 8 and 100 run the kernels on E padded to a
-    multiple of 16; at E = 520 BruteForceIndex runs "full" and the rounds
+    multiple of 16; at E = 520 BruteForceIndex runs "partial_reduce" (which
+    reduces nothing at k = 1000 over 20,480 rows: no launch) and the rounds
     "scan" (past KERNEL_MAX_E = 512), the one pass the kernels (528 <=
     INT8_KERNEL_MAX_E = 576), and at E = 600 the one pass runs "scan", each
-    route with a log line."""
+    route with a log line. The scan's one 20,480-row chunk reduces to
+    (10,240, 1) at k_over 400 and launches the PartialReduce kernel once.
+    Returns the PartialReduce kernel's launches."""
     from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
     from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import partial_reduce as pr
     from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 
     rng = np.random.default_rng(seed)
@@ -2025,12 +2080,13 @@ def phase_widths(seed, dev):
             WIDTH_K, i, x, pallas_rounds=MAX_ROUNDS, device=d),
     }
     cases = [(w, name, "pallas") for w in (8, 100) for name in indices]
-    cases += [(520, "exact", "full"), (520, "quantized_rounds", "scan"),
+    cases += [(520, "exact", "partial_reduce"),
+              (520, "quantized_rounds", "scan"),
               (520, "quantized_one_pass", "pallas"),
               (600, "quantized_one_pass", "scan")]
     log = Records()
     logging.getLogger("hm_retrieval_tpu_torch").addHandler(log)
-    rows = []
+    rows, pr_launches = [], 0
     try:
         for width, name, engine in cases:
             ids = np.arange(1, WIDTH_ROWS + 1, dtype=np.int32)
@@ -2047,13 +2103,18 @@ def phase_widths(seed, dev):
             # --- this path: counts from 0 ---------------------------------
             bt.reset_launches()
             qt.reset_launches()
+            pr.reset_launches()
             got = card.topk_from_embeddings(torch.tensor(q, device=dev))
             torch.cuda.synchronize()
-            launches = {n: c for n, c in {**bt.LAUNCHES, **qt.LAUNCHES}.items()
-                        if c}
+            launches = {n: c for n, c in {**bt.LAUNCHES, **qt.LAUNCHES,
+                                          **pr.LAUNCHES}.items() if c}
             # -----------------------------------------------------------------
-            require(bool(launches) == (engine == "pallas"),
+            want_launches = {"scan": {"partial_reduce": 1},
+                             "partial_reduce": {}}.get(engine)
+            require(launches == want_launches if want_launches is not None
+                    else bool(launches) and "partial_reduce" not in launches,
                     f"{name} E={width}: launched {launches}")
+            pr_launches += launches.get("partial_reduce", 0)
             want = host.topk_from_embeddings(torch.tensor(q))
             require(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
                     f"{name} E={width}: the card's answers differ from the "
@@ -2075,6 +2136,7 @@ def phase_widths(seed, dev):
                 for name, F in (("bin_max2_scaled_single_pass", 1),
                                 ("bin_max2_scaled_fold_pass", 2),
                                 ("bin_max2_raw_fold_pass", 2))}}})
+    return pr_launches
 
 
 # --- phase 9: training ------------------------------------------------------
@@ -3167,6 +3229,8 @@ def phase_baseline(ctx, dev):
 # --- phase 12: the sharded serving index ------------------------------------
 
 SHARDS = 4  # model shards of phase 12's mesh, all on the one card
+SCAN_KS = (100, 10)  # the sharded quantized scan's k (k_over 400, 40)
+SCAN_BATCHES = (1, 1024)
 PAD_B = 37  # query rows on the (2, 2) mesh, padded to 38
 
 
@@ -3304,6 +3368,7 @@ def phase_sharded(ctx, repeats, dev, workdir):
     )
     from hm_retrieval_tpu_torch.metrics import IndexRecall
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import partial_reduce as pr
     from hm_retrieval_tpu_torch.ops import quantized_topk as qt
     from hm_retrieval_tpu_torch.parallel import make_mesh
     from hm_retrieval_tpu_torch.runners import evaluation_runner
@@ -3338,6 +3403,16 @@ def phase_sharded(ctx, repeats, dev, workdir):
     }
     pad_index = DistributedBruteForceIndex(k, ids, emb, mesh=mesh22,
                                            method="pallas")
+    # the sharded quantized scan (approx_max_k a shard, kernel 9) and its
+    # exact twin at recall_target 1.0 (nothing reduces: the exact top
+    # k_over of each shard's dequantized scores, then the same rescore)
+    scan = {sk: DistributedQuantizedIndex(sk, ids, emb, mesh=mesh,
+                                          method="scan")
+            for sk in SCAN_KS}
+    scan_exact = {sk: DistributedQuantizedIndex(sk, ids, emb, mesh=mesh,
+                                                method="scan",
+                                                recall_target=1.0)
+                  for sk in SCAN_KS}
     sync(dev)
     build_s = time.perf_counter() - t0
     require(all(ix._engine == "pallas" for ix in sharded.values()),
@@ -3350,6 +3425,7 @@ def phase_sharded(ctx, repeats, dev, workdir):
     # --- the main path: counts from 0 --------------------------------------
     bt.reset_launches()
     qt.reset_launches()
+    pr.reset_launches()
     per_index, answers = {}, {}
     for name, index in sharded.items():
         per_index[name], answers[name] = {}, {}
@@ -3359,6 +3435,13 @@ def phase_sharded(ctx, repeats, dev, workdir):
             per_index[name][B] = {kn: v - before[kn]
                                   for kn, v in kernel_counts().items()
                                   if v > before[kn]}
+    scan_answers, scan_launches = {}, {}
+    for sk, index in scan.items():
+        for B in SCAN_BATCHES:
+            before = pr.LAUNCHES["partial_reduce"]
+            scan_answers[sk, B] = index.topk_from_embeddings(q_all[:B])
+            scan_launches[f"k{sk}_B{B}"] = (pr.LAUNCHES["partial_reduce"]
+                                            - before)
     padded = pad_index.topk_from_embeddings(q_all[:PAD_B])
     svc_d = RetrievalService.load(schema_dir, settings.model_dirpath,
                                   settings.index_dirpath, mesh=mesh,
@@ -3368,7 +3451,7 @@ def phase_sharded(ctx, repeats, dev, workdir):
         dataclasses.replace(settings, index_dirpath=sharded_dir),
         mesh=mesh, distributed_index=True, device=dev)
     sync(dev)
-    launches = kernel_counts()
+    launches = {**kernel_counts(), **pr.LAUNCHES}
     # ----------------------------------------------------------------------
     cuda = dev.type == "cuda"
     want_kernels = {
@@ -3383,6 +3466,36 @@ def phase_sharded(ctx, repeats, dev, workdir):
     require(launches["bin_max_round"] == 0
             and launches["bin_max2_raw_fold_pass"] == 0,
             f"the sharded path launched kernels 5 or 8: {launches}")
+    # each shard reduces (26,386 rows at k_over 40 and 400): one launch a
+    # shard and a call on the card
+    require(not cuda or all(c == SHARDS for c in scan_launches.values()),
+            f"the sharded scan launched {scan_launches}")
+
+    # --- the sharded scan: recall against its exact twin ------------------
+    scan_held = {}
+    for sk in SCAN_KS:
+        per = sharded["exact"]._emb.per
+        L, r = pr.reduction_size(per, 4 * sk, scan[sk].recall_target)
+        for B in SCAN_BATCHES:
+            q = q_all[:B]
+            got = scan_answers[sk, B]
+            answers_ok(*got, sk, n)
+            twin = scan_exact[sk].topk_from_embeddings(q)
+            fp32_top = torch.topk(bt.plain_scores(q, emb), sk,
+                                  dim=1).indices + 1
+            st = {"L": L, "r": r, "recall_vs_exact_survivors": recall_vs(
+                got[1], twin[1]),
+                  "recall_vs_fp32": recall_vs(got[1], fp32_top),
+                  "exact_twin_recall_vs_fp32": recall_vs(twin[1], fp32_top),
+                  "model_recall": (1 - 1 / L) ** (4 * sk - 1),
+                  "launches": scan_launches[f"k{sk}_B{B}"]}
+            require(r > 0 or n != N_ARTICLES,
+                    f"the sharded scan at k={sk} does not reduce")
+            require(B < PR_RECALL_MIN_B or st["recall_vs_exact_survivors"]
+                    >= scan[sk].recall_target,
+                    f"sharded scan k={sk} B={B}: recall {st}")
+            scan_held[f"k{sk}_B{B}"] = st
+            del fp32_top
 
     # --- each index against its plain passes and the single-device one ---
     held = {}
@@ -3492,7 +3605,8 @@ def phase_sharded(ctx, repeats, dev, workdir):
         "catalog": n, "E": E, "k": k, "shards": SHARDS,
         "mesh": mesh.shape, "rows_per_shard": sharded["exact"]._emb.per,
         "build_s": build_s, "launches": launches, "per_index": per_index,
-        "held": held, "pad_rows": pad_rows, "eval_runner": res_d,
+        "held": held, "scan": scan_held, "pad_rows": pad_rows,
+        "eval_runner": res_d,
         "eval_runner_single": ctx["final"], "differing_rows": differing,
         "ms": times, "timing": "cuda events, mean of repeats" if cuda
         else "wall"}})
@@ -6831,7 +6945,7 @@ def main(argv=None):
             gen, shared, args.repeats, dev, Path(d))
         launches.update(pr_launches)
         lap("20_partial_reduce")
-    phase_widths(args.seed, dev)
+    launches["partial_reduce"] += phase_widths(args.seed, dev)
     lap("8_widths")
     with tempfile.TemporaryDirectory(dir=build_root,
                                      prefix="chip_smoke-train-") as d:
@@ -6913,7 +7027,11 @@ def main(argv=None):
     replaces = {name: f"{pallas}:{line}"
                 for name, (_, line) in kernel_files.items()}
     replaces["partial_reduce"] = (
-        "hm_retrieval_tpu/ops/exact_topk.py:63 (lax.approx_max_k)")
+        "hm_retrieval_tpu/ops/exact_topk.py:63, "
+        "hm_retrieval_tpu/indices/brute_force.py:238, "
+        "hm_retrieval_tpu/indices/quantized.py:473, "
+        "hm_retrieval_tpu/parallel/distributed_topk.py:283 "
+        "(lax.approx_max_k)")
     kernels = [
         {
             "name": name,

@@ -10,9 +10,13 @@ an index saved by either package loads in the other.
 
 - ``"pallas"``: the streaming bin-max rounds (``ops/bin_topk.py``, CUDA
   kernels on the card). The name is the JAX package's, kept so artifacts
-  stay interchangeable. It runs the exact ``"full"`` path instead, with a
-  log line, where the kernels cannot: k > 2048, or an embedding width that,
-  padded to a multiple of 16, exceeds ``KERNEL_MAX_E``.
+  stay interchangeable. It runs the exact ``"partial_reduce"`` path
+  instead, with a log line, where the kernels cannot: k > 2048 (where the
+  JAX index's ``pick_bins`` finds no bin count and takes the same route),
+  or an embedding width that, padded to a multiple of 16, exceeds
+  ``KERNEL_MAX_E`` (the JAX index runs its kernel there while its VMEM
+  estimate fits, and ``"partial_reduce"`` past it). The saved method stays
+  ``"pallas"``.
 - ``"full"``: one fp32 product plus the bias, then a stable top-k.
 - ``"auto"``: ``"pallas"`` when the padded catalog exceeds 16384 rows, else
   ``"full"``, decided by size alone on every device.
@@ -115,23 +119,23 @@ class BruteForceIndex:
         if method == "pallas" and self.k > BIN_CHOICES[-1]:
             logger.warning(
                 "k=%d exceeds the largest bin count %d; running the exact "
-                "'full' path instead of the kernels",
+                "'partial_reduce' path instead of the kernels",
                 self.k,
                 BIN_CHOICES[-1],
             )
-            self._engine = "full"
+            self._engine = "partial_reduce"
         elif method == "pallas" and padded_width(embeddings.shape[1]) > (
             KERNEL_MAX_E
         ):
             logger.warning(
                 "embedding width %d (padded to %d) exceeds the kernels' "
-                "widest %d; running the exact 'full' path instead of the "
-                "kernels",
+                "widest %d; running the exact 'partial_reduce' path instead "
+                "of the kernels",
                 embeddings.shape[1],
                 padded_width(embeddings.shape[1]),
                 KERNEL_MAX_E,
             )
-            self._engine = "full"
+            self._engine = "partial_reduce"
 
     @classmethod
     def build_from_batches(

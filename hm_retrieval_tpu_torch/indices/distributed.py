@@ -476,6 +476,7 @@ class DistributedQuantizedIndex(_DistributedIndexBase):
             mesh,
             self.k,
             oversample=self.oversample,
+            recall_target=self.recall_target,
             method=self._engine,
             pallas_rounds=self.pallas_rounds,
             pallas_fold=self.pallas_fold,

@@ -25,8 +25,12 @@ Survivor engines (``method``):
   since |sum| <= 127^2 * E < 2^24 for E <= ``SCAN_EXACT_E`` = 1040; wider
   products are summed so over slices of at most 1040 columns and the
   partial sums added in int32, as exact as the JAX package's int32 product.
-  The per-chunk top-k is exact where the JAX package uses
-  ``lax.approx_max_k``.
+  The per-chunk top-``k_over`` is ``approx_max_k`` at the index's
+  ``recall_target`` (``ops/partial_reduce.py``, the PartialReduce kernel on
+  the card), as the JAX package's ``lax.approx_max_k`` on a TPU: the
+  survivors are approximate wherever a chunk reduces (on the CPU the JAX
+  package's fallback is exact), and exact where nothing reduces (at
+  ``oversample * k`` of 4,000 over a 65,536-row chunk, for one).
 - ``"auto"``: ``"pallas"`` whenever the survivors fit its bin layout, on
   every device, else ``"scan"``.
 
@@ -54,6 +58,7 @@ from hm_retrieval_tpu_torch.ops.bin_topk import (
     padded_width,
     plain_scores,
 )
+from hm_retrieval_tpu_torch.ops.partial_reduce import approx_max_k
 from hm_retrieval_tpu_torch.ops.quantized_topk import (
     INT8_KERNEL_MAX_E,
     pallas_feasible,
@@ -237,8 +242,8 @@ class QuantizedIndex:
     quantized on its device, a numpy array on the host);
     ``oversample`` (survivors ``oversample * k`` before the fp32 rescore);
     ``rescore`` (keep the fp32 table and re-score the survivors); ``chunk``
-    (catalog rows per scan step); ``recall_target`` (kept in the artifact;
-    the port's per-chunk top-k is exact); ``method`` ("auto", "scan",
+    (catalog rows per scan step); ``recall_target`` (the scan's per-chunk
+    ``approx_max_k``; kept in the artifact); ``method`` ("auto", "scan",
     "pallas"); ``pallas_rounds`` (1: one pass; more: the exact int8 rounds,
     at most that many passes per query block); ``pallas_fold`` (None: the
     plan's);
@@ -419,10 +424,8 @@ class QuantizedIndex:
                 _int_scores(qq, self.codes[base:end]) * self.scales[base:end]
                 + self._score_bias[base:end]
             )
-            cols = torch.arange(
-                base, end, dtype=torch.int32, device=q.device
-            ).expand(b, self.chunk)
-            cs, ci = topk_pair(s, cols, self.k_over)
+            cs, ci = approx_max_k(s, self.k_over, self.recall_target)
+            ci = ci + base
             top_s, top_i = topk_pair(
                 torch.cat([top_s, cs], dim=1),
                 torch.cat([top_i, ci], dim=1),

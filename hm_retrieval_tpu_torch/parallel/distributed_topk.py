@@ -28,8 +28,10 @@ Per-shard engines:
 - quantized ``"pallas"``: ``quantized_topk`` (kernels 3-4, or 6-7 with
   ``pallas_rounds > 1``) with the bias, after ``shrink_survivors``; the
   sentinel rows of unfilled slots are clamped before any gather;
-- quantized ``"scan"``: int8 queries times the shard's codes, exact per
-  shard where the JAX package takes ``lax.approx_max_k``.
+- quantized ``"scan"``: int8 queries times the shard's codes, then
+  ``approx_max_k`` at the index's ``recall_target`` (``ops/partial_reduce.py``,
+  the PartialReduce kernel on the card), as the JAX package's
+  ``lax.approx_max_k`` on a TPU (its CPU fallback is exact).
 
 Then, with the fp32 rows, an exact rescore of each shard's survivors before
 the merge.
@@ -44,6 +46,7 @@ import torch
 
 from hm_retrieval_tpu_torch.ops import bin_topk as bt
 from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+from hm_retrieval_tpu_torch.ops.partial_reduce import approx_max_k
 from hm_retrieval_tpu_torch.ops.topk import ids_at, merge_topk, topk_pair
 from hm_retrieval_tpu_torch.parallel.collectives import fill
 from hm_retrieval_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
@@ -286,6 +289,7 @@ def make_distributed_quantized_topk(
     mesh: Mesh,
     k: int,
     oversample: int = 4,
+    recall_target: float = 0.95,
     method: str = "scan",
     pallas_rounds: int = 1,
     pallas_fold: Optional[int] = None,
@@ -296,7 +300,8 @@ def make_distributed_quantized_topk(
     survivors from the int8 rows (``method`` "scan" or "pallas"), an exact
     fp32 rescore of them when fp32 rows are passed (``emb``, as in the JAX
     package), and the shard's top kk; then the shard-major merge. The
-    scan's per-shard top-k is exact, so there is no recall target."""
+    scan's survivors are ``approx_max_k`` at ``recall_target``: approximate
+    wherever a shard reduces."""
     if method not in ("scan", "pallas"):
         raise ValueError(f"unknown method {method!r}")
     from hm_retrieval_tpu_torch.indices.quantized import (
@@ -327,10 +332,7 @@ def make_distributed_quantized_topk(
             else:
                 qq, t = quantize_queries(q)
                 scores = _int_scores(qq, codes_s) * scales_s + bias_s
-                cols = torch.arange(
-                    n_local, dtype=torch.int32, device=dev
-                ).expand_as(scores)
-                cs, ci = topk_pair(scores, cols, k_over)
+                cs, ci = approx_max_k(scores, k_over, recall_target)
             if emb is not None:
                 ls, li = rescore_survivors(
                     q, emb.shard(s, dev), bias_s, cs, ci, kk

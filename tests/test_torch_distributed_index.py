@@ -46,7 +46,9 @@ from hm_retrieval_tpu_torch.indices import (
     load_index,
 )
 from hm_retrieval_tpu_torch.indices.distributed import _shard_arrays_to_blocks
+from hm_retrieval_tpu_torch.indices import quantized as pq
 from hm_retrieval_tpu_torch.ops import bin_topk as bt
+from hm_retrieval_tpu_torch.ops import partial_reduce as pr
 from hm_retrieval_tpu_torch.parallel import make_mesh
 from hm_retrieval_tpu_torch.runners import evaluation_runner
 from hm_retrieval_tpu_torch.schema import Schema
@@ -288,8 +290,9 @@ class TestDistributedBruteForce:
 class TestDistributedQuantized:
     @pytest.mark.parametrize("shape", [(1, 8), (2, 4), (8, 1)])
     def test_scan_matches_jax(self, catalog, shape):
-        """The port's per-shard top-k is exact where the JAX package takes
-        lax.approx_max_k, which is exact on the CPU."""
+        """Shards of at most 1,500 rows at k_over 80 reduce nothing (r = 0),
+        so the port's approx_max_k is the exact top-k_over, as JAX's
+        lax.approx_max_k on the CPU."""
         ids, emb, q = catalog
         jmesh, tmesh = meshes(shape)
         want = run_jax(JaxDistQ(20, ids, emb, mesh=jmesh, method="scan"), q)
@@ -297,6 +300,87 @@ class TestDistributedQuantized:
             DistributedQuantizedIndex(20, ids, emb, mesh=tmesh, method="scan"),
             q)
         assert_close(got, want)
+
+    @pytest.mark.parametrize("rescore", [True, False])
+    def test_scan_reduces_per_shard(self, rescore):
+        """Shards of 5,000 rows (N = 19,998 over (2, 4), two pad rows) at
+        k_over 40 reduce to (1280, 2), where JAX's CPU fallback keeps the
+        exact top-40: held by recall >= recall_target against JAX's answers
+        and bit for bit against the port's plain composition (per shard,
+        partial_reduce_plain's bins, their stable top-k_over, the rescore or
+        the query scale; then the shard-major stable merge)."""
+        rng = np.random.default_rng(11)
+        N, E, k, S = 19_998, 16, 10, 4
+        emb = rng.normal(size=(N, E)).astype(np.float32)
+        ids = np.arange(1, N + 1, dtype=np.int32)
+        q = rng.normal(size=(32, E)).astype(np.float32)
+        jmesh, tmesh = meshes((2, S))
+        idx = DistributedQuantizedIndex(k, ids, emb, mesh=tmesh,
+                                        method="scan", rescore=rescore)
+        L, r = pr.reduction_size(5000, 4 * k, idx.recall_target)
+        assert (L, r) == (1280, 2)
+        got = run_port(idx, q)
+        want = run_jax(JaxDistQ(k, ids, emb, mesh=jmesh, method="scan",
+                                rescore=rescore), q)
+        recall = np.mean([len(set(a) & set(b)) / k
+                          for a, b in zip(got[1], want[1])])
+        assert recall >= idx.recall_target
+
+        codes, scales, emb_s, ids_s, bias = idx._placed
+        qt = torch.from_numpy(q)
+        qq, t = pq.quantize_queries(qt)
+        parts_v, parts_i = [], []
+        for sh in range(S):
+            b = bias.shard(sh)
+            scores = pq._int_scores(qq, codes.shard(sh)) * scales.shard(sh) + b
+            bv, bi = pr.partial_reduce_plain(scores, L, r)
+            order = torch.sort(bv, dim=1, descending=True,
+                               stable=True).indices[:, : 4 * k]
+            cs, ci = bv.gather(1, order), bi.gather(1, order)
+            if rescore:
+                ls, li = pq.rescore_survivors(qt, emb_s.shard(sh), b, cs, ci,
+                                              k)
+            else:
+                ls, li = cs[:, :k] * t, ci[:, :k]
+            parts_v.append(ls)
+            parts_i.append(ids_s.shard(sh)[li.long()])
+        mv, mi = torch.cat(parts_v, 1), torch.cat(parts_i, 1)
+        keep = torch.sort(mv, dim=1, descending=True, stable=True).indices
+        assert_bitwise(got, (mv.gather(1, keep[:, :k]).numpy(),
+                             mi.gather(1, keep[:, :k]).numpy()))
+
+    def test_scan_never_resurrects_minus_inf_survivors(self, catalog):
+        """Shards of 5,000 rows reduce ((1280, 2) at k_over 40) with 3
+        finite rows each: the unfilled survivor slots stay -inf through the
+        per-shard rescore, and the 6 finite rows come back first by their
+        exact fp32 scores. Rows 0 and per - 1 of each shard, where an
+        unfilled slot's row lands, are among the finite ones."""
+        from hm_retrieval_tpu_torch.parallel.distributed_topk import (
+            ShardedRows,
+        )
+
+        rng = np.random.default_rng(12)
+        N, E, k = 10_000, 16, 10
+        emb = rng.normal(size=(N, E)).astype(np.float32)
+        ids = np.arange(1, N + 1, dtype=np.int32)
+        q = rng.normal(size=(4, E)).astype(np.float32)
+        tmesh = make_mesh(data=1, model=2, devices=["cpu"] * 2)
+        idx = DistributedQuantizedIndex(k, ids, emb, mesh=tmesh,
+                                        method="scan")
+        assert pr.reduction_size(5000, 4 * k, 0.95) == (1280, 2)
+        keep = np.array([0, 777, 4999])
+        bias = torch.full((5000,), float("-inf"))
+        bias[keep] = 0.0
+        idx._placed = (*idx._placed[:4],
+                       ShardedRows(tmesh, [bias.clone(), bias.clone()]))
+        v, got = run_port(idx, q)
+        finite = np.concatenate([keep, keep + 5000])
+        exact = q.astype(np.float64) @ emb[finite].astype(np.float64).T
+        order = np.argsort(-exact, axis=1, kind="stable")
+        np.testing.assert_allclose(v[:, :6], np.take_along_axis(exact, order, 1),
+                                   rtol=RTOL)
+        np.testing.assert_array_equal(got[:, :6], ids[finite][order])
+        assert np.isneginf(v[:, 6:]).all()
 
     @pytest.mark.parametrize("rounds", [1, 8])
     @pytest.mark.parametrize("rescore", [True, False])

@@ -202,6 +202,60 @@ def test_approx_raises_where_the_bins_are_fewer_than_k(catalog):
         idx.topk_from_embeddings(torch.tensor(q))
 
 
+@pytest.mark.parametrize("kind", ["normal", "integer"])
+@pytest.mark.parametrize("n", [5_000, 120_000])
+def test_pallas_past_the_largest_bin_count_routes_to_partial_reduce(
+        rng, caplog, tmp_path, n, kind):
+    """k = 3000 > 2048: JAX's pick_bins finds no bin count and its "pallas"
+    index runs "partial_reduce"; the port's takes the same route, with a
+    log line, and keeps "pallas" as its saved method. Against JAX's index
+    (its approx_max_k exact on the CPU): normal scores within 1e-5 relative
+    and ids equal wherever the competing scores differ by more
+    (test_torch_bin_topk.TOL; the fp32 products sum in another order);
+    integer scores bit for bit, ids up to the order of ties (between bins,
+    by bin). At n = 5,000 nothing reduces; at 120,000 the
+    padded catalog reduces to (60,416, 1)."""
+    import logging
+
+    from test_torch_bin_topk import _assert_same_ranking
+    from test_torch_widths import _assert_exact_up_to_tie_order
+
+    k = 3000
+    ids = rng.permutation(n).astype(np.int32) + 1
+    if kind == "normal":
+        emb = rng.normal(size=(n, E)).astype(np.float32)
+        q = rng.normal(size=(4, E)).astype(np.float32)
+    else:
+        emb = rng.integers(-4, 5, size=(n, E)).astype(np.float32)
+        q = rng.integers(-4, 5, size=(4, E)).astype(np.float32)
+    n_pad = -(-n // BruteForceIndex.PAD_MULTIPLE) * BruteForceIndex.PAD_MULTIPLE
+    assert pr.reduction_size(n_pad, k, 0.95) == (
+        (n_pad, 0) if n < 10_000 else (60_416, 1))
+    with caplog.at_level(logging.WARNING):
+        idx = BruteForceIndex(k, ids, emb, method="pallas", device="cpu")
+    assert (idx.method, idx._engine) == ("pallas", "partial_reduce")
+    routed = [r.getMessage() for r in caplog.records
+              if "largest bin count" in r.getMessage()]
+    assert len(routed) == 1 and "'partial_reduce'" in routed[0]
+    want = JaxBruteForceIndex(k, ids, emb, method="pallas") \
+        .topk_from_embeddings(jnp.asarray(q))
+    got = idx.topk_from_embeddings(torch.tensor(q))
+    if kind == "normal":
+        row_of = np.zeros(n + 1, np.int64)
+        row_of[ids] = np.arange(n)
+        _assert_same_ranking(
+            got[0].numpy(), row_of[got[1].numpy()], np.asarray(want[0]),
+            row_of[np.asarray(want[1])],
+            q.astype(np.float64) @ emb.astype(np.float64).T, exact=False)
+    else:
+        _assert_exact_up_to_tie_order(got, want, q, emb, ids)
+    idx.save(str(tmp_path))
+    with open(tmp_path / "meta.json") as f:
+        assert json.load(f)["method"] == "pallas"
+    again = load_index(str(tmp_path), device="cpu")
+    assert (again.method, again._engine) == ("pallas", "partial_reduce")
+
+
 # ----------------------------------------------------------------------
 # Artifacts across the packages, served as strings
 # ----------------------------------------------------------------------

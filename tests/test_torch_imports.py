@@ -333,6 +333,9 @@ def test_cuda_tensors_never_take_the_plain_path():
     scores = torch.zeros(4, 4096, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         pr.partial_reduce(scores, 1024, 2)
+    for split in (1, 2, 4):  # a split the kernel takes: still no plain path
+        with pytest.raises(ValueError, match="unsupported device"):
+            pr.partial_reduce(scores, 1024, 2, split=split)
     with pytest.raises(ValueError, match="unsupported device"):
         exact_topk_scores(scores, 32)
 

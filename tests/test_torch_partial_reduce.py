@@ -220,3 +220,128 @@ def test_recall_follows_the_model(rng):
                       for a, b in zip(i.numpy(), exact)])
     assert recall >= max(0.95, (1 - 1 / L) ** (k - 1))
     assert abs(recall - (1 - (k - 1) / (2 * L))) < 0.01
+
+
+# ----------------------------------------------------------------------
+# The kernel's split walk: its plain model and the host's plan
+# ----------------------------------------------------------------------
+# (n, L, r) the port gives the kernel: "approx" over the H&M catalog's real
+# rows at k = 10, 100, 1000 and "partial_reduce" over its padded rows; the
+# quantized scan's 65,536-row chunk at k_over 40 and 400; the sharded scan's
+# 26,386-row shards at k_over 40 and 400; a 20,480-row scan chunk at k_over
+# 400; the scan's 3,072-row chunk at k_over 40
+KERNEL_SHAPES = (
+    (105_542, 256, 9), (105_542, 3_328, 5), (105_542, 26_496, 2),
+    (106_496, 26_624, 2), (65_536, 1_024, 6), (65_536, 8_192, 3),
+    (26_386, 896, 5), (26_386, 13_312, 1), (20_480, 10_240, 1),
+    (3_072, 768, 2),
+)
+
+
+def _hard_scores(rng, B, n):
+    """Integer values in [-2, 2] with both signs of zero, -inf and NaN
+    entries, a whole -inf row and a whole NaN row."""
+    x = rng.integers(-2, 3, size=(B, n)).astype(np.float32)
+    x[(x == 0) & (rng.random((B, n)) < 0.5)] = -0.0
+    x[rng.random((B, n)) < 0.1] = -np.inf
+    x[rng.random((B, n)) < 0.05] = np.nan
+    x[1] = -np.inf
+    x[2] = np.nan
+    return x
+
+
+def _bits(v):
+    return v.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("kind", ["normal", "hard"])
+@pytest.mark.parametrize("n, L, r", KERNEL_SHAPES)
+def test_split_model_equals_the_walk_bit_for_bit(rng, kind, n, L, r):
+    """Every split S = 1, 2, 4, ..., 2^r of the walk gives the one walk's
+    values (by their bits, so the sign of a zero shows) and columns."""
+    x = torch.tensor(rng.normal(size=(4, n)).astype(np.float32)
+                     if kind == "normal" else _hard_scores(rng, 4, n))
+    want_v, want_i = pr.partial_reduce_plain(x, L, r)
+    for split in (1 << e for e in range(r + 1)):
+        got_v, got_i = pr.partial_reduce_split_plain(x, L, r, split)
+        assert torch.equal(_bits(got_v), _bits(want_v)), split
+        assert torch.equal(got_i, want_i), split
+
+
+def test_split_merge_rules():
+    """The merge's ties: the lower column among equal values, -0.0 against
+    +0.0 included; a NaN never wins; a bin of -inf alone gives -inf and
+    its first column."""
+    L, r = 128, 3
+    x = np.full((4, L * 8), -5.0, np.float32)
+    x[0, 2 * L + 1] = -0.0  # segment 1 of 4 ...
+    x[0, 6 * L + 1] = 0.0   # ... before segment 3: -0.0 wins
+    x[0, 1 * L + 2] = 0.0   # segment 0 ...
+    x[0, 7 * L + 2] = -0.0  # ... before segment 3: +0.0 wins
+    x[1, 3 * L + 4::L] = 7.0  # equal maxima in segments 1-3 of bin 4
+    x[2, :] = np.nan
+    x[2, 5 * L + 6] = -1.0  # the only number of bin 6
+    x[3, :] = -np.inf
+    got = {split: pr.partial_reduce_split_plain(torch.tensor(x), L, r, split)
+           for split in (1, 2, 4, 8)}
+    v, i = got[1]
+    assert _bits(v)[0, 1] == _bits(torch.tensor(-0.0)) and i[0, 1] == 2 * L + 1
+    assert _bits(v)[0, 2] == _bits(torch.tensor(0.0)) and i[0, 2] == L + 2
+    assert v[1, 4] == 7.0 and i[1, 4] == 3 * L + 4
+    assert v[2, 6] == -1.0 and i[2, 6] == 5 * L + 6
+    assert torch.isneginf(v[2, 7]) and i[2, 7] == 7
+    assert torch.isneginf(v[3]).all()
+    assert torch.equal(i[3], torch.arange(L, dtype=torch.int32))
+    for split, (sv, si) in got.items():
+        assert torch.equal(_bits(sv), _bits(v)) and torch.equal(si, i), split
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("n, L, r", KERNEL_SHAPES)
+def test_split_plan(n, L, r):
+    """A power of two, no more than MAX_SPLIT nor than leaves MIN_STEPS
+    loads a thread; 1 wherever B * L already fills the card's 132 SMs or
+    2^r <= 8; otherwise the largest split whose threads the card holds at
+    once."""
+    T = 1 << r
+    full = H100_SMS * pr.RESIDENT_THREADS
+    last = None
+    for B in (1, 2, 16, 37, 128, 1024, 4096):
+        split = pr.split_plan(B, L, r, H100_SMS)
+        assert split & (split - 1) == 0 and 1 <= split <= pr.MAX_SPLIT
+        assert split == 1 or T // split >= pr.MIN_STEPS
+        if B * L >= full or T <= pr.MIN_STEPS:
+            assert split == 1
+        assert split == 1 or B * L * split <= full
+        if split < min(pr.MAX_SPLIT, max(1, T // pr.MIN_STEPS)):
+            assert B * L * split * 2 > full
+        assert last is None or split <= last  # more rows, no more segments
+        last = split
+
+
+def test_split_plan_at_the_served_shapes():
+    plan = {(L, r): [pr.split_plan(B, L, r, H100_SMS)
+                     for B in (1, 16, 128, 1024)]
+            for _, L, r in KERNEL_SHAPES}
+    assert plan[256, 9] == [32, 32, 8, 1]
+    assert plan[3_328, 5] == [4, 4, 1, 1]
+    assert plan[1_024, 6] == [8, 8, 2, 1]
+    assert plan[896, 5] == [4, 4, 2, 1]
+    assert plan[8_192, 3] == plan[26_496, 2] == plan[13_312, 1] == [1] * 4
+
+
+def test_wrapper_checks_the_split(rng):
+    x = torch.tensor(rng.normal(size=(2, 3000)).astype(np.float32))
+    want = pr.partial_reduce_plain(x, 384, 3)
+    for split in (1, 2, 4, 8):
+        got = pr.partial_reduce(x, 384, 3, split=split)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for split in (0, 3, 16):  # not a power of two, or past 2^r
+        with pytest.raises(ValueError, match="split"):
+            pr.partial_reduce(x, 384, 3, split=split)
+    with pytest.raises(ValueError, match="split"):
+        pr.partial_reduce(torch.zeros(2, 20000), 128, 8, split=64)
+    with pytest.raises(ValueError, match="split"):
+        pr.partial_reduce_split_plain(x, 384, 3, 16)

@@ -32,6 +32,7 @@ from hm_retrieval_tpu.serving.service import (
 from hm_retrieval_tpu_torch.indices import load_index
 from hm_retrieval_tpu_torch.indices import quantized as pq
 from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
+from hm_retrieval_tpu_torch.ops import partial_reduce as pr
 from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 from hm_retrieval_tpu_torch.serving import RetrievalService
 from test_torch_bin_topk import _assert_same_ranking
@@ -85,6 +86,37 @@ def _assert_same_arrays(port, jax_idx):
             port.embeddings.numpy(), np.asarray(jax_idx.embeddings)
         )
     assert port.global_scale == jax_idx.global_scale
+
+
+def _assert_scan_composition(idx, q, got):
+    """The scan as plain steps: per chunk, the integer product scaled plus
+    the bias, the bins of partial_reduce_plain at reduction_size(chunk,
+    k_over), their stable top-k_over, the chunk offset, a stable merge;
+    then the rescore (or the query scale). Bit for bit against ``got``."""
+    qq, t = pq.quantize_queries(torch.tensor(q))
+    L, r = pr.reduction_size(idx.chunk, idx.k_over, idx.recall_target)
+    top_s = torch.full((len(q), idx.k_over), float("-inf"))
+    top_i = torch.zeros((len(q), idx.k_over), dtype=torch.int32)
+    for base in range(0, idx.codes.shape[0], idx.chunk):
+        end = base + idx.chunk
+        s = (pq._int_scores(qq, idx.codes[base:end]) * idx.scales[base:end]
+             + idx._score_bias[base:end])
+        bv, bi = pr.partial_reduce_plain(s, L, r)
+        order = torch.sort(bv, dim=1, descending=True, stable=True).indices
+        order = order[:, : idx.k_over]
+        ms = torch.cat([top_s, bv.gather(1, order)], 1)
+        mi = torch.cat([top_i, bi.gather(1, order) + base], 1)
+        keep = torch.sort(ms, dim=1, descending=True, stable=True).indices
+        top_s = ms.gather(1, keep[:, : idx.k_over])
+        top_i = mi.gather(1, keep[:, : idx.k_over])
+    if idx.embeddings is not None:
+        want_v, rows = pq.rescore_survivors(
+            torch.tensor(q), idx.embeddings, idx._score_bias, top_s, top_i,
+            idx.k)
+    else:
+        want_v, rows = top_s[:, : idx.k] * t, top_i[:, : idx.k]
+    assert torch.equal(got[0], want_v)
+    assert torch.equal(got[1], idx.identifiers[rows.long()])
 
 
 class TestQuantization:
@@ -149,6 +181,11 @@ class TestIndexParity:
          ("scan", "global")],
     )
     def test_index_matches_jax(self, rng, kind, rescore, method, scale_mode):
+        """"pallas" against JAX's kernels in interpret mode. "scan" reduces
+        each 3,072-row chunk to (768, 2) (approx_max_k at recall_target
+        0.95), where JAX's CPU fallback keeps the exact top-40: held by its
+        recall against JAX's answers and bit for bit against the port's
+        plain composition of the same steps."""
         ids, emb, q = _data(rng, kind)
         kw = dict(method=method, scale_mode=scale_mode, rescore=rescore)
         jidx = JaxQuantized(10, ids, emb, **kw)
@@ -159,6 +196,14 @@ class TestIndexParity:
         _assert_same_arrays(idx, jidx)
         want = jidx.topk_from_embeddings(jnp.asarray(q))
         got = idx.topk_from_embeddings(torch.tensor(q))
+        if method == "scan":
+            assert pr.reduction_size(idx.chunk, idx.k_over, 0.95) == (768, 2)
+            _assert_scan_composition(idx, q, got)
+            recall = np.mean([len(set(a) & set(b)) / 10 for a, b in
+                              zip(got[1].numpy(), np.asarray(want[1]))])
+            assert recall >= idx.recall_target
+            assert len(set(got[1][0].tolist())) == 10
+            return
         if rescore:
             ref = emb.astype(np.float64)
         else:  # ranked by the dequantized scores
@@ -169,6 +214,92 @@ class TestIndexParity:
                           exact=kind == "integer")
         assert got[1].dtype == torch.int32
         assert len(set(got[1][0].tolist())) == 10
+
+    @pytest.mark.parametrize("kind", ["integer", "normal"])
+    @pytest.mark.parametrize("rescore", [True, False])
+    @pytest.mark.parametrize("scale_mode", ["per_row", "global"])
+    def test_scan_without_a_reduction_matches_jax(self, rng, kind, rescore,
+                                                  scale_mode):
+        """k = 100: 400 survivors of a 3,072-row chunk reduce nothing
+        (r = 0, no launch), so the scan is the exact top-k_over, as JAX's."""
+        ids, emb, q = _data(rng, kind)
+        kw = dict(method="scan", scale_mode=scale_mode, rescore=rescore)
+        idx = QuantizedIndex(100, ids, emb, device="cpu", **kw)
+        assert pr.reduction_size(idx.chunk, idx.k_over, 0.95) == (3072, 0)
+        want = JaxQuantized(100, ids, emb, **kw).topk_from_embeddings(
+            jnp.asarray(q))
+        got = idx.topk_from_embeddings(torch.tensor(q))
+        ref = emb.astype(np.float64) if rescore else (
+            idx.codes[: len(ids)].numpy().astype(np.float64)
+            * idx.scales[: len(ids)].numpy()[:, None])
+        _assert_same_topk(got, want, ids, (q.astype(np.float64), ref),
+                          exact=kind == "integer")
+
+    def test_scan_bins_at_its_own_shapes(self, rng, monkeypatch):
+        """Each chunk of the scan reaches the kernel's wrapper once, at
+        reduction_size(chunk, k_over), with the chunk's scores; its bins
+        equal partial_reduce_plain's and the split model's at every plan."""
+        ids, emb, q = _data(rng, "normal", n=9000)
+        idx = QuantizedIndex(10, ids, emb, chunk=4096, method="scan",
+                             device="cpu")
+        L, r = pr.reduction_size(4096, 40, 0.95)
+        assert (idx.k_over, L, r) == (40, 1024, 2)
+        seen, wrapper = [], pr.partial_reduce
+
+        def spy(x, L, r, split=None):
+            out = wrapper(x, L, r, split)
+            seen.append((x, L, r, out))
+            return out
+
+        monkeypatch.setattr(pr, "partial_reduce", spy)
+        idx.topk_from_embeddings(torch.tensor(q))
+        assert [(x.shape, L_, r_) for x, L_, r_, _ in seen] == (
+            [((8, 4096), L, r)] * 3)
+        last = seen[-1][0]
+        assert torch.isneginf(last[:, 9000 - 8192:]).all()  # the pad rows
+        for x, _, _, (v, i) in seen:
+            want_v, want_i = pr.partial_reduce_plain(x, L, r)
+            assert torch.equal(v, want_v) and torch.equal(i, want_i)
+            for B in (1, 8, 1024):
+                split = pr.split_plan(B, L, r, 132)
+                sv, si = pr.partial_reduce_split_plain(x, L, r, split)
+                assert torch.equal(sv.view(torch.int32),
+                                   v.view(torch.int32))
+                assert torch.equal(si, i)
+
+    def test_scan_never_resurrects_minus_inf_survivors(self, rng):
+        """Under a reduction ((768, 2)) with 3 finite rows for 40
+        survivors: the 37 unfilled slots stay -inf through the rescore, and
+        the 3 rows come back by their exact fp32 scores. Rows 0 and n - 1,
+        where an unfilled slot's row lands, are among the finite ones."""
+        ids, emb, q = _data(rng, "normal")
+        idx = QuantizedIndex(10, ids, emb, method="scan", device="cpu")
+        assert pr.reduction_size(idx.chunk, idx.k_over, 0.95)[1] > 0
+        finite = np.array([0, 1234, len(ids) - 1])
+        bias = torch.full_like(idx._score_bias, float("-inf"))
+        bias[finite] = 0.0
+        idx._score_bias = bias
+        v, got = idx.topk_from_embeddings(torch.tensor(q))
+        exact = q.astype(np.float64) @ emb[finite].astype(np.float64).T
+        order = np.argsort(-exact, axis=1, kind="stable")
+        np.testing.assert_allclose(
+            v[:, :3].numpy(), np.take_along_axis(exact, order, 1), rtol=1e-5)
+        np.testing.assert_array_equal(got[:, :3].numpy(), ids[finite][order])
+        assert torch.isneginf(v[:, 3:]).all()
+
+    def test_scan_recall_target_too_low_raises(self, rng, monkeypatch):
+        """A recall_target that leaves fewer bins than k_over raises before
+        any launch, as "approx" does."""
+        ids, emb, q = _data(rng, "normal", n=20000)
+        idx = QuantizedIndex(100, ids, emb, method="scan", recall_target=0.1,
+                             device="cpu")
+        assert pr.reduction_size(idx.chunk, idx.k_over, 0.1)[0] < idx.k_over
+        calls = []
+        monkeypatch.setattr(pr, "partial_reduce",
+                            lambda *a, **kw: calls.append(a))
+        with pytest.raises(ValueError, match="recall_target"):
+            idx.topk_from_embeddings(torch.tensor(q))
+        assert not calls
 
     def test_pallas_survivors_cover_the_catalog(self, rng):
         """k_over covers every row: the rescore makes the answer the exact

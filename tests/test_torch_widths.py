@@ -172,10 +172,18 @@ class TestExactWidths:
         np.testing.assert_array_equal(got[0].numpy(), np.asarray(jv))
         np.testing.assert_array_equal(got[1].numpy(), ids[np.asarray(ji)])
 
-    @pytest.mark.parametrize("E, engine", [(100, "pallas"), (512, "pallas"),
-                                           (513, "full"), (520, "full")])
+    @pytest.mark.parametrize("E, engine",
+                             [(100, "pallas"), (512, "pallas"),
+                              (513, "partial_reduce"),
+                              (520, "partial_reduce")])
     def test_width_past_the_kernels_routes_to_full(self, rng, caplog, E,
                                                    engine):
+        """Past the kernels' widest E the index runs the exact
+        "partial_reduce" engine (the name is the route's before it took
+        that engine), with a log line. On integer inputs its scores are
+        the exact top-k's bit for bit, as JAX's "full" gives them; among
+        equal scores its ids may come in another order (ties between bins
+        go by bin), so each id is held to its own exact score."""
         n, k = 17000, 10  # "auto" takes the kernels by size
         q, emb = _inputs(rng, "integer", 4, n, E)
         ids = np.arange(n, dtype=np.int32)
@@ -183,13 +191,26 @@ class TestExactWidths:
             idx = BruteForceIndex(k, ids, emb, device="cpu")
         assert (idx.method, idx._engine) == ("pallas", engine)
         routed = [r for r in caplog.records if "widest" in r.getMessage()]
-        assert len(routed) == (engine == "full")
-        if engine == "full":
+        assert len(routed) == (engine == "partial_reduce")
+        if engine == "partial_reduce":
+            assert "'partial_reduce'" in routed[0].getMessage()
             want = JaxBruteForceIndex(k, ids, emb, method="full")
             want = want.topk_from_embeddings(jnp.asarray(q))
             got = idx.topk_from_embeddings(torch.tensor(q))
-            np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
-            np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+            _assert_exact_up_to_tie_order(got, want, q, emb, ids)
+
+
+def _assert_exact_up_to_tie_order(got, want, q, emb, ids):
+    """Scores bit for bit; every returned id distinct and carrying its own
+    exact score (integer inputs: exact in fp32)."""
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    row_of = np.zeros(ids.max() + 1, np.int64)
+    row_of[ids] = np.arange(len(ids))
+    rows = row_of[got[1].numpy()]
+    own = np.einsum("be,bke->bk", q.astype(np.float64),
+                    emb[rows].astype(np.float64))
+    np.testing.assert_array_equal(own, got[0].numpy())
+    assert all(len(set(r)) == r.size for r in got[1].numpy())
 
 
 class TestQuantizedWidths:
@@ -370,8 +391,11 @@ class TestScanWidth:
         return np.take_along_axis(s, rows, 1) * t, rows
 
     def test_scan_is_exact_past_1040_columns(self, rng):
+        """At recall_target 1.0 the scan keeps the exact top-k of each
+        chunk, so its answer is the integer sums' top-k itself."""
         ids, emb, q = self._data(rng)
-        kw = dict(method="scan", rescore=False, oversample=1, chunk=1024)
+        kw = dict(method="scan", rescore=False, oversample=1, chunk=1024,
+                  recall_target=1.0)
         idx = QuantizedIndex(self.K, ids, emb, device="cpu", **kw)
         assert idx.codes[: self.N].abs().min() == 127
         got_v, got_ids = idx.topk_from_embeddings(torch.tensor(q))
@@ -382,6 +406,35 @@ class TestScanWidth:
             jnp.asarray(q))
         np.testing.assert_array_equal(got_v.numpy(), np.asarray(jv))
         np.testing.assert_array_equal(got_ids.numpy(), np.asarray(jids))
+
+    def test_scan_reduces_past_1040_columns(self, rng):
+        """At the default recall_target each 1024-row chunk reduces to 128
+        bins of 8 rows (approx_max_k): the answer is the running stable
+        top-k of each chunk's bin maxima, over the same integer sums."""
+        ids, emb, q = self._data(rng)
+        kw = dict(method="scan", rescore=False, oversample=1, chunk=1024)
+        idx = QuantizedIndex(self.K, ids, emb, device="cpu", **kw)
+        got_v, got_ids = idx.topk_from_embeddings(torch.tensor(q))
+        t = np.max(np.abs(q), axis=1, keepdims=True) * np.float32(1 / 127)
+        qq = np.clip(np.rint(q / t), -127, 127).astype(np.int64)
+        s = np.full((self.B, 2048), -np.inf, np.float32)
+        s[:, : self.N] = (qq @ idx.codes[: self.N].numpy().astype(
+            np.int64).T).astype(np.float32) * idx.scales[: self.N].numpy()
+        top_s = np.full((self.B, self.K), -np.inf, np.float32)
+        top_i = np.zeros((self.B, self.K), np.int64)
+        for base in (0, 1024):
+            bins = s[:, base : base + 1024].reshape(self.B, 8, 128)
+            t_of = bins.argmax(axis=1)  # the first, lowest t
+            bv = np.take_along_axis(bins, t_of[:, None], 1)[:, 0]
+            bi = t_of * 128 + np.arange(128) + base
+            order = np.argsort(-bv, axis=1, kind="stable")[:, : self.K]
+            ms = np.concatenate([top_s, np.take_along_axis(bv, order, 1)], 1)
+            mi = np.concatenate([top_i, np.take_along_axis(bi, order, 1)], 1)
+            keep = np.argsort(-ms, axis=1, kind="stable")[:, : self.K]
+            top_s = np.take_along_axis(ms, keep, 1)
+            top_i = np.take_along_axis(mi, keep, 1)
+        np.testing.assert_array_equal(got_v.numpy(), top_s * t)
+        np.testing.assert_array_equal(got_ids.numpy(), ids[top_i])
 
     @pytest.mark.parametrize("E", [16, 1040, 1041, 2080, 2500])
     def test_int_scores_at_slice_edges(self, rng, E):
