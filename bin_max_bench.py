@@ -438,15 +438,19 @@ def compare_runs(runs):
 # Ablation: this tree's kernel source with one part replaced
 # ---------------------------------------------------------------------------
 
-CASCADE = """      } else if (ch * L + bin0 + BN <= n_valid) {
-        cascade(acc, [ch](int, int, int) { return ch; }, std::false_type());
-      } else {
-        cascade(acc, [ch](int, int, int) { return ch; }, std::true_type());
-      }
+# Each patched text is in the source once: the cascade, tournament and
+# epilogue in the kernel's `finish`, the conversion in its `land` (both
+# shared by the whole-E and sliced walks), the walk's compute in the
+# whole-E walk (the E = 128 kernels timed here).
+CASCADE = """    } else if (u * L + bin0 + BN <= n_valid) {
+      cascade(acc, [u](int, int, int) { return u; }, std::false_type());
+    } else {
+      cascade(acc, [u](int, int, int) { return u; }, std::true_type());
+    }
 """
-FOLD_CASCADE = """        if (fslot == F - 1)
-          cascade(fs, [&](int mm, int jj, int e) { return fu[mm][jj][e]; },
-                  std::false_type());
+FOLD_CASCADE = """      if (fslot == F - 1)
+        cascade(fs, [&](int mm, int jj, int e) { return fu[mm][jj][e]; },
+                std::false_type());
 """
 
 
@@ -462,12 +466,12 @@ def one_max(scores):
 """
 
 
-NO_CASCADE = [(CASCADE, "      } else {\n" + one_max("acc") + "      }\n"),
-              (FOLD_CASCADE, "        if (fslot == F - 1) {\n"
-               + one_max("fs") + "        }\n")]
-TOURNAMENT = "        tournament(acc, ch, fslot == 0);\n" + FOLD_CASCADE
-NO_TOURNAMENT = """        if (fslot == F - 1)
-          cascade(acc, [ch](int, int, int) { return ch; }, std::false_type());
+NO_CASCADE = [(CASCADE, "    } else {\n" + one_max("acc") + "    }\n"),
+              (FOLD_CASCADE, "      if (fslot == F - 1) {\n"
+               + one_max("fs") + "      }\n")]
+TOURNAMENT = "      tournament(acc, u, fslot == 0);\n" + FOLD_CASCADE
+NO_TOURNAMENT = """      if (fslot == F - 1)
+        cascade(acc, [u](int, int, int) { return u; }, std::false_type());
 """
 MMA = """  asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -481,13 +485,13 @@ NO_MMA = """  asm volatile(""
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
                  "r"(b1));
 """
-WALK = "    if (active) {\n      float acc[WM][WN][4];"
-NO_WALK = "    if (active && steps < 0) {\n      float acc[WM][WN][4];"
+WALK = "      if (active) {\n        float acc[WM][WN][4];"
+NO_WALK = "      if (active && steps < 0) {\n        float acc[WM][WN][4];"
 PICK = "  err = pick_cluster(kernel, s, tiles_of(B, L), &cluster);\n"
 CONVERT = """      codes_to_bf16(sc + slot * stage, sconv, Ek, ld, gtid, gthreads);
       group_sync(1 + grp, gthreads);
 """
-EPILOGUE = "      if constexpr (kCat == Catalog::kScaled) scaled(acc, slot);\n"
+EPILOGUE = "    if constexpr (kCat == Catalog::kScaled) scaled(acc, landed);\n"
 GROUPS = "  for (s.groups = MAX_WARPS / s.wpg;; --s.groups) {\n"
 
 VARIANTS = {

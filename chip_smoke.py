@@ -28,9 +28,20 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    events ("events_ms", which includes the wrappers' host time where that
    is longer). Then exact_topk at B=128 against a
    plain full-score reference (fp32 product of the same bf16 operands,
-   stable sort), with timings. Last, kernels 1, 2 and 8 at E = 64 and 256
+   stable sort), with timings. Then kernels 1, 2 and 8 at E = 64 and 256
    (the instantiation that reads the query's fragments from shared memory)
-   on integer inputs, bit-identical.
+   on integer inputs, bit-identical. Then the sliced instance of
+   bin_max2.cu (slices of 128 columns past the whole-E instances' 512,
+   576 for int8; launch_info must read the whole-E instance at 512 / 576
+   and the sliced one at 528 / 592): forced at E = 128 and 512 (force_sliced, which only these
+   checks pass), each of kernels 1-8 must give the
+   whole-E instance's outputs bit for bit on random normal inputs at
+   B = 1, 16, 128 (kernel 1's graph ms both ways at B = 128); and kernels 1,
+   2 and 8 at padded E = 528, 784, 1024, 2048 and KERNEL_MAX_E (8192) over
+   16,384 rows (16,000 valid), L = 1024, B = 1, 16, 128, on integer inputs,
+   bit-identical to their plain versions, each launch shape printed with
+   its instance (none may spill), then each timed by graph at E = 1024 and
+   2048 at the wide slice's shape (B = 128, L = 2048, 106,496 rows).
 3. Serving at full H&M width: 1,371,980 customers and 105,542 articles,
    E=128, towers [256], k=1000, random weights from --seed. The catalog is
    embedded with collect_catalog_device, indexed with BruteForceIndex("auto"),
@@ -38,7 +49,23 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    through RetrievalService.load(device="cuda"), and string requests of
    B = 1, 16, 128, 1024 customers (a few OOV) are answered. Answers must
    hold 1000 distinct articles and agree with the plain reference; both
-   kernel launch counters must grow during this phase.
+   kernel launch counters must grow during this phase. Then the wide slice
+   (serve_wide): the same model at joint width 1024 (every table at its
+   phase 3 width, random weights), all 105,542 articles embedded by
+   collect_catalog_device, and RetrievalService answering the same
+   requests through BruteForceIndex("pallas") (kernels 1-2 on the sliced
+   instance, kernel 9 must not launch), QuantizedIndex("pallas") with one
+   pass (kernel 4 at B <= 128 and kernel 3 at B = 1024, the plans at
+   E = 1024; 1000 survivors, shrunk from 2000 as the JAX package shrinks
+   them) and with pallas_rounds = 8 (kernels 6-7), each path's launches
+   counted from 0 and required. Exact answers are held to the "full"
+   engine's on the same bf16 operands (values within TOL, ids swapped only
+   between scores within 2*TOL); quantized answers equal the same driver
+   on the plain passes bit for bit wherever both keep the same survivors,
+   survivors within TOL otherwise (the rows with other survivors counted),
+   and on integer-valued queries of each B every row's survivors and
+   answers bit for bit; recall against the exact fp32 top-1000,
+   retrieve ms, device ms (CUDA events) and launches a batch printed.
 4. The int8 single-pass kernels against their plain versions on the card,
    on the same catalog as int8 codes padded to 131,072 rows, E=128, at the
    served (fold F, bins L, batch B) of each plan: (1, 2048, 1024),
@@ -50,7 +77,11 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    bit-identical outputs, normal ones values within TOL; each kernel is
    timed at each plan by graph ("ms") and by events ("events_ms"). Kernels
    3-5 also run at E = 64, 256 and 576 (the instantiation that reads the
-   query from shared memory) on integer inputs, bit-identical. Then
+   query from shared memory) on integer inputs, bit-identical, and at
+   padded E = 528, 784, 1024, 2048 and 8192 (the sliced instance past 576)
+   over 16,384 rows at B = 1, 16, 128, 1024, F = 1, 2, bit-identical, each
+   launch shape printed (none may spill), then timed by graph at E = 1024
+   and 2048 at the plans (1, 2048, 1024) and (2, 2048, 128). Then
    quantized_topk as a whole against a matmul + topk yardstick.
 5. Quantized serving at full H&M width, on phase 3's embedded catalog and
    model: QuantizedIndex(method="auto") must resolve to the kernels with
@@ -72,8 +103,12 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    37, 128 and L = 2048 (k=1000) and L = 1024 (k=100), the refinement
    round on the thresholds the first revealed, each (L, B) printing the
    kernels' launch shape under phase 2's cluster rule; timed at B = 1, 16,
-   128, L = 2048, by graph and by events; and at E = 64 and 256 on
-   integer inputs. The single-keep pass on the bf16 catalog at L=2048 and
+   128, L = 2048, by graph and by events; at E = 64 and 256 on integer
+   inputs; and at padded E = 528, 784, 1024, 2048 and 8192 over 16,384 rows
+   (16,000 valid) at B = 1, 16, 128 on integer inputs, bit-identical, each
+   launch shape printed (none may spill), then timed by graph at E = 1024
+   and 2048 (B = 128, L = 2048, 106,496 rows). The single-keep pass on the
+   bf16 catalog at L=2048 and
    L=512, at +inf thresholds and at those of a previous round.
    Integer-valued queries must give bit-identical outputs, normal ones
    values within TOL. Then
@@ -133,18 +168,21 @@ Phases, each of which must pass (a failure raises and exits non-zero):
        (CUDA events, tower and top-k) and launches a batch are printed; at
        B = 16 a save and load_index answers bit for bit. Its launches are
        the kernel's count on the kernels line, with phases 8 and 12's.
-8. Widths the kernels do not take as they are (phase_widths): over 20,000
-   rows of integer-valued embeddings, BruteForceIndex("auto") (k=1000) and
-   QuantizedIndex (k=100) with one pass and with 8 rounds at E = 8 and 100
-   run the kernels on E padded to 16 and 112 and answer bit-identically to
-   the same indices on the CPU; at E = 520 the exact index routes to
-   "partial_reduce" (nothing reduces at k = 1000 over 20,480 rows: no
-   launch) and the rounds to "scan", the one pass runs its kernels at 528,
-   and at E = 600 the one pass routes to "scan", each route with a log
-   line. Each scan reduces its 20,480-row chunk to (10240, 1) at k_over
-   400 and launches the PartialReduce kernel once (bit for bit against its
-   plain version, so the answers stay bit-identical to the CPU's). The one
-   pass's launch shapes at padded E = 528 and 576 are printed.
+8. Widths (phase_widths): over 20,000 rows of integer-valued embeddings,
+   BruteForceIndex("auto") (k=1000) and QuantizedIndex("pallas") (k=100)
+   with one pass and with 8 rounds at E = 8, 100, 520, 600 and 1024 run the
+   kernels on E padded to a multiple of 16 (the sliced instance past 512
+   for kernels 1-2, past 576 for the int8 ones) and answer bit-identically
+   to the same indices on the CPU, as does DistributedBruteForceIndex
+   ("pallas") over 4 shards of the card at E = 769 (770 with the bias
+   column, padded to 784). Past KERNEL_MAX_E (E = 8200, padded to 8208)
+   the routes: the exact index runs "partial_reduce" (nothing reduces at
+   k = 1000 over 20,480 rows: no launch), both quantized indices "scan"
+   (each reduces its 20,480-row chunk to (10240, 1) at k_over 400 and
+   launches the PartialReduce kernel once, bit for bit against its plain
+   version, so the answers stay bit-identical to the CPU's) and the sharded
+   index "xla", each route with a log line. The one pass's launch shapes at
+   padded E = 528, 576, 608 and 1024 are printed.
 9. Training at full H&M width (bench.py's model from the port's classes:
    customer_id 1,371,980 x 128, article_id 105,542 x 128, product types
    130 x 16, colours 50 x 8, towers [256], joint 128, logQ from a
@@ -602,14 +640,15 @@ def graph_ms(fn, reps):
     return start.elapsed_time(end) / (5 * reps)
 
 
-def pass_bound_ms(B, n_pad, L, thresholds, outputs=4):
-    """Least time of one streaming pass: bytes (query block, catalog, the
-    (B, L) outputs, plus two threshold inputs) over HBM bandwidth, or the
-    product's operations over the bf16 peak, whichever is larger."""
-    nbytes = B * E * 2 + n_pad * E * 2 + outputs * B * L * 4
+def pass_bound_ms(B, n_pad, L, thresholds, outputs=4, width=E):
+    """Least time of one streaming pass at E = ``width``: bytes (query
+    block, catalog, the (B, L) outputs, plus two threshold inputs) over HBM
+    bandwidth, or the product's operations over the bf16 peak, whichever is
+    larger."""
+    nbytes = B * width * 2 + n_pad * width * 2 + outputs * B * L * 4
     if thresholds:
         nbytes += 2 * B * L * 4
-    return roofline_ms(nbytes, 2 * B * n_pad * E)
+    return roofline_ms(nbytes, 2 * B * n_pad * width)
 
 
 def roofline_ms(nbytes, ops):
@@ -794,7 +833,215 @@ def phase_kernels(gen, dev):
                        None)
         emit({"kernel_check": {"E": width, "L": L, "B": B,
                                "inputs": "integer", "ok": True}})
+    check_instance_edges(dev)
+    forced_sliced(gen, dev)
+    wide_exact_kernels(gen, dev, stats)
     return stats
+
+
+# --- the sliced instance of bin_max2.cu (phases 2, 4, 6) ---------------------
+
+WIDE_L = 1024  # bins of the wide kernel checks
+WIDE_ROWS = 16_384  # their catalog rows ...
+WIDE_VALID = 16_000  # ... and the valid ones, for the masked passes
+WIDE_BATCHES = (1, 16, Q_BLOCK)  # their B (the single passes also 1024)
+WIDE_TIMED = (1024, 2048)  # padded E at which each kernel is timed
+N_PAD_EXACT = -(-N_ARTICLES // 2048) * 2048  # 106,496: L = 2048's pad
+
+
+def wide_widths():
+    """Padded E of the wide kernel checks: just past the whole-E instances
+    (528), the sharded index's 769 + 1 (784), 1024, 2048 and the wrappers'
+    cap, KERNEL_MAX_E."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+
+    return (528, 784, 1024, 2048, bt.KERNEL_MAX_E)
+
+
+def int_rows(gen, dev, n, width):
+    """(n, width) bf16 rows of integers in [-4, 4]."""
+    return torch.randint(-4, 5, (n, width), generator=gen,
+                         device=dev).to(torch.bfloat16)
+
+
+def check_wide_launches(infos, L, B, width, **where):
+    """check_clusters at a wide E, each kernel's instance printed with its
+    registers; no kernel may spill, and past 576 (every kind's whole-E
+    widest; check_instance_edges holds the edges) every pass runs the
+    sliced instance."""
+    for n, info in infos.items():
+        require(info["local_bytes"] == 0,
+                f"{n} E={width} B={B}: {info['local_bytes']} spilled bytes")
+        require(info["sliced"] or width <= 576,
+                f"{n} E={width}: sliced={info['sliced']}")
+    check_clusters(infos, L, B, E=width, **where)
+
+
+def check_instance_edges(dev):
+    """Each of kernels 1-8 runs its whole-E instance at its kind's widest E
+    (512 bf16, 576 int8) and the sliced one a k step past it, as
+    launch_info reads the launcher's choice on the card."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+
+    passes = {  # kernels: launch_info's (keep, threshold, catalog, fold)
+        "1": (2, False, "bf16", 1), "2": (2, True, "bf16", 1),
+        "8": (1, True, "bf16", 1), "3, 6": (2, False, "scaled", 1),
+        "4": (2, False, "scaled", 2), "7": (2, True, "scaled", 1),
+        "5": (2, False, "raw", 1), "5 folded": (2, False, "raw", 2)}
+    for kernels, (keep, threshold, catalog, fold) in passes.items():
+        widest = 512 if catalog == "bf16" else 576
+        for width, sliced in ((widest, False), (widest + 16, True)):
+            info = bt.launch_info(Q_BLOCK, width, WIDE_L, keep=keep,
+                                  threshold=threshold, catalog=catalog,
+                                  fold=fold, device=dev)
+            require(info["sliced"] == sliced,
+                    f"kernel {kernels} E={width}: sliced={info['sliced']}")
+    emit({"instance_edges": {"bf16": [512, 528], "int8": [576, 592],
+                             "ok": True}})
+
+
+def forced_sliced(gen, dev):
+    """Phase 2: the sliced instance, forced at E = 128 and 512, against the
+    whole-E instance of each of kernels 1-8 (kernels 4 and 5 at F = 2, 5
+    also at F = 1; kernels 2, 7 and 8's second round on the thresholds of
+    their first) on random normal bf16 queries at B = 1, 16, 128: every
+    output bit for bit (one k-order, one accumulator chain, so the same
+    fp32 scores); kernel 1's graph ms both ways at B = 128."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    L, n_rows, n_valid = WIDE_L, WIDE_ROWS, WIDE_VALID
+    rows = []
+    for width in (128, 512):
+        c_pad = torch.randn(n_rows, width, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        codes, scales, bias = scaled_catalog(gen, dev, n_rows, width, n_valid)
+        q_all = torch.randn(Q_BLOCK, width, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        for B in WIDE_BATCHES:
+            q = q_all[:B]
+
+            inf_s = torch.full((B, L), float("inf"), device=dev)
+            inf_i = torch.full((B, L), -1, dtype=torch.int32, device=dev)
+
+            def passes(force):
+                k1 = bt.bin_max2_first_round(q, c_pad, L, n_valid,
+                                             force_sliced=force)
+                k2 = bt.bin_max2_round(q, c_pad, k1[2], k1[3], L, n_valid,
+                                       force_sliced=force)
+                k8 = bt.bin_max_round(q, c_pad, inf_s, inf_i, L, n_valid,
+                                      force_sliced=force)
+                k8r = bt.bin_max_round(q, c_pad, *k8, L, n_valid,
+                                       force_sliced=force)
+                k3 = qt.bin_max2_scaled_single_pass(q, codes, scales, bias, L,
+                                                    force_sliced=force)
+                k4 = qt.bin_max2_scaled_fold_pass(q, codes, scales, bias, L,
+                                                  2, force_sliced=force)
+                k5 = [qt.bin_max2_raw_fold_pass(q, codes, L, F,
+                                                force_sliced=force)
+                      for F in (1, 2)]
+                k6 = qt.bin_max2_scaled_first_round(q, codes, scales, bias, L,
+                                                    n_valid,
+                                                    force_sliced=force)
+                k7 = qt.bin_max2_scaled_round(q, codes, scales, bias, k6[2],
+                                              k6[3], L, n_valid,
+                                              force_sliced=force)
+                return {"bin_max2_first_round": k1, "bin_max2_round": k2,
+                        "bin_max_round": (*k8, *k8r),
+                        "bin_max2_scaled_single_pass": k3,
+                        "bin_max2_scaled_fold_pass": k4,
+                        "bin_max2_raw_fold_pass": (*k5[0], *k5[1]),
+                        "bin_max2_scaled_first_round": k6,
+                        "bin_max2_scaled_round": k7}
+
+            whole, sliced = passes(False), passes(True)
+            torch.cuda.synchronize()
+            for name, got in sliced.items():
+                require(all(torch.equal(g, w)
+                            for g, w in zip(got, whole[name])),
+                        f"{name} E={width} B={B}: the forced sliced instance "
+                        "differs from the whole-E instance")
+            row = {"E": width, "B": B, "kernels": sorted(sliced),
+                   "bitwise_equal": True}
+            if B == Q_BLOCK:
+                row.update({f"{way}_ms": graph_ms(
+                    lambda: bt.bin_max2_first_round(q, c_pad, L, n_valid,
+                                                    force_sliced=force), 10)
+                    for way, force in (("whole", False), ("sliced", True))})
+            rows.append(row)
+    emit({"forced_sliced": rows})
+
+
+def wide_time_row(launch, plain, bound, **shape):
+    """A timing row of a wide check: graph ms (10 launches), the plain
+    version's ms (events, 2 calls) and the bound."""
+    return {**shape, "ms": graph_ms(launch, 10), "plain_ms": cuda_ms(plain, 2),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def wide_exact_kernels(gen, dev, stats):
+    """Phase 2: kernels 1, 2 and 8 at every padded E of wide_widths() (the
+    sliced instance past 512) against their plain versions on integer
+    inputs over WIDE_ROWS rows (WIDE_VALID valid), bit for bit, at
+    B = 1, 16, 128, each launch shape printed (no spilled bytes); then each
+    timed at WIDE_TIMED on normal inputs at the wide slice's shape (B =
+    128, L = 2048, the H&M catalog padded to 106,496 rows)."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+
+    names = ("bin_max2_first_round", "bin_max2_round", "bin_max_round")
+    L, n_valid = WIDE_L, WIDE_VALID
+    for width in wide_widths():
+        c_pad = int_rows(gen, dev, WIDE_ROWS, width)
+        q_all = int_rows(gen, dev, Q_BLOCK, width)
+        for B in WIDE_BATCHES:
+            check_wide_launches(
+                {n: bt.launch_info(B, width, L, keep=1 if n == names[2] else 2,
+                                   threshold=n != names[0], device=dev)
+                 for n in names}, L, B, width)
+            q = q_all[:B]
+            inf_s = torch.full((B, L), float("inf"), device=dev)
+            inf_i = torch.full((B, L), -1, dtype=torch.int32, device=dev)
+            k1 = bt.bin_max2_first_round(q, c_pad, L, n_valid)
+            p1 = bt.bin_max2_plain(q, c_pad, L, n_valid)
+            k2 = bt.bin_max2_round(q, c_pad, k1[2], k1[3], L, n_valid)
+            p2 = bt.bin_max2_plain(q, c_pad, L, n_valid, p1[2], p1[3])
+            k8 = bt.bin_max_round(q, c_pad, inf_s, inf_i, L, n_valid)
+            p8 = bt.bin_max_plain(q, c_pad, inf_s, inf_i, L, n_valid)
+            k8r = bt.bin_max_round(q, c_pad, *k8, L, n_valid)
+            p8r = bt.bin_max_plain(q, c_pad, *p8, L, n_valid)
+            torch.cuda.synchronize()
+            for name, got, want in ((names[0], k1, p1), (names[1], k2, p2),
+                                    (names[2], k8, p8), (names[2], k8r, p8r)):
+                hold_cells(stats[name], f"{name} E={width} B={B}", "integer",
+                           got, want, None)
+        emit({"wide_kernel_check": {"kernels": "exact", "E": width, "L": L,
+                                    "B": list(WIDE_BATCHES), "ok": True}})
+        del c_pad
+    L, B = 2048, Q_BLOCK
+    for width in WIDE_TIMED:
+        c_pad = torch.zeros(N_PAD_EXACT, width, dtype=torch.bfloat16,
+                            device=dev)
+        c_pad[:N_ARTICLES] = torch.randn(N_ARTICLES, width, generator=gen,
+                                         device=dev).to(torch.bfloat16)
+        q = torch.randn(B, width, generator=gen, device=dev).to(torch.bfloat16)
+        inf_s = torch.full((B, L), float("inf"), device=dev)
+        inf_i = torch.full((B, L), -1, dtype=torch.int32, device=dev)
+        k1 = bt.bin_max2_first_round(q, c_pad, L, N_ARTICLES)
+        k8 = bt.bin_max_round(q, c_pad, inf_s, inf_i, L, N_ARTICLES)
+        for name, thr, outputs, plain in (
+            (names[0], (), 4,
+             lambda: bt.bin_max2_plain(q, c_pad, L, N_ARTICLES)),
+            (names[1], k1[2:], 4,
+             lambda: bt.bin_max2_plain(q, c_pad, L, N_ARTICLES, *k1[2:])),
+            (names[2], k8, 2,
+             lambda: bt.bin_max_plain(q, c_pad, *k8, L, N_ARTICLES)),
+        ):
+            stats[name].setdefault("wide", []).append(wide_time_row(
+                lambda: getattr(bt, name)(q, c_pad, *thr, L, N_ARTICLES),
+                plain,
+                pass_bound_ms(B, N_PAD_EXACT, L, bool(thr), outputs, width),
+                E=width, L=L, B=B, rows=N_PAD_EXACT))
+        del c_pad
 
 
 def check_clusters(infos, L, B, **where):
@@ -811,7 +1058,7 @@ def check_clusters(infos, L, B, **where):
 
 
 def hm_schema(n_customers=N_CUSTOMERS, n_articles=N_ARTICLES, logq=None,
-              article_vocab=None):
+              article_vocab=None, joint=E):
     from hm_retrieval_tpu_torch.schema import (
         Feature, ModelConfig, Schema, TrainingConfig,
     )
@@ -831,14 +1078,13 @@ def hm_schema(n_customers=N_CUSTOMERS, n_articles=N_ARTICLES, logq=None,
         Feature("colour_group_name", "categorical", "candidate",
                 embedding_size=8, vocab=vocab("col", N_COLOURS)),
     ]
-    config = ModelConfig(E, ks=[10, 100, SERVE_K], query_tower_units=[256],
-                         candidate_tower_units=[256])
+    config = ModelConfig(joint, ks=[10, 100, SERVE_K],
+                         query_tower_units=[256], candidate_tower_units=[256])
     return Schema(features, config, TrainingConfig(), logq=logq)
 
 
 def phase_serving(seed, repeats, dev, workdir):
     from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
-    from hm_retrieval_tpu_torch.indices.builder import collect_catalog_device
     from hm_retrieval_tpu_torch.models import TwoTowerModel
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
     from hm_retrieval_tpu_torch.runners.checkpoint import export_model
@@ -848,25 +1094,7 @@ def phase_serving(seed, repeats, dev, workdir):
     t0 = time.perf_counter()
     schema = hm_schema()
     model = TwoTowerModel.create_from_schema(schema, device=dev).init_params(seed)
-    tc = schema.training_config
-    article_ids = np.arange(1, N_ARTICLES + 1, dtype=np.int32)
-    product_type = rng.integers(1, N_PRODUCT_TYPES + 1, N_ARTICLES).astype(np.int32)
-    colour = rng.integers(1, N_COLOURS + 1, N_ARTICLES).astype(np.int32)
-    bs = tc.candidate_batch_size
-    batches = (
-        {"article_id": article_ids[s:s + bs],
-         "product_type_name": product_type[s:s + bs],
-         "colour_group_name": colour[s:s + bs]}
-        for s in range(0, N_ARTICLES, bs)
-    )
-
-    @torch.no_grad()
-    def embed(batch):
-        return model.candidate_forward(
-            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        )
-
-    ids, emb = collect_catalog_device("article_id", embed, batches, bs)
+    ids, emb = embed_catalog(model, schema, rng, dev)
     index = BruteForceIndex(max(schema.model_config.ks), ids, emb,
                             method="auto", device=dev)
     require(index.method == "pallas", f"auto resolved to {index.method!r}")
@@ -948,6 +1176,249 @@ def phase_serving(seed, repeats, dev, workdir):
     return launches, shared
 
 
+def embed_catalog(model, schema, rng, dev):
+    """(ids, embeddings) of the 105,542 articles, side features drawn from
+    ``rng``, embedded by ``model``'s candidate tower through
+    collect_catalog_device (the embeddings stay on the card)."""
+    from hm_retrieval_tpu_torch.indices.builder import collect_catalog_device
+
+    article_ids = np.arange(1, N_ARTICLES + 1, dtype=np.int32)
+    product_type = rng.integers(1, N_PRODUCT_TYPES + 1, N_ARTICLES).astype(np.int32)
+    colour = rng.integers(1, N_COLOURS + 1, N_ARTICLES).astype(np.int32)
+    bs = schema.training_config.candidate_batch_size
+    batches = (
+        {"article_id": article_ids[s:s + bs],
+         "product_type_name": product_type[s:s + bs],
+         "colour_group_name": colour[s:s + bs]}
+        for s in range(0, N_ARTICLES, bs)
+    )
+
+    @torch.no_grad()
+    def embed(batch):
+        return model.candidate_forward(
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        )
+
+    return collect_catalog_device("article_id", embed, batches, bs)
+
+
+WIDE_JOINT = 1024  # the wide slice's joint width (BERT-large-sized towers)
+
+
+def served_rows(svc, answers, requests, shared, what):
+    """(query embeddings, the answers' catalog rows) of served string
+    answers, each of which must be SERVE_K distinct articles of the
+    vocab."""
+    B = len(requests["customer_id"])
+    require(len(answers) == B, f"{what} B={B}: {len(answers)} answers")
+    for ans in answers:
+        require(len(ans) == SERVE_K and len(set(ans)) == SERVE_K,
+                f"{what} B={B}: an answer is not {SERVE_K} distinct articles")
+        require(set(ans) <= shared["article_vocab"],
+                f"{what} B={B}: unknown article")
+    with torch.no_grad():
+        q = svc.embed(svc.encode_query(requests))
+    rows = torch.tensor([[shared["art_row"][a] for a in ans]
+                         for ans in answers], device=q.device)
+    return q, rows
+
+
+def recall_of(q, emb_real, rows):
+    """Share of the answers' rows among the exact fp32 top SERVE_K."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+
+    exact = bt.plain_scores(q, emb_real)
+    top = torch.sort(exact, dim=1, descending=True, stable=True)[1][:, :SERVE_K]
+    hit = torch.zeros(exact.shape, dtype=torch.bool, device=q.device)
+    hit.scatter_(1, top, True)
+    return float(torch.gather(hit, 1, rows).float().mean())
+
+
+def hold_survivors(index, q, plain_passes, what, bitwise=False):
+    """The quantized index's survivors on ``q`` through its kernels against
+    the same driver on its plain passes (inside ``plain_passes()``):
+    survivors within TOL, ids swapped only between dequantized scores
+    within 2*TOL, and the answers equal bit for bit wherever both keep the
+    same survivors; with ``bitwise`` (integer-valued queries, whose sums
+    are exact in any order) the survivors and the answers of every row
+    equal bit for bit."""
+    from hm_retrieval_tpu_torch.indices import quantized as pq
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    record = []
+
+    def recording(queries, codes, scales, *args, **kwargs):
+        out = qt.quantized_topk(queries, codes, scales, *args, **kwargs)
+        record.append((queries, codes, scales, out))
+        return out
+
+    with swapped(pq, quantized_topk=recording):
+        kv, kid = index.topk_from_embeddings(q)
+        with plain_passes():
+            pv, pid = index.topk_from_embeddings(q)
+    (qs, codes, scales, (ksv, ks, k_rounds)), (_, _, _, (psv, ps, _)) = record
+    n = index.num_candidates
+    deq = bt.plain_scores(qs.to(torch.bfloat16), codes[:n]) * scales[:n]
+    err, mism = compare_ranked(ksv, ks, psv, ps, deq)
+    del deq
+    survivors_differ = (ks != ps).any(1)
+    answers_differ = ((kid != pid) | (kv != pv)).any(1)
+    require(not bool((answers_differ & ~survivors_differ).any()),
+            f"{what}: answers differ from the plain passes' where the "
+            "survivors agree")
+    require(not bitwise or all(torch.equal(a, b) for a, b in (
+        (ksv, psv), (ks, ps), (kv, pv), (kid, pid))),
+            f"{what}: the survivors or answers differ from the plain "
+            "passes' bit for bit")
+    return {"rounds": k_rounds, "survivors_max_abs_err_vs_plain": err,
+            "survivor_id_mismatches": mism,
+            "rows_with_other_survivors": int(survivors_differ.sum()),
+            "rows_answered_otherwise": int(answers_differ.sum())}
+
+
+def all_launches():
+    """Every kernel's launch count, by wrapper name."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import partial_reduce as pr
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    return {**bt.LAUNCHES, **qt.LAUNCHES, **pr.LAUNCHES}
+
+
+def serve_wide(seed, repeats, dev, shared):
+    """Phase 3's wide slice: phase 3's H&M model at joint width WIDE_JOINT
+    (every table at phase 3's width; random weights from ``seed``), all
+    105,542 articles embedded by collect_catalog_device, and
+    RetrievalService answering phase 3's string requests (B = 1, 16, 128,
+    1024, k = 1000) through BruteForceIndex("pallas") (kernels 1-2 on the
+    sliced instance, no kernel 9), QuantizedIndex("pallas") with one pass
+    (kernel 3, or 4 where the plan folds) and with pallas_rounds = 8
+    (kernels 6-7), each path's launches counted from 0. Exact answers are
+    held to the "full" engine's on the same bf16 operands under phase 3's
+    rule; quantized ones by hold_survivors, with recall against the exact
+    fp32 top-1000 printed, and again on integer-valued queries at each B,
+    where every row's survivors and answers must equal the plain passes'
+    bit for bit. Returns each kernel's launches."""
+    from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
+    from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
+    from hm_retrieval_tpu_torch.models import TwoTowerModel
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import partial_reduce as pr
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.serving import RetrievalService
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    schema = hm_schema(joint=WIDE_JOINT)
+    model = TwoTowerModel.create_from_schema(schema, device=dev).init_params(
+        seed)
+    ids, emb = embed_catalog(model, schema, np.random.default_rng(seed), dev)
+    require(tuple(emb.shape) == (N_ARTICLES, WIDE_JOINT),
+            f"wide catalog {tuple(emb.shape)}")
+    indices = {
+        "exact": BruteForceIndex(SERVE_K, ids, emb, method="pallas",
+                                 device=dev),
+        "quantized_one_pass": QuantizedIndex(SERVE_K, ids, emb,
+                                             method="pallas", device=dev),
+        "quantized_rounds": QuantizedIndex(SERVE_K, ids, emb,
+                                           method="pallas",
+                                           pallas_rounds=MAX_ROUNDS,
+                                           device=dev),
+    }
+    for name, index in indices.items():
+        require(index._engine == "pallas",
+                f"wide {name}: engine {index._engine!r}")
+    # the one pass's layout holds no 2000 survivors at E = 1024, so both
+    # quantized indices shrink them as the JAX package does (to 1000)
+    k_over = indices["quantized_one_pass"].k_over
+    services = {name: RetrievalService(schema, model.query_tower, index,
+                                       device=dev)
+                for name, index in indices.items()}
+    emit({"wide_setup": {"joint": WIDE_JOINT, "catalog": list(emb.shape),
+                         "k_over": {n: indices[n].k_over for n in indices
+                                    if n != "exact"},
+                         "seconds": time.perf_counter() - t0}})
+    emb_real = indices["exact"].embeddings[:N_ARTICLES]
+    cb = emb_real.to(torch.bfloat16)
+    full = BruteForceIndex(SERVE_K, ids, cb.float(), method="full", device=dev)
+    plains = {"quantized_one_pass": lambda: recorded_passes(plain=True),
+              "quantized_rounds": plain_rounds}
+    expected = {
+        "exact": {"bin_max2_first_round", "bin_max2_round"},
+        "quantized_one_pass": {SINGLE_PASS_KERNELS[int(qt.single_pass_plan(
+            B, WIDE_JOINT, k_over, N_PAD_Q)[1] > 1)] for B in SERVE_BATCHES},
+        "quantized_rounds": set(ROUNDS_KERNELS),
+    }
+    launches = dict.fromkeys(all_launches(), 0)
+    for name, svc in services.items():
+        # --- this path: counts from 0 ------------------------------------
+        for module in (bt, qt, pr):
+            module.reset_launches()
+        rows, answers = [], {}
+        for B in SERVE_BATCHES:
+            req = shared["requests"][B]
+            before = all_launches()
+            svc.retrieve(req)  # warm-up
+            times = []
+            for _ in range(repeats):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                answers[B] = svc.retrieve(req)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            now = all_launches()
+            rows.append({"index": name, "B": B, "E": WIDE_JOINT,
+                         "retrieve_ms": statistics.median(times),
+                         "min_ms": min(times), "max_ms": max(times),
+                         "launches_per_batch": {
+                             n: (now[n] - before[n]) / (repeats + 1)
+                             for n in now if now[n] != before[n]}})
+        path = {n: c for n, c in all_launches().items() if c}
+        # -----------------------------------------------------------------
+        require(set(path) == expected[name], f"wide {name}: launched "
+                f"{path}, expected {sorted(expected[name])}")
+        for n, c in path.items():
+            launches[n] += c
+        for row in rows:
+            B = row["B"]
+            req = shared["requests"][B]
+            q, got_rows = served_rows(svc, answers[B], req, shared,
+                                      f"wide {name}")
+            if name == "exact":
+                qb = q.to(torch.bfloat16)
+                scores = bt.plain_scores(qb, cb)
+                fv, fid = full.topk_from_embeddings(qb.float())
+                err, mism = compare_ranked(
+                    torch.gather(scores, 1, got_rows), got_rows, fv,
+                    fid.long() - 1, scores)
+                del scores
+                _, _, rounds = bt.exact_topk(q, emb_real, SERVE_K)
+                row.update(rounds=rounds, max_abs_err_vs_full=err,
+                           id_mismatches_vs_full=mism)
+            else:
+                row.update(hold_survivors(indices[name], q, plains[name],
+                                          f"wide {name} B={B}"))
+                # where cuBLAS and mma.sync sum the normal queries in other
+                # orders a boundary survivor may differ; integer-valued
+                # queries sum exactly in any order, so there every row's
+                # survivors and answers must equal the plain passes'
+                qi = torch.randint(-4, 5, tuple(q.shape), generator=gen,
+                                   device=dev).float()
+                hold_survivors(indices[name], qi, plains[name],
+                               f"wide {name} B={B} integer", bitwise=True)
+                row["integer_queries_bitwise"] = True
+                if name == "quantized_one_pass":
+                    row["plan"] = qt.single_pass_plan(B, WIDE_JOINT, k_over,
+                                                      N_PAD_Q)
+            row.update(recall_vs_exact=recall_of(q, emb_real, got_rows),
+                       **serve_breakdown(svc, req, repeats))
+            emit({"wide_serve": row})
+    return launches
+
+
 def serve_breakdown(svc, raw, repeats):
     """Medians over ``repeats`` calls that do what ``svc.retrieve(raw)``
     does, stage by stage: host encode (host clock); device, the query tower
@@ -983,18 +1454,18 @@ SINGLE_PASS_KERNELS = (
 )
 
 
-def single_pass_bound_ms(B, n_rows, L, scaled, thresholds=False):
-    """Least time of one int8 pass: the int8 codes (and, scaled, the fp32
-    scales and bias; in a refinement round the two (B, L) thresholds), the
-    bf16 query block and the four (B, L) outputs over HBM bandwidth, or the
-    product's operations (bf16 tensor cores; the codes convert to bf16
-    exactly) over the bf16 peak."""
-    nbytes = n_rows * E + B * E * 2 + 4 * B * L * 4
+def single_pass_bound_ms(B, n_rows, L, scaled, thresholds=False, width=E):
+    """Least time of one int8 pass at E = ``width``: the int8 codes (and,
+    scaled, the fp32 scales and bias; in a refinement round the two (B, L)
+    thresholds), the bf16 query block and the four (B, L) outputs over HBM
+    bandwidth, or the product's operations (bf16 tensor cores; the codes
+    convert to bf16 exactly) over the bf16 peak."""
+    nbytes = n_rows * width + B * width * 2 + 4 * B * L * 4
     if scaled:
         nbytes += 2 * n_rows * 4
     if thresholds:
         nbytes += 2 * B * L * 4
-    return roofline_ms(nbytes, 2 * B * n_rows * E)
+    return roofline_ms(nbytes, 2 * B * n_rows * width)
 
 
 def catalog_of(name):
@@ -1150,10 +1621,10 @@ def phase_quantized_kernels(gen, dev):
         })
     emit({"quantized_topk": rows})
     del codes, scales, bias, deq
-    # the other instantiation (A fragments read from shared memory) of
-    # kernels 3-5, at widths other than E = 128 up to the widest, on
-    # integer inputs (with -inf bias rows for 3-4)
-    for width in (64, 256, qt.INT8_KERNEL_MAX_E):
+    # the other whole-E instantiation (A fragments read from shared memory)
+    # of kernels 3-5, at widths other than E = 128 up to its widest (576),
+    # on integer inputs (with -inf bias rows for 3-4)
+    for width in (64, 256, 576):
         L, n_rows, B = 1024, 16384, 37
         codes, scales, bias = scaled_catalog(gen, dev, n_rows, width, n_rows)
         q = torch.randint(-4, 5, (B, width), generator=gen,
@@ -1170,7 +1641,68 @@ def phase_quantized_kernels(gen, dev):
                        want, None)
         emit({"quantized_kernel_check": {"E": width, "L": L, "B": B,
                                          "inputs": "integer", "ok": True}})
+    wide_single_pass_kernels(gen, dev, stats)
     return stats
+
+
+def wide_single_pass_kernels(gen, dev, stats):
+    """Phase 4: kernels 3-5 at every padded E of wide_widths() (the sliced
+    instance past 576) against their plain versions on integer inputs over
+    WIDE_ROWS rows of int8 codes (-inf bias rows for 3-4), bit for bit, at
+    B = 1, 16, 128, 1024 and F = 1, 2 (kernel 5 at both), each launch shape
+    printed (no spilled bytes); then each timed at WIDE_TIMED on normal
+    queries at a served plan's shape over N_PAD_Q rows: kernel 3 at (1,
+    2048, 1024), the wide slice's; kernels 4-5 at (2, 2048, 128)."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+
+    L = WIDE_L
+    cases = ((SINGLE_PASS_KERNELS[0], 1), (SINGLE_PASS_KERNELS[1], 2),
+             (SINGLE_PASS_KERNELS[2], 1), (SINGLE_PASS_KERNELS[2], 2))
+    for width in wide_widths():
+        codes, scales, bias = scaled_catalog(gen, dev, WIDE_ROWS, width,
+                                             WIDE_ROWS)
+        q_all = int_rows(gen, dev, 1024, width)
+        for B in WIDE_BATCHES + (1024,):
+            for F in (1, 2):
+                check_wide_launches(
+                    {name: bt.launch_info(B, width, L, threshold=False,
+                                          catalog=catalog_of(name), fold=F,
+                                          device=dev)
+                     for name, f in cases if f == F}, L, B, width, F=F)
+            q = q_all[:B]
+            for name, F in cases:
+                args = ((L, F) if name == SINGLE_PASS_KERNELS[2] else
+                        (scales, bias, L) if F == 1 else (scales, bias, L, F))
+                got = run_pass(name, q, codes, args)
+                want = run_pass(name, q, codes, args, plain=True)
+                torch.cuda.synchronize()
+                hold_cells(stats[name], f"{name} E={width} F={F} B={B}",
+                           "integer", got, want, None)
+        emit({"wide_kernel_check": {"kernels": "single passes", "E": width,
+                                    "L": L, "B": list(WIDE_BATCHES) + [1024],
+                                    "ok": True}})
+        del codes, scales, bias
+    for width in WIDE_TIMED:
+        codes = torch.zeros((N_PAD_Q, width), dtype=torch.int8, device=dev)
+        codes[:N_ARTICLES] = torch.randint(
+            -127, 128, (N_ARTICLES, width), generator=gen, device=dev,
+            dtype=torch.int8)
+        scales = torch.rand(N_PAD_Q, generator=gen, device=dev) * 0.05 + 1e-3
+        bias = torch.zeros(N_PAD_Q, device=dev)
+        bias[N_ARTICLES:] = float("-inf")
+        for F, L, B in ((1, 2048, 1024), (2, 2048, 128)):
+            q = torch.randn(B, width, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            for name, (c, args) in plan_cases(codes, scales, bias, F,
+                                              L).items():
+                stats[name].setdefault("wide", []).append(wide_time_row(
+                    lambda: run_pass(name, q, c, args),
+                    lambda: run_pass(name, q, c, args, plain=True),
+                    single_pass_bound_ms(
+                        B, c.shape[0], L, name != SINGLE_PASS_KERNELS[2],
+                        width=width),
+                    E=width, F=F, L=L, B=B, rows=c.shape[0]))
+        del codes, scales, bias
 
 
 def plain_rounds():
@@ -1321,6 +1853,7 @@ def phase_rounds_kernels(gen, dev):
         emit({"rounds_kernel_check": {"kernels": "int8 rounds", "E": width,
                                       "L": L, "B": B, "inputs": "integer",
                                       "ok": True}})
+    wide_rounds_kernels(gen, dev, stats)
 
     st = stats["bin_max_round"]
     for L in (2048, 512):  # default_bins(k, 1) at k = 1000 and 100
@@ -1361,6 +1894,63 @@ def phase_rounds_kernels(gen, dev):
                 st.update({k: row[k] for k in ("ms", "events_ms", "plain_ms",
                                                "bound_ms", "bound_by")})
     return stats
+
+
+def wide_rounds_kernels(gen, dev, stats):
+    """Phase 6: kernels 6-7 at every padded E of wide_widths() (the sliced
+    instance past 576) against their plain versions on integer inputs over
+    WIDE_ROWS rows (WIDE_VALID valid, -inf bias on 1% of them), bit for
+    bit, at B = 1, 16, 128, each launch shape printed (no spilled bytes);
+    then each timed at WIDE_TIMED on normal queries at the wide slice's
+    shape (B = 128, L = 2048, the 106,496 rows the rounds stream)."""
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    L, n_valid = WIDE_L, WIDE_VALID
+    for width in wide_widths():
+        codes, scales, bias = scaled_catalog(gen, dev, WIDE_ROWS, width,
+                                             n_valid)
+        q_all = int_rows(gen, dev, Q_BLOCK, width)
+        for B in WIDE_BATCHES:
+            check_wide_launches(
+                {n: bt.launch_info(B, width, L, threshold=n == ROUNDS_KERNELS[1],
+                                   catalog="scaled", device=dev)
+                 for n in ROUNDS_KERNELS}, L, B, width)
+            q = q_all[:B]
+            k6 = qt.bin_max2_scaled_first_round(q, codes, scales, bias, L,
+                                                n_valid)
+            p6 = qt.scaled_round_plain(q, codes, scales, bias, L, n_valid)
+            k7 = qt.bin_max2_scaled_round(q, codes, scales, bias, k6[2], k6[3],
+                                          L, n_valid)
+            p7 = qt.scaled_round_plain(q, codes, scales, bias, L, n_valid,
+                                       p6[2], p6[3])
+            torch.cuda.synchronize()
+            for name, got, want in ((ROUNDS_KERNELS[0], k6, p6),
+                                    (ROUNDS_KERNELS[1], k7, p7)):
+                hold_cells(stats[name], f"{name} E={width} B={B}", "integer",
+                           got, want, None)
+        emit({"wide_kernel_check": {"kernels": "int8 rounds", "E": width,
+                                    "L": L, "B": list(WIDE_BATCHES),
+                                    "ok": True}})
+        del codes, scales, bias
+    L, B = 2048, Q_BLOCK
+    for width in WIDE_TIMED:
+        codes, scales, bias = scaled_catalog(gen, dev, N_PAD_EXACT, width,
+                                             N_ARTICLES)
+        q = torch.randn(B, width, generator=gen, device=dev).to(torch.bfloat16)
+        k6 = qt.bin_max2_scaled_first_round(q, codes, scales, bias, L,
+                                            N_ARTICLES)
+        for name, thr in ((ROUNDS_KERNELS[0], ()),
+                          (ROUNDS_KERNELS[1], k6[2:])):
+            stats[name].setdefault("wide", []).append(wide_time_row(
+                lambda: getattr(qt, name)(q, codes, scales, bias, *thr, L,
+                                          N_ARTICLES),
+                lambda: qt.scaled_round_plain(q, codes, scales, bias, L,
+                                              N_ARTICLES, *thr),
+                single_pass_bound_ms(B, N_PAD_EXACT, L, True, bool(thr),
+                                     width=width),
+                E=width, L=L, B=B, rows=N_PAD_EXACT))
+        del codes, scales, bias
 
 
 def phase_rounds_drivers(gen, dev):
@@ -2053,37 +2643,53 @@ def phase_partial_reduce(gen, shared, repeats, dev, workdir):
 
 
 def phase_widths(seed, dev):
-    """Widths the kernels do not take as they are, on the card against the
-    same indices on the CPU, over WIDTH_ROWS rows of integer-valued
-    embeddings (exact in bf16 and in fp32 sums, so the answers must be
-    bit-identical): BruteForceIndex("auto") and QuantizedIndex one pass and
-    with 8 rounds at E = 8 and 100 run the kernels on E padded to a
-    multiple of 16; at E = 520 BruteForceIndex runs "partial_reduce" (which
-    reduces nothing at k = 1000 over 20,480 rows: no launch) and the rounds
-    "scan" (past KERNEL_MAX_E = 512), the one pass the kernels (528 <=
-    INT8_KERNEL_MAX_E = 576), and at E = 600 the one pass runs "scan", each
-    route with a log line. The scan's one 20,480-row chunk reduces to
-    (10,240, 1) at k_over 400 and launches the PartialReduce kernel once.
-    Returns the PartialReduce kernel's launches."""
+    """Embedding widths around and past the whole-E instances, on the card
+    against the same indices on the CPU, over WIDTH_ROWS rows of
+    integer-valued embeddings (exact in bf16 and in fp32 sums, so the
+    answers must be bit-identical): BruteForceIndex("auto") and
+    QuantizedIndex one pass and with 8 rounds at E = 8, 100, 520, 600 and
+    1024 run the kernels on E padded to a multiple of 16 (the sliced
+    instance past 512 for the exact passes, past 576 for the int8 ones),
+    and DistributedBruteForceIndex("pallas") over 4 shards of the card at
+    E = 769 (with its bias column 770, padded to 784). Past the wrappers'
+    cap, KERNEL_MAX_E (E = 8200, padded to 8208), the routes: the exact
+    index runs "partial_reduce" (nothing reduces at k = 1000 over 20,480
+    rows: no launch), both quantized indices "scan", whose one 20,480-row
+    chunk reduces to (10,240, 1) at k_over 400 and launches the
+    PartialReduce kernel once, and the sharded index "xla", each route
+    with a log line. Returns the PartialReduce kernel's launches."""
     from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
+    from hm_retrieval_tpu_torch.indices.distributed import (
+        DistributedBruteForceIndex,
+    )
     from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
     from hm_retrieval_tpu_torch.ops import partial_reduce as pr
     from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+    from hm_retrieval_tpu_torch.parallel import make_mesh
 
     rng = np.random.default_rng(seed)
+    # the quantized indices ask for "pallas": past the cap "auto" would
+    # resolve to "scan" by the JAX layout rule alone, with no route
     indices = {
         "exact": lambda i, x, d: BruteForceIndex(SERVE_K, i, x, device=d),
         "quantized_one_pass": lambda i, x, d: QuantizedIndex(
-            WIDTH_K, i, x, device=d),
+            WIDTH_K, i, x, method="pallas", device=d),
         "quantized_rounds": lambda i, x, d: QuantizedIndex(
-            WIDTH_K, i, x, pallas_rounds=MAX_ROUNDS, device=d),
+            WIDTH_K, i, x, method="pallas", pallas_rounds=MAX_ROUNDS,
+            device=d),
+        "sharded": lambda i, x, d: DistributedBruteForceIndex(
+            SERVE_K, i, x, mesh=make_mesh(1, SHARDS, devices=[d] * SHARDS),
+            method="pallas"),
     }
-    cases = [(w, name, "pallas") for w in (8, 100) for name in indices]
-    cases += [(520, "exact", "partial_reduce"),
-              (520, "quantized_rounds", "scan"),
-              (520, "quantized_one_pass", "pallas"),
-              (600, "quantized_one_pass", "scan")]
+    past = bt.KERNEL_MAX_E + 8  # padded to 8208, past the cap
+    cases = [(w, name, "pallas") for w in (8, 100, 520, 600, 1024)
+             for name in ("exact", "quantized_one_pass", "quantized_rounds")]
+    cases += [(769, "sharded", "pallas"),
+              (past, "exact", "partial_reduce"),
+              (past, "quantized_one_pass", "scan"),
+              (past, "quantized_rounds", "scan"),
+              (past, "sharded", "xla")]
     log = Records()
     logging.getLogger("hm_retrieval_tpu_torch").addHandler(log)
     rows, pr_launches = [], 0
@@ -2095,7 +2701,7 @@ def phase_widths(seed, dev):
             del log.records[:]
             card = indices[name](ids, emb, dev)
             host = indices[name](ids, emb, "cpu")
-            routed = [m for m in log.records if "widest" in m]
+            routed = [m for m in log.records if "instead" in m]
             require(card._engine == host._engine == engine
                     and len(routed) == 2 * (engine != "pallas"),
                     f"{name} E={width}: engine {card._engine!r}, expected "
@@ -2106,11 +2712,10 @@ def phase_widths(seed, dev):
             pr.reset_launches()
             got = card.topk_from_embeddings(torch.tensor(q, device=dev))
             torch.cuda.synchronize()
-            launches = {n: c for n, c in {**bt.LAUNCHES, **qt.LAUNCHES,
-                                          **pr.LAUNCHES}.items() if c}
+            launches = {n: c for n, c in all_launches().items() if c}
             # -----------------------------------------------------------------
             want_launches = {"scan": {"partial_reduce": 1},
-                             "partial_reduce": {}}.get(engine)
+                             "partial_reduce": {}, "xla": {}}.get(engine)
             require(launches == want_launches if want_launches is not None
                     else bool(launches) and "partial_reduce" not in launches,
                     f"{name} E={width}: launched {launches}")
@@ -2119,15 +2724,18 @@ def phase_widths(seed, dev):
             require(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
                     f"{name} E={width}: the card's answers differ from the "
                     "CPU's")
-            rows.append({"E": width, "index": name, "engine": engine,
+            rows.append({"E": width, "padded": bt.padded_width(width),
+                         "index": name, "engine": engine,
                          "launches": launches, "log": routed[:1],
                          "identical_to_cpu": True})
+            del card, host
     finally:
         logging.getLogger("hm_retrieval_tpu_torch").removeHandler(log)
     for row in rows:
         emit({"width": row})
-    # the one pass's kernels at the widest padded widths they serve
-    for width in (528, qt.INT8_KERNEL_MAX_E):
+    # the one pass's kernels at padded widths they serve, the last two on
+    # the sliced instance
+    for width in (528, 576, 608, 1024):
         for B in (16, Q_BLOCK):
             emit({"width_launch": {"E": width, "B": B, **{
                 name: bt.launch_info(B, width, 2048, threshold=False,
@@ -6919,6 +7527,8 @@ def main(argv=None):
     build_root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke-") as d:
         launches, shared = phase_serving(args.seed, args.repeats, dev, Path(d))
+        # phase 3's wide slice: its launches join the count after phase 20
+        wide = serve_wide(args.seed, args.repeats, dev, shared)
         lap("3_serving")
         stats.update(phase_quantized_kernels(gen, dev))
         lap("4_quantized_kernels")
@@ -6931,6 +7541,7 @@ def main(argv=None):
         k8, k8_phase2 = rounds_stats["bin_max_round"], stats["bin_max_round"]
         k8["max_abs_err"] = max(k8["max_abs_err"], k8_phase2["max_abs_err"])
         k8["id_mismatches"] += k8_phase2["id_mismatches"]
+        k8["wide"] = k8_phase2["wide"]  # timed in phase 2
         stats.update(rounds_stats)
         launches["bin_max_round"] = phase_rounds_drivers(gen, dev)[
             "bin_max_round"]
@@ -6944,6 +7555,8 @@ def main(argv=None):
         stats["partial_reduce"], pr_launches = phase_partial_reduce(
             gen, shared, args.repeats, dev, Path(d))
         launches.update(pr_launches)
+        for name, n in wide.items():
+            launches[name] += n
         lap("20_partial_reduce")
     launches["partial_reduce"] += phase_widths(args.seed, dev)
     lap("8_widths")

@@ -24,9 +24,9 @@
 //                                      single pass of the global-scale
 //                                      index, raw dot products, F >= 1)
 // All eight launchers instantiate ONE template, bin_max_kernel<kThreshold,
-// kKeep, kSteps, kCat, kFold>, so every pass computes the score of a (query
-// row, catalog row) pair with the same code: the refinement rounds are exact
-// only because every pass reproduces identical fp32 scores.
+// kKeep, kSteps, kCat, kFold, kSliced>, so every pass computes the score of
+// a (query row, catalog row) pair with the same code: the refinement rounds
+// are exact only because every pass reproduces identical fp32 scores.
 //
 // What it computes. The catalog C (n_pad x E) is read in sub-tiles of L
 // rows: bin b of sub-tile u is catalog row u*L + b. Its kind (Catalog) is
@@ -154,6 +154,30 @@
 // what the mma costs at the tensor-core peak) run one after the other on
 // each warp, each of the 8 row groups converts the same codes again, and
 // mma.sync does not reach the peak that bounds the pass.
+//
+// The K-sliced instance (kSliced). The whole-E instances keep the block's
+// (tile_rows, E) query tile resident and stage whole BN x E sub-tiles, so
+// at 128 query rows their shared memory grows with E until two ring slots
+// no longer fit (231,424 of 232,448 bytes at E = 576 for int8). Past the
+// widths they took before (whole_e_max: 512 bf16, 576 int8) every pass
+// runs the sliced instance instead: the instance is chosen by E and the
+// catalog's kind alone, never by B, the pass or the round, so every round
+// of a refinement runs one instance. It streams E in slices of EK = 128
+// columns (the last one E % EK wide where EK does not divide E): ring step
+// i of a segment stages slice i % nsl of its sub-tile i / nsl, the catalog
+// slice (BN x EK, bf16 or int8 codes, the kScaled scales and biases with
+// the last slice) and the query slice (the block's real rows x EK; the rows
+// past them are zeroed once) through the same cp.async ring, and an int8
+// slice converts into the group's bf16 tile of one slice. The warp's
+// accumulators stay in registers across a sub-tile's slices, whose mma.sync
+// steps run k in increasing 16-wide steps at the same fragment positions,
+// so each score is the one accumulator chain of the whole-E instances, with
+// the same bits; the epilogue, tournament, mask, threshold test and cascade
+// run once, after the sub-tile's last slice. Segments and the merges are
+// the whole-E instances'. What it costs: the query is read again for every
+// sub-tile, from L2 (B x E x 2 bytes per BN catalog rows and row group), so
+// at B = 128 the query bytes a bf16 pass reads are four times the
+// catalog's; PERF.md times it at 6-15% of its bound on the H100.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -179,6 +203,7 @@ constexpr int PAD = 8;            // bf16 of row padding in shared memory
 constexpr int PS = BN + 8;        // row stride of the partial cells
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory of one block
 constexpr int A_STEPS = 8;        // E = 128: A fragments kept in registers
+constexpr int EK = 128;           // k slice of the sliced instance
 constexpr int BIG_IDX = 0x7fffffff;
 
 // The catalog's kind (the C interface passes it as 0, 1, 2): bf16 rows;
@@ -189,6 +214,12 @@ enum class Catalog { kBf16 = 0, kScaled = 1, kRaw = 2 };
 __host__ __device__ constexpr bool is_int8(Catalog cat) {
   return cat != Catalog::kBf16;
 }
+
+// The widest E of a kind's whole-E instances, the widths they took before
+// the sliced instance (at 128 query rows the int8 kind's fill 231,424 of a
+// block's 232,448 bytes at 576); past it every pass of that kind runs the
+// sliced instance, so no whole-E instance runs at a width it never ran at.
+constexpr int whole_e_max(Catalog cat) { return is_int8(cat) ? 576 : 512; }
 
 // Bytes of one ring slot: BN catalog rows of width E as bf16 (row stride
 // E + PAD), or as int8 codes (row stride E), for kScaled followed by their
@@ -206,9 +237,17 @@ __host__ __device__ constexpr int tile_bytes(int E, Catalog cat) {
   return is_int8(cat) ? BN * (E + PAD) * 2 : 0;
 }
 
-// Block shape of a launch over B query rows of width E. It depends on B, E
-// and the catalog's kind only, never on the pass, and it never changes what
-// a score is.
+// Bytes of one ring slot of the sliced instance: the catalog's slice (a
+// slot of width EK), then the query slice of tile_rows bf16 rows (row
+// stride EK + PAD).
+__host__ __device__ constexpr int sliced_slot_bytes(int tile_rows,
+                                                    Catalog cat) {
+  return slot_bytes(EK, cat) + tile_rows * (EK + PAD) * 2;
+}
+
+// Block shape of a launch over B query rows of width E. It depends on B, E,
+// the catalog's kind and the instance only, never on the pass, and it never
+// changes what a score is.
 struct Shape {
   int wpg;     // warps per group: 2 per 32-row pair of m-tiles
   int groups;  // warp groups, each walking its own segment
@@ -216,15 +255,17 @@ struct Shape {
   int smem;    // dynamic shared memory, bytes
 };
 
-Shape shape_for(int B, int E, Catalog cat) {
+Shape shape_for(int B, int E, Catalog cat, bool sliced) {
   Shape s;
   const int rows = B < BM ? B : BM;
   const int tile_rows = (rows + 31) / 32 * 32;
   s.wpg = tile_rows / 32 * (BN / (8 * WN));
   const int ld = E + PAD;
-  const int stage = slot_bytes(E, cat);
-  const int tile = tile_bytes(E, cat);
-  const int qbytes = tile_rows * ld * 2;
+  // the sliced instance keeps no query tile: its slots hold query slices
+  const int stage =
+      sliced ? sliced_slot_bytes(tile_rows, cat) : slot_bytes(E, cat);
+  const int tile = tile_bytes(sliced ? EK : E, cat);
+  const int qbytes = sliced ? 0 : tile_rows * ld * 2;
   const int part = 2 * tile_rows * PS * 8;  // keep-2 partial cells a group
   for (s.groups = MAX_WARPS / s.wpg;; --s.groups) {
     s.stages = (SMEM_MAX - qbytes - s.groups * tile) / (s.groups * stage);
@@ -431,12 +472,14 @@ __device__ __forceinline__ Top<kKeep> merged(const float* const (&ps)[kMax],
 }
 
 // Block (32 * wpg, groups) threads, grid (c, L / BN, ceil(B / BM)) in
-// clusters of (c, 1, 1). Dynamic shared memory (shape_for(B, E, kCat).smem):
-// the query tile, then the groups' rings (and, for int8, each group's bf16
-// tile), which the partial cells reuse after the walk. n_chunks counts the
-// chunks of the walk: fold chunks of `fold` sub-tiles with kFold, sub-tiles
-// otherwise (fold is read only with kFold).
-template <bool kThreshold, int kKeep, int kSteps, Catalog kCat, bool kFold>
+// clusters of (c, 1, 1). Dynamic shared memory (shape_for(B, E, kCat,
+// kSliced).smem): the query tile (none with kSliced), then the groups' rings
+// (and, for int8, each group's bf16 tile), which the partial cells reuse
+// after the walk. n_chunks counts the chunks of the walk: fold chunks of
+// `fold` sub-tiles with kFold, sub-tiles otherwise (fold is read only with
+// kFold). kSliced (with kSteps = 0) stages E in slices of EK columns.
+template <bool kThreshold, int kKeep, int kSteps, Catalog kCat, bool kFold,
+          bool kSliced>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     bin_max_kernel(const __nv_bfloat16* __restrict__ q,  // (B, E)
                    const void* __restrict__ c,  // (n_pad, E) bf16 or int8
@@ -449,6 +492,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
                    int B, int E, int L, int n_chunks, int n_valid,
                    int fold, int stages) {
   constexpr bool kInt8 = is_int8(kCat);
+  static_assert(!kSliced || kSteps == 0, "a slice reads A from shared memory");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -472,32 +516,50 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   const int rows = min(B - row0, tile_rows);  // real rows of the block
   const bool active = wrow < rows;            // m-tile 0 holds a real row
   const bool two = wrow + 16 < rows;          // so does m-tile 1
-  const int Ek = kSteps > 0 ? 16 * kSteps : E;  // E, known to the compiler
+  // the staged width: E, known to the compiler at kSteps > 0, or one slice
+  const int Ek = kSliced ? EK : kSteps > 0 ? 16 * kSteps : E;
   const int ld = Ek + PAD;  // shared row stride, in bf16
   const int vecs = Ek / 8;  // 16-byte vectors per bf16 row
-  const int stage = slot_bytes(Ek, kCat);
+  // a ring slot: the catalog's sub-tile (slice), then (kSliced) the query
+  // slice
+  const int cbytes = slot_bytes(Ek, kCat);
+  const int stage = kSliced ? cbytes + tile_rows * ld * 2 : cbytes;
   const int F = kFold ? fold : 1;  // sub-tiles a chunk
+  const int nsl = kSliced ? (E + Ek - 1) / Ek : 1;  // slices a sub-tile
 
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  unsigned char* ring = smem_raw + tile_rows * ld * 2;
+  unsigned char* ring = smem_raw + (kSliced ? 0 : tile_rows * ld * 2);
   // this group's ring, then (int8) its bf16 tile
   unsigned char* sc = ring + grp * (stages * stage + tile_bytes(Ek, kCat));
   __nv_bfloat16* sconv = reinterpret_cast<__nv_bfloat16*>(sc + stages * stage);
+  // the query: the resident tile, or (kSliced) slot 0's query slice
+  __nv_bfloat16* sq =
+      reinterpret_cast<__nv_bfloat16*>(kSliced ? sc + cbytes : smem_raw);
 
-  // Query tile, resident for the whole run, in one cp.async group of its
-  // own; rows past B are zeros.
-  for (int v = tid; v < tile_rows * vecs; v += nthreads) {
-    const int r = v / vecs, cv = v % vecs;
-    if (r < rows)
-      cp_async16(sq + r * ld + cv * 8, q + (size_t)(row0 + r) * Ek + cv * 8);
-    else
-      *reinterpret_cast<uint4*>(sq + r * ld + cv * 8) =
+  if constexpr (kSliced) {
+    // The query slices' rows past the block's real rows, zeroed once in
+    // every slot of the group's ring: the loads write the real rows only.
+    const int pad = (tile_rows - rows) * vecs;
+    for (int v = gtid; v < stages * pad; v += gthreads) {
+      const int sl = v / pad, r = rows + v % pad / vecs, cv = v % vecs;
+      *reinterpret_cast<uint4*>(sq + sl * (stage / 2) + r * ld + cv * 8) =
           make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    // Query tile, resident for the whole run, in one cp.async group of its
+    // own; rows past B are zeros.
+    for (int v = tid; v < tile_rows * vecs; v += nthreads) {
+      const int r = v / vecs, cv = v % vecs;
+      if (r < rows)
+        cp_async16(sq + r * ld + cv * 8, q + (size_t)(row0 + r) * Ek + cv * 8);
+      else
+        *reinterpret_cast<uint4*>(sq + r * ld + cv * 8) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+    cp_async_commit();
   }
-  cp_async_commit();
 
   // This group's segment of the chunk walk: whole chunks, one sub-tile a
-  // step, starting at sub-tile u0.
+  // step (kSliced: nsl steps a sub-tile), starting at sub-tile u0.
   const int nseg = csize * groups;
   const int seg = rank * groups + grp;
   const int ch0 = static_cast<int>((long long)seg * n_chunks / nseg);
@@ -508,7 +570,46 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   // Stage step i of the segment into ring slot `slot` (one cp.async group,
   // empty past the end so that the count of groups stays fixed).
   auto load = [&](int i, int slot) {
-    if (i < steps) {
+    if constexpr (kSliced) {
+      if (i < steps * nsl) {
+        // slice i % nsl, columns k0 .. k0 + w - 1, of sub-tile u0 + i / nsl
+        const int u = i / nsl, k0 = (i - u * nsl) * Ek;
+        const int w = min(Ek, E - k0);
+        const size_t row = (size_t)(u0 + u) * L + bin0;  // the tile's first
+        unsigned char* dst = sc + slot * stage;
+        if constexpr (kInt8) {
+          const int8_t* src = static_cast<const int8_t*>(c) + row * E + k0;
+          const int cvecs = w / 16;  // 16-byte vectors per int8 row slice
+          for (int v = gtid; v < BN * cvecs; v += gthreads) {
+            const int r = v / cvecs, cv = v % cvecs;
+            cp_async16(dst + r * Ek + cv * 16, src + (size_t)r * E + cv * 16);
+          }
+          if constexpr (kCat == Catalog::kScaled) {
+            // with the last slice, which the epilogue follows
+            if (k0 + w == E && gtid < 2 * (BN / 4)) {
+              const int which = gtid / (BN / 4), cv = gtid % (BN / 4);
+              cp_async16(dst + BN * Ek + which * BN * 4 + cv * 16,
+                         (which ? bias : scales) + row + cv * 4);
+            }
+          }
+        } else {
+          const __nv_bfloat16* src =
+              static_cast<const __nv_bfloat16*>(c) + row * E + k0;
+          __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(dst);
+          for (int v = gtid; v < BN * (w / 8); v += gthreads) {
+            const int r = v / (w / 8), cv = v % (w / 8);
+            cp_async16(d + r * ld + cv * 8, src + (size_t)r * E + cv * 8);
+          }
+        }
+        // the query slice of the block's real rows
+        const __nv_bfloat16* qs = q + (size_t)row0 * E + k0;
+        __nv_bfloat16* dq = reinterpret_cast<__nv_bfloat16*>(dst + cbytes);
+        for (int v = gtid; v < rows * (w / 8); v += gthreads) {
+          const int r = v / (w / 8), cv = v % (w / 8);
+          cp_async16(dq + r * ld + cv * 8, qs + (size_t)r * E + cv * 8);
+        }
+      }
+    } else if (i < steps) {
       const size_t row = (size_t)(u0 + i) * L + bin0;  // the tile's first
       unsigned char* dst = sc + slot * stage;
       if constexpr (kInt8) {
@@ -676,7 +777,11 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 
   int slot = 0;   // ring slot of step i
   int fslot = 0;  // fold slot of step i: segments start at a chunk
-  for (int i = 0; i < steps; ++i) {
+
+  // Step i of the walk has landed, for the group: the slot of step i-1 is
+  // free for step i + stages - 1, and (int8) the landed codes are
+  // converted into the group's bf16 tile.
+  auto land = [&](int i) {
     cp_async_wait_dyn(stages - 2);  // step i has landed ...
     group_sync(1 + grp, gthreads);  // ... for the group; slot i-1 is free
     load(i + stages - 1, slot == 0 ? stages - 1 : slot - 1);
@@ -685,31 +790,73 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
       codes_to_bf16(sc + slot * stage, sconv, Ek, ld, gtid, gthreads);
       group_sync(1 + grp, gthreads);
     }
-    if (active) {
-      float acc[WM][WN][4];
+  };
+
+  // Sub-tile u's sums, complete (its last slice with kSliced), from ring
+  // slot `landed`: the kScaled epilogue, then the fold tournament or the
+  // cascade.
+  auto finish = [&](float (&acc)[WM][WN][4], int u, int landed) {
+    if constexpr (kCat == Catalog::kScaled) scaled(acc, landed);
+    if constexpr (kFold) {
+      tournament(acc, u, fslot == 0);
+      if (fslot == F - 1)
+        cascade(fs, [&](int mm, int jj, int e) { return fu[mm][jj][e]; },
+                std::false_type());
+    } else if (u * L + bin0 + BN <= n_valid) {
+      cascade(acc, [u](int, int, int) { return u; }, std::false_type());
+    } else {
+      cascade(acc, [u](int, int, int) { return u; }, std::true_type());
+    }
+  };
+
+  if constexpr (kSliced) {
+    // Step i sums slice s of sub-tile u into acc, which holds the sub-tile's
+    // sums across its slices.
+    float acc[WM][WN][4];
+    for (int i = 0, s = 0, u = u0; i < steps * nsl; ++i) {
+      land(i);
+      if (active) {
+        if (s == 0) {
 #pragma unroll
-      for (int mm = 0; mm < WM; ++mm)
+          for (int mm = 0; mm < WM; ++mm)
 #pragma unroll
-        for (int jj = 0; jj < WN; ++jj)
+            for (int jj = 0; jj < WN; ++jj)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mm][jj][e] = 0.f;
-      tile_scores<kSteps>(pa, kInt8 ? pb : pb + slot * BN * ld, Ek, two,
-                          areg, acc);
-      if constexpr (kCat == Catalog::kScaled) scaled(acc, slot);
-      const int ch = u0 + i;  // the sub-tile
-      if constexpr (kFold) {
-        tournament(acc, ch, fslot == 0);
-        if (fslot == F - 1)
-          cascade(fs, [&](int mm, int jj, int e) { return fu[mm][jj][e]; },
-                  std::false_type());
-      } else if (ch * L + bin0 + BN <= n_valid) {
-        cascade(acc, [ch](int, int, int) { return ch; }, std::false_type());
-      } else {
-        cascade(acc, [ch](int, int, int) { return ch; }, std::true_type());
+              for (int e = 0; e < 4; ++e) acc[mm][jj][e] = 0.f;
+        }
+        const int at = slot * (stage / 2);  // the slot, in bf16
+        const __nv_bfloat16* pas[WM];
+#pragma unroll
+        for (int mm = 0; mm < WM; ++mm) pas[mm] = pa[mm] + at;
+        tile_scores<0>(pas, kInt8 ? pb : pb + at, min(Ek, E - s * Ek), two,
+                       areg, acc);
+        if (s == nsl - 1) finish(acc, u, slot);
+      }
+      slot = slot + 1 == stages ? 0 : slot + 1;
+      if (++s == nsl) {
+        s = 0;
+        ++u;
+        if constexpr (kFold) fslot = fslot + 1 == F ? 0 : fslot + 1;
       }
     }
-    slot = slot + 1 == stages ? 0 : slot + 1;
-    if constexpr (kFold) fslot = fslot + 1 == F ? 0 : fslot + 1;
+  } else {
+    for (int i = 0; i < steps; ++i) {
+      land(i);
+      if (active) {
+        float acc[WM][WN][4];
+#pragma unroll
+        for (int mm = 0; mm < WM; ++mm)
+#pragma unroll
+          for (int jj = 0; jj < WN; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mm][jj][e] = 0.f;
+        tile_scores<kSteps>(pa, kInt8 ? pb : pb + slot * BN * ld, Ek, two,
+                            areg, acc);
+        finish(acc, u0 + i, slot);  // sub-tile u0 + i
+      }
+      slot = slot + 1 == stages ? 0 : slot + 1;
+      if constexpr (kFold) fslot = fslot + 1 == F ? 0 : fslot + 1;
+    }
   }
   cp_async_wait<0>();
   __syncthreads();  // every group is past its walk: the ring is free
@@ -808,18 +955,28 @@ using KernelFn = void (*)(const __nv_bfloat16*, const void*, const float*,
                           int*, float*, int*, int, int, int, int, int, int,
                           int);
 
-// The instantiation a pass runs at width E: A fragments in registers at
-// E = 16 * A_STEPS, from shared memory otherwise. Both sum in one k-order.
+// The instantiation a pass runs at width E: the sliced instance where
+// `sliced`, else A fragments in registers at E = 16 * A_STEPS, from shared
+// memory otherwise. All three sum in one k-order.
 template <bool kThreshold, int kKeep, Catalog kCat, bool kFold = false>
-KernelFn kernel_for(int E) {
-  return E == 16 * A_STEPS
-             ? bin_max_kernel<kThreshold, kKeep, A_STEPS, kCat, kFold>
-             : bin_max_kernel<kThreshold, kKeep, 0, kCat, kFold>;
+KernelFn kernel_for(int E, bool sliced) {
+  return sliced ? bin_max_kernel<kThreshold, kKeep, 0, kCat, kFold, true>
+         : E == 16 * A_STEPS
+             ? bin_max_kernel<kThreshold, kKeep, A_STEPS, kCat, kFold, false>
+             : bin_max_kernel<kThreshold, kKeep, 0, kCat, kFold, false>;
 }
 
-cudaError_t prepare(KernelFn kernel, int B, int E, Catalog cat, Shape* s) {
+// Whether a pass of kind `cat` at width E runs the sliced instance: past
+// the kind's whole-E instances, or where the caller forces it (the checks
+// that hold the two instances to the same bits).
+bool uses_sliced(int E, Catalog cat, int force) {
+  return force != 0 || E > whole_e_max(cat);
+}
+
+cudaError_t prepare(KernelFn kernel, int B, int E, Catalog cat, bool sliced,
+                    Shape* s) {
   if (B <= 0 || E <= 0 || E % 16 != 0) return cudaErrorInvalidValue;
-  *s = shape_for(B, E, cat);
+  *s = shape_for(B, E, cat, sliced);
   if (s->stages < 2 || s->smem > SMEM_MAX) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s->smem);
@@ -901,35 +1058,40 @@ cudaError_t pick_cluster(KernelFn kernel, const Shape& s, int tiles,
 int tiles_of(int B, int L) { return L / BN * ((B + BM - 1) / BM); }
 
 // The kernel of a pass: keep 1 or 2, thresholds or not, the catalog's
-// kind, and (fold > 1) the fold tournament. A per-row single pass at fold 1
-// is the int8 first round's kernel; the raw pass has no thresholds.
-KernelFn pass_kernel(int keep, int threshold, Catalog cat, int fold, int E) {
+// kind, (fold > 1) the fold tournament, and the instance. A per-row single
+// pass at fold 1 is the int8 first round's kernel; the raw pass has no
+// thresholds.
+KernelFn pass_kernel(int keep, int threshold, Catalog cat, int fold, int E,
+                     bool sliced) {
   constexpr Catalog kB = Catalog::kBf16, kS = Catalog::kScaled,
                     kR = Catalog::kRaw;
   if (cat == kR)
-    return fold > 1 ? kernel_for<false, 2, kR, true>(E)
-                    : kernel_for<false, 2, kR>(E);
-  if (cat == kS && fold > 1) return kernel_for<false, 2, kS, true>(E);
+    return fold > 1 ? kernel_for<false, 2, kR, true>(E, sliced)
+                    : kernel_for<false, 2, kR>(E, sliced);
+  if (cat == kS && fold > 1) return kernel_for<false, 2, kS, true>(E, sliced);
   if (cat == kS)
-    return threshold ? kernel_for<true, 2, kS>(E)
-                     : kernel_for<false, 2, kS>(E);
-  return keep == 1   ? kernel_for<true, 1, kB>(E)
-         : threshold ? kernel_for<true, 2, kB>(E)
-                     : kernel_for<false, 2, kB>(E);
+    return threshold ? kernel_for<true, 2, kS>(E, sliced)
+                     : kernel_for<false, 2, kS>(E, sliced);
+  return keep == 1   ? kernel_for<true, 1, kB>(E, sliced)
+         : threshold ? kernel_for<true, 2, kB>(E, sliced)
+                     : kernel_for<false, 2, kB>(E, sliced);
 }
 
 // A pass over n_pad rows in chunks of `fold` sub-tiles of L rows (fold = 1
-// but for the fold passes), by the kernel pass_kernel picks.
+// but for the fold passes), by the kernel pass_kernel picks; force_sliced
+// runs the sliced instance at any E.
 int launch(int keep, int threshold, Catalog cat, const void* q, const void* c,
            const void* scales, const void* bias, const void* thr_s,
            const void* thr_i, void* m1, void* a1, void* m2, void* a2, int B,
-           int E, int n_pad, int L, int n_valid, int fold, void* stream) {
+           int E, int n_pad, int L, int n_valid, int fold, int force_sliced,
+           void* stream) {
   if (L <= 0 || L % BN != 0 || fold <= 0 || n_pad <= 0 ||
       n_pad % ((long long)L * fold) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const KernelFn kernel = pass_kernel(keep, threshold, cat, fold, E);
+  const bool sliced = uses_sliced(E, cat, force_sliced);
+  const KernelFn kernel = pass_kernel(keep, threshold, cat, fold, E, sliced);
   Shape s;
-  cudaError_t err = prepare(kernel, B, E, cat, &s);
+  cudaError_t err = prepare(kernel, B, E, cat, sliced, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
   int cluster = 1;
   err = pick_cluster(kernel, s, tiles_of(B, L), &cluster);
@@ -952,27 +1114,32 @@ int launch(int keep, int threshold, Catalog cat, const void* q, const void* c,
 
 // Each launcher returns cudaGetLastError() after the launch (0 = success);
 // a refused launch (e.g. cudaErrorClusterOutOfResources) returns its error.
+// force_sliced != 0 runs the sliced instance at any E (the checks that hold
+// it to the whole-E instances pass it); 0 lets E and the kind choose.
 extern "C" int bin_max2_first_round(const void* q, const void* c, void* m1,
                                     void* a1, void* m2, void* a2, int B,
                                     int E, int n_pad, int L, int n_valid,
-                                    void* stream) {
+                                    int force_sliced, void* stream) {
   return launch(2, 0, Catalog::kBf16, q, c, nullptr, nullptr, nullptr, nullptr,
-                m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1, stream);
+                m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1, force_sliced,
+                stream);
 }
 
 extern "C" int bin_max2_round(const void* q, const void* c, const void* thr_s,
                               const void* thr_i, void* m1, void* a1, void* m2,
                               void* a2, int B, int E, int n_pad, int L,
-                              int n_valid, void* stream) {
+                              int n_valid, int force_sliced, void* stream) {
   return launch(2, 1, Catalog::kBf16, q, c, nullptr, nullptr, thr_s, thr_i, m1,
-                a1, m2, a2, B, E, n_pad, L, n_valid, 1, stream);
+                a1, m2, a2, B, E, n_pad, L, n_valid, 1, force_sliced, stream);
 }
 
 extern "C" int bin_max_round(const void* q, const void* c, const void* thr_s,
                              const void* thr_i, void* m, void* a, int B, int E,
-                             int n_pad, int L, int n_valid, void* stream) {
+                             int n_pad, int L, int n_valid, int force_sliced,
+                             void* stream) {
   return launch(1, 1, Catalog::kBf16, q, c, nullptr, nullptr, thr_s, thr_i, m,
-                a, nullptr, nullptr, B, E, n_pad, L, n_valid, 1, stream);
+                a, nullptr, nullptr, B, E, n_pad, L, n_valid, 1, force_sliced,
+                stream);
 }
 
 extern "C" int bin_max2_scaled_first_round(const void* q, const void* codes,
@@ -980,9 +1147,11 @@ extern "C" int bin_max2_scaled_first_round(const void* q, const void* codes,
                                            const void* bias, void* m1,
                                            void* a1, void* m2, void* a2,
                                            int B, int E, int n_pad, int L,
-                                           int n_valid, void* stream) {
+                                           int n_valid, int force_sliced,
+                                           void* stream) {
   return launch(2, 0, Catalog::kScaled, q, codes, scales, bias, nullptr,
-                nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1, stream);
+                nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1,
+                force_sliced, stream);
 }
 
 extern "C" int bin_max2_scaled_round(const void* q, const void* codes,
@@ -990,9 +1159,11 @@ extern "C" int bin_max2_scaled_round(const void* q, const void* codes,
                                      const void* thr_s, const void* thr_i,
                                      void* m1, void* a1, void* m2, void* a2,
                                      int B, int E, int n_pad, int L,
-                                     int n_valid, void* stream) {
+                                     int n_valid, int force_sliced,
+                                     void* stream) {
   return launch(2, 1, Catalog::kScaled, q, codes, scales, bias, thr_s, thr_i,
-                m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1, stream);
+                m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1, force_sliced,
+                stream);
 }
 
 // The int8 single passes: every row is streamed (n_valid = n_pad), a -inf
@@ -1003,18 +1174,21 @@ extern "C" int bin_max2_scaled_single_pass(const void* q, const void* codes,
                                            const void* bias, void* m1,
                                            void* a1, void* m2, void* a2,
                                            int B, int E, int n_pad, int L,
-                                           void* stream) {
+                                           int force_sliced, void* stream) {
   return launch(2, 0, Catalog::kScaled, q, codes, scales, bias, nullptr,
-                nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_pad, 1, stream);
+                nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_pad, 1,
+                force_sliced, stream);
 }
 
 extern "C" int bin_max2_scaled_fold_pass(const void* q, const void* codes,
                                          const void* scales, const void* bias,
                                          void* m1, void* a1, void* m2,
                                          void* a2, int B, int E, int n_pad,
-                                         int L, int F, void* stream) {
+                                         int L, int F, int force_sliced,
+                                         void* stream) {
   return launch(2, 0, Catalog::kScaled, q, codes, scales, bias, nullptr,
-                nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_pad, F, stream);
+                nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_pad, F,
+                force_sliced, stream);
 }
 
 // The raw single pass of the global-scale index: the catalog is full chunks
@@ -1023,27 +1197,28 @@ extern "C" int bin_max2_scaled_fold_pass(const void* q, const void* codes,
 extern "C" int bin_max2_raw_fold_pass(const void* q, const void* codes,
                                       void* m1, void* a1, void* m2, void* a2,
                                       int B, int E, int n_full, int L, int F,
-                                      void* stream) {
+                                      int force_sliced, void* stream) {
   return launch(2, 0, Catalog::kRaw, q, codes, nullptr, nullptr, nullptr,
-                nullptr, m1, a1, m2, a2, B, E, n_full, L, n_full, F, stream);
+                nullptr, m1, a1, m2, a2, B, E, n_full, L, n_full, F,
+                force_sliced, stream);
 }
 
 // Launch shape of a pass (keep 1 or 2; threshold 0 or 1; catalog 0 = bf16,
 // 1 = int8 scaled, 2 = int8 raw; fold 1, or F > 1 for an int8 fold pass)
-// over B rows of width E and L bins, as
-// launch() takes it: out[0..11] = cluster size, warps per block, warp
+// over B rows of width E and L bins, as launch() takes it unforced: out[0..12] = cluster size, warps per block, warp
 // groups, ring stages, shared bytes, registers a thread, local (spilled)
-// bytes a thread, clusters of the launch (bin tiles x row groups), and
-// clusters of 1, 2, 4 and 8 blocks resident at once. Returns a CUDA error
-// code (0 = success).
+// bytes a thread, clusters of the launch (bin tiles x row groups), clusters
+// of 1, 2, 4 and 8 blocks resident at once, and 1 where the pass runs the
+// sliced instance (0: whole-E). Returns a CUDA error code (0 = success).
 extern "C" int bin_max_launch_info(int keep, int threshold, int catalog,
                                    int fold, int B, int E, int L, int* out) {
   if (catalog < 0 || catalog > 2 || L <= 0 || L % BN != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Catalog cat = static_cast<Catalog>(catalog);
-  const KernelFn kernel = pass_kernel(keep, threshold, cat, fold, E);
+  const bool sliced = uses_sliced(E, cat, 0);
+  const KernelFn kernel = pass_kernel(keep, threshold, cat, fold, E, sliced);
   Shape s;
-  cudaError_t err = prepare(kernel, B, E, cat, &s);
+  cudaError_t err = prepare(kernel, B, E, cat, sliced, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
   err = cudaFuncGetAttributes(&fa, kernel);
@@ -1061,5 +1236,6 @@ extern "C" int bin_max_launch_info(int keep, int threshold, int catalog,
     err = resident_clusters(kernel, s, c, &out[8 + i]);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  out[12] = sliced ? 1 : 0;
   return 0;
 }

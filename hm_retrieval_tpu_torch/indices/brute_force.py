@@ -14,9 +14,9 @@ an index saved by either package loads in the other.
   instead, with a log line, where the kernels cannot: k > 2048 (where the
   JAX index's ``pick_bins`` finds no bin count and takes the same route),
   or an embedding width that, padded to a multiple of 16, exceeds
-  ``KERNEL_MAX_E`` (the JAX index runs its kernel there while its VMEM
-  estimate fits, and ``"partial_reduce"`` past it). The saved method stays
-  ``"pallas"``.
+  ``KERNEL_MAX_E`` = 8,192 (above the JAX kernels' widest, 7,296 at one
+  query row and k = 10, where its VMEM estimate stops fitting and it takes
+  ``"partial_reduce"``). The saved method stays ``"pallas"``.
 - ``"full"``: one fp32 product plus the bias, then a stable top-k.
 - ``"auto"``: ``"pallas"`` when the padded catalog exceeds 16384 rows, else
   ``"full"``, decided by size alone on every device.

@@ -471,7 +471,7 @@ class DistributedQuantizedIndex(_DistributedIndexBase):
         self.recall_target = float(recall_target)
         self.pallas_rounds = int(pallas_rounds)
         self.pallas_fold = None if pallas_fold is None else int(pallas_fold)
-        self._engine = _engine_of(method, self.pallas_rounds, dim)
+        self._engine = _engine_of(method, dim)
         self._fn = make_distributed_quantized_topk(
             mesh,
             self.k,

@@ -17,8 +17,9 @@ Survivor engines (``method``):
   global scale takes them with every row's scale equal to it). The name is
   the JAX package's, kept so artifacts stay interchangeable. It runs the
   ``"scan"`` engine instead, with a log line, where the embedding width,
-  padded to a multiple of 16, exceeds the widest its kernels take
-  (``INT8_KERNEL_MAX_E`` for one pass, ``KERNEL_MAX_E`` for the rounds).
+  padded to a multiple of 16, exceeds the widest its kernels take,
+  ``KERNEL_MAX_E`` = 8,192 (the one pass and the rounds alike; the
+  JAX single pass's widest is 6,672 at k_over = 40).
 - ``"scan"``: per chunk of ``chunk`` rows, int8 queries times int8 codes,
   times the row scale plus the bias, and a running top-``k_over``. The
   chunk product is an fp32 product of the integer-valued operands, exact
@@ -60,7 +61,6 @@ from hm_retrieval_tpu_torch.ops.bin_topk import (
 )
 from hm_retrieval_tpu_torch.ops.partial_reduce import approx_max_k
 from hm_retrieval_tpu_torch.ops.quantized_topk import (
-    INT8_KERNEL_MAX_E,
     pallas_feasible,
     quantized_topk,
     quantized_topk_global,
@@ -90,17 +90,17 @@ def _resolve_method(method: str, k_eff: int, dim: int) -> str:
     return "pallas" if pallas_feasible(k_eff, dim) else "scan"
 
 
-def _engine_of(method: str, pallas_rounds: int, dim: int) -> str:
+def _engine_of(method: str, dim: int) -> str:
     """The engine a resolved method runs: "pallas" runs "scan", with a log
-    line, where the padded width exceeds the widest its kernels take."""
-    widest = KERNEL_MAX_E if pallas_rounds > 1 else INT8_KERNEL_MAX_E
-    if method == "pallas" and padded_width(dim) > widest:
+    line, where the padded width exceeds the widest its kernels take (the
+    one pass's and the rounds' alike)."""
+    if method == "pallas" and padded_width(dim) > KERNEL_MAX_E:
         logger.warning(
             "embedding width %d (padded to %d) exceeds the int8 kernels' "
             "widest %d; running the 'scan' engine instead of the kernels",
             dim,
             padded_width(dim),
-            widest,
+            KERNEL_MAX_E,
         )
         return "scan"
     return method
@@ -328,7 +328,7 @@ class QuantizedIndex:
             self.rescore,
             dim,
         )
-        self._engine = _engine_of(self.method, self.pallas_rounds, dim)
+        self._engine = _engine_of(self.method, dim)
 
         ids = np.zeros((n_pad,), np.int32)
         ids[:n] = identifiers
@@ -547,7 +547,7 @@ class QuantizedIndex:
         idx.k_over = int(min(max(idx.oversample * idx.k, idx.k), idx.chunk))
         # as the JAX package: resolved with k, not k_over
         idx.method = _resolve_method(method, idx.k, codes.shape[1])
-        idx._engine = _engine_of(idx.method, idx.pallas_rounds, codes.shape[1])
+        idx._engine = _engine_of(idx.method, codes.shape[1])
         codes_p = np.zeros((n_pad, codes.shape[1]), np.int8)
         codes_p[:n] = codes
         scales_p = np.zeros((n_pad,), np.float32)

@@ -32,8 +32,13 @@ it also drives the int8 rounds of ``ops/quantized_topk.py``.
 The kernels step through E 16 columns at a time, so ``exact_topk`` pads
 the query and its catalog copy with zero columns to a multiple of 16 on
 every device (``padded_width``): a zero column adds an exact zero to every
-score, so no answer changes. A width past ``KERNEL_MAX_E`` is the callers'
-to route elsewhere (``BruteForceIndex`` takes its ``"full"`` path).
+score, so no answer changes. Up to a padded E of 512 a pass runs the
+template's whole-E instances; past it, up to
+``KERNEL_MAX_E`` (8,192, above the JAX kernels' widest, 7,296 for the exact
+index at B = 1, k = 10), the sliced instance, which streams E in slices of
+128 columns and gives the same fp32 scores bit for bit. A width past
+``KERNEL_MAX_E`` is the callers' to route elsewhere (``BruteForceIndex``
+takes its ``"partial_reduce"`` path).
 
 The bin count ``L`` is an explicit argument. Its default, ``default_bins``,
 is the value the JAX package's ``pick_bins`` gives for query blocks of at
@@ -59,12 +64,13 @@ BIG_IDX = 2**31 - 1  # index of a never-filled slot
 BIN_CHOICES = (256, 384, 512, 768, 1024, 1536, 2048)
 Q_BLOCK = 128  # query rows per refinement loop
 MAX_ROUNDS = 8  # streaming passes per query block, at most
-# Kernel tiling that the wrappers check for (csrc/bin_max2.cu, its bf16
-# instances and the int8 rounds): bins per block, the k step that E must be
-# a multiple of, and the widest E whose staged tiles fit in shared memory.
+# Kernel tiling that the wrappers check for (csrc/bin_max2.cu, every
+# instance): bins per block, the k step that E must be a multiple of, and
+# the widest padded E the wrappers take (the sliced instance takes any E;
+# past this cap the indices route to their other engines).
 KERNEL_BIN_TILE = 32
 KERNEL_K_STEP = 16
-KERNEL_MAX_E = 512
+KERNEL_MAX_E = 8192
 # The catalog kinds of the template, in the order of its C enum.
 CATALOGS = ("bf16", "scaled", "raw")
 
@@ -207,9 +213,9 @@ def bin_max_plain(
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "bin_max2_first_round": [_P] * 6 + [_I] * 5 + [_P],
-    "bin_max2_round": [_P] * 8 + [_I] * 5 + [_P],
-    "bin_max_round": [_P] * 6 + [_I] * 5 + [_P],
+    "bin_max2_first_round": [_P] * 6 + [_I] * 6 + [_P],
+    "bin_max2_round": [_P] * 8 + [_I] * 6 + [_P],
+    "bin_max_round": [_P] * 6 + [_I] * 6 + [_P],
     "bin_max_launch_info": [_I] * 7 + [_P],
 }
 
@@ -274,10 +280,11 @@ def launch_info(
     B query rows, as its launcher computes it: the
     cluster size it picks, warps, ring and shared bytes, the compiler's
     registers and local (spilled) bytes a thread, the launch's clusters
-    (bin tiles x row groups), and ``resident``: the clusters of 1, 2, 4 and
-    8 blocks the card holds at once. Builds the kernels; needs a card."""
+    (bin tiles x row groups), ``resident``: the clusters of 1, 2, 4 and
+    8 blocks the card holds at once, and ``sliced``: whether the pass runs
+    the sliced instance. Builds the kernels; needs a card."""
     device = torch.device("cuda") if device is None else torch.device(device)
-    out = (ctypes.c_int * 12)()
+    out = (ctypes.c_int * 13)()
     with torch.cuda.device(device):
         err = _kernel("bin_max_launch_info")(
             keep, int(threshold), CATALOGS.index(catalog), fold, B, E, L,
@@ -289,10 +296,12 @@ def launch_info(
             "smem_bytes", "registers", "local_bytes", "clusters")
     info = dict(zip(keys, out))
     info["resident"] = {1 << i: out[8 + i] for i in range(4)}
+    info["sliced"] = bool(out[12])
     return info
 
 
-def _launch(name, q, c_padded, L, n_valid, thr=(), keep=2):
+def _launch(name, q, c_padded, L, n_valid, thr=(), keep=2,
+            force_sliced=False):
     B, E = q.shape
     n_pad = c_padded.shape[0]
     with torch.cuda.device(q.device):
@@ -311,6 +320,7 @@ def _launch(name, q, c_padded, L, n_valid, thr=(), keep=2):
             n_pad,
             L,
             n_valid,
+            int(force_sliced),
             stream,
         )
     if err != 0:
@@ -319,8 +329,16 @@ def _launch(name, q, c_padded, L, n_valid, thr=(), keep=2):
     return check_outputs(name, tuple(outs))
 
 
+# ``force_sliced`` (every wrapper of this module and of quantized_topk.py):
+# True runs the sliced instance of bin_max2.cu at any E, for the checks
+# that hold it to the whole-E instances bit for bit; the drivers never pass
+# it, and E and the catalog's kind choose the instance. The plain version
+# ignores it.
+
+
 def bin_max2_first_round(
-    q: torch.Tensor, c_padded: torch.Tensor, L: int, n_valid: int
+    q: torch.Tensor, c_padded: torch.Tensor, L: int, n_valid: int,
+    force_sliced: bool = False,
 ):
     """Round 1: top-2 per (row, bin) of every row < n_valid. Returns
     (m1, a1, m2, a2), each (B, L): fp32 scores, int32 catalog rows."""
@@ -328,7 +346,8 @@ def bin_max2_first_round(
     if not q.is_cuda:
         return check_outputs("bin_max2_first_round",
                              bin_max2_plain(q, c_padded, L, n_valid))
-    return _launch("bin_max2_first_round", q, c_padded, L, n_valid)
+    return _launch("bin_max2_first_round", q, c_padded, L, n_valid,
+                   force_sliced=force_sliced)
 
 
 def bin_max2_round(
@@ -338,6 +357,7 @@ def bin_max2_round(
     thr_i: torch.Tensor,
     L: int,
     n_valid: int,
+    force_sliced: bool = False,
 ):
     """Refinement round: top-2 per cell among elements strictly below
     (thr_s, thr_i) under (score desc, index asc)."""
@@ -347,7 +367,8 @@ def bin_max2_round(
             "bin_max2_round",
             bin_max2_plain(q, c_padded, L, n_valid, thr_s, thr_i))
     return _launch(
-        "bin_max2_round", q, c_padded, L, n_valid, (thr_s, thr_i)
+        "bin_max2_round", q, c_padded, L, n_valid, (thr_s, thr_i),
+        force_sliced=force_sliced,
     )
 
 
@@ -358,6 +379,7 @@ def bin_max_round(
     thr_i: torch.Tensor,
     L: int,
     n_valid: int,
+    force_sliced: bool = False,
 ):
     """Single-keep pass: the top-1 per cell among elements strictly below
     (thr_s, thr_i); round 1 passes +inf / -1. Returns (m, a), each (B, L)."""
@@ -367,7 +389,8 @@ def bin_max_round(
             "bin_max_round",
             bin_max_plain(q, c_padded, thr_s, thr_i, L, n_valid))
     return _launch(
-        "bin_max_round", q, c_padded, L, n_valid, (thr_s, thr_i), keep=1
+        "bin_max_round", q, c_padded, L, n_valid, (thr_s, thr_i), keep=1,
+        force_sliced=force_sliced,
     )
 
 

@@ -38,9 +38,12 @@ Widths. The kernels step through E 16 columns at a time, so the drivers pad
 the query and their copies of the codes with zero columns to
 ``padded_width(E)`` on every device (a zero column adds exact zeros), while
 the plan is taken at the real E: L and F decide which rows survive a single
-pass, and the JAX package plans with the real E. ``INT8_KERNEL_MAX_E`` (the
-three single passes) and ``KERNEL_MAX_E`` (the rounds) are the widest padded
-E their kernels take.
+pass, and the JAX package plans with the real E. Up to a padded E of 576
+the int8 passes run the template's whole-E instances, past it its sliced
+instance (slices of 128 columns, the same fp32 scores); ``KERNEL_MAX_E``
+(8,192, above the JAX one pass's widest, 6,672 at k_over = 40) is the
+widest padded E the wrappers take, the single passes' and the rounds'
+alike.
 
 The plan. Fold F and bin count L decide which rows survive a single pass,
 so the port picks what the JAX package picks: ``single_pass_plan`` is the
@@ -83,13 +86,8 @@ from hm_retrieval_tpu_torch.ops.topk import topk_pair
 from hm_retrieval_tpu_torch.utils.debugging import check_outputs
 
 # Bins per block of the int8 kernels (BN of csrc/bin_max2.cu), which the
-# wrappers check L against, and the widest padded E of the three single
-# passes: at 128 query rows their instances take 231,424 bytes of a block's
-# 232,448 at E = 576 (the query tile and the partial cells, which outgrow the
-# two ring slots and the bf16 tile; the raw pass's slots are smaller still).
-# The rounds take what the bf16 instances of bin_max2.cu take, KERNEL_MAX_E.
+# wrappers check L against.
 INT8_KERNEL_BIN_TILE = 32
-INT8_KERNEL_MAX_E = 576
 # The JAX package's off-TPU VMEM budget (pallas_retrieval.VMEM_BUDGET).
 PLAN_BUDGET = 15_000_000
 # (q_block, fold) candidates of _single_pass_policy, in its order.
@@ -241,11 +239,11 @@ def scaled_round_plain(
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "bin_max2_scaled_single_pass": [_P] * 8 + [_I] * 4 + [_P],
-    "bin_max2_scaled_fold_pass": [_P] * 8 + [_I] * 5 + [_P],
-    "bin_max2_raw_fold_pass": [_P] * 6 + [_I] * 5 + [_P],
-    "bin_max2_scaled_first_round": [_P] * 8 + [_I] * 5 + [_P],
-    "bin_max2_scaled_round": [_P] * 10 + [_I] * 5 + [_P],
+    "bin_max2_scaled_single_pass": [_P] * 8 + [_I] * 5 + [_P],
+    "bin_max2_scaled_fold_pass": [_P] * 8 + [_I] * 6 + [_P],
+    "bin_max2_raw_fold_pass": [_P] * 6 + [_I] * 6 + [_P],
+    "bin_max2_scaled_first_round": [_P] * 8 + [_I] * 6 + [_P],
+    "bin_max2_scaled_round": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 
@@ -258,8 +256,7 @@ def _kernel(name: str):
     return fn
 
 
-def _check(q, codes, L, F, scales, bias, thr_s=None, thr_i=None,
-           max_e=INT8_KERNEL_MAX_E):
+def _check(q, codes, L, F, scales, bias, thr_s=None, thr_i=None):
     if q.dim() != 2 or codes.dim() != 2:
         raise ValueError("q must be (B, E) and codes (N, E)")
     B, E = q.shape
@@ -290,10 +287,10 @@ def _check(q, codes, L, F, scales, bias, thr_s=None, thr_i=None,
     if q.is_cuda:
         if q.dtype != torch.bfloat16:
             raise TypeError(f"the CUDA kernels take bf16 q, got {q.dtype}")
-        if E % KERNEL_K_STEP or E > max_e:
+        if E % KERNEL_K_STEP or E > KERNEL_MAX_E:
             raise ValueError(
                 f"the CUDA kernels need E % {KERNEL_K_STEP} == 0 and E <= "
-                f"{max_e}, got E={E}"
+                f"{KERNEL_MAX_E}, got E={E}"
             )
         if L % INT8_KERNEL_BIN_TILE:
             raise ValueError(
@@ -307,9 +304,10 @@ def _check(q, codes, L, F, scales, bias, thr_s=None, thr_i=None,
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _launch(name, q, codes, L, tensors=(), ints=()):
+def _launch(name, q, codes, L, tensors=(), ints=(), force_sliced=False):
     """Launch ``name`` on (q, codes, *tensors) into four (B, L) outputs,
-    with the int arguments (B, E, catalog rows, L, *ints)."""
+    with the int arguments (B, E, catalog rows, L, *ints, force_sliced)
+    (``force_sliced`` as ``bin_topk``'s wrappers take it)."""
     B, E = q.shape
     with torch.cuda.device(q.device):
         m1 = torch.empty((B, L), dtype=torch.float32, device=q.device)
@@ -330,6 +328,7 @@ def _launch(name, q, codes, L, tensors=(), ints=()):
             codes.shape[0],
             L,
             *ints,
+            int(force_sliced),
             stream,
         )
     if err != 0:
@@ -344,6 +343,7 @@ def bin_max2_scaled_single_pass(
     scales: torch.Tensor,
     bias: torch.Tensor,
     L: int,
+    force_sliced: bool = False,
 ):
     """One pass, no fold: top-2 per (row, bin) of (q . codes)*scale + bias
     over the whole padded catalog (bias -inf on every invalid row). Returns
@@ -354,7 +354,8 @@ def bin_max2_scaled_single_pass(
             "bin_max2_scaled_single_pass",
             single_pass_plain(q, codes_padded, L, 1, scales, bias))
     return _launch(
-        "bin_max2_scaled_single_pass", q, codes_padded, L, (scales, bias)
+        "bin_max2_scaled_single_pass", q, codes_padded, L, (scales, bias),
+        force_sliced=force_sliced,
     )
 
 
@@ -365,6 +366,7 @@ def bin_max2_scaled_fold_pass(
     bias: torch.Tensor,
     L: int,
     F: int,
+    force_sliced: bool = False,
 ):
     """As ``bin_max2_scaled_single_pass``, after an F -> 1 max tournament
     per bin within each chunk of F*L rows."""
@@ -374,23 +376,25 @@ def bin_max2_scaled_fold_pass(
             "bin_max2_scaled_fold_pass",
             single_pass_plain(q, codes_padded, L, F, scales, bias))
     return _launch(
-        "bin_max2_scaled_fold_pass", q, codes_padded, L, (scales, bias), (F,)
+        "bin_max2_scaled_fold_pass", q, codes_padded, L, (scales, bias), (F,),
+        force_sliced=force_sliced,
     )
 
 
-def bin_max2_raw_fold_pass(q: torch.Tensor, codes: torch.Tensor, L: int, F: int):
+def bin_max2_raw_fold_pass(q: torch.Tensor, codes: torch.Tensor, L: int, F: int,
+                           force_sliced: bool = False):
     """As the fold pass on the raw dot products q . codes: no scale, no
     bias, no mask. ``codes`` holds full chunks of real rows only."""
     _check(q, codes, L, F, None, None)
     if not q.is_cuda:
         return check_outputs("bin_max2_raw_fold_pass",
                              single_pass_plain(q, codes, L, F))
-    return _launch("bin_max2_raw_fold_pass", q, codes, L, (), (F,))
+    return _launch("bin_max2_raw_fold_pass", q, codes, L, (), (F,),
+                   force_sliced=force_sliced)
 
 
 def _check_rounds(q, codes_padded, scales, bias, L, n_valid, thr_s, thr_i):
-    _check(q, codes_padded, L, 1, scales, bias, thr_s, thr_i,
-           max_e=KERNEL_MAX_E)
+    _check(q, codes_padded, L, 1, scales, bias, thr_s, thr_i)
     if not 0 <= n_valid <= codes_padded.shape[0]:
         raise ValueError(
             f"n_valid={n_valid} outside [0, {codes_padded.shape[0]}]"
@@ -404,6 +408,7 @@ def bin_max2_scaled_first_round(
     bias: torch.Tensor,
     L: int,
     n_valid: int,
+    force_sliced: bool = False,
 ):
     """Round 1 of the int8 rounds: top-2 per (row, bin) of
     (q . codes)*scale + bias over the rows < n_valid. Returns
@@ -415,7 +420,7 @@ def bin_max2_scaled_first_round(
             scaled_round_plain(q, codes_padded, scales, bias, L, n_valid))
     return _launch(
         "bin_max2_scaled_first_round", q, codes_padded, L, (scales, bias),
-        (n_valid,),
+        (n_valid,), force_sliced=force_sliced,
     )
 
 
@@ -428,6 +433,7 @@ def bin_max2_scaled_round(
     thr_i: torch.Tensor,
     L: int,
     n_valid: int,
+    force_sliced: bool = False,
 ):
     """A refinement round of the int8 rounds: as round 1, among elements
     strictly below (thr_s, thr_i) under (score desc, index asc)."""
@@ -437,7 +443,7 @@ def bin_max2_scaled_round(
             q, codes_padded, scales, bias, L, n_valid, thr_s, thr_i))
     return _launch(
         "bin_max2_scaled_round", q, codes_padded, L,
-        (scales, bias, thr_s, thr_i), (n_valid,),
+        (scales, bias, thr_s, thr_i), (n_valid,), force_sliced=force_sliced,
     )
 
 

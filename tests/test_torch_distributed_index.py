@@ -243,7 +243,11 @@ class TestDistributedBruteForce:
         _, tmesh = meshes((1, 8))
         assert DistributedBruteForceIndex(10, ids, emb,
                                           mesh=tmesh).method == "pallas"
-        wide = np.zeros((len(ids), 512), np.float32)  # 513 pads to 528
+        # 513 pads to 528: the kernels' sliced instance takes it
+        assert DistributedBruteForceIndex(
+            10, ids, np.zeros((len(ids), 512), np.float32),
+            mesh=tmesh).method == "pallas"
+        wide = np.zeros((len(ids), bt.KERNEL_MAX_E), np.float32)  # + 1: 8208
         assert DistributedBruteForceIndex(10, ids, wide,
                                           mesh=tmesh).method == "xla"
         idx = DistributedBruteForceIndex(10, ids, wide, mesh=tmesh,

@@ -1,13 +1,17 @@
 """Embedding widths the CUDA kernels do not take as they are.
 
-The kernels step through E 16 columns at a time, and their staged tiles
-bound E. So the port's drivers pad the query and their catalog copies with
-zero columns to a multiple of 16 on every device (exact: a zero column adds
-exact zeros to every score), while the single-pass plan keeps the real E,
-since L and F decide which rows survive and the JAX package plans with the
-real E. Past the widest width a kernel file takes, the indices run their
-other engine with a log line: ``BruteForceIndex`` the exact ``"full"``
-path, ``QuantizedIndex`` the ``"scan"`` engine, whose integer product stays
+The kernels step through E 16 columns at a time. So the port's drivers pad
+the query and their catalog copies with zero columns to a multiple of 16 on
+every device (exact: a zero column adds exact zeros to every score), while
+the single-pass plan keeps the real E, since L and F decide which rows
+survive and the JAX package plans with the real E. Up to a padded E of 512
+(bf16) or 576 (int8) a pass runs bin_max2.cu's whole-E instances, past it
+its sliced instance, which gives the same scores; on the CPU both are the
+plain versions, so the wide cases here hold the drivers and indices around
+them. The wrappers take padded widths up to ``KERNEL_MAX_E`` = 8,192, above
+the JAX kernels' widest; past it the indices run their other engine with a
+log line: ``BruteForceIndex`` the exact ``"partial_reduce"`` path,
+``QuantizedIndex`` the ``"scan"`` engine, whose integer product stays
 exact at every E by summing slices of at most 1040 columns in fp32 and
 adding the partial sums in int32.
 
@@ -24,19 +28,34 @@ import numpy as np
 import pytest
 import torch
 
+from hm_retrieval_tpu.indices import (
+    DistributedBruteForceIndex as JaxDistBF,
+    DistributedQuantizedIndex as JaxDistQ,
+)
 from hm_retrieval_tpu.indices.brute_force import (
     BruteForceIndex as JaxBruteForceIndex,
 )
 from hm_retrieval_tpu.indices.quantized import QuantizedIndex as JaxQuantized
+from hm_retrieval_tpu.indices.quantized import _pallas_feasible
 from hm_retrieval_tpu.ops import pallas_retrieval as pr
+from hm_retrieval_tpu.parallel import make_mesh as jax_make_mesh
 from hm_retrieval_tpu_torch.indices import quantized as pq
 from hm_retrieval_tpu_torch.indices.brute_force import BruteForceIndex
+from hm_retrieval_tpu_torch.indices.distributed import (
+    DistributedBruteForceIndex,
+    DistributedQuantizedIndex,
+)
 from hm_retrieval_tpu_torch.indices.quantized import QuantizedIndex
 from hm_retrieval_tpu_torch.ops import bin_topk as bt
 from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+from hm_retrieval_tpu_torch.parallel import make_mesh
 from test_torch_bin_topk import _assert_same_ranking, _inputs
 
 WIDTHS = (8, 100)
+# past the whole-E instances: 520 -> 528 (int8 still whole-E), 600 -> 608,
+# the sharded index's 769 + 1 -> 784 (784 itself here), 1040 past the scan's
+# exact fp32 width
+WIDE = (520, 600, 784, 1040)
 KINDS = ("integer", "normal")
 
 
@@ -93,18 +112,31 @@ class TestPaddedWidth:
         assert bt.padded_width(E) == width
 
     def test_kernel_widths(self):
-        """The widest padded E of the kernels: bin_max2.cu's bf16 instances
-        and the int8 rounds take 512; the three single passes take 576,
-        which their int8 instances of bin_max2.cu hold in a block's 232,448
-        bytes at 128 query rows: the bf16 query tile (row stride E + 8) and
-        the larger of two ring slots of E-byte code rows (with their scales
-        and biases for the per-row passes, the codes alone for the raw pass)
-        plus one bf16 tile, and the keep-2 partial cells (128 rows x 40 x 8
-        bytes x 2), as shape_for counts them (231,424 at E = 576 for both
-        kinds, read on the card by launch_info)."""
-        assert bt.KERNEL_MAX_E == 512
-        assert qt.INT8_KERNEL_MAX_E == 576
-        E = qt.INT8_KERNEL_MAX_E
+        """The widest padded E the wrappers take is at least the widest the
+        JAX kernels take, each computed from the JAX package's own rules
+        at its off-TPU budget: ``pick_bins`` for the exact index at one
+        query row and k = 10 (7,296) and ``_pallas_feasible`` for the one
+        pass at k_over = 40 (6,672). Below it the whole-E instances end
+        where their int8 kind still fits a block's 232,448 bytes at 128
+        query rows: the bf16 query tile (row stride E + 8) and the larger of
+        two ring slots of E-byte code rows (with their scales and biases for
+        the per-row passes, the codes alone for the raw pass) plus one bf16
+        tile, and the keep-2 partial cells (128 rows x 40 x 8 bytes x 2), as
+        shape_for counts them (231,424 at E = 576 for both kinds, read on
+        the card by launch_info)."""
+
+        def widest(fits):
+            E = 16
+            while fits(E + 16):
+                E += 16
+            return E
+
+        exact = widest(lambda E: pr.pick_bins(1, E, 10) is not None)
+        one_pass = widest(lambda E: _pallas_feasible(40, E))
+        assert (exact, one_pass) == (7296, 6672)
+        assert bt.KERNEL_MAX_E >= exact >= one_pass
+        assert bt.KERNEL_MAX_E % bt.KERNEL_K_STEP == 0
+        E = 576  # whole_e_max of the int8 kinds in csrc/bin_max2.cu
         partials = 2 * 128 * 40 * 8
         for scales_and_biases in (2 * 32 * 4, 0):  # per-row passes, raw
             ring = 2 * (32 * E + scales_and_biases) + 2 * 32 * (E + 8)
@@ -172,23 +204,26 @@ class TestExactWidths:
         np.testing.assert_array_equal(got[0].numpy(), np.asarray(jv))
         np.testing.assert_array_equal(got[1].numpy(), ids[np.asarray(ji)])
 
-    @pytest.mark.parametrize("E, engine",
-                             [(100, "pallas"), (512, "pallas"),
-                              (513, "partial_reduce"),
-                              (520, "partial_reduce")])
-    def test_width_past_the_kernels_routes_to_full(self, rng, caplog, E,
-                                                   engine):
-        """Past the kernels' widest E the index runs the exact
-        "partial_reduce" engine (the name is the route's before it took
-        that engine), with a log line. On integer inputs its scores are
-        the exact top-k's bit for bit, as JAX's "full" gives them; among
-        equal scores its ids may come in another order (ties between bins
-        go by bin), so each id is held to its own exact score."""
-        n, k = 17000, 10  # "auto" takes the kernels by size
+    @pytest.mark.parametrize("E, engine, n",
+                             [(100, "pallas", 17000), (512, "pallas", 17000),
+                              (513, "pallas", 17000), (520, "pallas", 17000),
+                              (8193, "partial_reduce", 3000),
+                              (8200, "partial_reduce", 3000)])
+    def test_width_past_the_kernels_routes_to_partial_reduce(
+            self, rng, caplog, E, engine, n):
+        """Past the wrappers' widest padded E, KERNEL_MAX_E, the index runs
+        the exact "partial_reduce" engine, with a log line. On integer
+        inputs its scores are the exact top-k's bit for bit, as JAX's
+        "full" gives them; among equal scores its ids may come in another
+        order (ties between bins go by bin), so each id is held to its own
+        exact score. "auto" takes the kernels by size (n = 17,000); past
+        the cap the index asks for "pallas" over fewer rows."""
+        k = 10
         q, emb = _inputs(rng, "integer", 4, n, E)
         ids = np.arange(n, dtype=np.int32)
+        method = "auto" if n > BruteForceIndex.PALLAS_MIN_ROWS else "pallas"
         with caplog.at_level(logging.WARNING):
-            idx = BruteForceIndex(k, ids, emb, device="cpu")
+            idx = BruteForceIndex(k, ids, emb, method=method, device="cpu")
         assert (idx.method, idx._engine) == ("pallas", engine)
         routed = [r for r in caplog.records if "widest" in r.getMessage()]
         assert len(routed) == (engine == "partial_reduce")
@@ -332,15 +367,17 @@ class TestQuantizedWidths:
 
     @pytest.mark.parametrize(
         "E, rounds, engine",
-        [(512, 8, "pallas"), (520, 8, "scan"), (520, 1, "pallas"),
-         (576, 1, "pallas"), (600, 1, "scan")],
+        [(512, 8, "pallas"), (520, 8, "pallas"), (520, 1, "pallas"),
+         (576, 1, "pallas"), (600, 1, "pallas"), (8192, 1, "pallas"),
+         (8200, 8, "scan"), (8200, 1, "scan")],
     )
     def test_width_past_the_kernels_routes_to_scan(self, rng, caplog,
                                                    tmp_path, E, rounds,
                                                    engine):
-        """The one-pass kernels take padded widths up to 576, the rounds
-        (bin_max2.cu's instances) up to 512; past them the scan engine
-        runs, with a log line, and the saved method stays "pallas"."""
+        """The one-pass kernels and the rounds take padded widths up to
+        KERNEL_MAX_E = 8,192 (whole-E instances to 576, the sliced
+        one past it); past it the scan engine runs, with a log line, and
+        the saved method stays "pallas"."""
         n, k = 2000, 5
         ids = np.arange(n, dtype=np.int32)
         emb = rng.normal(size=(n, E)).astype(np.float32)
@@ -359,6 +396,115 @@ class TestQuantizedWidths:
             idx.save(str(tmp_path))
             loaded = pq.QuantizedIndex.load(str(tmp_path), device="cpu")
             assert (loaded.method, loaded._engine) == ("pallas", "scan")
+
+
+class TestWideWidths:
+    """Widths past the whole-E instances (the sliced instance on the card)
+    through every driver and index, against the JAX kernels in interpret
+    mode on integer inputs (exact in bf16 and in fp32 sums): bit for bit,
+    each at E padded to a multiple of 16 and planned at the real E."""
+
+    N = 2500
+
+    @pytest.mark.parametrize("keep_per_bin", [1, 2])
+    @pytest.mark.parametrize("E", WIDE)
+    def test_exact_topk_matches_jax(self, rng, E, keep_per_bin):
+        q, c = _inputs(rng, "integer", 8, self.N, E)
+        jv, ji, jr = pr.pallas_exact_topk(
+            jnp.asarray(q), jnp.asarray(c), 10, L=256, interpret=True,
+            keep_per_bin=keep_per_bin)
+        v, i, rounds = bt.exact_topk(torch.tensor(q), torch.tensor(c), 10,
+                                     L=256, keep_per_bin=keep_per_bin)
+        assert rounds == int(jr)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+
+    @pytest.mark.parametrize("E", WIDE)
+    def test_brute_force_index_matches_jax(self, rng, E):
+        q, emb = _inputs(rng, "integer", 8, self.N, E)
+        ids = rng.permutation(self.N).astype(np.int32) + 3
+        idx = BruteForceIndex(10, ids, emb, method="pallas", device="cpu")
+        assert idx._engine == "pallas"
+        jv, ji, _ = pr.pallas_exact_topk(jnp.asarray(q), jnp.asarray(emb), 10,
+                                         interpret=True)
+        got = idx.topk_from_embeddings(torch.tensor(q))
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(got[1].numpy(), ids[np.asarray(ji)])
+
+    @pytest.mark.parametrize("max_rounds", [1, 8])
+    @pytest.mark.parametrize("E", WIDE)
+    def test_quantized_topk_matches_jax(self, rng, E, max_rounds):
+        """Per-row scales, -inf bias rows, rows past n_valid: the one pass
+        at the plan of the real E, or the rounds."""
+        q = _inputs(rng, "integer", 16, 1, E)[0]
+        codes, scales, bias = _int8_catalog(rng, self.N, E)
+        wv, wi, wr = pr.pallas_quantized_topk(
+            jnp.asarray(q), jnp.asarray(codes), jnp.asarray(scales), 10,
+            n_valid=2400, bias=jnp.asarray(bias), max_rounds=max_rounds,
+            interpret=True)
+        v, i, rounds = qt.quantized_topk(
+            torch.tensor(q), torch.tensor(codes), torch.tensor(scales), 10,
+            n_valid=2400, bias=torch.tensor(bias), max_rounds=max_rounds)
+        assert rounds == int(wr)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+
+    @pytest.mark.parametrize("E", WIDE)
+    def test_quantized_topk_global_matches_jax(self, rng, E):
+        q = _inputs(rng, "integer", 8, 1, E)[0]
+        codes = rng.integers(-127, 128, size=(2048, E)).astype(np.int8)
+        g = np.float32(0.013)
+        wv, wi, _ = pr.pallas_quantized_topk_global(
+            jnp.asarray(q), jnp.asarray(codes), g, 10, n_valid=1500, L=256,
+            fold=2, interpret=True)
+        v, i, _ = qt.quantized_topk_global(
+            torch.tensor(q), torch.tensor(codes), float(g), 10, n_valid=1500,
+            L=256, fold=2)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+
+    @pytest.mark.parametrize("scale_mode", ["per_row", "global"])
+    @pytest.mark.parametrize("rounds", [1, 8])
+    @pytest.mark.parametrize("E", WIDE)
+    def test_quantized_index_matches_jax(self, rng, E, rounds, scale_mode):
+        q, emb = _inputs(rng, "integer", 8, self.N, E)
+        ids = rng.permutation(self.N).astype(np.int32) + 7
+        kw = dict(method="pallas", pallas_rounds=rounds, scale_mode=scale_mode)
+        jidx = JaxQuantized(10, ids, emb, **kw)
+        idx = QuantizedIndex(10, ids, emb, device="cpu", **kw)
+        assert (idx._engine, idx.k_over) == ("pallas", jidx.k_over)
+        want = jidx.topk_from_embeddings(jnp.asarray(q))
+        got = idx.topk_from_embeddings(torch.tensor(q))
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+    @pytest.mark.parametrize("family", ["exact", "one_pass", "rounds"])
+    @pytest.mark.parametrize("E", WIDE + (769,))
+    def test_sharded_index_matches_jax(self, rng, E, family):
+        """The sharded indices over a (2, 4) mesh against the JAX package's
+        over its 8 host devices, the exact one on [q | 1] and [emb | bias]
+        (E + 1 columns, padded to a multiple of 16: 769 + 1 to 784)."""
+        q, emb = _inputs(rng, "integer", 6, 1500, E)
+        ids = np.arange(1, 1501, dtype=np.int32)
+        jmesh = jax_make_mesh(data=2, model=4)
+        mesh = make_mesh(data=2, model=4, devices=["cpu"] * 8)
+        if family == "exact":
+            jidx = JaxDistBF(10, ids, emb, mesh=jmesh, method="pallas",
+                             interpret=True)
+            idx = DistributedBruteForceIndex(10, ids, emb, mesh=mesh,
+                                             method="pallas")
+        else:
+            rounds = 1 if family == "one_pass" else 8
+            jidx = JaxDistQ(10, ids, emb, mesh=jmesh, method="pallas",
+                            interpret=True, pallas_rounds=rounds)
+            idx = DistributedQuantizedIndex(10, ids, emb, mesh=mesh,
+                                            method="pallas",
+                                            pallas_rounds=rounds)
+        assert idx._engine == "pallas"
+        want = jidx.topk_from_embeddings(jnp.asarray(q))
+        got = idx.topk_from_embeddings(torch.from_numpy(q))
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
 
 class TestScanWidth:
