@@ -6,9 +6,9 @@ bin_max2.cu. An earlier tree may keep some of them in other sources (its
 own csrc/), which ``ab`` builds and times alike.
 
     python3 bin_max_bench.py ab --tree OLD --tree NEW [--seed 0]
-        [--only partial_reduce]
+        [--only partial_reduce] [--width 128|1024|2048]
     python3 bin_max_bench.py serve --tree OLD --tree NEW [--pairs 5]
-    python3 bin_max_bench.py ablate [--seed 0]
+    python3 bin_max_bench.py ablate [--seed 0] [--width 128|1024|2048]
     python3 bin_max_bench.py splits [--seed 0]
 
 ``ab`` times kernels 1-9, ``exact_topk``, ``quantized_topk`` (8 rounds
@@ -58,10 +58,21 @@ trees (``bitwise``).
   in which the card ran no kernel (the profiler's own host cost
   included).
 
+With ``--width`` past the whole-E instances (1024, 2048: bin_max2.cu's
+K-sliced walks), ``ab`` times kernels 1-8 alone at ``wide_rows``' shapes,
+PERF.md's sliced table: kernels 1-2 and 6-7 at B = 1, 16, 128, L = 2048
+over the 106,496 rows a pass streams, kernel 8 at B = 128, kernels 3-5 at
+the plans (1, 2048, 1024) and (2, 2048, 128), each beside ``matmul_ms``,
+``torch.matmul`` of the same (B, E) x (E, rows) bf16 product alone (a
+yardstick of the product, not a library version of the kernel), in the
+same OLD, NEW, NEW, OLD order and with the same ``bitwise`` lines.
+
 ``serve`` runs ``chip_smoke.py``'s phase 3 (the exact index serving string
-requests at full H&M width, B = 1, 16, 128, 1024, with its stage breakdown)
-on each tree's package, one process each, in ``--pairs`` pairs that
-alternate which tree runs first.
+requests at full H&M width, B = 1, 16, 128, 1024, with its stage breakdown,
+then the wide slice: the same model at joint width 1024 through the exact,
+one-pass and 8-round indices, ``wide_serve`` lines) on each tree's package,
+one process each, in ``--pairs`` pairs that alternate which tree runs
+first.
 
 ``ablate`` builds this tree's ``bin_max2.cu`` as it is and with parts of
 the kernel's walk replaced (the outputs of those builds are wrong; only
@@ -87,7 +98,18 @@ Variants:
 - ``no_tournament``: the fold pass's tournament removed (each chunk's last
   sub-tile goes to the cascade);
 - ``c1`` .. ``c8``: the cluster size forced to 1, 2, 4, 8;
-- ``g1``, ``g2``: at most 1 or 2 warp groups a block.
+- ``g1``, ``g2``: at most 1 or 2 warp groups a block;
+- ``no_barrier``: the ring's group barrier after each landed step removed
+  (the walk races its own ring; its time only);
+- ``no_copies``: the K-sliced walks' slice copies removed (the mma reads
+  whatever the ring holds): the walk's compute alone.
+
+With ``--width`` 1024 or 2048, ``ablate`` builds ``WIDE_VARIANTS``
+(``as_is``, ``no_cascade``, ``no_mma``, ``neither``, ``ring_only`` and
+``no_convert`` reaching the K-sliced walks too, ``no_barrier``,
+``no_copies``, ``g1``, ``g2``) and times kernels 1-2 and 6-7 at B = 1,
+16, 128 at ``wide_rows``' shapes; the forced builds (``g1``, ``g2``) must
+answer as the as-is one, bit for bit.
 
 ``splits`` times this tree's kernel 9 at every split it takes, at every
 shape of phase 20, beside ``split_plan``'s choice (``split_sweep``).
@@ -207,6 +229,99 @@ def single_pass_rows(qt, gen, dev, plans=cs.QUANT_PLANS, kernels=(3, 4, 5)):
                    "bound_ms": bound, "bound_by": by}, launch()
 
 
+def wide_rows(bt, qt, gen, dev, width, kernels=(1, 2, 3, 4, 5, 6, 7, 8),
+              batches=TIMED):
+    """Timings of kernels 1-8 at E = ``width`` (past the whole-E instances:
+    bin_max2.cu's K-sliced walks) at the sliced shapes of PERF.md, each
+    with the outputs of one launch: kernels 1-2 and 6-7 at L = 2048 over the
+    106,496 rows a pass streams at B = ``batches`` (kernels 2 and 7 on
+    their own round 1's thresholds), kernel 8 at B = 128 on its own +inf
+    round's, kernels 3-5 at the plans (1, 2048, 1024) and (2, 2048, 128)
+    over the 131,072 padded rows (kernel 5 over the full chunks of real
+    rows). Beside each row, ``matmul_ms``: ``torch.matmul`` of the same
+    (B, E) x (E, rows) bf16 product alone, graph-replayed: a yardstick of
+    the product, not a library version of the kernel (no PyTorch call
+    computes a bin-max pass)."""
+    L, N, n_pad = 2048, cs.N_ARTICLES, cs.N_PAD_EXACT
+
+    def normal(n):
+        return torch.randn(n, width, generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    def matmul_ms(q, c):
+        return cs.graph_ms(lambda: torch.matmul(q, c.T), 50)
+
+    def row(kernel, launch, bound, B, q, c, **shape):
+        return {"kernel": kernel, "E": width, "L": L, "B": B, **shape,
+                **time_launch(launch), "bound_ms": bound[0],
+                "bound_by": bound[1], "matmul_ms": matmul_ms(q, c)}, launch()
+
+    if {1, 2, 8} & set(kernels):
+        c_pad = torch.zeros(n_pad, width, dtype=torch.bfloat16, device=dev)
+        c_pad[:N] = normal(N)
+        q_all = normal(cs.Q_BLOCK)
+        for B in batches:
+            q = q_all[:B]
+            first = bt.bin_max2_first_round(q, c_pad, L, N)
+            runs = {
+                1: (lambda: bt.bin_max2_first_round(q, c_pad, L, N), (), 4),
+                2: (lambda: bt.bin_max2_round(q, c_pad, *first[2:], L, N),
+                    first[2:], 4),
+            }
+            if B == cs.Q_BLOCK:
+                inf_s = torch.full((B, L), float("inf"), device=dev)
+                inf_i = torch.full((B, L), -1, dtype=torch.int32, device=dev)
+                top1 = bt.bin_max_round(q, c_pad, inf_s, inf_i, L, N)
+                runs[8] = (lambda: bt.bin_max_round(q, c_pad, *top1, L, N),
+                           top1, 2)
+            for kernel, (launch, thr, outputs) in runs.items():
+                if kernel in kernels:
+                    yield row(kernel, launch, cs.pass_bound_ms(
+                        B, n_pad, L, bool(thr), outputs, width), B, q, c_pad,
+                        rows=n_pad)
+        del c_pad
+    if {6, 7} & set(kernels):
+        codes, scales, bias = cs.scaled_catalog(gen, dev, n_pad, width, N)
+        cb = codes.to(torch.bfloat16)
+        q_all = normal(cs.Q_BLOCK)
+        for B in batches:
+            q = q_all[:B]
+            first = qt.bin_max2_scaled_first_round(q, codes, scales, bias, L,
+                                                   N)
+            for kernel, thr in ((6, ()), (7, first[2:])):
+                name = cs.ROUNDS_KERNELS[kernel - 6]
+                if kernel in kernels:
+                    yield row(kernel, lambda: getattr(qt, name)(
+                        q, codes, scales, bias, *thr, L, N),
+                        cs.single_pass_bound_ms(B, n_pad, L, True, bool(thr),
+                                                width=width), B, q, cb,
+                        rows=n_pad)
+        del codes, cb
+    if {3, 4, 5} & set(kernels):
+        number = dict(zip(cs.SINGLE_PASS_KERNELS, (3, 4, 5)))
+        codes = torch.zeros((cs.N_PAD_Q, width), dtype=torch.int8,
+                            device=dev)
+        codes[:N] = torch.randint(-127, 128, (N, width), generator=gen,
+                                  device=dev, dtype=torch.int8)
+        scales = torch.rand(cs.N_PAD_Q, generator=gen, device=dev) * 0.05 + 1e-3
+        bias = torch.zeros(cs.N_PAD_Q, device=dev)
+        bias[N:] = float("-inf")
+        cb = codes.to(torch.bfloat16)
+        for F, L_, B in ((1, 2048, 1024), (2, 2048, 128)):
+            q = normal(B)
+            for name, (c, args) in cs.plan_cases(codes, scales, bias, F,
+                                                 L_).items():
+                if number[name] not in kernels:
+                    continue
+                yield row(number[name],
+                          lambda: cs.run_pass(name, q, c, args),
+                          cs.single_pass_bound_ms(
+                              B, c.shape[0], L_,
+                              name != cs.SINGLE_PASS_KERNELS[2], width=width),
+                          B, q, cb[:c.shape[0]], F=F, rows=c.shape[0])
+        del codes, cb
+
+
 def partial_reduce_rows(pr, gen, dev):
     """Timings of kernel 9 (``partial_reduce``, at the tree's own split) at
     every (n, L, r) of ``chip_smoke.partial_reduce_shapes()`` and B of
@@ -290,10 +405,11 @@ def timed_calls(fn, calls=10):
     return times, out
 
 
-def time_tree(tree, seed, out, only=None):
+def time_tree(tree, seed, out, only=None, width=cs.E):
     """Kernels, exact_topk and quantized_topk of the hm_retrieval_tpu_torch
-    under ``tree`` (with ``only="partial_reduce"``, kernel 9 alone); every
-    output timed is saved to ``out``."""
+    under ``tree`` (with ``only="partial_reduce"``, kernel 9 alone; at a
+    ``width`` other than 128, kernels 1-8 alone at ``wide_rows``' shapes);
+    every output timed is saved to ``out``."""
     bt, qt, pr = import_tree(tree)
     from hm_retrieval_tpu_torch.ops import _build
 
@@ -305,6 +421,14 @@ def time_tree(tree, seed, out, only=None):
     def keep(key, outs):
         saved[key] = [t.cpu() if torch.is_tensor(t) else t for t in outs]
 
+    if width != cs.E:
+        for row, outs in wide_rows(bt, qt, gen, dev, width):
+            emit({"tree": tree, **row})
+            fold = f" F={row['F']}" if "F" in row else ""
+            keep(f"kernel {row['kernel']}{fold} E={width} L={row['L']} "
+                 f"B={row['B']}", outs)
+        torch.save(saved, out)
+        return
     for row, outs in partial_reduce_rows(pr, gen, dev):
         emit({"tree": tree, **row})
         keep(f"kernel 9 n={row['n']} L={row['L']} r={row['r']} "
@@ -379,7 +503,8 @@ def profile_calls(fn, calls=5):
 
 
 def serve_tree(tree, seed):
-    """chip_smoke.py's phase 3 on the hm_retrieval_tpu_torch under ``tree``."""
+    """chip_smoke.py's phase 3, the wide slice included, on the
+    hm_retrieval_tpu_torch under ``tree``."""
     import_tree(tree)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -387,10 +512,12 @@ def serve_tree(tree, seed):
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build, prefix="bench-") as d:
-        cs.phase_serving(seed, 5, torch.device("cuda", 0), Path(d))
+        dev = torch.device("cuda", 0)
+        _, shared = cs.phase_serving(seed, 5, dev, Path(d))
+        cs.serve_wide(seed, 5, dev, shared)
 
 
-def alternate(mode, trees, seed, pairs, only=None):
+def alternate(mode, trees, seed, pairs, only=None, width=cs.E):
     """``mode`` on each tree in a process of its own, ``pairs`` pairs,
     alternating which tree runs first: OLD, NEW, NEW, OLD, ... Returns the
     (tree, output file) of each run."""
@@ -403,7 +530,7 @@ def alternate(mode, trees, seed, pairs, only=None):
             out = out_dir / f"{mode}-{pair}-{len(runs)}.pt"
             proc = subprocess.run(
                 [sys.executable, __file__, mode, "--tree", tree, "--seed",
-                 str(seed), "--out", str(out)]
+                 str(seed), "--out", str(out), "--width", str(width)]
                 + (["--only", only] if only else []), capture_output=True,
                 text=True, timeout=900,
             )
@@ -487,9 +614,14 @@ NO_MMA = """  asm volatile(""
 """
 WALK = "      if (active) {\n        float acc[WM][WN][4];"
 NO_WALK = "      if (active && steps < 0) {\n        float acc[WM][WN][4];"
-PICK = "  err = pick_cluster(kernel, s, tiles_of(B, L), &cluster);\n"
+SLICED_WALK = "      if (active) {\n        if (s == 0) {"
+NO_SLICED_WALK = "      if (active && steps < 0) {\n        if (s == 0) {"
+PICK = "  err = pick_cluster(kernel, s, tiles_of(B, L, s), &cluster);\n"
 CONVERT = """      codes_to_bf16(sc + slot * stage, sconv, Ek, ld, gtid, gthreads);
       group_sync(1 + grp, gthreads);
+"""
+SLICE_COPY = "      if (i < steps * nsl) {\n"
+BARRIER = """    group_sync(1 + grp, gthreads);  // ... for the group; slot i-1 is free
 """
 EPILOGUE = "    if constexpr (kCat == Catalog::kScaled) scaled(acc, landed);\n"
 GROUPS = "  for (s.groups = MAX_WARPS / s.wpg;; --s.groups) {\n"
@@ -499,15 +631,22 @@ VARIANTS = {
     "no_cascade": NO_CASCADE,
     "no_mma": [(MMA, NO_MMA)],
     "neither": [*NO_CASCADE, (MMA, NO_MMA)],
-    "ring_only": [(WALK, NO_WALK)],
+    "ring_only": [(WALK, NO_WALK), (SLICED_WALK, NO_SLICED_WALK)],
     "no_convert": [(CONVERT, "")],
     "no_epilogue": [(EPILOGUE, "")],
     "no_tournament": [(TOURNAMENT, NO_TOURNAMENT)],
     **{f"c{c}": [(PICK, f"  cluster = {c};\n")] for c in (1, 2, 4, 8)},
+    "no_barrier": [(BARRIER, "")],
+    "no_copies": [(SLICE_COPY, "      if (i < steps * nsl && steps < 0) {\n")],
     **{f"g{g}": [(GROUPS, f"  for (s.groups = {g} < MAX_WARPS / s.wpg ? {g} "
                   ": MAX_WARPS / s.wpg;; --s.groups) {\n")] for g in (1, 2)},
 }
 FORCED = ("c1", "c2", "c4", "c8", "g1", "g2")
+# the variants ``ablate --width`` times on the K-sliced walks; the forced
+# ones among them must answer as the as-is build
+WIDE_VARIANTS = ("as_is", "no_cascade", "no_mma", "neither", "ring_only",
+                 "no_convert", "no_barrier", "no_copies", "g1", "g2")
+WIDE_FORCED = ("g1", "g2")
 
 
 def build_variants(names):
@@ -555,10 +694,45 @@ def use(lib, *modules):
         module._kernel = kernel
 
 
-def ablate(seed):
+def ablate_wide(seed, width):
+    """``WIDE_VARIANTS`` of this tree's bin_max2.cu on the K-sliced walk at
+    E = ``width``: kernels 1-2 and 6-7 at B = 1, 16, 128, L = 2048 over the
+    106,496 rows a pass streams (``wide_rows``). The forced groups must
+    answer as the as-is build, bit for bit."""
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
     from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 
+    built = build_variants(list(WIDE_VARIANTS))
+    for name, (_, regs) in built.items():
+        emit({"variant": name, "E": width, "ptxas": regs})
+    dev = torch.device("cuda")
+    want = None
+    for name in WIDE_VARIANTS:
+        use(built[name][0], bt, qt)
+        outs = []
+        for row, out in wide_rows(
+                bt, qt, torch.Generator(device=dev).manual_seed(seed), dev,
+                width, kernels=(1, 2, 6, 7)):
+            emit({"variant": name, **row})
+            outs += [x.cpu() for x in out]
+        if name == "as_is":
+            want = outs
+        elif name in WIDE_FORCED:
+            same_outs = all(torch.equal(g, w) for g, w in zip(outs, want))
+            emit({"forced_check": {"variant": name, "E": width,
+                                   "bitwise_equal": same_outs}})
+            if not same_outs:
+                raise RuntimeError(f"{name} E={width}: outputs differ from "
+                                   "the as-is build")
+
+
+def ablate(seed, width=cs.E):
+    from hm_retrieval_tpu_torch.ops import bin_topk as bt
+    from hm_retrieval_tpu_torch.ops import quantized_topk as qt
+
+    if width != cs.E:
+        ablate_wide(seed, width)
+        return
     built = build_variants(list(VARIANTS))
     for name, (_, regs) in built.items():
         emit({"variant": name, "ptxas": regs})
@@ -624,6 +798,10 @@ def main(argv=None):
     ap.add_argument("--out", help="time: where to save the outputs timed")
     ap.add_argument("--only", choices=("partial_reduce",),
                     help="ab / time: kernel 9 alone")
+    ap.add_argument("--width", type=int, default=cs.E,
+                    help="ab / time / ablate: the padded E; 128 (the "
+                    "whole-E instances), or a sliced width such as 1024 "
+                    "or 2048")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bin_max_bench: CUDA is not available", file=sys.stderr)
@@ -633,17 +811,18 @@ def main(argv=None):
             ap.error(f"{args.mode} takes two --tree")
         if args.mode == "ab":
             compare_runs(alternate("time", args.tree, args.seed, 2,
-                                   args.only))
+                                   args.only, args.width))
         else:
             alternate("serve-one", args.tree, args.seed, args.pairs)
     elif args.mode == "time":
-        time_tree(args.tree[0], args.seed, args.out, args.only)
+        time_tree(args.tree[0], args.seed, args.out, args.only,
+                  args.width)
     elif args.mode == "serve-one":
         serve_tree(args.tree[0], args.seed)
     elif args.mode == "splits":
         split_sweep(args.seed)
     else:
-        ablate(args.seed)
+        ablate(args.seed, args.width)
     return 0
 
 

@@ -30,17 +30,21 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    plain full-score reference (fp32 product of the same bf16 operands,
    stable sort), with timings. Then kernels 1, 2 and 8 at E = 64 and 256
    (the instantiation that reads the query's fragments from shared memory)
-   on integer inputs, bit-identical. Then the sliced instance of
+   on integer inputs, bit-identical. Then the K-sliced walks of
    bin_max2.cu (slices of 128 columns past the whole-E instances' 512,
-   576 for int8; launch_info must read the whole-E instance at 512 / 576
-   and the sliced one at 528 / 592): forced at E = 128 and 512 (force_sliced, which only these
-   checks pass), each of kernels 1-8 must give the
-   whole-E instance's outputs bit for bit on random normal inputs at
-   B = 1, 16, 128 (kernel 1's graph ms both ways at B = 128); and kernels 1,
-   2 and 8 at padded E = 528, 784, 1024, 2048 and KERNEL_MAX_E (8192) over
+   576 for int8: the resident walk, the query tile in shared memory, to
+   3,296, the re-read walk past it; launch_info must read each walk and
+   the query rows a block holds at B = 128 as WALK_EDGES lists them, from
+   512 / 576 to 8192): forced by the wrappers' walk selector (which only
+   these checks pass), each of kernels 1-8 must give the same outputs bit
+   for bit on random normal inputs at B = 1, 16, 128 on every walk: at
+   E = 128 and 512 the resident and the re-read walk the whole-E
+   instance's, at E = 1024 and 2048 the resident walk the re-read walk's
+   (kernel 1's graph ms each way at B = 128); and kernels 1, 2 and 8 at
+   padded E = 528, 784, 1024, 2048, 3296 and KERNEL_MAX_E (8192) over
    16,384 rows (16,000 valid), L = 1024, B = 1, 16, 128, on integer inputs,
    bit-identical to their plain versions, each launch shape printed with
-   its instance (none may spill), then each timed by graph at E = 1024 and
+   its walk (none may spill), then each timed by graph at E = 1024 and
    2048 at the wide slice's shape (B = 128, L = 2048, 106,496 rows).
 3. Serving at full H&M width: 1,371,980 customers and 105,542 articles,
    E=128, towers [256], k=1000, random weights from --seed. The catalog is
@@ -53,8 +57,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    (serve_wide): the same model at joint width 1024 (every table at its
    phase 3 width, random weights), all 105,542 articles embedded by
    collect_catalog_device, and RetrievalService answering the same
-   requests through BruteForceIndex("pallas") (kernels 1-2 on the sliced
-   instance, kernel 9 must not launch), QuantizedIndex("pallas") with one
+   requests through BruteForceIndex("pallas") (kernels 1-2 on the resident
+   walk, kernel 9 must not launch), QuantizedIndex("pallas") with one
    pass (kernel 4 at B <= 128 and kernel 3 at B = 1024, the plans at
    E = 1024; 1000 survivors, shrunk from 2000 as the JAX package shrinks
    them) and with pallas_rounds = 8 (kernels 6-7), each path's launches
@@ -78,7 +82,7 @@ Phases, each of which must pass (a failure raises and exits non-zero):
    timed at each plan by graph ("ms") and by events ("events_ms"). Kernels
    3-5 also run at E = 64, 256 and 576 (the instantiation that reads the
    query from shared memory) on integer inputs, bit-identical, and at
-   padded E = 528, 784, 1024, 2048 and 8192 (the sliced instance past 576)
+   padded E = 528, 784, 1024, 2048, 3296 and 8192 (the sliced walks past 576)
    over 16,384 rows at B = 1, 16, 128, 1024, F = 1, 2, bit-identical, each
    launch shape printed (none may spill), then timed by graph at E = 1024
    and 2048 at the plans (1, 2048, 1024) and (2, 2048, 128). Then
@@ -171,7 +175,7 @@ Phases, each of which must pass (a failure raises and exits non-zero):
 8. Widths (phase_widths): over 20,000 rows of integer-valued embeddings,
    BruteForceIndex("auto") (k=1000) and QuantizedIndex("pallas") (k=100)
    with one pass and with 8 rounds at E = 8, 100, 520, 600 and 1024 run the
-   kernels on E padded to a multiple of 16 (the sliced instance past 512
+   kernels on E padded to a multiple of 16 (the sliced walks past 512
    for kernels 1-2, past 576 for the int8 ones) and answer bit-identically
    to the same indices on the CPU, as does DistributedBruteForceIndex
    ("pallas") over 4 shards of the card at E = 769 (770 with the bias
@@ -834,12 +838,12 @@ def phase_kernels(gen, dev):
         emit({"kernel_check": {"E": width, "L": L, "B": B,
                                "inputs": "integer", "ok": True}})
     check_instance_edges(dev)
-    forced_sliced(gen, dev)
+    forced_walks(gen, dev)
     wide_exact_kernels(gen, dev, stats)
     return stats
 
 
-# --- the sliced instance of bin_max2.cu (phases 2, 4, 6) ---------------------
+# --- the K-sliced walks of bin_max2.cu (phases 2, 4, 6) ----------------------
 
 WIDE_L = 1024  # bins of the wide kernel checks
 WIDE_ROWS = 16_384  # their catalog rows ...
@@ -849,13 +853,17 @@ WIDE_TIMED = (1024, 2048)  # padded E at which each kernel is timed
 N_PAD_EXACT = -(-N_ARTICLES // 2048) * 2048  # 106,496: L = 2048's pad
 
 
+RESIDENT_MAX_E = 3296  # the widest E of bin_max2.cu's resident walk
+
+
 def wide_widths():
     """Padded E of the wide kernel checks: just past the whole-E instances
-    (528), the sharded index's 769 + 1 (784), 1024, 2048 and the wrappers'
-    cap, KERNEL_MAX_E."""
+    (528), the sharded index's 769 + 1 (784), 1024, 2048, the resident
+    walk's widest (RESIDENT_MAX_E, one warp group of 32 query rows) and the
+    wrappers' cap, KERNEL_MAX_E (the re-read walk)."""
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
 
-    return (528, 784, 1024, 2048, bt.KERNEL_MAX_E)
+    return (528, 784, 1024, 2048, RESIDENT_MAX_E, bt.KERNEL_MAX_E)
 
 
 def int_rows(gen, dev, n, width):
@@ -867,20 +875,44 @@ def int_rows(gen, dev, n, width):
 def check_wide_launches(infos, L, B, width, **where):
     """check_clusters at a wide E, each kernel's instance printed with its
     registers; no kernel may spill, and past 576 (every kind's whole-E
-    widest; check_instance_edges holds the edges) every pass runs the
-    sliced instance."""
+    widest; check_instance_edges holds the edges) every pass runs a
+    sliced walk."""
     for n, info in infos.items():
         require(info["local_bytes"] == 0,
                 f"{n} E={width} B={B}: {info['local_bytes']} spilled bytes")
-        require(info["sliced"] or width <= 576,
-                f"{n} E={width}: sliced={info['sliced']}")
+        require(info["walk"] != "whole" or width <= 576,
+                f"{n} E={width}: walk {info['walk']}")
     check_clusters(infos, L, B, E=width, **where)
 
 
+# (walk, query rows a block holds) of every pass of a catalog kind at
+# B = 128 and a padded E, by bin_max2.cu's shape_for (the same for the
+# three kinds but at 528 and 576, where the int8 kinds still run whole-E):
+# the whole-E instances to 512 / 576; then the resident walk, with the
+# most of 128, 64, 32 query rows whose tile fits beside two ring slots and
+# the partial cells, to RESIDENT_MAX_E; then the re-read walk (128 rows).
+WALK_EDGES = {
+    "bf16": {512: ("whole", 128), 528: ("resident", 128),
+             576: ("resident", 128), 592: ("resident", 64),
+             784: ("resident", 64), 1024: ("resident", 64),
+             1168: ("resident", 64), 1184: ("resident", 64),
+             2048: ("resident", 32), 3296: ("resident", 32),
+             3312: ("reread", 128), 8192: ("reread", 128)},
+    "int8": {512: ("whole", 128), 528: ("whole", 128),
+             576: ("whole", 128), 592: ("resident", 64),
+             784: ("resident", 64), 1024: ("resident", 64),
+             1168: ("resident", 64), 1184: ("resident", 64),
+             2048: ("resident", 32), 3296: ("resident", 32),
+             3312: ("reread", 128), 8192: ("reread", 128)},
+}
+
+
 def check_instance_edges(dev):
-    """Each of kernels 1-8 runs its whole-E instance at its kind's widest E
-    (512 bf16, 576 int8) and the sliced one a k step past it, as
-    launch_info reads the launcher's choice on the card."""
+    """Each of kernels 1-8 runs the walk and holds the query rows of
+    WALK_EDGES at each width there, B = 128, as launch_info reads the
+    launcher's choice on the card: the whole-E instance at its kind's
+    widest E (512 bf16, 576 int8), the resident walk a k step past it and
+    at RESIDENT_MAX_E, the re-read walk a k step past that."""
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
 
     passes = {  # kernels: launch_info's (keep, threshold, catalog, fold)
@@ -889,30 +921,38 @@ def check_instance_edges(dev):
         "4": (2, False, "scaled", 2), "7": (2, True, "scaled", 1),
         "5": (2, False, "raw", 1), "5 folded": (2, False, "raw", 2)}
     for kernels, (keep, threshold, catalog, fold) in passes.items():
-        widest = 512 if catalog == "bf16" else 576
-        for width, sliced in ((widest, False), (widest + 16, True)):
+        kind = "bf16" if catalog == "bf16" else "int8"
+        for width, want in WALK_EDGES[kind].items():
             info = bt.launch_info(Q_BLOCK, width, WIDE_L, keep=keep,
                                   threshold=threshold, catalog=catalog,
                                   fold=fold, device=dev)
-            require(info["sliced"] == sliced,
-                    f"kernel {kernels} E={width}: sliced={info['sliced']}")
-    emit({"instance_edges": {"bf16": [512, 528], "int8": [576, 592],
-                             "ok": True}})
+            got = (info["walk"], info["query_rows"])
+            require(got == want, f"kernel {kernels} E={width}: walk and "
+                    f"query rows {got}, not {want}")
+    emit({"instance_edges": {kind: {w: list(v) for w, v in edges.items()}
+                             for kind, edges in WALK_EDGES.items()},
+          "ok": True})
 
 
-def forced_sliced(gen, dev):
-    """Phase 2: the sliced instance, forced at E = 128 and 512, against the
-    whole-E instance of each of kernels 1-8 (kernels 4 and 5 at F = 2, 5
-    also at F = 1; kernels 2, 7 and 8's second round on the thresholds of
-    their first) on random normal bf16 queries at B = 1, 16, 128: every
-    output bit for bit (one k-order, one accumulator chain, so the same
-    fp32 scores); kernel 1's graph ms both ways at B = 128."""
+def forced_walks(gen, dev):
+    """Phase 2: every walk of bin_max2.cu against the others, forced by the
+    wrappers' walk selector, for each of kernels 1-8 (kernels 4 and 5 at
+    F = 2, 5 also at F = 1; kernels 2, 7 and 8's second round on the
+    thresholds of their first) on random normal bf16 queries at B = 1, 16,
+    128 over WIDE_ROWS rows: at E = 128 and 512 the resident and the
+    re-read walk each give the whole-E instance's outputs bit for bit, at
+    E = 1024 and 2048 the resident walk the re-read walk's (one k-order,
+    one accumulator chain, so the same fp32 scores); kernel 1's graph ms
+    each way at B = 128."""
     from hm_retrieval_tpu_torch.ops import bin_topk as bt
     from hm_retrieval_tpu_torch.ops import quantized_topk as qt
 
     L, n_rows, n_valid = WIDE_L, WIDE_ROWS, WIDE_VALID
     rows = []
-    for width in (128, 512):
+    for width in (128, 512, 1024, 2048):
+        # walk selectors: the reference first (0 is whole-E at 128 and 512)
+        ways = ({"whole": 0, "resident": 1, "reread": 2} if width <= 512
+                else {"reread": 2, "resident": 1})
         c_pad = torch.randn(n_rows, width, generator=gen,
                             device=dev).to(torch.bfloat16)
         codes, scales, bias = scaled_catalog(gen, dev, n_rows, width, n_valid)
@@ -924,28 +964,23 @@ def forced_sliced(gen, dev):
             inf_s = torch.full((B, L), float("inf"), device=dev)
             inf_i = torch.full((B, L), -1, dtype=torch.int32, device=dev)
 
-            def passes(force):
-                k1 = bt.bin_max2_first_round(q, c_pad, L, n_valid,
-                                             force_sliced=force)
+            def passes(walk):
+                k1 = bt.bin_max2_first_round(q, c_pad, L, n_valid, walk=walk)
                 k2 = bt.bin_max2_round(q, c_pad, k1[2], k1[3], L, n_valid,
-                                       force_sliced=force)
+                                       walk=walk)
                 k8 = bt.bin_max_round(q, c_pad, inf_s, inf_i, L, n_valid,
-                                      force_sliced=force)
-                k8r = bt.bin_max_round(q, c_pad, *k8, L, n_valid,
-                                       force_sliced=force)
+                                      walk=walk)
+                k8r = bt.bin_max_round(q, c_pad, *k8, L, n_valid, walk=walk)
                 k3 = qt.bin_max2_scaled_single_pass(q, codes, scales, bias, L,
-                                                    force_sliced=force)
+                                                    walk=walk)
                 k4 = qt.bin_max2_scaled_fold_pass(q, codes, scales, bias, L,
-                                                  2, force_sliced=force)
-                k5 = [qt.bin_max2_raw_fold_pass(q, codes, L, F,
-                                                force_sliced=force)
+                                                  2, walk=walk)
+                k5 = [qt.bin_max2_raw_fold_pass(q, codes, L, F, walk=walk)
                       for F in (1, 2)]
                 k6 = qt.bin_max2_scaled_first_round(q, codes, scales, bias, L,
-                                                    n_valid,
-                                                    force_sliced=force)
+                                                    n_valid, walk=walk)
                 k7 = qt.bin_max2_scaled_round(q, codes, scales, bias, k6[2],
-                                              k6[3], L, n_valid,
-                                              force_sliced=force)
+                                              k6[3], L, n_valid, walk=walk)
                 return {"bin_max2_first_round": k1, "bin_max2_round": k2,
                         "bin_max_round": (*k8, *k8r),
                         "bin_max2_scaled_single_pass": k3,
@@ -954,22 +989,25 @@ def forced_sliced(gen, dev):
                         "bin_max2_scaled_first_round": k6,
                         "bin_max2_scaled_round": k7}
 
-            whole, sliced = passes(False), passes(True)
+            outs = {way: passes(walk) for way, walk in ways.items()}
             torch.cuda.synchronize()
-            for name, got in sliced.items():
-                require(all(torch.equal(g, w)
-                            for g, w in zip(got, whole[name])),
-                        f"{name} E={width} B={B}: the forced sliced instance "
-                        "differs from the whole-E instance")
-            row = {"E": width, "B": B, "kernels": sorted(sliced),
-                   "bitwise_equal": True}
+            ref, *others = ways
+            for way in others:
+                for name, got in outs[way].items():
+                    require(all(torch.equal(g, w)
+                                for g, w in zip(got, outs[ref][name])),
+                            f"{name} E={width} B={B}: the {way} walk "
+                            f"differs from the {ref} walk")
+            row = {"E": width, "B": B, "kernels": sorted(outs[ref]),
+                   "walks": list(ways), "bitwise_equal": True}
             if B == Q_BLOCK:
                 row.update({f"{way}_ms": graph_ms(
                     lambda: bt.bin_max2_first_round(q, c_pad, L, n_valid,
-                                                    force_sliced=force), 10)
-                    for way, force in (("whole", False), ("sliced", True))})
+                                                    walk=walk), 10)
+                    for way, walk in ways.items()})
             rows.append(row)
-    emit({"forced_sliced": rows})
+        del c_pad, codes, scales, bias
+    emit({"forced_walks": rows})
 
 
 def wide_time_row(launch, plain, bound, **shape):
@@ -981,7 +1019,7 @@ def wide_time_row(launch, plain, bound, **shape):
 
 def wide_exact_kernels(gen, dev, stats):
     """Phase 2: kernels 1, 2 and 8 at every padded E of wide_widths() (the
-    sliced instance past 512) against their plain versions on integer
+    sliced walks past 512) against their plain versions on integer
     inputs over WIDE_ROWS rows (WIDE_VALID valid), bit for bit, at
     B = 1, 16, 128, each launch shape printed (no spilled bytes); then each
     timed at WIDE_TIMED on normal inputs at the wide slice's shape (B =
@@ -1292,7 +1330,7 @@ def serve_wide(seed, repeats, dev, shared):
     105,542 articles embedded by collect_catalog_device, and
     RetrievalService answering phase 3's string requests (B = 1, 16, 128,
     1024, k = 1000) through BruteForceIndex("pallas") (kernels 1-2 on the
-    sliced instance, no kernel 9), QuantizedIndex("pallas") with one pass
+    resident walk, no kernel 9), QuantizedIndex("pallas") with one pass
     (kernel 3, or 4 where the plan folds) and with pallas_rounds = 8
     (kernels 6-7), each path's launches counted from 0. Exact answers are
     held to the "full" engine's on the same bf16 operands under phase 3's
@@ -1647,7 +1685,7 @@ def phase_quantized_kernels(gen, dev):
 
 def wide_single_pass_kernels(gen, dev, stats):
     """Phase 4: kernels 3-5 at every padded E of wide_widths() (the sliced
-    instance past 576) against their plain versions on integer inputs over
+    walks past 576) against their plain versions on integer inputs over
     WIDE_ROWS rows of int8 codes (-inf bias rows for 3-4), bit for bit, at
     B = 1, 16, 128, 1024 and F = 1, 2 (kernel 5 at both), each launch shape
     printed (no spilled bytes); then each timed at WIDE_TIMED on normal
@@ -1898,7 +1936,7 @@ def phase_rounds_kernels(gen, dev):
 
 def wide_rounds_kernels(gen, dev, stats):
     """Phase 6: kernels 6-7 at every padded E of wide_widths() (the sliced
-    instance past 576) against their plain versions on integer inputs over
+    walks past 576) against their plain versions on integer inputs over
     WIDE_ROWS rows (WIDE_VALID valid, -inf bias on 1% of them), bit for
     bit, at B = 1, 16, 128, each launch shape printed (no spilled bytes);
     then each timed at WIDE_TIMED on normal queries at the wide slice's
@@ -2649,7 +2687,7 @@ def phase_widths(seed, dev):
     answers must be bit-identical): BruteForceIndex("auto") and
     QuantizedIndex one pass and with 8 rounds at E = 8, 100, 520, 600 and
     1024 run the kernels on E padded to a multiple of 16 (the sliced
-    instance past 512 for the exact passes, past 576 for the int8 ones),
+    walks past 512 for the exact passes, past 576 for the int8 ones),
     and DistributedBruteForceIndex("pallas") over 4 shards of the card at
     E = 769 (with its bias column 770, padded to 784). Past the wrappers'
     cap, KERNEL_MAX_E (E = 8200, padded to 8208), the routes: the exact
@@ -2734,7 +2772,7 @@ def phase_widths(seed, dev):
     for row in rows:
         emit({"width": row})
     # the one pass's kernels at padded widths they serve, the last two on
-    # the sliced instance
+    # the resident walk
     for width in (528, 576, 608, 1024):
         for B in (16, Q_BLOCK):
             emit({"width_launch": {"E": width, "B": B, **{

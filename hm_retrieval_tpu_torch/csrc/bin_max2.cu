@@ -155,29 +155,49 @@
 // each warp, each of the 8 row groups converts the same codes again, and
 // mma.sync does not reach the peak that bounds the pass.
 //
-// The K-sliced instance (kSliced). The whole-E instances keep the block's
+// The walks over E (Walk). The whole-E instances (kWhole) keep the block's
 // (tile_rows, E) query tile resident and stage whole BN x E sub-tiles, so
 // at 128 query rows their shared memory grows with E until two ring slots
 // no longer fit (231,424 of 232,448 bytes at E = 576 for int8). Past the
 // widths they took before (whole_e_max: 512 bf16, 576 int8) every pass
-// runs the sliced instance instead: the instance is chosen by E and the
-// catalog's kind alone, never by B, the pass or the round, so every round
-// of a refinement runs one instance. It streams E in slices of EK = 128
-// columns (the last one E % EK wide where EK does not divide E): ring step
-// i of a segment stages slice i % nsl of its sub-tile i / nsl, the catalog
-// slice (BN x EK, bf16 or int8 codes, the kScaled scales and biases with
-// the last slice) and the query slice (the block's real rows x EK; the rows
-// past them are zeroed once) through the same cp.async ring, and an int8
-// slice converts into the group's bf16 tile of one slice. The warp's
-// accumulators stay in registers across a sub-tile's slices, whose mma.sync
-// steps run k in increasing 16-wide steps at the same fragment positions,
-// so each score is the one accumulator chain of the whole-E instances, with
-// the same bits; the epilogue, tournament, mask, threshold test and cascade
-// run once, after the sub-tile's last slice. Segments and the merges are
-// the whole-E instances'. What it costs: the query is read again for every
-// sub-tile, from L2 (B x E x 2 bytes per BN catalog rows and row group), so
-// at B = 128 the query bytes a bf16 pass reads are four times the
-// catalog's; PERF.md times it at 6-15% of its bound on the H100.
+// runs a K-sliced walk instead, which streams the catalog in slices of EK =
+// 128 columns (the last one E % EK wide where EK does not divide E): ring
+// step i of a segment stages slice i % nsl of its sub-tile i / nsl (BN x
+// EK, bf16 or int8 codes, the kScaled scales and biases with the last
+// slice), and an int8 slice converts into the group's bf16 tile of one
+// slice. The warp's accumulators stay in registers across a sub-tile's
+// slices, whose mma.sync steps run k in increasing 16-wide steps at the
+// same fragment positions, so each score is the one accumulator chain of
+// the whole-E instances, with the same bits; the epilogue, tournament,
+// mask, threshold test and cascade run once, after the sub-tile's last
+// slice. Segments and the merges are the whole-E instances'.
+//   The resident walk (kResident) keeps the block's query tile resident
+// for the whole walk, as the whole-E instances do, and streams only the
+// catalog's slices: slice s reads its A fragments at column s * EK of the
+// tile. A block then holds fewer query rows: the most of 128, 64 and 32
+// whose (rows, E + PAD) bf16 tile fits beside two ring slots and the
+// partial cells (shape_for: 128 to E = 576, 64 to 1,488, 32 to 3,296), so
+// B = 128 runs 2 or 4 row-group blocks a bin tile at E = 1024 or 2048,
+// each reading the bin tile's catalog slices itself (from L2 where the
+// other row group's read left them). Each block's rows start at a multiple
+// of 32, so a score keeps its fragment position (row % 16, bin % 8). A
+// full slice runs unrolled (slice_scores), its fragments loaded two mma
+// steps ahead, and its copies index 16-byte vectors by constants.
+// What bounds it at E = 1024, B = 128 on the H100 (PERF.md, the ablation of
+// bin_max_bench.py): the walk's own compute, its ldmatrix reads of both
+// operands from shared memory and its mma.sync steps, takes about two
+// thirds of the time and the slice copies the rest, the two adding up
+// rather than overlapping; at E = 2048 the copies of 4 row groups lead.
+//   The re-read walk (kReread), past E = 3,296 where 32 query rows no
+// longer fit, stages the block's query slice (real rows x EK; the rows past
+// them are zeroed once) beside the catalog slice in every ring slot: the
+// query is read again for every sub-tile, from L2 (B x E x 2 bytes per BN
+// catalog rows and row group), four times the catalog's bytes at B = 128.
+//   The walk is chosen by E and the catalog's kind alone (walk_for), never
+// by B, the pass or the round, so every round of a refinement runs one
+// walk; the wrappers can force the resident or the re-read walk at any E
+// where it fits, and phase 2 of chip_smoke.py holds all three walks to the
+// same bits. PERF.md times them on the H100.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -203,7 +223,7 @@ constexpr int PAD = 8;            // bf16 of row padding in shared memory
 constexpr int PS = BN + 8;        // row stride of the partial cells
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory of one block
 constexpr int A_STEPS = 8;        // E = 128: A fragments kept in registers
-constexpr int EK = 128;           // k slice of the sliced instance
+constexpr int EK = 128;           // k slice of the sliced walks
 constexpr int BIG_IDX = 0x7fffffff;
 
 // The catalog's kind (the C interface passes it as 0, 1, 2): bf16 rows;
@@ -215,10 +235,16 @@ __host__ __device__ constexpr bool is_int8(Catalog cat) {
   return cat != Catalog::kBf16;
 }
 
+// The walk over E of a pass (the C interface's walk selector: 1 forces the
+// resident walk, 2 the re-read walk, 0 lets E and the kind choose): whole
+// BN x E sub-tiles with the query tile resident; K slices of the catalog
+// with the query tile resident; K slices of the catalog and of the query.
+enum class Walk { kWhole = 0, kResident = 1, kReread = 2 };
+
 // The widest E of a kind's whole-E instances, the widths they took before
-// the sliced instance (at 128 query rows the int8 kind's fill 231,424 of a
-// block's 232,448 bytes at 576); past it every pass of that kind runs the
-// sliced instance, so no whole-E instance runs at a width it never ran at.
+// the sliced walks (at 128 query rows the int8 kind's fill 231,424 of a
+// block's 232,448 bytes at 576); past it every pass of that kind runs a
+// sliced walk, so no whole-E instance runs at a width it never ran at.
 constexpr int whole_e_max(Catalog cat) { return is_int8(cat) ? 576 : 512; }
 
 // Bytes of one ring slot: BN catalog rows of width E as bf16 (row stride
@@ -237,35 +263,37 @@ __host__ __device__ constexpr int tile_bytes(int E, Catalog cat) {
   return is_int8(cat) ? BN * (E + PAD) * 2 : 0;
 }
 
-// Bytes of one ring slot of the sliced instance: the catalog's slice (a
-// slot of width EK), then the query slice of tile_rows bf16 rows (row
-// stride EK + PAD).
+// Bytes of one ring slot of the re-read walk: the catalog's slice (a slot
+// of width EK), then the query slice of tile_rows bf16 rows (row stride
+// EK + PAD).
 __host__ __device__ constexpr int sliced_slot_bytes(int tile_rows,
                                                     Catalog cat) {
   return slot_bytes(EK, cat) + tile_rows * (EK + PAD) * 2;
 }
 
 // Block shape of a launch over B query rows of width E. It depends on B, E,
-// the catalog's kind and the instance only, never on the pass, and it never
+// the catalog's kind and the walk only, never on the pass, and it never
 // changes what a score is.
 struct Shape {
+  int rows;    // query rows a block holds: a multiple of 32, at most BM
   int wpg;     // warps per group: 2 per 32-row pair of m-tiles
   int groups;  // warp groups, each walking its own segment
   int stages;  // ring depth of each group
   int smem;    // dynamic shared memory, bytes
 };
 
-Shape shape_for(int B, int E, Catalog cat, bool sliced) {
+// The shape of a block of tile_rows query rows: the most warp groups that
+// keep at least two ring slots each.
+Shape shape_at(int tile_rows, int E, Catalog cat, Walk walk) {
   Shape s;
-  const int rows = B < BM ? B : BM;
-  const int tile_rows = (rows + 31) / 32 * 32;
+  s.rows = tile_rows;
   s.wpg = tile_rows / 32 * (BN / (8 * WN));
-  const int ld = E + PAD;
-  // the sliced instance keeps no query tile: its slots hold query slices
-  const int stage =
-      sliced ? sliced_slot_bytes(tile_rows, cat) : slot_bytes(E, cat);
+  const bool sliced = walk != Walk::kWhole;
+  // the re-read walk keeps no query tile: its slots hold query slices
+  const int stage = walk == Walk::kReread ? sliced_slot_bytes(tile_rows, cat)
+                                          : slot_bytes(sliced ? EK : E, cat);
   const int tile = tile_bytes(sliced ? EK : E, cat);
-  const int qbytes = sliced ? 0 : tile_rows * ld * 2;
+  const int qbytes = walk == Walk::kReread ? 0 : tile_rows * (E + PAD) * 2;
   const int part = 2 * tile_rows * PS * 8;  // keep-2 partial cells a group
   for (s.groups = MAX_WARPS / s.wpg;; --s.groups) {
     s.stages = (SMEM_MAX - qbytes - s.groups * tile) / (s.groups * stage);
@@ -276,6 +304,20 @@ Shape shape_for(int B, int E, Catalog cat, bool sliced) {
     if ((s.stages >= 2 && s.smem <= SMEM_MAX) || s.groups == 1) break;
   }
   return s;
+}
+
+bool fits(const Shape& s) { return s.stages >= 2 && s.smem <= SMEM_MAX; }
+
+// A block holds min(B, BM) query rows rounded up to 32; in the resident
+// walk, the most of 128, 64 and 32 (capped so) whose query tile fits beside
+// two ring slots and the partial cells. The grid has ceil(B / rows) row
+// groups.
+Shape shape_for(int B, int E, Catalog cat, Walk walk) {
+  const int need = ((B < BM ? B : BM) + 31) / 32 * 32;
+  for (int cap = BM;; cap /= 2) {
+    const Shape s = shape_at(need < cap ? need : cap, E, cat, walk);
+    if (walk != Walk::kResident || fits(s) || cap == 32) return s;
+  }
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -384,6 +426,46 @@ __device__ __forceinline__ void tile_scores(
   }
 }
 
+// One full K slice (EK columns) of the sliced walks: as tile_scores<0> over
+// EK columns (k in increasing 16-wide steps, the same fragment positions,
+// so the same sums), unrolled, each step's fragments loaded two steps
+// ahead of its mma.sync so that the ldmatrix latency overlaps the earlier
+// steps' products.
+__device__ __forceinline__ void slice_scores(
+    const __nv_bfloat16* const (&pa)[WM], const __nv_bfloat16* pb, bool two,
+    float (&acc)[WM][WN][4]) {
+  constexpr int kK = EK / 16, kAhead = 2;
+  uint32_t a[kAhead + 1][WM][4], b[kAhead + 1][4];
+  auto fetch = [&](int k) {
+    const int f = k % (kAhead + 1);
+    ldmatrix_x4(b[f], pb + k * 16);
+    ldmatrix_x4(a[f][0], pa[0] + k * 16);
+    if (two) ldmatrix_x4(a[f][1], pa[1] + k * 16);
+  };
+#pragma unroll
+  for (int k = 0; k < kAhead; ++k) fetch(k);
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    if (k + kAhead < kK) fetch(k + kAhead);
+    const int f = k % (kAhead + 1);
+    mma_step(acc[0], a[f][0], b[f]);
+    if (two) mma_step(acc[1], a[f][1], b[f]);
+  }
+}
+
+// Rows 0 .. n-1 of `vpr` 16-byte vectors each, one cp.async a vector, by
+// the group's threads (row strides in bytes: dld in shared memory, sld in
+// global memory).
+__device__ __forceinline__ void stage_rows(unsigned char* dst, int dld,
+                                           const unsigned char* src,
+                                           size_t sld, int n, int vpr,
+                                           int gtid, int gthreads) {
+  for (int v = gtid; v < n * vpr; v += gthreads) {
+    const int r = v / vpr, cv = v - r * vpr;
+    cp_async16(dst + r * dld + cv * 16, src + r * sld + cv * 16);
+  }
+}
+
 // Codes 2h and 2h + 1 of the four int8 codes in w as bf16x2, the lower in
 // the low half. Exact: the fp32 with bits 0x4B0000uu is 2^23 + uu, so with
 // uu = code + 128 it less 2^23 + 128 is the code; a value of at most 8
@@ -471,15 +553,16 @@ __device__ __forceinline__ Top<kKeep> merged(const float* const (&ps)[kMax],
   return top;
 }
 
-// Block (32 * wpg, groups) threads, grid (c, L / BN, ceil(B / BM)) in
+// Block (32 * wpg, groups) threads, grid (c, L / BN, ceil(B / rows)) in
 // clusters of (c, 1, 1). Dynamic shared memory (shape_for(B, E, kCat,
-// kSliced).smem): the query tile (none with kSliced), then the groups' rings
-// (and, for int8, each group's bf16 tile), which the partial cells reuse
-// after the walk. n_chunks counts the chunks of the walk: fold chunks of
-// `fold` sub-tiles with kFold, sub-tiles otherwise (fold is read only with
-// kFold). kSliced (with kSteps = 0) stages E in slices of EK columns.
+// kWalk).smem): the query tile (none in the re-read walk), then the groups'
+// rings (and, for int8, each group's bf16 tile), which the partial cells
+// reuse after the walk. n_chunks counts the chunks of the walk: fold chunks
+// of `fold` sub-tiles with kFold, sub-tiles otherwise (fold is read only
+// with kFold). The sliced walks (kSteps = 0) stage the catalog in slices of
+// EK columns, the re-read walk the query's too.
 template <bool kThreshold, int kKeep, int kSteps, Catalog kCat, bool kFold,
-          bool kSliced>
+          Walk kWalk>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     bin_max_kernel(const __nv_bfloat16* __restrict__ q,  // (B, E)
                    const void* __restrict__ c,  // (n_pad, E) bf16 or int8
@@ -492,6 +575,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
                    int B, int E, int L, int n_chunks, int n_valid,
                    int fold, int stages) {
   constexpr bool kInt8 = is_int8(kCat);
+  constexpr bool kSliced = kWalk != Walk::kWhole;
+  constexpr bool kReread = kWalk == Walk::kReread;
   static_assert(!kSliced || kSteps == 0, "a slice reads A from shared memory");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -512,30 +597,34 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   const int g = lane >> 2;  // mma group id: fragment row / column
   const int t = lane & 3;   // thread in group
   const int bin0 = blockIdx.y * BN;
-  const int row0 = blockIdx.z * BM;
+  const int row0 = blockIdx.z * (kWalk == Walk::kResident ? tile_rows : BM);
   const int rows = min(B - row0, tile_rows);  // real rows of the block
   const bool active = wrow < rows;            // m-tile 0 holds a real row
   const bool two = wrow + 16 < rows;          // so does m-tile 1
   // the staged width: E, known to the compiler at kSteps > 0, or one slice
   const int Ek = kSliced ? EK : kSteps > 0 ? 16 * kSteps : E;
-  const int ld = Ek + PAD;  // shared row stride, in bf16
+  const int ld = Ek + PAD;  // shared row stride of a staged tile, in bf16
   const int vecs = Ek / 8;  // 16-byte vectors per bf16 row
-  // a ring slot: the catalog's sub-tile (slice), then (kSliced) the query
+  // the resident query tile's width and row stride (the re-read walk: its
+  // slices', ld)
+  const int qw = kSliced ? E : Ek;
+  const int qld = kReread ? ld : qw + PAD;
+  // a ring slot: the catalog's sub-tile (slice), then (kReread) the query
   // slice
   const int cbytes = slot_bytes(Ek, kCat);
-  const int stage = kSliced ? cbytes + tile_rows * ld * 2 : cbytes;
+  const int stage = kReread ? cbytes + tile_rows * ld * 2 : cbytes;
   const int F = kFold ? fold : 1;  // sub-tiles a chunk
   const int nsl = kSliced ? (E + Ek - 1) / Ek : 1;  // slices a sub-tile
 
-  unsigned char* ring = smem_raw + (kSliced ? 0 : tile_rows * ld * 2);
+  unsigned char* ring = smem_raw + (kReread ? 0 : tile_rows * qld * 2);
   // this group's ring, then (int8) its bf16 tile
   unsigned char* sc = ring + grp * (stages * stage + tile_bytes(Ek, kCat));
   __nv_bfloat16* sconv = reinterpret_cast<__nv_bfloat16*>(sc + stages * stage);
-  // the query: the resident tile, or (kSliced) slot 0's query slice
+  // the query: the resident tile, or (kReread) slot 0's query slice
   __nv_bfloat16* sq =
-      reinterpret_cast<__nv_bfloat16*>(kSliced ? sc + cbytes : smem_raw);
+      reinterpret_cast<__nv_bfloat16*>(kReread ? sc + cbytes : smem_raw);
 
-  if constexpr (kSliced) {
+  if constexpr (kReread) {
     // The query slices' rows past the block's real rows, zeroed once in
     // every slot of the group's ring: the loads write the real rows only.
     const int pad = (tile_rows - rows) * vecs;
@@ -547,12 +636,14 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   } else {
     // Query tile, resident for the whole run, in one cp.async group of its
     // own; rows past B are zeros.
-    for (int v = tid; v < tile_rows * vecs; v += nthreads) {
-      const int r = v / vecs, cv = v % vecs;
+    const int qvecs = qw / 8;
+    for (int v = tid; v < tile_rows * qvecs; v += nthreads) {
+      const int r = v / qvecs, cv = v % qvecs;
       if (r < rows)
-        cp_async16(sq + r * ld + cv * 8, q + (size_t)(row0 + r) * Ek + cv * 8);
+        cp_async16(sq + r * qld + cv * 8,
+                   q + (size_t)(row0 + r) * qw + cv * 8);
       else
-        *reinterpret_cast<uint4*>(sq + r * ld + cv * 8) =
+        *reinterpret_cast<uint4*>(sq + r * qld + cv * 8) =
             make_uint4(0u, 0u, 0u, 0u);
     }
     cp_async_commit();
@@ -577,36 +668,36 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
         const int w = min(Ek, E - k0);
         const size_t row = (size_t)(u0 + u) * L + bin0;  // the tile's first
         unsigned char* dst = sc + slot * stage;
-        if constexpr (kInt8) {
-          const int8_t* src = static_cast<const int8_t*>(c) + row * E + k0;
-          const int cvecs = w / 16;  // 16-byte vectors per int8 row slice
-          for (int v = gtid; v < BN * cvecs; v += gthreads) {
-            const int r = v / cvecs, cv = v % cvecs;
-            cp_async16(dst + r * Ek + cv * 16, src + (size_t)r * E + cv * 16);
-          }
-          if constexpr (kCat == Catalog::kScaled) {
-            // with the last slice, which the epilogue follows
-            if (k0 + w == E && gtid < 2 * (BN / 4)) {
-              const int which = gtid / (BN / 4), cv = gtid % (BN / 4);
-              cp_async16(dst + BN * Ek + which * BN * 4 + cv * 16,
-                         (which ? bias : scales) + row + cv * 4);
-            }
-          }
-        } else {
-          const __nv_bfloat16* src =
-              static_cast<const __nv_bfloat16*>(c) + row * E + k0;
-          __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(dst);
-          for (int v = gtid; v < BN * (w / 8); v += gthreads) {
-            const int r = v / (w / 8), cv = v % (w / 8);
-            cp_async16(d + r * ld + cv * 8, src + (size_t)r * E + cv * 8);
+        // the catalog slice: BN rows of w columns, a full slice's count of
+        // 16-byte vectors known to the compiler
+        const int esize = kInt8 ? 1 : 2;  // bytes of a catalog element
+        const unsigned char* src = static_cast<const unsigned char*>(c) +
+                                   (row * E + k0) * esize;
+        const int dld = kInt8 ? Ek : ld * 2;  // the slot's row stride
+        if (w == Ek)
+          stage_rows(dst, dld, src, (size_t)E * esize, BN, EK * esize / 16,
+                     gtid, gthreads);
+        else
+          stage_rows(dst, dld, src, (size_t)E * esize, BN, w * esize / 16,
+                     gtid, gthreads);
+        if constexpr (kCat == Catalog::kScaled) {
+          // with the last slice, which the epilogue follows
+          if (k0 + w == E && gtid < 2 * (BN / 4)) {
+            const int which = gtid / (BN / 4), cv = gtid % (BN / 4);
+            cp_async16(dst + BN * Ek + which * BN * 4 + cv * 16,
+                       (which ? bias : scales) + row + cv * 4);
           }
         }
-        // the query slice of the block's real rows
-        const __nv_bfloat16* qs = q + (size_t)row0 * E + k0;
-        __nv_bfloat16* dq = reinterpret_cast<__nv_bfloat16*>(dst + cbytes);
-        for (int v = gtid; v < rows * (w / 8); v += gthreads) {
-          const int r = v / (w / 8), cv = v % (w / 8);
-          cp_async16(dq + r * ld + cv * 8, qs + (size_t)r * E + cv * 8);
+        if constexpr (kReread) {
+          // the query slice of the block's real rows
+          const unsigned char* qs =
+              reinterpret_cast<const unsigned char*>(q + (size_t)row0 * E + k0);
+          if (w == Ek)
+            stage_rows(dst + cbytes, ld * 2, qs, (size_t)E * 2, rows,
+                       EK * 2 / 16, gtid, gthreads);
+          else
+            stage_rows(dst + cbytes, ld * 2, qs, (size_t)E * 2, rows,
+                       w * 2 / 16, gtid, gthreads);
         }
       }
     } else if (i < steps) {
@@ -687,7 +778,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   const __nv_bfloat16* pa[WM];
 #pragma unroll
   for (int mm = 0; mm < WM; ++mm)
-    pa[mm] = sq + (wrow + mm * 16 + r8 + (mi & 1) * 8) * ld + (mi >> 1) * 8;
+    pa[mm] = sq + (wrow + mm * 16 + r8 + (mi & 1) * 8) * qld + (mi >> 1) * 8;
   // B fragments: from the landed bf16 slot, or from the group's bf16 tile
   const __nv_bfloat16* pb =
       (kInt8 ? sconv : reinterpret_cast<const __nv_bfloat16*>(sc)) +
@@ -825,11 +916,16 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
               for (int e = 0; e < 4; ++e) acc[mm][jj][e] = 0.f;
         }
         const int at = slot * (stage / 2);  // the slot, in bf16
+        // A: the slot's query slice, or slice s of the resident tile
         const __nv_bfloat16* pas[WM];
 #pragma unroll
-        for (int mm = 0; mm < WM; ++mm) pas[mm] = pa[mm] + at;
-        tile_scores<0>(pas, kInt8 ? pb : pb + at, min(Ek, E - s * Ek), two,
-                       areg, acc);
+        for (int mm = 0; mm < WM; ++mm)
+          pas[mm] = pa[mm] + (kReread ? at : s * Ek);
+        const int w = min(Ek, E - s * Ek);  // the slice's columns
+        if (w == Ek)
+          slice_scores(pas, kInt8 ? pb : pb + at, two, acc);
+        else
+          tile_scores<0>(pas, kInt8 ? pb : pb + at, w, two, areg, acc);
         if (s == nsl - 1) finish(acc, u, slot);
       }
       slot = slot + 1 == stages ? 0 : slot + 1;
@@ -955,38 +1051,49 @@ using KernelFn = void (*)(const __nv_bfloat16*, const void*, const float*,
                           int*, float*, int*, int, int, int, int, int, int,
                           int);
 
-// The instantiation a pass runs at width E: the sliced instance where
-// `sliced`, else A fragments in registers at E = 16 * A_STEPS, from shared
-// memory otherwise. All three sum in one k-order.
+// The instantiation a pass runs at width E: a sliced walk's, else A
+// fragments in registers at E = 16 * A_STEPS, from shared memory
+// otherwise. All four sum in one k-order.
 template <bool kThreshold, int kKeep, Catalog kCat, bool kFold = false>
-KernelFn kernel_for(int E, bool sliced) {
-  return sliced ? bin_max_kernel<kThreshold, kKeep, 0, kCat, kFold, true>
+KernelFn kernel_for(int E, Walk walk) {
+  constexpr Walk kW = Walk::kWhole;
+  return walk == Walk::kResident
+             ? bin_max_kernel<kThreshold, kKeep, 0, kCat, kFold,
+                              Walk::kResident>
+         : walk == Walk::kReread
+             ? bin_max_kernel<kThreshold, kKeep, 0, kCat, kFold, Walk::kReread>
          : E == 16 * A_STEPS
-             ? bin_max_kernel<kThreshold, kKeep, A_STEPS, kCat, kFold, false>
-             : bin_max_kernel<kThreshold, kKeep, 0, kCat, kFold, false>;
+             ? bin_max_kernel<kThreshold, kKeep, A_STEPS, kCat, kFold, kW>
+             : bin_max_kernel<kThreshold, kKeep, 0, kCat, kFold, kW>;
 }
 
-// Whether a pass of kind `cat` at width E runs the sliced instance: past
-// the kind's whole-E instances, or where the caller forces it (the checks
-// that hold the two instances to the same bits).
-bool uses_sliced(int E, Catalog cat, int force) {
-  return force != 0 || E > whole_e_max(cat);
+// The walk of a pass of kind `cat` at width E: the whole-E instances up to
+// the kind's whole_e_max, then the resident walk up to the widest E at
+// which 32 query rows fit a block (3,296 for every kind), then the re-read
+// walk; or the walk the caller forces (force 1: resident, 2: re-read; the
+// checks that hold the walks to the same bits).
+Walk walk_for(int E, Catalog cat, int force) {
+  if (force == 1) return Walk::kResident;
+  if (force == 2) return Walk::kReread;
+  if (E <= whole_e_max(cat)) return Walk::kWhole;
+  return fits(shape_for(1, E, cat, Walk::kResident)) ? Walk::kResident
+                                                     : Walk::kReread;
 }
 
-cudaError_t prepare(KernelFn kernel, int B, int E, Catalog cat, bool sliced,
+cudaError_t prepare(KernelFn kernel, int B, int E, Catalog cat, Walk walk,
                     Shape* s) {
   if (B <= 0 || E <= 0 || E % 16 != 0) return cudaErrorInvalidValue;
-  *s = shape_for(B, E, cat, sliced);
-  if (s->stages < 2 || s->smem > SMEM_MAX) return cudaErrorInvalidValue;
+  *s = shape_for(B, E, cat, walk);
+  if (!fits(*s)) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s->smem);
 }
 
-// Grid (cluster, L / BN, ceil(B / BM)) in clusters of (cluster, 1, 1).
+// Grid (cluster, L / BN, ceil(B / rows)) in clusters of (cluster, 1, 1).
 cudaLaunchConfig_t config(const Shape& s, int B, int L, int cluster,
                           cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, L / BN, (B + BM - 1) / BM);
+  cfg.gridDim = dim3(cluster, L / BN, (B + s.rows - 1) / s.rows);
   cfg.blockDim = dim3(32 * s.wpg, s.groups, 1);
   cfg.dynamicSmemBytes = s.smem;
   cfg.stream = stream;
@@ -1055,46 +1162,49 @@ cudaError_t pick_cluster(KernelFn kernel, const Shape& s, int tiles,
   return cudaSuccess;
 }
 
-int tiles_of(int B, int L) { return L / BN * ((B + BM - 1) / BM); }
+// Clusters of a launch: bin tiles x row groups.
+int tiles_of(int B, int L, const Shape& s) {
+  return L / BN * ((B + s.rows - 1) / s.rows);
+}
 
 // The kernel of a pass: keep 1 or 2, thresholds or not, the catalog's
-// kind, (fold > 1) the fold tournament, and the instance. A per-row single
+// kind, (fold > 1) the fold tournament, and the walk. A per-row single
 // pass at fold 1 is the int8 first round's kernel; the raw pass has no
 // thresholds.
 KernelFn pass_kernel(int keep, int threshold, Catalog cat, int fold, int E,
-                     bool sliced) {
+                     Walk walk) {
   constexpr Catalog kB = Catalog::kBf16, kS = Catalog::kScaled,
                     kR = Catalog::kRaw;
   if (cat == kR)
-    return fold > 1 ? kernel_for<false, 2, kR, true>(E, sliced)
-                    : kernel_for<false, 2, kR>(E, sliced);
-  if (cat == kS && fold > 1) return kernel_for<false, 2, kS, true>(E, sliced);
+    return fold > 1 ? kernel_for<false, 2, kR, true>(E, walk)
+                    : kernel_for<false, 2, kR>(E, walk);
+  if (cat == kS && fold > 1) return kernel_for<false, 2, kS, true>(E, walk);
   if (cat == kS)
-    return threshold ? kernel_for<true, 2, kS>(E, sliced)
-                     : kernel_for<false, 2, kS>(E, sliced);
-  return keep == 1   ? kernel_for<true, 1, kB>(E, sliced)
-         : threshold ? kernel_for<true, 2, kB>(E, sliced)
-                     : kernel_for<false, 2, kB>(E, sliced);
+    return threshold ? kernel_for<true, 2, kS>(E, walk)
+                     : kernel_for<false, 2, kS>(E, walk);
+  return keep == 1   ? kernel_for<true, 1, kB>(E, walk)
+         : threshold ? kernel_for<true, 2, kB>(E, walk)
+                     : kernel_for<false, 2, kB>(E, walk);
 }
 
 // A pass over n_pad rows in chunks of `fold` sub-tiles of L rows (fold = 1
-// but for the fold passes), by the kernel pass_kernel picks; force_sliced
-// runs the sliced instance at any E.
+// but for the fold passes), by the kernel pass_kernel picks; force (1
+// resident, 2 re-read) runs that sliced walk at any E it fits.
 int launch(int keep, int threshold, Catalog cat, const void* q, const void* c,
            const void* scales, const void* bias, const void* thr_s,
            const void* thr_i, void* m1, void* a1, void* m2, void* a2, int B,
-           int E, int n_pad, int L, int n_valid, int fold, int force_sliced,
+           int E, int n_pad, int L, int n_valid, int fold, int force,
            void* stream) {
   if (L <= 0 || L % BN != 0 || fold <= 0 || n_pad <= 0 ||
-      n_pad % ((long long)L * fold) != 0)
+      n_pad % ((long long)L * fold) != 0 || force < 0 || force > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool sliced = uses_sliced(E, cat, force_sliced);
-  const KernelFn kernel = pass_kernel(keep, threshold, cat, fold, E, sliced);
+  const Walk walk = walk_for(E, cat, force);
+  const KernelFn kernel = pass_kernel(keep, threshold, cat, fold, E, walk);
   Shape s;
-  cudaError_t err = prepare(kernel, B, E, cat, sliced, &s);
+  cudaError_t err = prepare(kernel, B, E, cat, walk, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
   int cluster = 1;
-  err = pick_cluster(kernel, s, tiles_of(B, L), &cluster);
+  err = pick_cluster(kernel, s, tiles_of(B, L, s), &cluster);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -1114,31 +1224,32 @@ int launch(int keep, int threshold, Catalog cat, const void* q, const void* c,
 
 // Each launcher returns cudaGetLastError() after the launch (0 = success);
 // a refused launch (e.g. cudaErrorClusterOutOfResources) returns its error.
-// force_sliced != 0 runs the sliced instance at any E (the checks that hold
-// it to the whole-E instances pass it); 0 lets E and the kind choose.
+// walk 1 runs the resident walk, 2 the re-read walk, at any E where it fits
+// (the checks that hold the walks to the same bits pass it); 0 lets E and
+// the kind choose.
 extern "C" int bin_max2_first_round(const void* q, const void* c, void* m1,
                                     void* a1, void* m2, void* a2, int B,
                                     int E, int n_pad, int L, int n_valid,
-                                    int force_sliced, void* stream) {
+                                    int walk, void* stream) {
   return launch(2, 0, Catalog::kBf16, q, c, nullptr, nullptr, nullptr, nullptr,
-                m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1, force_sliced,
+                m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1, walk,
                 stream);
 }
 
 extern "C" int bin_max2_round(const void* q, const void* c, const void* thr_s,
                               const void* thr_i, void* m1, void* a1, void* m2,
                               void* a2, int B, int E, int n_pad, int L,
-                              int n_valid, int force_sliced, void* stream) {
+                              int n_valid, int walk, void* stream) {
   return launch(2, 1, Catalog::kBf16, q, c, nullptr, nullptr, thr_s, thr_i, m1,
-                a1, m2, a2, B, E, n_pad, L, n_valid, 1, force_sliced, stream);
+                a1, m2, a2, B, E, n_pad, L, n_valid, 1, walk, stream);
 }
 
 extern "C" int bin_max_round(const void* q, const void* c, const void* thr_s,
                              const void* thr_i, void* m, void* a, int B, int E,
-                             int n_pad, int L, int n_valid, int force_sliced,
+                             int n_pad, int L, int n_valid, int walk,
                              void* stream) {
   return launch(1, 1, Catalog::kBf16, q, c, nullptr, nullptr, thr_s, thr_i, m,
-                a, nullptr, nullptr, B, E, n_pad, L, n_valid, 1, force_sliced,
+                a, nullptr, nullptr, B, E, n_pad, L, n_valid, 1, walk,
                 stream);
 }
 
@@ -1147,11 +1258,11 @@ extern "C" int bin_max2_scaled_first_round(const void* q, const void* codes,
                                            const void* bias, void* m1,
                                            void* a1, void* m2, void* a2,
                                            int B, int E, int n_pad, int L,
-                                           int n_valid, int force_sliced,
+                                           int n_valid, int walk,
                                            void* stream) {
   return launch(2, 0, Catalog::kScaled, q, codes, scales, bias, nullptr,
                 nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1,
-                force_sliced, stream);
+                walk, stream);
 }
 
 extern "C" int bin_max2_scaled_round(const void* q, const void* codes,
@@ -1159,10 +1270,10 @@ extern "C" int bin_max2_scaled_round(const void* q, const void* codes,
                                      const void* thr_s, const void* thr_i,
                                      void* m1, void* a1, void* m2, void* a2,
                                      int B, int E, int n_pad, int L,
-                                     int n_valid, int force_sliced,
+                                     int n_valid, int walk,
                                      void* stream) {
   return launch(2, 1, Catalog::kScaled, q, codes, scales, bias, thr_s, thr_i,
-                m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1, force_sliced,
+                m1, a1, m2, a2, B, E, n_pad, L, n_valid, 1, walk,
                 stream);
 }
 
@@ -1174,21 +1285,21 @@ extern "C" int bin_max2_scaled_single_pass(const void* q, const void* codes,
                                            const void* bias, void* m1,
                                            void* a1, void* m2, void* a2,
                                            int B, int E, int n_pad, int L,
-                                           int force_sliced, void* stream) {
+                                           int walk, void* stream) {
   return launch(2, 0, Catalog::kScaled, q, codes, scales, bias, nullptr,
                 nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_pad, 1,
-                force_sliced, stream);
+                walk, stream);
 }
 
 extern "C" int bin_max2_scaled_fold_pass(const void* q, const void* codes,
                                          const void* scales, const void* bias,
                                          void* m1, void* a1, void* m2,
                                          void* a2, int B, int E, int n_pad,
-                                         int L, int F, int force_sliced,
+                                         int L, int F, int walk,
                                          void* stream) {
   return launch(2, 0, Catalog::kScaled, q, codes, scales, bias, nullptr,
                 nullptr, m1, a1, m2, a2, B, E, n_pad, L, n_pad, F,
-                force_sliced, stream);
+                walk, stream);
 }
 
 // The raw single pass of the global-scale index: the catalog is full chunks
@@ -1197,33 +1308,35 @@ extern "C" int bin_max2_scaled_fold_pass(const void* q, const void* codes,
 extern "C" int bin_max2_raw_fold_pass(const void* q, const void* codes,
                                       void* m1, void* a1, void* m2, void* a2,
                                       int B, int E, int n_full, int L, int F,
-                                      int force_sliced, void* stream) {
+                                      int walk, void* stream) {
   return launch(2, 0, Catalog::kRaw, q, codes, nullptr, nullptr, nullptr,
                 nullptr, m1, a1, m2, a2, B, E, n_full, L, n_full, F,
-                force_sliced, stream);
+                walk, stream);
 }
 
 // Launch shape of a pass (keep 1 or 2; threshold 0 or 1; catalog 0 = bf16,
 // 1 = int8 scaled, 2 = int8 raw; fold 1, or F > 1 for an int8 fold pass)
-// over B rows of width E and L bins, as launch() takes it unforced: out[0..12] = cluster size, warps per block, warp
-// groups, ring stages, shared bytes, registers a thread, local (spilled)
-// bytes a thread, clusters of the launch (bin tiles x row groups), clusters
-// of 1, 2, 4 and 8 blocks resident at once, and 1 where the pass runs the
-// sliced instance (0: whole-E). Returns a CUDA error code (0 = success).
+// over B rows of width E and L bins, as launch() takes it unforced:
+// out[0..13] = cluster size, warps per block, warp groups, ring stages,
+// shared bytes, registers a thread, local (spilled) bytes a thread,
+// clusters of the launch (bin tiles x row groups), clusters of 1, 2, 4 and
+// 8 blocks resident at once, the walk (0 whole-E, 1 resident, 2 re-read)
+// and the query rows a block holds. Returns a CUDA error code (0 =
+// success).
 extern "C" int bin_max_launch_info(int keep, int threshold, int catalog,
                                    int fold, int B, int E, int L, int* out) {
   if (catalog < 0 || catalog > 2 || L <= 0 || L % BN != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Catalog cat = static_cast<Catalog>(catalog);
-  const bool sliced = uses_sliced(E, cat, 0);
-  const KernelFn kernel = pass_kernel(keep, threshold, cat, fold, E, sliced);
+  const Walk w = walk_for(E, cat, 0);
+  const KernelFn kernel = pass_kernel(keep, threshold, cat, fold, E, w);
   Shape s;
-  cudaError_t err = prepare(kernel, B, E, cat, sliced, &s);
+  cudaError_t err = prepare(kernel, B, E, cat, w, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
   err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = pick_cluster(kernel, s, tiles_of(B, L), &out[0]);
+  err = pick_cluster(kernel, s, tiles_of(B, L, s), &out[0]);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[1] = s.wpg * s.groups;
   out[2] = s.groups;
@@ -1231,11 +1344,12 @@ extern "C" int bin_max_launch_info(int keep, int threshold, int catalog,
   out[4] = s.smem;
   out[5] = fa.numRegs;
   out[6] = static_cast<int>(fa.localSizeBytes);
-  out[7] = tiles_of(B, L);
+  out[7] = tiles_of(B, L, s);
   for (int i = 0, c = 1; c <= MAX_CLUSTER; ++i, c *= 2) {
     err = resident_clusters(kernel, s, c, &out[8 + i]);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  out[12] = sliced ? 1 : 0;
+  out[12] = static_cast<int>(w);
+  out[13] = s.rows;
   return 0;
 }

@@ -33,12 +33,14 @@ The kernels step through E 16 columns at a time, so ``exact_topk`` pads
 the query and its catalog copy with zero columns to a multiple of 16 on
 every device (``padded_width``): a zero column adds an exact zero to every
 score, so no answer changes. Up to a padded E of 512 a pass runs the
-template's whole-E instances; past it, up to
-``KERNEL_MAX_E`` (8,192, above the JAX kernels' widest, 7,296 for the exact
-index at B = 1, k = 10), the sliced instance, which streams E in slices of
-128 columns and gives the same fp32 scores bit for bit. A width past
-``KERNEL_MAX_E`` is the callers' to route elsewhere (``BruteForceIndex``
-takes its ``"partial_reduce"`` path).
+template's whole-E instances; past it, up to 3,296, its resident walk (the
+block's query tile stays in shared memory, the catalog streams in slices
+of 128 columns; a block holds 128, 64 or 32 query rows as the width
+allows), and up to ``KERNEL_MAX_E`` (8,192, above the JAX kernels' widest,
+7,296 for the exact index at B = 1, k = 10) its re-read walk, which stages
+the query's slices with the catalog's. Every walk gives the same fp32
+scores bit for bit. A width past ``KERNEL_MAX_E`` is the callers' to route
+elsewhere (``BruteForceIndex`` takes its ``"partial_reduce"`` path).
 
 The bin count ``L`` is an explicit argument. Its default, ``default_bins``,
 is the value the JAX package's ``pick_bins`` gives for query blocks of at
@@ -66,13 +68,18 @@ Q_BLOCK = 128  # query rows per refinement loop
 MAX_ROUNDS = 8  # streaming passes per query block, at most
 # Kernel tiling that the wrappers check for (csrc/bin_max2.cu, every
 # instance): bins per block, the k step that E must be a multiple of, and
-# the widest padded E the wrappers take (the sliced instance takes any E;
+# the widest padded E the wrappers take (the re-read walk takes any E;
 # past this cap the indices route to their other engines).
 KERNEL_BIN_TILE = 32
 KERNEL_K_STEP = 16
 KERNEL_MAX_E = 8192
 # The catalog kinds of the template, in the order of its C enum.
 CATALOGS = ("bf16", "scaled", "raw")
+# The template's walks over E, in the order of its C enum: whole-E
+# sub-tiles; K slices of the catalog with the query resident; K slices of
+# the catalog and the query. A wrapper's ``walk`` selector is 0 (E and the
+# catalog's kind choose), 1 (resident) or 2 (re-read).
+WALKS = ("whole", "resident", "reread")
 
 # Launches of each CUDA kernel since the last reset_launches().
 LAUNCHES: Dict[str, int] = {
@@ -281,10 +288,11 @@ def launch_info(
     cluster size it picks, warps, ring and shared bytes, the compiler's
     registers and local (spilled) bytes a thread, the launch's clusters
     (bin tiles x row groups), ``resident``: the clusters of 1, 2, 4 and
-    8 blocks the card holds at once, and ``sliced``: whether the pass runs
-    the sliced instance. Builds the kernels; needs a card."""
+    8 blocks the card holds at once, ``walk``: the walk over E it runs (one
+    of ``WALKS``) and ``query_rows``: the query rows a block holds. Builds
+    the kernels; needs a card."""
     device = torch.device("cuda") if device is None else torch.device(device)
-    out = (ctypes.c_int * 13)()
+    out = (ctypes.c_int * 14)()
     with torch.cuda.device(device):
         err = _kernel("bin_max_launch_info")(
             keep, int(threshold), CATALOGS.index(catalog), fold, B, E, L,
@@ -296,12 +304,18 @@ def launch_info(
             "smem_bytes", "registers", "local_bytes", "clusters")
     info = dict(zip(keys, out))
     info["resident"] = {1 << i: out[8 + i] for i in range(4)}
-    info["sliced"] = bool(out[12])
+    info["walk"] = WALKS[out[12]]
+    info["query_rows"] = out[13]
     return info
 
 
-def _launch(name, q, c_padded, L, n_valid, thr=(), keep=2,
-            force_sliced=False):
+def _walk(walk: int) -> int:
+    if walk not in (0, 1, 2):
+        raise ValueError(f"walk must be 0, 1 or 2, got {walk!r}")
+    return int(walk)
+
+
+def _launch(name, q, c_padded, L, n_valid, thr=(), keep=2, walk=0):
     B, E = q.shape
     n_pad = c_padded.shape[0]
     with torch.cuda.device(q.device):
@@ -320,7 +334,7 @@ def _launch(name, q, c_padded, L, n_valid, thr=(), keep=2,
             n_pad,
             L,
             n_valid,
-            int(force_sliced),
+            _walk(walk),
             stream,
         )
     if err != 0:
@@ -329,16 +343,16 @@ def _launch(name, q, c_padded, L, n_valid, thr=(), keep=2,
     return check_outputs(name, tuple(outs))
 
 
-# ``force_sliced`` (every wrapper of this module and of quantized_topk.py):
-# True runs the sliced instance of bin_max2.cu at any E, for the checks
-# that hold it to the whole-E instances bit for bit; the drivers never pass
-# it, and E and the catalog's kind choose the instance. The plain version
-# ignores it.
+# ``walk`` (every wrapper of this module and of quantized_topk.py): 1 runs
+# bin_max2.cu's resident walk, 2 its re-read walk, at any E where it fits,
+# for the checks that hold the walks to one another bit for bit; the
+# drivers never pass it, and 0 lets E and the catalog's kind choose. The
+# plain version ignores it.
 
 
 def bin_max2_first_round(
     q: torch.Tensor, c_padded: torch.Tensor, L: int, n_valid: int,
-    force_sliced: bool = False,
+    walk: int = 0,
 ):
     """Round 1: top-2 per (row, bin) of every row < n_valid. Returns
     (m1, a1, m2, a2), each (B, L): fp32 scores, int32 catalog rows."""
@@ -347,7 +361,7 @@ def bin_max2_first_round(
         return check_outputs("bin_max2_first_round",
                              bin_max2_plain(q, c_padded, L, n_valid))
     return _launch("bin_max2_first_round", q, c_padded, L, n_valid,
-                   force_sliced=force_sliced)
+                   walk=walk)
 
 
 def bin_max2_round(
@@ -357,7 +371,7 @@ def bin_max2_round(
     thr_i: torch.Tensor,
     L: int,
     n_valid: int,
-    force_sliced: bool = False,
+    walk: int = 0,
 ):
     """Refinement round: top-2 per cell among elements strictly below
     (thr_s, thr_i) under (score desc, index asc)."""
@@ -368,7 +382,7 @@ def bin_max2_round(
             bin_max2_plain(q, c_padded, L, n_valid, thr_s, thr_i))
     return _launch(
         "bin_max2_round", q, c_padded, L, n_valid, (thr_s, thr_i),
-        force_sliced=force_sliced,
+        walk=walk,
     )
 
 
@@ -379,7 +393,7 @@ def bin_max_round(
     thr_i: torch.Tensor,
     L: int,
     n_valid: int,
-    force_sliced: bool = False,
+    walk: int = 0,
 ):
     """Single-keep pass: the top-1 per cell among elements strictly below
     (thr_s, thr_i); round 1 passes +inf / -1. Returns (m, a), each (B, L)."""
@@ -390,7 +404,7 @@ def bin_max_round(
             bin_max_plain(q, c_padded, thr_s, thr_i, L, n_valid))
     return _launch(
         "bin_max_round", q, c_padded, L, n_valid, (thr_s, thr_i), keep=1,
-        force_sliced=force_sliced,
+        walk=walk,
     )
 
 

@@ -39,8 +39,10 @@ the query and their copies of the codes with zero columns to
 ``padded_width(E)`` on every device (a zero column adds exact zeros), while
 the plan is taken at the real E: L and F decide which rows survive a single
 pass, and the JAX package plans with the real E. Up to a padded E of 576
-the int8 passes run the template's whole-E instances, past it its sliced
-instance (slices of 128 columns, the same fp32 scores); ``KERNEL_MAX_E``
+the int8 passes run the template's whole-E instances, past it its K-sliced
+walks (the codes in slices of 128 columns, the query resident in shared
+memory up to 3,296, re-read with each slice past it; the same fp32
+scores); ``KERNEL_MAX_E``
 (8,192, above the JAX one pass's widest, 6,672 at k_over = 40) is the
 widest padded E the wrappers take, the single passes' and the rounds'
 alike.
@@ -77,6 +79,7 @@ from hm_retrieval_tpu_torch.ops.bin_topk import (
     Q_BLOCK,
     _padded,
     _topk_rounds,
+    _walk,
     bin_cells_plain,
     default_bins,
     padded_width,
@@ -304,10 +307,10 @@ def _check(q, codes, L, F, scales, bias, thr_s=None, thr_i=None):
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _launch(name, q, codes, L, tensors=(), ints=(), force_sliced=False):
+def _launch(name, q, codes, L, tensors=(), ints=(), walk=0):
     """Launch ``name`` on (q, codes, *tensors) into four (B, L) outputs,
-    with the int arguments (B, E, catalog rows, L, *ints, force_sliced)
-    (``force_sliced`` as ``bin_topk``'s wrappers take it)."""
+    with the int arguments (B, E, catalog rows, L, *ints, walk) (``walk``
+    as ``bin_topk``'s wrappers take it)."""
     B, E = q.shape
     with torch.cuda.device(q.device):
         m1 = torch.empty((B, L), dtype=torch.float32, device=q.device)
@@ -328,7 +331,7 @@ def _launch(name, q, codes, L, tensors=(), ints=(), force_sliced=False):
             codes.shape[0],
             L,
             *ints,
-            int(force_sliced),
+            _walk(walk),
             stream,
         )
     if err != 0:
@@ -343,7 +346,7 @@ def bin_max2_scaled_single_pass(
     scales: torch.Tensor,
     bias: torch.Tensor,
     L: int,
-    force_sliced: bool = False,
+    walk: int = 0,
 ):
     """One pass, no fold: top-2 per (row, bin) of (q . codes)*scale + bias
     over the whole padded catalog (bias -inf on every invalid row). Returns
@@ -355,7 +358,7 @@ def bin_max2_scaled_single_pass(
             single_pass_plain(q, codes_padded, L, 1, scales, bias))
     return _launch(
         "bin_max2_scaled_single_pass", q, codes_padded, L, (scales, bias),
-        force_sliced=force_sliced,
+        walk=walk,
     )
 
 
@@ -366,7 +369,7 @@ def bin_max2_scaled_fold_pass(
     bias: torch.Tensor,
     L: int,
     F: int,
-    force_sliced: bool = False,
+    walk: int = 0,
 ):
     """As ``bin_max2_scaled_single_pass``, after an F -> 1 max tournament
     per bin within each chunk of F*L rows."""
@@ -377,12 +380,12 @@ def bin_max2_scaled_fold_pass(
             single_pass_plain(q, codes_padded, L, F, scales, bias))
     return _launch(
         "bin_max2_scaled_fold_pass", q, codes_padded, L, (scales, bias), (F,),
-        force_sliced=force_sliced,
+        walk=walk,
     )
 
 
 def bin_max2_raw_fold_pass(q: torch.Tensor, codes: torch.Tensor, L: int, F: int,
-                           force_sliced: bool = False):
+                           walk: int = 0):
     """As the fold pass on the raw dot products q . codes: no scale, no
     bias, no mask. ``codes`` holds full chunks of real rows only."""
     _check(q, codes, L, F, None, None)
@@ -390,7 +393,7 @@ def bin_max2_raw_fold_pass(q: torch.Tensor, codes: torch.Tensor, L: int, F: int,
         return check_outputs("bin_max2_raw_fold_pass",
                              single_pass_plain(q, codes, L, F))
     return _launch("bin_max2_raw_fold_pass", q, codes, L, (), (F,),
-                   force_sliced=force_sliced)
+                   walk=walk)
 
 
 def _check_rounds(q, codes_padded, scales, bias, L, n_valid, thr_s, thr_i):
@@ -408,7 +411,7 @@ def bin_max2_scaled_first_round(
     bias: torch.Tensor,
     L: int,
     n_valid: int,
-    force_sliced: bool = False,
+    walk: int = 0,
 ):
     """Round 1 of the int8 rounds: top-2 per (row, bin) of
     (q . codes)*scale + bias over the rows < n_valid. Returns
@@ -420,7 +423,7 @@ def bin_max2_scaled_first_round(
             scaled_round_plain(q, codes_padded, scales, bias, L, n_valid))
     return _launch(
         "bin_max2_scaled_first_round", q, codes_padded, L, (scales, bias),
-        (n_valid,), force_sliced=force_sliced,
+        (n_valid,), walk=walk,
     )
 
 
@@ -433,7 +436,7 @@ def bin_max2_scaled_round(
     thr_i: torch.Tensor,
     L: int,
     n_valid: int,
-    force_sliced: bool = False,
+    walk: int = 0,
 ):
     """A refinement round of the int8 rounds: as round 1, among elements
     strictly below (thr_s, thr_i) under (score desc, index asc)."""
@@ -443,7 +446,7 @@ def bin_max2_scaled_round(
             q, codes_padded, scales, bias, L, n_valid, thr_s, thr_i))
     return _launch(
         "bin_max2_scaled_round", q, codes_padded, L,
-        (scales, bias, thr_s, thr_i), (n_valid,), force_sliced=force_sliced,
+        (scales, bias, thr_s, thr_i), (n_valid,), walk=walk,
     )
 
 

@@ -143,6 +143,129 @@ class TestPaddedWidth:
             assert 2 * 128 * (E + 8) + max(ring, partials) == 231424 <= 232448
 
 
+# bin_max2.cu's shape arithmetic (shape_at, shape_for, walk_for): bins a
+# block, bf16 row padding, the partial cells' row stride, the K slice, a
+# block's shared bytes, the ring's depth cap, the query rows a block holds
+# at most.
+BN, PAD, PS, EK, SMEM, MAX_STAGES, BM = 32, 8, 40, 128, 232448, 12, 128
+
+
+def _slot_bytes(E, kind):
+    """One ring slot: BN bf16 rows (stride E + PAD), or BN int8 code rows
+    (with BN fp32 scales and BN biases for the per-row kind)."""
+    return {"bf16": BN * (E + PAD) * 2, "scaled": BN * E + 2 * BN * 4,
+            "raw": BN * E}[kind]
+
+
+def _shape_at(rows, E, kind, walk):
+    """(rows, warp groups, ring stages, shared bytes) of a block of
+    ``rows`` query rows: the most groups (of 2 warps per 32 rows, 8 warps
+    in all) that keep two ring slots each. Whole-E slots hold a BN x E
+    sub-tile, sliced ones a BN x EK slice, re-read ones the query's slice
+    too; the int8 kinds add a bf16 tile a group; the query tile of (E +
+    PAD) bf16 rows is resident but in the re-read walk; the keep-2 partial
+    cells (2 x rows x PS x 8 bytes a group) reuse the ring."""
+    sliced = walk != "whole"
+    width = EK if sliced else E
+    stage = _slot_bytes(width, kind)
+    if walk == "reread":
+        stage += rows * (EK + PAD) * 2
+    tile = 0 if kind == "bf16" else BN * (width + PAD) * 2
+    qbytes = 0 if walk == "reread" else rows * (E + PAD) * 2
+    groups = 8 // (rows // 32 * 2)
+    while True:
+        stages = min((SMEM - qbytes - groups * tile) // (groups * stage),
+                     MAX_STAGES)
+        smem = qbytes + max(groups * (stages * stage + tile),
+                            groups * 2 * rows * PS * 8)
+        if (stages >= 2 and smem <= SMEM) or groups == 1:
+            return rows, groups, stages, smem
+        groups -= 1
+
+
+def _fits(shape):
+    return shape[2] >= 2 and shape[3] <= SMEM
+
+
+def _shape_for(B, E, kind, walk):
+    """min(B, 128) rows rounded up to 32; the resident walk the most of
+    128, 64, 32 (so capped) that fit."""
+    need = -(-min(B, BM) // 32) * 32
+    cap = BM
+    while True:
+        shape = _shape_at(min(need, cap), E, kind, walk)
+        if walk != "resident" or _fits(shape) or cap == 32:
+            return shape
+        cap //= 2
+
+
+def _walk_for(E, kind):
+    """Whole-E to 512 (bf16) or 576 (int8), then the resident walk while 32
+    query rows fit, then the re-read walk."""
+    if E <= (512 if kind == "bf16" else 576):
+        return "whole"
+    return "resident" if _fits(_shape_for(1, E, kind, "resident")) else "reread"
+
+
+class TestWalks:
+    """Where each walk of bin_max2.cu ends and how many query rows a block
+    holds at B = 128 and B = 16, worked out from the launcher's shape
+    arithmetic (``chip_smoke.check_instance_edges`` reads the same choice
+    on the card through ``launch_info``): (walk, query rows, warp groups,
+    ring stages) of every kind."""
+
+    @pytest.mark.parametrize("E, kind, at_128, at_16", [
+        (528, "bf16", ("resident", 128, 1, 10), ("resident", 32, 4, 5)),
+        (528, "scaled", ("whole", 128, 1, 3), ("whole", 32, 2, 3)),
+        (528, "raw", ("whole", 128, 1, 3), ("whole", 32, 2, 3)),
+        (784, "bf16", ("resident", 64, 2, 7), ("resident", 32, 4, 5)),
+        (784, "scaled", ("resident", 64, 2, 12), ("resident", 32, 4, 8)),
+        (784, "raw", ("resident", 64, 2, 12), ("resident", 32, 4, 8)),
+        (1024, "bf16", ("resident", 64, 2, 5), ("resident", 32, 4, 4)),
+        (1024, "scaled", ("resident", 64, 2, 9), ("resident", 32, 4, 7)),
+        (1024, "raw", ("resident", 64, 2, 10), ("resident", 32, 4, 8)),
+        (2048, "bf16", ("resident", 32, 4, 2), ("resident", 32, 4, 2)),
+        (2048, "scaled", ("resident", 32, 4, 3), ("resident", 32, 4, 3)),
+        (2048, "raw", ("resident", 32, 4, 4), ("resident", 32, 4, 4)),
+        (3296, "bf16", ("resident", 32, 1, 2), ("resident", 32, 1, 2)),
+        (3296, "scaled", ("resident", 32, 1, 2), ("resident", 32, 1, 2)),
+        (3296, "raw", ("resident", 32, 1, 3), ("resident", 32, 1, 3)),
+        (3312, "bf16", ("reread", 128, 1, 5), ("reread", 32, 4, 3)),
+        (3312, "scaled", ("reread", 128, 1, 5), ("reread", 32, 4, 3)),
+        (3312, "raw", ("reread", 128, 1, 5), ("reread", 32, 4, 3)),
+        (8192, "bf16", ("reread", 128, 1, 5), ("reread", 32, 4, 3)),
+        (8192, "scaled", ("reread", 128, 1, 5), ("reread", 32, 4, 3)),
+        (8192, "raw", ("reread", 128, 1, 5), ("reread", 32, 4, 3)),
+    ])
+    def test_walk_and_query_rows(self, E, kind, at_128, at_16):
+        walk = _walk_for(E, kind)
+        for B, want in ((128, at_128), (16, at_16)):
+            shape = _shape_for(B, E, kind, walk)
+            assert _fits(shape)
+            assert (walk, *shape[:3]) == want
+            # B = 128 runs 128 / rows row-group blocks a bin tile
+            assert -(-B // shape[0]) * shape[0] >= B
+
+    @pytest.mark.parametrize("kind", ["bf16", "scaled", "raw"])
+    def test_resident_walk_ends_where_32_rows_stop_fitting(self, kind):
+        """The resident walk runs from a k step past the whole-E instances
+        to 3,296 (32 query rows of 3,304 bf16 beside one group's partial
+        cells fill 231,936 bytes, or, raw, all 232,448), the re-read walk
+        from 3,312 to ``KERNEL_MAX_E``; no width runs none."""
+        widest = 512 if kind == "bf16" else 576
+        walks = {E: _walk_for(E, kind)
+                 for E in range(16, bt.KERNEL_MAX_E + 1, 16)}
+        assert {E for E, w in walks.items() if w == "whole"} == set(
+            range(16, widest + 1, 16))
+        assert {E for E, w in walks.items() if w == "resident"} == set(
+            range(widest + 16, 3297, 16))
+        assert all(walks[E] == "reread"
+                   for E in range(3312, bt.KERNEL_MAX_E + 1, 16))
+        assert _fits(_shape_for(128, bt.KERNEL_MAX_E, kind, "reread"))
+        assert 32 * (3296 + PAD) * 2 + 2 * 32 * PS * 8 == 231936
+        assert 32 * (3312 + PAD) * 2 + 2 * 32 * PS * 8 > SMEM
+
+
 class TestExactWidths:
     @pytest.mark.parametrize("kind", KINDS)
     @pytest.mark.parametrize("E", WIDTHS)
