@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from hm_retrieval_tpu_torch.models.two_tower import TwoTowerModel
 from hm_retrieval_tpu_torch.schema.features import Feature, FeatureKind
+from hm_retrieval_tpu_torch.utils import tracing
 
 Params = Dict[str, torch.Tensor]
 
@@ -189,43 +190,53 @@ def make_sparse_train_step(
 ):
     """``step(state, batch) -> (state, {"loss": loss})`` with sparse
     Adagrad for every embedding table and ``dense_optimizer`` for the
-    rest, updating the model's parameters in place."""
+    rest, updating the model's parameters in place. A step is the span
+    ``train_step``, and its phases ``train_step.forward`` (gather and
+    loss), ``.backward``, ``.dense_update`` and ``.sparse_update``."""
     tables = _table_features(model)
 
     def step(state: SparseTrainState, batch):
+        with tracing.span("train_step"):
+            return _step(state, batch)
+
+    def _step(state: SparseTrainState, batch):
         params = state.params
-        rows = _gather_rows(params, model, batch)
-        dense = split_dense_params(params)
-        loss = model.loss(
-            batch,
-            query_rows=rows["query_tower"],
-            candidate_rows=rows["candidate_tower"],
-        )
+        with tracing.span("train_step.forward"):
+            rows = _gather_rows(params, model, batch)
+            dense = split_dense_params(params)
+            loss = model.loss(
+                batch,
+                query_rows=rows["query_tower"],
+                candidate_rows=rows["candidate_tower"],
+            )
         row_leaves = [r for feats in rows.values() for r in feats.values()]
-        grads = torch.autograd.grad(
-            loss,
-            list(dense.values()) + row_leaves,
-            allow_unused=True,
-            materialize_grads=True,
-        )
-        dense_optimizer.update_(
-            dict(zip(dense, grads[: len(dense)])),
-            state.dense_opt_state,
-            dense,
-        )
+        with tracing.span("train_step.backward"):
+            grads = torch.autograd.grad(
+                loss,
+                list(dense.values()) + row_leaves,
+                allow_unused=True,
+                materialize_grads=True,
+            )
+        with tracing.span("train_step.dense_update"):
+            dense_optimizer.update_(
+                dict(zip(dense, grads[: len(dense)])),
+                state.dense_opt_state,
+                dense,
+            )
         g_rows = iter(grads[len(dense):])  # in the order of row_leaves
-        for tower, feats in tables.items():
-            for f in feats:
-                name = _table_name(tower, f)
-                ids = batch[f.name].reshape(-1)
-                _sparse_adagrad_update(
-                    params[name],
-                    state.sparse_state.accumulators[name],
-                    ids,
-                    next(g_rows).reshape(ids.shape[0], -1),
-                    learning_rate,
-                    eps,
-                )
+        with tracing.span("train_step.sparse_update"):
+            for tower, feats in tables.items():
+                for f in feats:
+                    name = _table_name(tower, f)
+                    ids = batch[f.name].reshape(-1)
+                    _sparse_adagrad_update(
+                        params[name],
+                        state.sparse_state.accumulators[name],
+                        ids,
+                        next(g_rows).reshape(ids.shape[0], -1),
+                        learning_rate,
+                        eps,
+                    )
         return state._replace(step=state.step + 1), {"loss": loss.detach()}
 
     return step

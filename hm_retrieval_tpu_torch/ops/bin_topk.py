@@ -27,7 +27,9 @@ cluster, whose size the launcher picks from the card's occupancy, and over
 warps, and merge the parts under the explicit (score desc, index asc)
 order, which gives what one walk in increasing chunk order gives:
 ``bin_cells_plain``. ``_topk_rounds`` takes its two passes as closures, so
-it also drives the int8 rounds of ``ops/quantized_topk.py``.
+it also drives the int8 rounds of ``ops/quantized_topk.py``; it counts its
+blocks, rounds and host reads, and times each read, with
+``utils/tracing.py`` (``topk_rounds.*``).
 
 The kernels step through E 16 columns at a time, so ``exact_topk`` pads
 the query and its catalog copy with zero columns to a multiple of 16 on
@@ -59,6 +61,7 @@ import torch
 
 from hm_retrieval_tpu_torch.ops import _build
 from hm_retrieval_tpu_torch.ops.topk import topk_pair
+from hm_retrieval_tpu_torch.utils import tracing
 from hm_retrieval_tpu_torch.utils.debugging import check_outputs
 
 NEG_INF = float("-inf")
@@ -431,6 +434,14 @@ def _revealed(cells):
     return torch.cat([m1, m2], dim=1), torch.cat([a1, a2], dim=1), m2, a2
 
 
+def _to_host(flags: torch.Tensor):
+    """``flags`` read on the host (a wait for the card there): counted as
+    ``topk_rounds.host_syncs`` and timed as the span ``topk_rounds.sync``."""
+    tracing.count("topk_rounds.host_syncs")
+    with tracing.span("topk_rounds.sync"):
+        return flags.tolist()
+
+
 def _topk_rounds(
     first: Callable[[], tuple],
     refine: Callable[[torch.Tensor, torch.Tensor], tuple],
@@ -445,10 +456,11 @@ def _topk_rounds(
     skips its merge; the host then reads one pair of flags per refinement
     round (improved, done if the leaderboard is kept), and the done flag
     once more after a merge. The stop test holds for every row the passes
-    cover."""
+    cover. Counts ``topk_rounds.blocks`` (one a call) and
+    ``topk_rounds.rounds``."""
     vals, idxs, thr_s, thr_i = _revealed(first())
     lead_v, lead_i = topk_pair(vals, idxs, k)
-    done = bool(_dominated(thr_s, lead_v, k))
+    done = _to_host(_dominated(thr_s, lead_v, k))
     rounds = 1
     while not done and rounds < max_rounds:
         vals, idxs, thr_s, thr_i = _revealed(refine(thr_s, thr_i))
@@ -456,10 +468,10 @@ def _topk_rounds(
         if skip_unimproved:
             # A revealed element <= the k-th value cannot change the top-k
             # values, so a round that reveals none above it skips the merge.
-            improved, done = torch.stack(
+            improved, done = _to_host(torch.stack(
                 [(vals > lead_v[:, k - 1 : k]).any(),
                  _dominated(thr_s, lead_v, k)]
-            ).tolist()
+            ))
         if improved:
             # one width-(k + revealed) sort merges leaderboard and revealed
             lead_v, lead_i = topk_pair(
@@ -467,8 +479,10 @@ def _topk_rounds(
                 torch.cat([lead_i, idxs], dim=1),
                 k,
             )
-            done = bool(_dominated(thr_s, lead_v, k))
+            done = _to_host(_dominated(thr_s, lead_v, k))
         rounds += 1
+    tracing.count("topk_rounds.blocks")
+    tracing.count("topk_rounds.rounds", rounds)
     return lead_v, lead_i, rounds
 
 
@@ -516,6 +530,9 @@ def exact_topk(
     ``Q_BLOCK`` when B > ``Q_BLOCK``) all blocks refine together and merge
     at full batch width.
 
+    Past its argument checks the call is the span ``exact_topk``, and the
+    cast and pad in it ``exact_topk.prep``.
+
     Returns (values (B, k) fp32, catalog rows (B, k) int32, rounds = the
     maximum over query blocks)."""
     B, E = queries.shape
@@ -536,28 +553,35 @@ def exact_topk(
             "lockstep needs keep_per_bin=2 and B divisible by "
             f"{Q_BLOCK} (B={B}, keep_per_bin={keep_per_bin})"
         )
-    n_pad = -(-N // L) * L
-    width = padded_width(E)  # zero columns add exact zeros to every score
-    q = _padded(queries.to(compute_dtype), B, width)
-    c_padded = torch.zeros(
-        (n_pad, width), dtype=compute_dtype, device=candidates.device
-    )
-    c_padded[:N, :E] = candidates.to(compute_dtype)
-    if lockstep:
-        # Every block refines in lockstep: one launch per round covers all
-        # B rows (a cell's result does not depend on the other rows, so it
-        # equals the JAX package's per-block launches), every round merges
-        # at full batch width, and the batch is done when every row is.
-        return _topk_rounds(
-            *_exact_passes(q, c_padded, L, N, 2), k, skip_unimproved=False
-        )
-    vs, idxs, rounds = [], [], 0
-    for s in range(0, B, Q_BLOCK):
-        v, i, r = _topk_rounds(
-            *_exact_passes(q[s : s + Q_BLOCK], c_padded, L, N, keep_per_bin),
-            k,
-        )
-        vs.append(v)
-        idxs.append(i)
-        rounds = max(rounds, r)
-    return torch.cat(vs), torch.cat(idxs), rounds
+    with tracing.span("exact_topk"):
+        with tracing.span("exact_topk.prep"):
+            n_pad = -(-N // L) * L
+            # zero columns add exact zeros to every score
+            width = padded_width(E)
+            q = _padded(queries.to(compute_dtype), B, width)
+            c_padded = torch.zeros(
+                (n_pad, width), dtype=compute_dtype, device=candidates.device
+            )
+            c_padded[:N, :E] = candidates.to(compute_dtype)
+        if lockstep:
+            # Every block refines in lockstep: one launch per round covers
+            # all B rows (a cell's result does not depend on the other rows,
+            # so it equals the JAX package's per-block launches), every round
+            # merges at full batch width, and the batch is done when every
+            # row is.
+            return _topk_rounds(
+                *_exact_passes(q, c_padded, L, N, 2), k,
+                skip_unimproved=False,
+            )
+        vs, idxs, rounds = [], [], 0
+        for s in range(0, B, Q_BLOCK):
+            v, i, r = _topk_rounds(
+                *_exact_passes(
+                    q[s : s + Q_BLOCK], c_padded, L, N, keep_per_bin
+                ),
+                k,
+            )
+            vs.append(v)
+            idxs.append(i)
+            rounds = max(rounds, r)
+        return torch.cat(vs), torch.cat(idxs), rounds
